@@ -5,38 +5,69 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-  1. card    — require CUDA, print the card's name and power limit
-               (nvidia-smi), turn TF32 off for the float32 phases.
-  2. build   — compile every CUDA source of the port with nvcc (one
-               process per source, all started together) and print
-               ptxas's report.
-  3. k1      — the flash_mqkv kernel (K1) against its plain PyTorch
-               version on the same card tensors: the CPU test shapes in
-               float32 and bfloat16 (GQA, padding, causal/window, carried
-               state, unfinalized output) and the flux-12b shapes, where
-               the finalized o and the unfinalized (o', l, m) are held to
-               limits on both the largest error and the error's norm.
-  4. block   — one flux-12b DiT block at full width (d 3072, 24 x 128
-               heads, d_ff 12288), perturbed weights, L = 1280, float32 on
-               the card through K1, against the same block in float32 on
-               the CPU through the plain path.
-  5. serve   — DiTServer on flux-12b at full width and depth (96 layers,
-               bfloat16, random weights from a seed with the zero-init
-               tensors perturbed): two 4096-latent requests batched and one
-               1024-latent request, 4 steps, no guidance.  Outputs must be
-               finite and moved from their noise, and K1's launch count
-               must equal 96 x steps x forwards.
-  6. numbers — K1's time per call at the two flux shapes beside its bound,
-               the plain version and scaled_dot_product_attention (a
-               yardstick the port never calls).
+  1. card      — require CUDA, print the card's name and power limit
+                 (nvidia-smi), turn TF32 off for the float32 phases.
+  2. build     — compile every CUDA source of the port with nvcc (one
+                 process per source, all started together) and print
+                 ptxas's report.
+  3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
+                 version on the same card tensors: the CPU test shapes in
+                 float32 and bfloat16 (GQA, padding, causal/window, carried
+                 state, unfinalized output) and the flux-12b shapes, where
+                 the finalized o and the unfinalized (o', l, m) are held to
+                 limits on both the largest error and the error's norm.
+  4. k2        — the fused ring step (K2) on the same cases and on the
+                 shapes the SP path gives it: (o, l, m) bitwise equal to
+                 K1's on the same inputs and within FLUX_TOL of the plain
+                 version, the forwarded chunk bitwise equal to the input,
+                 the completion word set.
+  5. k3/k4     — the put kernels on the reference's uneven shapes and on
+                 the serve shapes, float32 and bfloat16, over a 16-rank
+                 shift and a Ulysses stage perm: bitwise delivery, every
+                 signal word at the put's epoch.
+  6. block     — one flux-12b DiT block at full width (d 3072, 24 x 128
+                 heads, d_ff 12288), perturbed weights, L = 1280, float32 on
+                 the card through K1, against the same block in float32 on
+                 the CPU through the plain path.
+  7. sp-block  — the same block under swift_torus (comm_backend "pallas",
+                 kernel_interpret False) on 16 virtual ranks: mesh (pod 2,
+                 model 8), which launches K1, K2 and K4, then mesh (model
+                 16), which launches K3 instead of K4; against the CPU
+                 block, with the launch counts the schedule implies.
+  8. serve     — DiTServer on flux-12b at full width and depth (96 layers,
+                 bfloat16, random weights from a seed with the zero-init
+                 tensors perturbed) at SP degree 1: two 4096-latent
+                 requests batched and one 1024-latent request, STEPS steps,
+                 no guidance.  Outputs must be finite and moved from their
+                 noise, and K1's launch count must equal 96 x steps x
+                 forwards.
+  9. serve-sp  — the same server, weights and requests under swift_torus on
+                 mesh (pod 2, model 8): finite, moved latents, K1/K2/K4
+                 launch counts as the schedule implies, and latents within
+                 SERVE_SP_TOL of the degree-1 latents.  Then the 1024-latent
+                 request on mesh (model 16) (K3), and once more on (pod 2,
+                 model 8) with one KV chunk of every attention dropped,
+                 which must break SERVE_SP_TOL.
+ 10. numbers   — K1's time per call at the two flux shapes and K2/K3/K4's at
+                 the serve shapes, each beside its bound, its plain version
+                 and one PyTorch call that computes the same function
+                 (scaled_dot_product_attention, Tensor.copy_; yardsticks the
+                 port never calls); then one bf16 layer at the serve shape,
+                 at degree 1 and under swift_torus, traced by torch.profiler
+                 (host wall clock, device busy time and idle share).
 
-The line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.  Kernels are built from this checkout into
-build/repro_torch/ on first use.
+A kernel's "launches" in the kernels line come from the serve-sp run on
+mesh (pod 2, model 8) — the counts are set to 0 just before it and read
+just after — except K3's, which come from the same kind of run on mesh
+(model 16), the route that takes the direct put.  The line before the
+last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
+Kernels are built from this checkout into build/repro_torch/ on first use.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import itertools
 import json
 import pathlib
 import subprocess
@@ -57,7 +88,32 @@ FLUX_TOL = {"o": (1e-2, 5e-3), "o'": (5e-3, 5e-3), "l": (1e-5, 5e-6),
             "m": (5e-6, 5e-6)}
 BLOCK_TOL = 1e-4  # block, card vs CPU, relative to max|out|
 FLUX_SHAPES = ((24, 1280), (48, 1280), (24, 4352), (48, 4352))  # (BH, L)
-STEPS = 4  # sampler steps of the serve phase
+STEPS = 4  # sampler steps of the serve phases
+ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
+SOURCES = ("flash_mqkv", "ring_flash", "one_sided")  # csrc/<name>.cu
+# serve-sp latents vs the degree-1 serve, as ||x_sp - x_1|| / ||x_1 - noise||
+# (the error relative to what the model moved the latents), bfloat16
+# (2.8x the largest value seen, 1.085e-2, on an H100 80GB HBM3 at 700 W;
+# one KV chunk of every attention dropped gave 6.0e-2 there)
+SERVE_SP_TOL = 0.03
+# q and k weights scaled so that the random model's attention is peaked
+# (logit spread ~ ATTN_SHARPEN**2 times that of the modulated input): see
+# perturb_zero_init
+ATTN_SHARPEN = 2.0
+# the SP configurations: 16 virtual ranks, P_u 8 x P_r 2 for 24 heads
+SP_MESHES = {
+    "pod2xmodel8": ((2, 8), ("pod", "model"), ("pod", "model"), "landing_copy"),
+    "model16": ((16,), ("model",), ("model",), "remote_put"),
+}
+P_U, P_R, RANKS = 8, 2, 16
+# per layer and forward, over all ranks: every ring circulation (stage 0,
+# P_u - 1 Pull-Q, P_u - 1 Pull-KV) is P_r - 1 K2 steps and one K1 step per
+# rank; every torus put (P_u - 1 each of Pull-Q, Pull-KV, Push-O) is ONE
+# K3 or K4 launch, which covers all ranks
+CIRCULATIONS = 1 + 2 * (P_U - 1)
+K1_PER_LAYER = RANKS * CIRCULATIONS
+K2_PER_LAYER = RANKS * CIRCULATIONS * (P_R - 1)
+PUTS_PER_LAYER = 3 * (P_U - 1)
 
 
 def log(msg: str) -> None:
@@ -109,18 +165,39 @@ def norm_err(a, b) -> float:
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_call(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """(device ms, host ms) per call.  A sleep kernel of ~1 ms per rep
+    holds the device while the host enqueues the timed launches, so the
+    events bracket back-to-back device work even where a call costs the
+    host more than it costs the device; the host time is that of the
+    enqueue loop."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 2_000_000)  # cycles: ~1 ms per rep
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    return time_call(fn, reps, warmup)[0]
+
+
+def rotating(calls):
+    """One callable that runs ``calls`` in turn, each on its own inputs:
+    with ROTATE sets that together touch well over the 50 MB L2, every
+    timed call finds its inputs in HBM, as the serve path does."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +322,191 @@ def check_k1(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the model
+# phase 4: K2 against K1 and its plain version
+# ---------------------------------------------------------------------------
+
+# (label, BH, Lq, Lk, Lq padded, Lk padded): the ring steps of the serve-sp
+# path (B 2 x 3 heads per Ulysses rank; L 4352 and 1280 over 16 ranks give
+# shards of 272 and 80, gathered Q of 2176 and 640; the ring path pads q
+# and k to its blocks of 128) and the Ulysses-gathered shape of the
+# monolithic strategies
+K2_SHAPES = (("4096 stage0/pull-q", 6, 272, 272, 384, 384),
+             ("4096 pull-kv", 6, 2176, 272, 2176, 384),
+             ("1024 stage0/pull-q", 6, 80, 80, 80, 80),
+             ("1024 pull-kv", 6, 640, 80, 640, 80),
+             ("ulysses-gathered", 6, 2176, 2176, 2176, 2176))
+K2_MAIN = "4096 pull-kv"
+
+
+def k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad, dtype):
+    """q, k, v and positions as the ring path pads them: q slots past lq
+    hold position 0, k slots past lk hold -1 and garbage."""
+    import torch
+    q, k, v = k1_inputs(gen, bh, bh, lq_pad, lk_pad, 128, dtype)
+    k[:, lk:] = 999.0
+    v[:, lk:] = 999.0
+    qp = torch.zeros(lq_pad, dtype=torch.int32, device="cuda")
+    qp[:lq] = torch.arange(lq, dtype=torch.int32, device="cuda")
+    kp = torch.full((lk_pad,), -1, dtype=torch.int32, device="cuda")
+    kp[:lk] = torch.arange(lk, dtype=torch.int32, device="cuda") + 272
+    return q, k, v, qp, kp
+
+
+def run_k2(q, k, v, qp, kp, epoch, **kw):
+    """K2 with fresh forward buffers and completion word; fails unless the
+    chunk landed bitwise and the word reads ``epoch``."""
+    import torch
+    from repro_torch.kernels import ring_flash as rf
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    arrive = torch.zeros_like(flag)
+    out, (kf, vf) = rf.ring_flash_step(q, k, v, qp, kp, flag=flag,
+                                       arrive=arrive, epoch=epoch, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(kf, k) and torch.equal(vf, v)):
+        fail("K2 forwarded chunk differs from its input")
+    if int(flag) != epoch or int(arrive) != 0:
+        fail(f"K2 completion word {int(flag)} (want {epoch}), arrive "
+             f"{int(arrive)}")
+    return out
+
+
+def check_k2(results: dict) -> None:
+    import torch
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ring_flash as rf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    epoch = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst = 0.0
+        for label, bh, bhkv, lq, lk, d, kw in k1_cases():
+            q, k, v = k1_inputs(gen, bh, bhkv, lq, lk, d, dtype)
+            qp = torch.arange(lq, dtype=torch.int32, device="cuda")
+            kp = torch.arange(lk, dtype=torch.int32, device="cuda")
+            for finalize in (True, False):
+                epoch += 1
+                got = run_k2(q, k, v, qp, kp, epoch, finalize=finalize, **kw)
+                k1 = fm.flash_mqkv(q, k, v, qp, kp, finalize=finalize, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, k1)):
+                    fail(f"K2 {name} {label}: (o, l, m) differ from K1's")
+                ref = rf.ring_flash_step_plain(
+                    q, k, v, qp, kp, k_dst=torch.empty_like(k),
+                    v_dst=torch.empty_like(v), finalize=finalize,
+                    scale=d ** -0.5, **kw)
+                worst = max(worst, *(rel_err(a, b) for a, b in zip(got, ref)))
+        if worst > TOL[name]:
+            fail(f"K2 {name} sweep: worst rel err {worst} > {TOL[name]}")
+        log(f"k2 {name}: {2 * len(k1_cases())} sweep cases bitwise equal to "
+            f"K1, forwarded chunk bitwise, completion word set; worst rel "
+            f"err vs plain {worst:.3e} (tol {TOL[name]})")
+    for label, bh, lq, lk, lq_pad, lk_pad in K2_SHAPES:
+        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad,
+                                    torch.bfloat16)
+        errs = {}
+        for finalize in (True, False):
+            epoch += 1
+            got = run_k2(q, k, v, qp, kp, epoch, finalize=finalize)
+            k1 = fm.flash_mqkv(q, k, v, qp, kp, finalize=finalize)
+            if not all(torch.equal(a, b) for a, b in zip(got, k1)):
+                fail(f"K2 {label}: (o, l, m) differ from K1's")
+            ref = fm.flash_mqkv_plain(q, k, v, qp, kp, finalize=finalize,
+                                      scale=128 ** -0.5)
+            names = ("o", "l", "m") if finalize else ("o'", "l", "m")
+            for n, a, b in list(zip(names, got, ref))[:1 if finalize else 3]:
+                a, b = a[:, :lq], b[:, :lq]
+                errs[n] = (rel_err(a, b, floor=0.0), norm_err(a, b))
+            if not finalize and label == K2_MAIN:
+                results["k2_err"] = float(
+                    (got[0][:, :lq] - ref[0][:, :lq]).abs().max())
+        log(f"k2 {label} BH={bh} Lq={lq}({lq_pad}) Lk={lk}({lk_pad}) bf16: "
+            "bitwise equal to K1; max|d|/max|ref|, |d|/|ref| vs plain: "
+            + ", ".join(f"{n} {e[0]:.2e} {e[1]:.2e}" for n, e in errs.items()))
+        for n, (e_max, e_norm) in errs.items():
+            lim_max, lim_norm = FLUX_TOL[n]
+            if not (e_max <= lim_max and e_norm <= lim_norm):
+                fail(f"K2 {label} {n}: max err {e_max} (limit {lim_max}), "
+                     f"norm err {e_norm} (limit {lim_norm})")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: K3 and K4
+# ---------------------------------------------------------------------------
+
+UNEVEN_SHAPES = ((3, 5), (7, 3, 2), (1, 13))  # tests/test_comm_backends.py
+SERVE_PUT_SHAPE = (2, 272, 3, 128)  # one rank's Q/K/V/O chunk, 4096 bucket
+
+
+def check_put_kernels(results: dict) -> None:
+    """Bitwise delivery; records the largest |dst - src| each kernel left
+    (the kernels line's max_abs_err)."""
+    import torch
+    from repro_torch.comm import kernel_backend as kb
+    from repro_torch.core.collectives import GroupLayout
+
+    layout = GroupLayout(("pod", "model"), P_U, P_R, ulysses_outer=True)
+    perms = {"shift": [(r + 1) % RANKS for r in range(RANKS)],
+             "ulysses stage 3": [d for _, d in layout.ulysses_stage_perm(3)]}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_cases = 0
+    err = results.setdefault("put_err", {"remote_put": 0.0,
+                                         "landing_copy": 0.0})
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in UNEVEN_SHAPES + (SERVE_PUT_SHAPE,):
+            for perm_name, perm in perms.items():
+                for tensors in (1, 2):
+                    src = [[torch.randn(shape, generator=gen, device="cuda")
+                            .to(dtype) for _ in range(tensors)]
+                           for _ in range(RANKS)]
+                    for name in ("remote_put", "landing_copy"):
+                        dst = [[torch.full(shape, float("nan"), device="cuda")
+                                .to(dtype) for _ in range(tensors)]
+                               for _ in range(RANKS)]
+                        words = RANKS * tensors
+                        signal = torch.zeros(words, dtype=torch.int32,
+                                             device="cuda")
+                        arrive = torch.zeros_like(signal)
+                        epoch = 1000 + n_cases
+                        if name == "remote_put":
+                            kb.remote_put(src, dst, perm, signal=signal,
+                                          arrive=arrive, epoch=epoch)
+                            to = perm
+                        else:
+                            kb.landing_copy(src, dst, signal=signal,
+                                            arrive=arrive, epoch=epoch)
+                            to = list(range(RANKS))
+                        torch.cuda.synchronize()
+                        for r in range(RANKS):
+                            for i in range(tensors):
+                                got, sent = dst[to[r]][i], src[r][i]
+                                err[name] = max(err[name], float(
+                                    (got.float() - sent.float()).abs().max()))
+                                if not torch.equal(got, sent):
+                                    fail(f"{name} {dtype} {shape} {perm_name}"
+                                         f": rank {r} tensor {i} not bitwise")
+                        if not (bool((signal == epoch).all())
+                                and bool((arrive == 0).all())):
+                            fail(f"{name} {dtype} {shape} {perm_name}: signal "
+                                 f"words {signal.tolist()} (want {epoch})")
+                        n_cases += 1
+    log(f"k3/k4: {n_cases} puts (f32/bf16, shapes {list(UNEVEN_SHAPES)} and "
+        f"{SERVE_PUT_SHAPE}, 16-rank shift and Ulysses stage perms, 1 and 2 "
+        "tensors) delivered bitwise, every signal word at its epoch; max "
+        f"|dst - src| {err}")
+
+
+# ---------------------------------------------------------------------------
+# phases 6 to 9: the model
 # ---------------------------------------------------------------------------
 
 def perturb_zero_init(params, gen, scale: float = 1.0) -> None:
     """Replace the adaLN-zero and output-projection zeros with fan-in
     normals, so attention reaches the output (a fresh DiT is the
-    identity)."""
+    identity), and sharpen attention by ATTN_SHARPEN: with fan-in q and k
+    weights the logits are ~N(0, 1), the softmax over thousands of keys is
+    nearly uniform, and a lost KV chunk barely moves the mean of V."""
     import torch
 
     def fill(p):
@@ -261,17 +516,58 @@ def perturb_zero_init(params, gen, scale: float = 1.0) -> None:
 
     for lp in params["layers"]:
         fill(lp["ada"])
+        for name in ("wq", "wk"):
+            lp["attn"][name]["w"] = lp["attn"][name]["w"] * ATTN_SHARPEN
     if "ada_f" in params:
         fill(params["ada_f"])
         fill(params["proj_out"])
 
 
-def check_block() -> None:
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def reset_counts() -> None:
+    from repro_torch.comm import kernel_backend as kb
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ring_flash as rf
+    fm.reset_launch_count()
+    rf.reset_launch_count()
+    kb.reset_launch_count()
+
+
+def read_counts() -> dict:
+    from repro_torch.comm import kernel_backend as kb
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ring_flash as rf
+    return {"flash_mqkv": fm.launch_count(), "ring_flash_step": rf.launch_count(),
+            "remote_put": kb.launch_count("remote_put"),
+            "landing_copy": kb.launch_count("landing_copy")}
+
+
+def expected_counts(put: str, layers_x_forwards: int) -> dict:
+    """Launches the swift_torus schedule implies (see K1_PER_LAYER)."""
+    other = "landing_copy" if put == "remote_put" else "remote_put"
+    return {"flash_mqkv": K1_PER_LAYER * layers_x_forwards,
+            "ring_flash_step": K2_PER_LAYER * layers_x_forwards,
+            put: PUTS_PER_LAYER * layers_x_forwards, other: 0}
+
+
+def sp_config(sp_axes):
+    from repro_torch.core import SPConfig
+    return SPConfig(strategy="swift_torus", sp_axes=sp_axes,
+                    machine_axis="pod", comm_backend="pallas",
+                    kernel_interpret=False)
+
+
+def check_block() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import SPConfig
     from repro_torch.kernels import flash_mqkv as fm
-    from repro_torch.models.blocks import ParallelContext
+    from repro_torch.models.blocks import ParallelContext, _rope_angles
     from repro_torch.models.dit import dit_block, init_dit
 
     cfg = dataclasses.replace(get_config("flux-12b"), n_layers=1,
@@ -291,9 +587,7 @@ def check_block() -> None:
                         x, t_emb, pos)
     t_cpu = time.perf_counter() - t0
     dev = torch.device("cuda")
-    lp_d = {k: ({kk: ({k3: t.to(dev) for k3, t in vv.items()}
-                      if isinstance(vv, dict) else vv.to(dev))
-                 for kk, vv in v.items()}) for k, v in lp.items()}
+    lp_d = _to(lp, dev)
     before = fm.launch_count()
     with torch.inference_mode():
         out = dit_block(lp_d, cfg, ParallelContext(sp, device=dev),
@@ -302,74 +596,208 @@ def check_block() -> None:
     launches = fm.launch_count() - before
     e = float((out.cpu() - ref).abs().max()) / float(ref.abs().max())
     attn_share = float((ref - x).abs().max())
+    # the rope table is float64 rounded to f32 on either side, so that the
+    # device's f32 transcendentals do not enter the comparison
+    tables = [_rope_angles(pos.to(d), cfg.resolved_head_dim, cfg.rope_theta)
+              for d in (torch.device("cpu"), dev)]
+    rope_d = max(float((a - b.cpu()).abs().max()) for a, b in zip(*tables))
     log(f"block flux-12b d={cfg.d_model} L={l} fp32: card vs CPU max|d|/max|ref| = "
         f"{e:.3e} (tol {BLOCK_TOL}), K1 launches {launches}, max|block-x| "
-        f"{attn_share:.3f}, CPU block {t_cpu:.2f} s")
+        f"{attn_share:.3f}, rope table card vs CPU max|d| {rope_d:.3e}, "
+        f"CPU block {t_cpu:.2f} s")
     if launches != 1 or not e <= BLOCK_TOL:
         fail(f"block: err {e} launches {launches}")
+    return dict(cfg=cfg, lp=lp_d, x=x, t_emb=t_emb, pos=pos, ref=ref)
 
 
-def serve(results: dict, card: str) -> None:
+def check_sp_block(blk: dict) -> None:
+    """The block of phase 6 under swift_torus on 16 virtual ranks."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import SPConfig
-    from repro_torch.kernels import flash_mqkv as fm
-    from repro_torch.models import init_dit
+    from repro_torch.launch import make_mesh
+    from repro_torch.models.blocks import ParallelContext
+    from repro_torch.models.dit import dit_block
+
+    dev = torch.device("cuda")
+    cfg, ref = blk["cfg"], blk["ref"]
+    for mesh_name, (shape, axes, sp_axes, put) in SP_MESHES.items():
+        ctx = ParallelContext(sp_config(sp_axes),
+                              mesh=make_mesh(shape, axes, device=dev))
+        args = (blk["x"].to(dev), blk["t_emb"].to(dev), blk["pos"].to(dev))
+        reset_counts()
+        with torch.inference_mode():
+            out = dit_block(blk["lp"], cfg, ctx, *args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected_counts(put, 1)
+        e = float((out.cpu() - ref).abs().max()) / float(ref.abs().max())
+        log(f"sp-block {mesh_name} ({ctx.sp_degree} virtual ranks, "
+            f"P_u {P_U} x P_r {P_R}) fp32: card vs CPU degree 1 max|d|/max|ref| "
+            f"= {e:.3e} (tol {BLOCK_TOL}); launches {counts} (expected {want})")
+        if not e <= BLOCK_TOL:
+            fail(f"sp-block {mesh_name}: err {e}")
+        if counts != want:
+            fail(f"sp-block {mesh_name}: launches {counts} != {want}")
+
+
+REQUESTS = ((0, 4096), (1, 4096), (2, 1024))  # (rid, latent tokens)
+
+
+def run_server(params, cfg, conds, requests, sp, mesh=None):
+    """Serve ``requests`` with fresh counts; returns the results by rid,
+    the wall time, the launch counts and the forwards run."""
+    import torch
     from repro_torch.serving import (DiTRequest, DiTServer, RecordingTracker,
                                      SamplerConfig)
 
-    cfg = get_config("flux-12b")
-    steps = STEPS
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = init_dit(cfg, gen, device="cuda")
-    perturb_zero_init(params, gen)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve: flux-12b {cfg.n_layers} layers d={cfg.d_model} bf16, "
-        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    tracker = RecordingTracker()
-    srv = DiTServer(params, cfg, SPConfig(strategy="full"),
-                    sampler=SamplerConfig(num_steps=steps), max_batch=4,
-                    tracker=tracker)
-    conds = {}
-    for rid, seq in ((0, 4096), (1, 4096), (2, 1024)):
-        conds[rid] = torch.randn((256, cfg.d_model), generator=gen,
-                                 device="cuda").to(torch.bfloat16)
+    srv = DiTServer(params, cfg, sp, sampler=SamplerConfig(num_steps=STEPS),
+                    max_batch=4, tracker=RecordingTracker(), mesh=mesh,
+                    device=None if mesh is not None else "cuda")
+    for rid, seq in requests:
         srv.submit(DiTRequest(rid=rid, seq_len=seq, cond=conds[rid]))
-    torch.cuda.reset_peak_memory_stats()
-    fm.reset_launch_count()
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     out = srv.serve()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fm.launch_count()
-    # one unguided forward per step per admitted batch
-    forwards = srv.scheduler.admissions
-    expect = cfg.n_layers * steps * forwards
-    log(f"serve: {len(out)} requests in {wall:.2f} s, K1 launches {launches} "
-        f"(expected {cfg.n_layers} layers x {steps} steps x {forwards} "
-        f"forwards = {expect}), peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    if sorted(r.rid for r in out) != [0, 1, 2]:
+    counts = read_counts()
+    if sorted(r.rid for r in out) != sorted(rid for rid, _ in requests):
         fail(f"served rids {[r.rid for r in out]}")
-    if launches != expect:
-        fail(f"K1 launches {launches} != {expect}")
-    for r in out:
-        seq = 4096 if r.rid < 2 else 1024
-        noise = srv._noise([DiTRequest(rid=r.rid, seq_len=seq)], 1, seq)[0]
+    # one unguided forward per step per admitted batch
+    forwards = srv.scheduler.admissions * STEPS
+    return {r.rid: r for r in out}, wall, counts, forwards, srv
+
+
+def check_latents(label: str, out: dict, srv, card: str) -> None:
+    """Finite, of the right shape, and moved from their noise."""
+    import torch
+    from repro_torch.serving import DiTRequest
+    for rid, r in sorted(out.items()):
+        seq = dict(REQUESTS)[rid]
+        noise = srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
         moved = float((r.latents.float() - noise.float()).abs().max())
         finite = bool(torch.isfinite(r.latents).all())
-        log(f"serve rid={r.rid} seq={seq}: shape {tuple(r.latents.shape)} "
+        log(f"{label} rid={rid} seq={seq}: shape {tuple(r.latents.shape)} "
             f"finite={finite} max|x-noise|={moved:.3f} latency "
             f"{r.latency:.2f} s step times "
-            f"{[round(s, 4) for s in r.step_times]} [{card}]")
+            f"{[round(t, 4) for t in r.step_times]} [{card}]")
         if tuple(r.latents.shape) != (seq, 64) or not finite or moved == 0.0:
-            fail(f"serve rid {r.rid}: bad result")
-        results.setdefault("step_times", {})[seq] = r.step_times
-    results["launches"] = launches
-    del srv, params, out
-    torch.cuda.empty_cache()
+            fail(f"{label} rid {rid}: bad result")
+
+
+def latent_err(a, b, noise) -> float:
+    """||a - b|| / ||b - noise||: the error beside what the model moved."""
+    a, b, noise = a.float(), b.float(), noise.float()
+    return float((a - b).norm()) / max(float((b - noise).norm()), 1e-30)
+
+
+def serve(results: dict, card: str, params, cfg, conds) -> dict:
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.serving import DiTRequest
+
+    out, wall, counts, forwards, srv = run_server(
+        params, cfg, conds, REQUESTS, SPConfig(strategy="full"))
+    expect = cfg.n_layers * forwards
+    log(f"serve: {len(out)} requests in {wall:.2f} s, K1 launches "
+        f"{counts['flash_mqkv']} (expected {cfg.n_layers} layers x {STEPS} "
+        f"steps x {srv.scheduler.admissions} forwards = {expect}), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if counts != {"flash_mqkv": expect, "ring_flash_step": 0,
+                  "remote_put": 0, "landing_copy": 0}:
+        fail(f"serve launches {counts}, expected {expect} K1 only")
+    check_latents("serve", out, srv, card)
+    for rid, r in out.items():
+        results.setdefault("step_times", {})[dict(REQUESTS)[rid]] = r.step_times
+    results["launches_degree1"] = counts["flash_mqkv"]
+    noise = {rid: srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
+             for rid, seq in REQUESTS}
+    return {"latents": {rid: r.latents for rid, r in out.items()},
+            "noise": noise}
+
+
+def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
+    import torch
+    from repro_torch.core import torus
+    from repro_torch.core.softmax import empty_partial
+    from repro_torch.launch import make_mesh
+
+    def mesh_of(name):
+        shape, axes, sp_axes, put = SP_MESHES[name]
+        return make_mesh(shape, axes, device="cuda"), sp_config(sp_axes), put
+
+    def errors(out):
+        return {rid: latent_err(r.latents, deg1["latents"][rid],
+                                deg1["noise"][rid])
+                for rid, r in out.items()}
+
+    # the main path: three requests on mesh (pod 2, model 8)
+    mesh, sp, put = mesh_of("pod2xmodel8")
+    out, wall, counts, forwards, srv = run_server(params, cfg, conds,
+                                                  REQUESTS, sp, mesh)
+    want = expected_counts(put, cfg.n_layers * forwards)
+    errs = errors(out)
+    log(f"serve-sp pod2xmodel8: {len(out)} requests in {wall:.2f} s on "
+        f"{srv.ctx.sp_degree} virtual ranks, launches {counts} (expected "
+        f"{want} for {cfg.n_layers} layers x {forwards} forwards), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check_latents("serve-sp", out, srv, card)
+    for rid, r in sorted(out.items()):
+        seq = dict(REQUESTS)[rid]
+        log(f"serve-sp rid={rid}: latents vs degree 1 ||d||/||x1-noise|| = "
+            f"{errs[rid]:.3e} (tol {SERVE_SP_TOL}); step wall clock "
+            f"{[round(t, 4) for t in r.step_times]} s vs degree 1 "
+            f"{[round(t, 4) for t in results['step_times'][seq]]} s [{card}]")
+        results.setdefault("sp_step_times", {})[seq] = r.step_times
+    # every measurement of the phase is printed before any limit is checked
+    checks = [(counts == want, f"serve-sp launches {counts} != {want}"),
+              (max(errs.values()) <= SERVE_SP_TOL,
+               f"serve-sp latents differ from degree 1: {errs}")]
+    results["launches"] = counts
+    results["serve_sp_err"] = errs
+
+    # the single-axis route: the 1024-latent request on mesh (model 16)
+    mesh, sp, put = mesh_of("model16")
+    small = (REQUESTS[2],)
+    out, wall, counts, forwards, srv = run_server(params, cfg, conds, small,
+                                                  sp, mesh)
+    want = expected_counts(put, cfg.n_layers * forwards)
+    errs = errors(out)
+    log(f"serve-sp model16: rid 2 in {wall:.2f} s, launches {counts} "
+        f"(expected {want}); latents vs degree 1 {errs[2]:.3e} "
+        f"(tol {SERVE_SP_TOL})")
+    check_latents("serve-sp model16", out, srv, card)
+    checks.append((counts == want and errs[2] <= SERVE_SP_TOL,
+                   f"serve-sp model16: launches {counts}, err {errs[2]}"))
+    results["launches_model16"] = counts
+
+    # negative control: drop the first Pull-KV chunk of every attention
+    real = torus.ring_attention
+    calls = [0]
+
+    def dropping(q, *args, **kw):
+        parts = real(q, *args, **kw)
+        calls[0] += 1
+        if calls[0] % CIRCULATIONS == P_U + 1:  # stage 0, P_u - 1 Pull-Q
+            return [empty_partial(*x.shape, device=x.device) for x in q]
+        return parts
+
+    mesh, sp, _ = mesh_of("pod2xmodel8")
+    torus.ring_attention = dropping
+    try:
+        out, *_ = run_server(params, cfg, conds, small, sp, mesh)
+    finally:
+        torus.ring_attention = real
+    err = errors(out)[2]
+    log(f"serve-sp negative control: one KV chunk of every attention "
+        f"dropped -> latents vs degree 1 {err:.3e} (must exceed "
+        f"{SERVE_SP_TOL})")
+    checks.append((err > SERVE_SP_TOL,
+                   f"a dropped KV chunk passes the serve-sp check ({err})"))
+    results["drop_err"] = err
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
 
 
 def _leaves(tree):
@@ -420,13 +848,202 @@ def k1_numbers(card: str) -> dict:
     return rows
 
 
+def k2_numbers(card: str) -> dict:
+    """K2 at the main ring shape of the serve-sp path (Pull-KV, 4096
+    bucket, first ring step: no carried state, unfinalized)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ring_flash as rf
+
+    label, bh, lq, lk, lq_pad, lk_pad = next(
+        c for c in K2_SHAPES if c[0] == K2_MAIN)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sets = []
+    for _ in range(ROTATE):
+        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad,
+                                    torch.bfloat16)
+        sets.append((q, k, v, qp, kp, torch.empty_like(k), torch.empty_like(v)))
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    arrive = torch.zeros_like(flag)
+    ms, host = time_call(rotating([
+        lambda q=q, k=k, v=v, qp=qp, kp=kp, kd=kd, vd=vd: rf.ring_flash_step(
+            q, k, v, qp, kp, k_dst=kd, v_dst=vd, flag=flag, arrive=arrive,
+            epoch=1, finalize=False)
+        for q, k, v, qp, kp, kd, vd in sets]), reps=50)
+    plain_ms = cuda_ms(rotating([
+        lambda q=q, k=k, v=v, qp=qp, kp=kp, kd=kd, vd=vd:
+        rf.ring_flash_step_plain(q, k, v, qp, kp, k_dst=kd, v_dst=vd,
+                                 finalize=False, scale=128 ** -0.5)
+        for q, k, v, qp, kp, kd, vd in sets]), reps=5, warmup=1)
+    # SDPA on the unpadded chunk: B 2 x 3 heads
+    lib_ms = cuda_ms(rotating([
+        lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :lq].reshape(2, 3, lq, 128), k[:, :lk].reshape(2, 3, lk, 128),
+            v[:, :lk].reshape(2, 3, lk, 128))
+        for q, k, v, *_ in sets]), reps=50)
+    flops = 4.0 * bh * lq * lk * 128  # real keys only: padding needs no work
+    nbytes = (2 * bh * (lq + 2 * lk) * 128  # q, k, v read once (bf16)
+              + 4 * bh * lq * 128 + 8 * bh * lq  # o' (f32), l, m written
+              + 2 * 2 * bh * lk * 128)  # forwarded k and v written
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"k2 time {label} BH={bh} Lq={lq}({lq_pad}) Lk={lk}({lk_pad}) bf16, "
+        f"{ROTATE} input sets in turn: {ms:.4f} ms on the device ({host:.4f} ms of host time per call), "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms [{card}]")
+    return row
+
+
+def put_numbers(card: str) -> dict:
+    """K3 and K4 on the largest torus put of the serve-sp path: Pull-KV of
+    the 4096 bucket, K and V of 16 ranks.  Each timed call copies one of
+    ROTATE input sets, so source and destination come from HBM."""
+    import torch
+    from repro_torch.comm import kernel_backend as kb
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sets = []
+    for _ in range(ROTATE):
+        src = [[torch.randn(SERVE_PUT_SHAPE, generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2)] for _ in range(RANKS)]
+        dst = [[torch.empty_like(t) for t in r] for r in src]
+        flat = torch.cat([t.reshape(-1) for r in src for t in r])
+        sets.append((src, dst, flat, torch.empty_like(flat)))
+    perm = [(r + 1) % RANKS for r in range(RANKS)]
+    signal = torch.zeros(2 * RANKS, dtype=torch.int32, device="cuda")
+    arrive = torch.zeros_like(signal)
+    nbytes = sum(t.numel() * t.element_size() for r in sets[0][0] for t in r)
+    lib_ms = cuda_ms(rotating([lambda a=a, b=b: b.copy_(a)
+                               for _, _, a, b in sets]), reps=50)
+    bound_ms = 2 * nbytes / HBM_BPS * 1e3
+    log(f"copy_ of {nbytes / 2**20:.2f} MiB, {ROTATE} sets in turn: "
+        f"{lib_ms:.4f} ms ({2 * nbytes / (lib_ms * 1e-3) / 1e9:.0f} GB/s read "
+        f"+ written), {lib_ms / bound_ms:.3f} x the byte bound {bound_ms:.4f} "
+        f"ms{'' if lib_ms >= bound_ms else ' (BELOW the bound: cached?)'} "
+        f"[{card}]")
+    rows = {}
+    for name in ("remote_put", "landing_copy"):
+        if name == "remote_put":
+            fn = [lambda s=s_, d=d_: kb.remote_put(
+                s, d, perm, signal=signal, arrive=arrive, epoch=1)
+                for s_, d_, *_ in sets]
+            plain = [lambda s=s_, d=d_: kb.remote_put_plain(
+                s, d, perm, signal, 1) for s_, d_, *_ in sets]
+        else:
+            fn = [lambda s=s_, d=d_: kb.landing_copy(
+                s, d, signal=signal, arrive=arrive, epoch=1)
+                for s_, d_, *_ in sets]
+            plain = [lambda s=s_, d=d_: kb.landing_copy_plain(
+                s, d, signal, 1) for s_, d_, *_ in sets]
+        ms, host = time_call(rotating(fn), reps=50)
+        plain_ms = cuda_ms(rotating(plain), reps=20)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by="bytes")
+        log(f"{name} time 16 ranks x 2 x {SERVE_PUT_SHAPE} bf16 "
+            f"({nbytes / 2**20:.2f} MiB), {ROTATE} sets in turn: {ms:.4f} ms "
+            f"on the device ({2 * nbytes / (ms * 1e-3) / 1e9:.0f} GB/s read + "
+            f"written, {ms / lib_ms:.2f} x one copy_; {host:.4f} ms of host "
+            f"time per call), bound {bound_ms:.4f} ms (bytes), plain "
+            f"{plain_ms:.4f} ms, one copy_ {lib_ms:.4f} ms [{card}]")
+    return rows
+
+
+def layer_breakdown(card: str) -> None:
+    """Where one layer's time goes at the serve shape (bf16, B 2, L 4352):
+    one flux-12b block at degree 1 and under swift_torus on mesh (pod 2,
+    model 8), each traced once by torch.profiler after a warm-up.  Prints
+    the host wall clock, the device's busy time (the sum of kernel times)
+    and its idle share, and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models.blocks import ParallelContext
+    from repro_torch.models.dit import dit_block, init_dit
+
+    cfg = dataclasses.replace(get_config("flux-12b"), n_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = init_dit(cfg, gen, device="cuda")
+    perturb_zero_init(params, gen)
+    lp = params["layers"][0]
+    x = torch.randn((2, 4352, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t_emb = torch.randn((2, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    pos = torch.arange(4352, device="cuda")[None].expand(2, 4352)
+    shape, axes, sp_axes, _ = SP_MESHES["pod2xmodel8"]
+    for label, ctx in (
+            ("degree 1", ParallelContext(SPConfig(strategy="full"),
+                                         device=torch.device("cuda"))),
+            ("swift_torus pod2xmodel8",
+             ParallelContext(sp_config(sp_axes),
+                             mesh=make_mesh(shape, axes, device="cuda")))):
+        with torch.inference_mode():
+            dit_block(lp, cfg, ctx, x, t_emb, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dit_block(lp, cfg, ctx, x, t_emb, pos)
+            torch.cuda.synchronize()
+            untraced = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                dit_block(lp, cfg, ctx, x, t_emb, pos)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        # kernel events only (an aten op also reports its kernels' time)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy == 0.0:
+            log(f"breakdown {label}: wall {untraced:.1f} ms; the profiler saw no "
+                "device time (device busy share not measured)")
+            continue
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"breakdown {label} (one layer, bf16, B 2, L 4352): wall "
+            f"{untraced:.1f} ms untraced, {wall:.1f} ms traced; device busy "
+            f"{busy:.2f} ms, idle share {1 - busy / untraced:.3f} of the "
+            f"untraced wall; top kernels: "
+            + "; ".join(f"{e.key[:60]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.2f} ms"
+                        for e in top) + f" [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+def build_all() -> None:
+    """One nvcc per source, all started together."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        reps = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    for name, rep in reps.items():
+        log(f"build {name}: {rep['seconds']:.1f} s -> {rep['path']}")
+        for line in rep["log"].splitlines():
+            if any(w in line for w in ("Compiling entry", "Used", "spill")):
+                log(f"  {line.strip()}")
+    log(f"build total {time.perf_counter() - t0:.1f} s")
+
+
+def kernel_row(name, source, replaces, launches, err, row) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    from repro_torch.kernels import _build
 
     card = card_line()
     log(card)
@@ -435,35 +1052,62 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    rep = _build.build("flash_mqkv")
-    log(f"build flash_mqkv: {rep['seconds']:.1f} s -> {rep['path']}")
-    for line in rep["log"].splitlines():
-        if any(w in line for w in ("Compiling entry", "Used", "spill")):
-            log(f"  {line.strip()}")
-    log(f"build total {time.perf_counter() - t0:.1f} s")
-
+    build_all()
     results: dict = {}
     check_k1(results)
-    check_block()
-    serve(results, card)
-    numbers = k1_numbers(card)
+    check_k2(results)
+    check_put_kernels(results)
+    check_sp_block(check_block())
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_dit
+    cfg = get_config("flux-12b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_dit(cfg, gen, device="cuda")
+    perturb_zero_init(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve: flux-12b {cfg.n_layers} layers d={cfg.d_model} bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    conds = {rid: torch.randn((256, cfg.d_model), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+             for rid, _ in REQUESTS}
+    torch.cuda.reset_peak_memory_stats()
+    deg1 = serve(results, card, params, cfg, conds)
+    serve_sp(results, card, params, cfg, conds, deg1)
+    del params, deg1
+    torch.cuda.empty_cache()
+
+    k1 = k1_numbers(card)
+    k2 = k2_numbers(card)
+    puts = put_numbers(card)
+    layer_breakdown(card)
 
     main_shape = (48, 4352)
-    row = numbers[main_shape]
-    kernels = [{
-        "name": "flash_mqkv",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_mqkv.cu",
-        "replaces": "src/repro/kernels/flash_mqkv.py:104",
-        "launches": results["launches"],
-        "max_abs_err": results["flux_err"][main_shape],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]
+    launches = results["launches"]
+    kernels = [
+        kernel_row("flash_mqkv", "src/repro_torch/csrc/flash_mqkv.cu",
+                   "src/repro/kernels/flash_mqkv.py:104",
+                   launches["flash_mqkv"], results["flux_err"][main_shape],
+                   k1[main_shape]),
+        kernel_row("ring_flash_step", "src/repro_torch/csrc/ring_flash.cu",
+                   "src/repro/kernels/ring_flash.py:79",
+                   launches["ring_flash_step"], results["k2_err"], k2),
+        kernel_row("remote_put", "src/repro_torch/csrc/one_sided.cu",
+                   "src/repro/comm/pallas_backend.py:134",
+                   results["launches_model16"]["remote_put"],
+                   results["put_err"]["remote_put"], puts["remote_put"]),
+        kernel_row("landing_copy", "src/repro_torch/csrc/one_sided.cu",
+                   "src/repro/comm/pallas_backend.py:83",
+                   launches["landing_copy"], results["put_err"]["landing_copy"],
+                   puts["landing_copy"]),
+    ]
+    for row in kernels:
+        if row["launches"] <= 0:
+            fail(f"{row['name']} was never launched on its path")
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""StreamFusion DiT serving in PyTorch for one NVIDIA Hopper GPU.
+"""StreamFusion DiT serving in PyTorch for one NVIDIA Hopper GPU, with the
+paper's sequence-parallel schedules run over a mesh of virtual ranks on
+that GPU (launch/mesh.py).
 
 The PyTorch/CUDA counterpart of the JAX package ``repro``: the same module
 names and file layout, so each module's counterpart is easy to find.  It

@@ -1,7 +1,9 @@
 """SwiftFusion core in PyTorch.
 
 Public API:
-  sp_attention / SPConfig     — attention entry point (degree 1 so far)
+  sp_attention / SPConfig     — attention entry point: the six SP
+                                strategies over a mesh of virtual ranks
+  resolve_layout              — the (P_u x P_r) plan of a mesh
   reference_attention         — single-device oracle
   plan / SPPlan               — the paper's §4.2 topology planner (copy)
   plan_hybrid / HybridPlan    — (cfg, pp, P_u, P_r) hybrid planner (copy)
@@ -27,7 +29,7 @@ from .softmax import (
     merge,
     reference_attention,
 )
-from .strategy import STRATEGIES, SPConfig, sp_attention
+from .strategy import STRATEGIES, SPConfig, resolve_layout, sp_attention
 
 __all__ = [
     "HybridPlan",
@@ -47,6 +49,7 @@ __all__ = [
     "plan_for_shape",
     "plan_hybrid",
     "reference_attention",
+    "resolve_layout",
     "sp_attention",
     "usp_plan",
 ]

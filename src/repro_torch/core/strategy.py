@@ -1,14 +1,18 @@
-"""SP strategy dispatch: full | ring | ulysses | usp | swift | swift_torus.
+"""SP strategy dispatch: full | ring | ulysses | usp | swift | swift_torus
+(counterpart of ``src/repro/core/strategy.py``).
 
 This is the entry point models call for attention.  ``SPConfig`` carries
 every field of the reference's, so configurations move between the two
 packages unchanged.
 
-On one device (SP degree 1) every strategy computes plain attention; the
-port runs it through the hand-written flash_mqkv kernel
-(``kernels.ops.flash_attention``), the same kernel the reference's fused
-path runs when P_r = 1.  The multi-rank schedules (ring, torus, Ulysses)
-are not ported yet: any degree above 1 raises.
+The reference runs the SP schedules under ``shard_map`` over the mesh's SP
+axes.  Here every rank of the mesh is a *virtual rank* in this process
+(launch/mesh.py): ``sp_attention`` splits the global [B, L, H, D] tensors
+into per-rank sequence shards in flat-rank order, runs the schedule for all
+ranks in lockstep (stage s of every rank is issued before any rank
+consumes stage s's receive buffers) and concatenates the result.  At SP
+degree 1 every strategy computes plain attention through the flash_mqkv
+kernel (``kernels.ops.flash_attention``).
 
 Strategies (P = SP degree, N = machines, M = devices per machine):
   full        — no SP; single-device attention.
@@ -19,14 +23,25 @@ Strategies (P = SP degree, N = machines, M = devices per machine):
                 *intra*; monolithic all-to-alls.
   swift_torus — TAS + Torus Attention (§4.3): chunked all-to-all overlapped
                 with compute, one-sided puts.
+
+Not ported yet: the hierarchical all-to-all and its fp8 wire codec
+(``hier_a2a``, ``a2a_wire_dtype``) and batch axes of size > 1 on the mesh
+(ROADMAP Queue 1 item 3b).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..kernels.ops import flash_attention
+from . import planner
+from .collectives import HIER_A2A_ITEM, GroupLayout
+from .ring import ring_attention
+from .softmax import finalize
+from .torus import torus_attention
+from .ulysses import gather_qkv, group_positions, scatter_o
 
 STRATEGIES = ("full", "ring", "ulysses", "usp", "swift", "swift_torus")
 # wire dtypes the fp8 a2a codec produces (the reference's comm/compress.py)
@@ -46,14 +61,17 @@ class SPConfig:
     # stage axis (never touched by attention itself)
     cfg_axis: str | None = None
     pp_axis: str | None = None
-    unroll_ring: bool = True
+    unroll_ring: bool = True  # kept so configurations carry across; eager
+    # PyTorch runs the same ring steps either way, so nothing reads it
     # beyond-paper: fuse all Pull-Q stage compute into one ring circulation
     torus_fused_pull_q: bool = False
     # beyond-paper: cap the materialized score matrix per attend
     attn_kv_block: int | None = None
-    # comm lowering: "xla" = puts scheduled between ops, "pallas" = the
-    # fused kernel path that issues its own put (names kept from the
-    # reference so configurations carry across)
+    # comm lowering (names kept from the reference so configurations carry
+    # across): "xla" = plain copies for the puts and plain attention per
+    # chunk; "pallas" = the hand-written kernels, K2/K1 per ring step and
+    # the put kernels K3/K4.  kernel_interpret=False on a single-axis route
+    # selects the direct put K3, as on the TPU.
     comm_backend: str = "xla"
     kernel_interpret: bool = True
     # hierarchical a2a and its fp8 wire compression
@@ -65,6 +83,63 @@ class SPConfig:
         assert self.comm_backend in ("xla", "pallas"), self.comm_backend
         if self.a2a_wire_dtype is not None:
             assert self.a2a_wire_dtype in WIRE_DTYPES, self.a2a_wire_dtype
+        if self.hier_a2a or self.a2a_wire_dtype is not None:
+            raise NotImplementedError(HIER_A2A_ITEM)
+
+    def effective_batch_axes(self, mesh=None) -> tuple[str, ...] | None:
+        """Batch mesh axes with the CFG axis prepended (when present); with
+        a mesh, axes it does not carry are dropped (as the reference)."""
+        axes = ((self.cfg_axis,) if self.cfg_axis else ()) + tuple(
+            self.batch_axes or ())
+        if mesh is not None:
+            axes = tuple(a for a in axes if a in mesh.axis_names)
+        return axes or None
+
+
+def resolve_layout(cfg: SPConfig, mesh, num_q_heads: int,
+                   num_kv_heads: int) -> GroupLayout:
+    """Instantiate the paper's (P_u x P_r) plan for this mesh + head count
+    (the reference's rule; the hierarchical factorisation is not ported)."""
+    sp = mesh.axes_size(cfg.sp_axes)
+    n = mesh.shape[cfg.machine_axis] if cfg.machine_axis in cfg.sp_axes else 1
+    m = sp // n
+    if cfg.strategy == "ring":
+        return GroupLayout(cfg.sp_axes, 1, sp, ulysses_outer=True)
+    if cfg.strategy == "ulysses":
+        heads = (num_q_heads if cfg.replicate_kv
+                 else math.gcd(num_q_heads, num_kv_heads))
+        if heads % sp != 0:
+            raise ValueError(
+                f"ulysses needs SP ({sp}) | heads ({heads}); use usp/swift "
+                "instead")
+        return GroupLayout(cfg.sp_axes, sp, 1, ulysses_outer=True)
+    swift = cfg.strategy in ("swift", "swift_torus")
+    pl = planner.plan(n, m, num_q_heads, num_kv_heads, swift=swift,
+                      replicate_kv=cfg.replicate_kv)
+    return GroupLayout(cfg.sp_axes, pl.p_ulysses, pl.p_ring,
+                       ulysses_outer=swift)
+
+
+def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
+              kv_block=None, backend="xla", interpret=True):
+    """Shared body for usp/swift/ulysses/ring: monolithic Ulysses gather ->
+    Ring Attention -> scatter.  The layout decides which boundary each
+    technique crosses (that single bit is the paper's §4.2 contribution)."""
+    ls = q[0].shape[1]
+    dev = q[0].device
+    g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret)
+
+    def kpos_fn(p, owner_r):
+        return group_positions(layout, ls, owner_r, dev)
+
+    parts = ring_attention(
+        g.q, g.k, g.v, layout,
+        q_pos=g.q_pos, k_pos_fn=kpos_fn,
+        scale=scale, causal=causal, window=window,
+        kv_block=kv_block, backend=backend, interpret=interpret,
+    )
+    return scatter_o([finalize(pt, dtype=q[0].dtype) for pt in parts], layout,
+                     backend=backend, interpret=interpret)
 
 
 def sp_attention(
@@ -73,18 +148,50 @@ def sp_attention(
     v: torch.Tensor,
     *,
     cfg: SPConfig,
-    degree: int = 1,
+    mesh=None,
     scale: float | None = None,
     causal: bool = False,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Attention per the configured SP strategy over ``degree`` ranks.
+    """Attention per the configured SP strategy over the mesh's virtual
+    ranks.
 
-    Degree 1 (one device, any strategy) runs the flash_mqkv kernel.
+    The sequence is split over ``cfg.sp_axes`` (flat-rank order, major axis
+    first); heads and head dim stay whole inside the SP group.  Without a
+    mesh, or at SP degree 1, or with strategy "full", it runs the
+    flash_mqkv kernel on the whole sequence.
     """
-    if degree > 1:
-        raise NotImplementedError(
-            f"SP strategy {cfg.strategy!r} at degree {degree} needs the "
-            "multi-rank schedules: ROADMAP Queue 1 items 3 (one-sided comm) "
-            "and 4 (SP schedules)")
-    return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
+    if cfg.strategy == "full" or sp == 1:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    if q.device != mesh.device:
+        raise ValueError(f"q is on {q.device}, the mesh on {mesh.device}")
+    for a in cfg.effective_batch_axes(mesh) or ():
+        if mesh.shape[a] > 1:
+            raise NotImplementedError(
+                f"batch axis {a!r} of size {mesh.shape[a]}: sharding the "
+                "batch over the mesh is not ported yet (ROADMAP Queue 1 "
+                "item 3b)")
+    seq = q.shape[1]
+    if seq % sp:
+        raise ValueError(f"sequence length {seq} does not split evenly over "
+                         f"SP degree {sp} (as shard_map requires)")
+
+    layout = resolve_layout(cfg, mesh, q.shape[2], k.shape[2])
+    if cfg.replicate_kv and layout.p_ulysses > 1:
+        rep = layout.p_ulysses // math.gcd(layout.p_ulysses, k.shape[2])
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+
+    kw = dict(scale=scale, causal=causal, window=window,
+              kv_block=cfg.attn_kv_block,
+              backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
+    shards = [list(torch.chunk(x, sp, dim=1)) for x in (q, k, v)]
+    if cfg.strategy == "swift_torus":
+        out = torus_attention(*shards, layout,
+                              fused_pull_q=cfg.torus_fused_pull_q, **kw)
+    else:
+        out = _usp_like(*shards, layout, **kw)
+    return torch.cat(out, dim=1)

@@ -2,11 +2,16 @@
 
 K1 (``flash_mqkv``, csrc/flash_mqkv.cu) is the Hopper counterpart of the
 reference's Pallas ``flash_mqkv``; ``flash_attention`` and
-``flash_attention_segments`` are the entry points models call.  Importing
-this package builds nothing: the CUDA library is compiled on the first
+``flash_attention_segments`` are the entry points models call.  K2
+(``ring_flash_step``, csrc/ring_flash.cu) is the fused ring step: K1's
+body plus the put of the KV chunk to the next ring rank.  The put kernels
+K3 and K4 belong to the comm layer (comm/kernel_backend.py).  Importing
+this package builds nothing: a CUDA library is compiled on the first
 launch on a CUDA tensor.
 """
 from .ops import flash_attention, flash_attention_segments
 from .ref import flash_attention_ref
+from .ring_flash import ring_flash_step
 
-__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_segments"]
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_segments",
+           "ring_flash_step"]

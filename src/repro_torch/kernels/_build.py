@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles, on first use, into
 ``build/repro_torch/lib<name>-<hash>.so`` at the repository root (a
 git-ignored directory): a shared library with a plain C interface for
-``sm_90a``.  The hash covers the source and the flags, so an edited source
-rebuilds and a stale library is never loaded.  Nothing here runs at
+``sm_90a``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+a stale library is never loaded.  Nothing here runs at
 import: the CPU tests import every module on machines without nvcc.
 """
 from __future__ import annotations
@@ -38,8 +39,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -32,6 +32,10 @@ DEFAULT_BLOCK_K = 128
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+# ctypes types of flash_mqkv_fwd's arguments before the stream (K2's entry
+# point takes the same ones first)
+ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 5)
 
 # kernel launches since the last reset (the port's counterpart of the
 # reference's per-variant trace counter: eager PyTorch has no traces)
@@ -64,8 +68,9 @@ def flash_mqkv_plain(q, k, v, q_pos, k_pos, *, group=1, scale=None,
     return o, l, m
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
-           device: torch.device, align: int = 4) -> None:
+def check_tensor(name: str, t: torch.Tensor, shape: tuple,
+                 dtype: torch.dtype, device: torch.device,
+                 align: int = 4) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.dtype != dtype:
@@ -78,9 +83,11 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _launch(q, k, v, q_pos, k_pos, *, group, scale, causal, window, state,
-            finalize):
-    global _launches
+def kernel_args(q, k, v, q_pos, k_pos, *, group, scale, causal, window,
+                state, finalize):
+    """Check what the kernel body takes (it is K1's and K2's) and allocate
+    the outputs.  Returns ``(o, l, m)`` and the C arguments of
+    ``flash_mqkv_fwd`` before its stream, as ctypes values."""
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     dev = q.device
@@ -95,49 +102,57 @@ def _launch(q, k, v, q_pos, k_pos, *, group, scale, causal, window, state,
     # the bf16 path loads q/k/v rows as 16-byte vectors; everything else
     # is read element by element
     align = 16 if q.dtype == torch.bfloat16 else 4
-    _check("q", q, (bh, lq, d), q.dtype, dev, align)
-    _check("k", k, (bhkv, lk, d), q.dtype, dev, align)
-    _check("v", v, (bhkv, lk, d), q.dtype, dev, align)
-    _check("q_pos", q_pos, (lq,), torch.int32, dev)
-    _check("k_pos", k_pos, (lk,), torch.int32, dev)
+    check_tensor("q", q, (bh, lq, d), q.dtype, dev, align)
+    check_tensor("k", k, (bhkv, lk, d), q.dtype, dev, align)
+    check_tensor("v", v, (bhkv, lk, d), q.dtype, dev, align)
+    check_tensor("q_pos", q_pos, (lq,), torch.int32, dev)
+    check_tensor("k_pos", k_pos, (lk,), torch.int32, dev)
     if state is not None:
         o_in, l_in, m_in = state
-        _check("state o", o_in, (bh, lq, d), torch.float32, dev)
-        _check("state l", l_in, (bh, lq), torch.float32, dev)
-        _check("state m", m_in, (bh, lq), torch.float32, dev)
+        check_tensor("state o", o_in, (bh, lq, d), torch.float32, dev)
+        check_tensor("state l", l_in, (bh, lq), torch.float32, dev)
+        check_tensor("state m", m_in, (bh, lq), torch.float32, dev)
     o = torch.empty((bh, lq, d), dtype=q.dtype if finalize else torch.float32,
                     device=dev)
     l = torch.empty((bh, lq), dtype=torch.float32, device=dev)
     m = torch.empty((bh, lq), dtype=torch.float32, device=dev)
-    if bh == 0 or lq == 0:
-        return o, l, m
-    lib = _bound_library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     null = ctypes.c_void_p(None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_mqkv_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(q_pos), ptr(k_pos),
+    args = (ptr(q), ptr(k), ptr(v), ptr(q_pos), ptr(k_pos),
             *((ptr(t) for t in state) if state is not None
               else (null, null, null)),
             ptr(o), ptr(l), ptr(m),
             bh, lq, lk, d, group, _DTYPE_CODE[q.dtype], float(scale),
             int(causal), int(window is not None),
             0 if window is None else int(window), int(state is not None),
-            int(finalize), ctypes.c_void_p(stream))
+            int(finalize))
+    return (o, l, m), args
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(q, k, v, q_pos, k_pos, **kw):
+    global _launches
+    out, args = kernel_args(q, k, v, q_pos, k_pos, **kw)
+    if q.shape[0] == 0 or q.shape[1] == 0:
+        return out
+    lib = _bound_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_mqkv_fwd(*args, ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.flash_mqkv_error_string(err).decode()
         raise RuntimeError(f"flash_mqkv kernel launch failed: {msg} ({err})")
     _launches += 1
-    return o, l, m
+    return out
 
 
 def _bound_library() -> ctypes.CDLL:
     lib = _build.load("flash_mqkv")
     if lib.flash_mqkv_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_mqkv_fwd.argtypes = (
-            [p] * 11 + [i] * 6 + [ctypes.c_float] + [i] * 5 + [p])
+        lib.flash_mqkv_fwd.argtypes = ARGTYPES + [p]
         lib.flash_mqkv_fwd.restype = i
         lib.flash_mqkv_error_string.argtypes = [i]
         lib.flash_mqkv_error_string.restype = ctypes.c_char_p

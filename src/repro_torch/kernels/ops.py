@@ -6,6 +6,9 @@
                                *list* of discontiguous KV chunks, carrying
                                the online-softmax state across kernel calls
                                and finalizing once (Appendix C).
+``ring_blocks`` / ``flatten_pad`` / ``pad_pos`` — the padded flat layout in
+                               which the fused ring path (core/ring.py)
+                               feeds K1 and K2 and circulates KV chunks.
 
 Lowering is chosen by the tensors' device inside ``flash_mqkv`` (plain
 version on the CPU, the CUDA kernel on the GPU); eager PyTorch has no
@@ -48,6 +51,22 @@ def _positions(pos: torch.Tensor | None, n: int,
     if pos is None:
         return torch.arange(n, dtype=torch.int32, device=device)
     return pos.to(device=device, dtype=torch.int32)
+
+
+def ring_blocks(lq: int, lk: int) -> tuple[int, int]:
+    """(block_q, block_k) of the fused ring path: the reference's padding
+    granularity for its block-tiled kernels."""
+    return (min(DEFAULT_BLOCK_Q, max(8, lq)), min(DEFAULT_BLOCK_K, max(8, lk)))
+
+
+def flatten_pad(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[B, L, H, D] -> [B*H, L_pad, D], padded with zeros to ``block``."""
+    return _pad_to(_flatten_heads(x), 1, block)
+
+
+def pad_pos(pos: torch.Tensor, block: int, value: int) -> torch.Tensor:
+    """int32 positions padded to ``block`` (q pads with 0, k with -1)."""
+    return _pad_to(pos.to(torch.int32), 0, block, value=value)
 
 
 def flash_attention(

@@ -1,0 +1,73 @@
+"""Meshes of virtual ranks (counterpart of ``src/repro/launch/mesh.py``).
+
+The reference lays its SP schedules out on a ``jax.sharding.Mesh`` of
+named axes, one device per point.  The port runs every point of a mesh in
+one process on ONE device: a *virtual rank*.  Each rank's shard is a
+tensor of its own, and a put writes into the peer rank's receive buffer,
+which lies in the same address space — NVSHMEM's symmetric heap, trivially.
+Ranks are numbered as ``lax.axis_index(axes)`` numbers them: the flat rank
+over a tuple of axes is major-first.
+
+Puts across NVLink or InfiniBand (one process per card) are not modelled
+here; see ROADMAP.  Functions, not module constants: importing this module
+touches no device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..models.blocks import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named axes and their sizes; every rank lives on ``device``."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    device: torch.device
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axes {self.axis_names} vs sizes "
+                             f"{self.axis_sizes}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis in {self.axis_names}")
+        if any(s < 1 for s in self.axis_sizes):
+            raise ValueError(f"axis sizes must be >= 1: {self.axis_sizes}")
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            # the index tensors report, so that devices compare equal
+            dev = torch.device("cuda", torch.cuda.current_device())
+        object.__setattr__(self, "device", dev)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, in axis order (as ``jax`` meshes give it)."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def axes_size(self, axes: tuple[str, ...]) -> int:
+        """Number of ranks over ``axes`` (the flat-rank range)."""
+        shape = self.shape
+        return math.prod(shape[a] for a in axes)
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+              device: str | torch.device | None = None) -> Mesh:
+    """A mesh of virtual ranks on ``device`` (CUDA unless the caller asks
+    for the CPU)."""
+    return Mesh(tuple(axes), tuple(int(s) for s in shape),
+                resolve_device(device))
+
+
+def make_host_mesh(model: int = 1, data: int = 1,
+                   device: str | torch.device | None = None) -> Mesh:
+    """(data, model) mesh, as the reference's ``make_host_mesh``."""
+    return make_mesh((data, model), ("data", "model"), device)

@@ -5,8 +5,8 @@ Conventions, kept from the reference so weights cross over unchanged:
     and are cast to the activation dtype at use.
   * the layer stack is a Python list of per-layer dicts (the reference
     stacks them on a leading "layers" axis for ``lax.scan``).
-  * attention dispatches to ``core.sp_attention``; on one device that is
-    the flash_mqkv kernel.
+  * attention dispatches to ``core.sp_attention`` over the context's mesh
+    of virtual ranks; at SP degree 1 that is the flash_mqkv kernel.
 """
 from __future__ import annotations
 
@@ -81,14 +81,26 @@ class ParamBuilder:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """How a model runs: SP strategy, mode, device and SP degree (the
-    number of ranks attention is spread over; 1 until the multi-rank
-    schedules are ported)."""
+    """How a model runs: SP strategy, mode, device and the mesh of virtual
+    ranks attention is spread over (launch/mesh.py).  Without a mesh the
+    model runs as on a 1-rank mesh on ``device``; with one, ``device`` is
+    the mesh's."""
 
     sp: SPConfig
     mode: str = "prefill"  # train | prefill | decode
     device: torch.device = torch.device("cpu")
-    sp_degree: int = 1
+    mesh: Any = None  # launch.mesh.Mesh | None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            object.__setattr__(self, "device", self.mesh.device)
+
+    @property
+    def sp_degree(self) -> int:
+        """Ranks attention is spread over: the mesh's SP axes."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.axes_size(self.sp.sp_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +160,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _rope_angles(positions: torch.Tensor, rot_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions [...] -> (sin, cos) of shape [..., rot_dim // 2], f32."""
-    exps = -torch.arange(0, rot_dim, 2, dtype=torch.float32,
-                         device=positions.device) / rot_dim
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
-    ang = positions[..., None].float() * freqs
-    return torch.sin(ang), torch.cos(ang)
+    """positions [...] -> (sin, cos) of shape [..., rot_dim // 2], f32.
+
+    The frequencies, and the sine and cosine of the f32 angles, are taken
+    in float64 and rounded once to f32, so every device gets the same
+    table.  A device's own f32 pow and sin differ by an ulp or two, and at
+    position p an ulp of a frequency moves the angle by p ulps: ~1e-4 rad
+    at p ~ 1000, which peaked attention amplifies."""
+    freqs = torch.tensor([theta ** (-i / rot_dim) for i in range(0, rot_dim, 2)],
+                         dtype=torch.float32, device=positions.device)
+    ang = (positions[..., None].float() * freqs).double()
+    return torch.sin(ang).float(), torch.cos(ang).float()
 
 
 def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -233,8 +249,7 @@ def attention(
     v = linear(x, p["wv"]).reshape(b_, l_, hkv, hd)
     q, k = apply_rope(q, k, positions, variant=cfg.rope, theta=cfg.rope_theta,
                       rope_pct=cfg.rope_pct)
-    o = sp_attention(q, k, v, cfg=ctx.sp, degree=ctx.sp_degree,
-                     causal=causal)
+    o = sp_attention(q, k, v, cfg=ctx.sp, mesh=ctx.mesh, causal=causal)
     return linear(o.reshape(b_, l_, hq * hd), p["wo"])
 
 

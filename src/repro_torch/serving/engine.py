@@ -4,8 +4,10 @@ DiTServer — the paper's scenario: requests ask for an image at a given
 latent sequence length; the SLA-aware request scheduler (serving/sched)
 buckets them by latent length, admits across buckets against per-request
 deadlines, and memoizes one step function per bucket shape; the
-flow-matching sampler runs every attention through the flash_mqkv kernel
-and results stream back.
+flow-matching sampler runs every attention through the configured SP
+strategy over a mesh of virtual ranks on one device (launch/mesh.py) —
+the hand-written kernels K1/K2 and the put kernels under
+``comm_backend="pallas"`` — and results stream back.
 
 Not ported yet: the pipelined (displaced patch) sampler and the span
 profiler (ROADMAP Queue 1 items 5 and 9), and ARServer (item 11).
@@ -64,7 +66,10 @@ class DiTResult:
 
 
 class DiTServer:
-    """Batched DiT sampling on one device.
+    """Batched DiT sampling on one device, over ``mesh`` (the reference's
+    ``DiTServer(params, cfg, mesh, sp, ...)``; without a mesh, a 1-rank
+    mesh on ``device``).  [cond ; latents] must split evenly over the SP
+    degree, as the reference's shard_map requires.
 
     ``submit`` feeds the bucketer, ``run_once`` asks the admission policy
     for the next (bucket, batch) under SLA/starvation rules, and step
@@ -89,7 +94,8 @@ class DiTServer:
                  control: ControlConfig | None = None,
                  tracker: Tracker | None = None,
                  profile: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None):
         if sampler.pipelined:
             raise NotImplementedError(
                 "pipelined serving (displaced patch pipeline) is not ported "
@@ -97,7 +103,11 @@ class DiTServer:
         if profile:
             raise NotImplementedError(
                 "span profiling is not ported yet: ROADMAP Queue 1 item 9")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and device is not None and (
+                resolve_device(device).type != mesh.device.type):
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
         w = params["proj_in"]["w"]
         if w.device.type != self.device.type:
             raise ValueError(f"params are on {w.device}, server on "
@@ -105,7 +115,7 @@ class DiTServer:
         self.params = params
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
-        self.ctx = ParallelContext(sp, "prefill", self.device)
+        self.ctx = ParallelContext(sp, "prefill", self.device, mesh)
         self.sampler = sampler
         self.tracker = tracker if tracker is not None else Tracker()
         self.control = control if control is not None else ControlConfig()

@@ -178,3 +178,58 @@ def _drive_tracker(met):
 
 def test_metrics_equal():
     assert _drive_tracker(t_met) == _drive_tracker(j_met)
+
+
+def _between(text: str, start: str, end: str | None) -> str:
+    i = text.index(start)
+    return text[i:text.index(end, i) if end else len(text)]
+
+
+def test_trace_recording_is_a_copy():
+    """The framework-free half of comm/trace.py (recording and semaphore
+    validation) is the reference's text, unchanged."""
+    start = "# -------------------------------------------------------------"\
+            "--------------\n# schedule recording"
+    mine = _between((ROOT / "repro_torch/comm/trace.py").read_text(), start,
+                    None)
+    ref = _between((ROOT / "repro/comm/trace.py").read_text(), start,
+                   "# -----------------------------------------------------"
+                   "----------------------\n# HLO parsing")
+    assert mine.rstrip() == ref.rstrip()
+
+
+def test_group_layout_is_a_copy():
+    """GroupLayout keeps the reference's fields, static coordinates and
+    perm tables verbatim; only the traced ``my_coords`` family is replaced
+    by per-rank arithmetic."""
+    mine = (ROOT / "repro_torch/core/collectives.py").read_text()
+    ref = (ROOT / "repro/core/collectives.py").read_text()
+    head = "@dataclasses.dataclass(frozen=True)\nclass GroupLayout:"
+    assert _between(mine, head, "    # -- permutation tables") == _between(
+        ref, head, "    # -- traced coordinates")
+    perms = "    # -- permutation tables"
+    assert _between(mine, perms, "\n\n\n").rstrip() == _between(
+        ref, perms, "    def seq_offset_of_rank").rstrip()
+
+
+def test_semaphore_validation_equal():
+    """The same recorded schedules get the same verdicts in both copies."""
+    from repro.comm import trace as j_tr
+    from repro_torch.comm import trace as t_tr
+
+    def schedules(tr):
+        ev = lambda kind, sem, overlap=False: tr.SemEvent(
+            kind=kind, sem=sem, overlap=overlap)
+        good = [ev("put", "a", True), ev("signal", "a"), ev("compute", ""),
+                ev("wait", "a")]
+        return [good, [ev("wait", "a")] + good,
+                [ev("put", "a", True), ev("signal", "a"), ev("wait", "a")],
+                [ev("put", "b"), ev("signal", "b"), ev("signal", "b")],
+                [ev("signal", "c"), ev("put", "a"), ev("put", "a")]]
+
+    for mine, ref in zip(schedules(t_tr), schedules(j_tr)):
+        a = t_tr.validate_semaphores(t_tr.ScheduleTrace("s", sem_events=mine))
+        b = j_tr.validate_semaphores(j_tr.ScheduleTrace("s", sem_events=ref))
+        assert (a.puts, a.waits, a.failures, a.summary()) == (
+            b.puts, b.waits, b.failures, b.summary())
+

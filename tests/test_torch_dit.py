@@ -25,6 +25,7 @@ from repro.serving.sampler import sample_step as j_sample_step
 from repro_torch.configs import get_reduced
 from repro_torch.core import SPConfig
 from repro_torch.kernels import flash_mqkv as fm
+from repro_torch.launch import make_mesh
 from repro_torch.models import ParallelContext, dit_forward, init_dit, load_jax_params
 from repro_torch.serving import (DiTRequest, DiTServer, SamplerConfig, sample,
                                  sample_step)
@@ -178,11 +179,34 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup):
 
 
 def test_multi_rank_strategies_not_ported_yet(setup):
+    """The flat multi-rank schedules are ported (tests/test_torch_sp.py);
+    the hierarchical all-to-all and a batch axis of size > 1 on the mesh
+    are not, and say where they stand."""
     cfg, *_, tparams, tctx = setup
-    ctx = dataclasses.replace(tctx, sp=SPConfig(strategy="swift_torus"),
-                              sp_degree=2)
-    x = torch.zeros((1, 16, 64))
-    cond = torch.zeros((1, 256, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SPConfig(strategy="swift_torus", hier_a2a=True)
+    ctx = dataclasses.replace(
+        tctx, sp=SPConfig(strategy="swift_torus"),
+        mesh=make_mesh((2, 2), ("data", "model"), device="cpu"))
+    assert ctx.sp_degree == 2
+    x = torch.zeros((2, 16, 64))
+    cond = torch.zeros((2, 256, cfg.d_model))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dit_forward(tparams, cfg, ctx, latents=x, cond=cond,
-                    timesteps=torch.zeros(1))
+                    timesteps=torch.zeros(2))
+
+
+def test_rope_table_is_the_rounded_float64_table():
+    """The rope table is float64 rounded once to f32, bit for bit, at the
+    served lengths: it cannot depend on a device's own f32 pow and sin,
+    whose last-ulp differences grow with the position (~1e-4 rad at
+    position 1000) and which peaked attention amplifies."""
+    from repro_torch.models.blocks import _rope_angles
+    rot, theta = 128, 10000.0
+    pos = torch.arange(4352)[None]
+    sin, cos = _rope_angles(pos, rot, theta)
+    freqs = (theta ** (-np.arange(0, rot, 2) / rot)).astype(np.float32)
+    ang = (np.arange(4352, dtype=np.float32)[:, None] * freqs).astype(np.float64)
+    assert sin.dtype == cos.dtype == torch.float32
+    np.testing.assert_array_equal(sin[0].numpy(), np.sin(ang).astype(np.float32))
+    np.testing.assert_array_equal(cos[0].numpy(), np.cos(ang).astype(np.float32))

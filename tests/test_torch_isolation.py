@@ -55,3 +55,12 @@ def test_chip_smoke_imports_nothing_of_jax():
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad
+
+
+def test_sp_modules_are_covered():
+    """The SP path's modules are among those scanned and imported above."""
+    for name in ("launch.mesh", "comm.trace", "comm.channel", "comm.stream",
+                 "comm.kernel_backend", "core.collectives", "core.ulysses",
+                 "core.ring", "core.torus", "core.strategy",
+                 "kernels.ring_flash"):
+        assert f"repro_torch.{name}" in MODULES

@@ -1,4 +1,5 @@
-"""K1 (flash_mqkv) in the port against the reference kernel.
+"""K1 (flash_mqkv) and K2 (ring_flash_step) in the port against the
+reference kernels.
 
 The same numpy inputs go through the reference's Pallas kernel in
 interpret mode and through the port's entry points, which on CPU tensors
@@ -14,8 +15,10 @@ import torch
 from repro.kernels import flash_attention as j_flash
 from repro.kernels import flash_attention_segments as j_segments
 from repro.kernels.flash_mqkv import flash_mqkv as j_mqkv
+from repro.kernels.ring_flash import ring_flash_step as j_ring_step
 from repro_torch.kernels import flash_attention, flash_attention_segments
 from repro_torch.kernels import flash_mqkv as fm
+from repro_torch.kernels import ring_flash as rf
 
 TOL = 2e-5
 
@@ -165,3 +168,71 @@ def test_other_devices_raise():
     pos = torch.zeros((16,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fm.flash_mqkv(q, q, q, pos, pos)
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused ring step (cases of tests/test_ring_flash.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_chunks,pad,causal,window", [
+    (1, 0, False, None), (2, 5, True, None), (3, 15, True, 24),
+    (4, 3, False, 24)])
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 2e-2)])
+def test_ring_flash_step_matches_reference(n_chunks, pad, causal, window,
+                                           dtype, tol):
+    """Chunk by chunk with the state carried, k_pos = -1 padding holding
+    garbage: (o, l, m) against the reference's ring_flash_step (interpret
+    mode) at its tolerances and bitwise against K1's plain version; the
+    forwarded chunk bitwise equal to the input and the completion word
+    set."""
+    bh, d, bq, bk, lq = 2, 16, 16, 16, 32
+    lk = n_chunks * bk
+    rng = np.random.default_rng(n_chunks * 31 + pad)
+    q, k, v = (rng.standard_normal((bh, n, d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    qp = np.arange(lq, dtype=np.int32) + lk
+    kp = np.where(np.arange(lk) < lk - min(pad, lk - 1), np.arange(lk),
+                  -1).astype(np.int32)
+    k[:, kp < 0] = 999.0
+    v[:, kp < 0] = 999.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jstate = tstate = None
+    flag = torch.zeros(1, dtype=torch.int32)
+    for c in range(n_chunks):
+        sl = slice(c * bk, (c + 1) * bk)
+        last = c == n_chunks - 1
+        kw = dict(causal=causal, window=window, finalize=last)
+        (jo, jl, jm), (jkf, jvf) = j_ring_step(
+            *(jnp.asarray(x).astype(jdt) for x in (q, k[:, sl], v[:, sl])),
+            jnp.asarray(qp), jnp.asarray(kp[sl]), state=jstate, block_q=bq,
+            block_k=bk, interpret=True, **kw)
+        args = [*(torch.from_numpy(np.ascontiguousarray(x)).to(tdt)
+                  for x in (q, k[:, sl], v[:, sl])),
+                torch.from_numpy(qp), torch.from_numpy(kp[sl].copy())]
+        (o, l, m), (kf, vf) = rf.ring_flash_step(*args, state=tstate,
+                                                 flag=flag, epoch=c + 1, **kw)
+        for g, w in ((o, jo), (l, jl), (m, jm)):
+            _close(g.float(), np.asarray(w, np.float32), tol)
+        for g, w in zip((o, l, m), fm.flash_mqkv_plain(
+                *args, state=tstate, scale=d ** -0.5, **kw)):
+            assert torch.equal(g, w)
+        assert torch.equal(kf, args[1]) and torch.equal(vf, args[2])
+        np.testing.assert_array_equal(np.asarray(jkf.astype(jnp.float32)),
+                                      kf.float().numpy())
+        assert int(flag) == c + 1
+        jstate, tstate = (jo, jl, jm), (o, l, m)
+
+
+def test_ring_flash_step_writes_into_given_buffers():
+    """The forward buffers may be any preallocated tensors — in the ring
+    schedule, the next ring rank's receive buffers."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 16, 16)).astype(
+        np.float32)) for _ in range(3))
+    pos = torch.arange(16, dtype=torch.int32)
+    kd, vd = torch.empty_like(k), torch.empty_like(v)
+    rf.reset_launch_count()
+    _, (kf, vf) = rf.ring_flash_step(q, k, v, pos, pos, k_dst=kd, v_dst=vd)
+    assert kf is kd and vf is vd
+    assert torch.equal(kd, k) and torch.equal(vd, v)
+    assert rf.launch_count() == 0  # CPU: the plain version

@@ -1,4 +1,6 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: K1 (flash_mqkv), K2 (ring_flash_step), K3 (remote_put) and K4
+(landing_copy), and the SP schedule that runs them.
 
 Every test here is marked ``needs_cuda`` and skips without a GPU.  The
 file imports neither jax nor the reference package, so it also runs on a
@@ -11,8 +13,12 @@ left out:
 import pytest
 import torch
 
+from repro_torch.comm import kernel_backend as kb
+from repro_torch.core import SPConfig, sp_attention
 from repro_torch.kernels import flash_attention, flash_attention_segments
 from repro_torch.kernels import flash_mqkv as fm
+from repro_torch.kernels import ring_flash as rf
+from repro_torch.launch import make_mesh
 
 
 @pytest.fixture
@@ -115,3 +121,120 @@ def test_cuda_kernel_takes_offset_views(cuda, dtype, tol):
     for g, w in zip(got, want):
         scale = max(1.0, float(w.abs().max()))
         assert float((g.cpu() - w).abs().max()) / scale <= tol
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("lq,lk,group,state", [(75, 75, 1, False),
+                                               (64, 91, 2, True)])
+def test_cuda_ring_step_is_k1_bitwise(cuda, dtype, d, lq, lk, group, state):
+    """K2's (o, l, m) are K1's bit for bit (one kernel body); its forward
+    buffers hold the chunk bit for bit and its completion word the epoch."""
+    gen = torch.Generator(device=cuda).manual_seed(d + lq)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    q, k, v = mk(4, lq, d), mk(4 // group, lk, d), mk(4 // group, lk, d)
+    qp = torch.arange(lq, dtype=torch.int32, device=cuda) + lk - lq
+    kp = torch.arange(lk, dtype=torch.int32, device=cuda)
+    kw = dict(group=group, causal=True, window=40, finalize=not state)
+    if state:
+        kw["state"] = fm.flash_mqkv(q, k, v, qp, kp, group=group,
+                                    finalize=False)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    arrive = torch.zeros_like(flag)
+    before = rf.launch_count()
+    (o, l, m), (kf, vf) = rf.ring_flash_step(q, k, v, qp, kp, flag=flag,
+                                             arrive=arrive, epoch=9, **kw)
+    assert rf.launch_count() == before + 1
+    ref = fm.flash_mqkv(q, k, v, qp, kp, **kw)
+    for g, w in zip((o, l, m), ref):
+        assert torch.equal(g, w)
+    assert torch.equal(kf, k) and torch.equal(vf, v)
+    assert int(flag) == 9 and int(arrive) == 0
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5), (7, 3, 2), (1, 13), (6, 272, 128)])
+def test_cuda_put_kernels_deliver_bitwise(cuda, dtype, shape):
+    """K3 and K4 deliver every rank's tensors bitwise (uneven shapes, the
+    reference's) and release the expected epoch in every signal word."""
+    ranks, tensors = 16, 2
+    gen = torch.Generator(device=cuda).manual_seed(len(shape))
+    src = [[torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for _ in range(tensors)] for _ in range(ranks)]
+    perm = [(r + 5) % ranks for r in range(ranks)]
+    words = ranks * tensors
+    for name in ("remote_put", "landing_copy"):
+        dst = [[torch.empty(shape, dtype=dtype, device=cuda)
+                for _ in range(tensors)] for _ in range(ranks)]
+        signal = torch.zeros(words, dtype=torch.int32, device=cuda)
+        arrive = torch.zeros_like(signal)
+        before = kb.launch_count(name)
+        if name == "remote_put":
+            kb.remote_put(src, dst, perm, signal=signal, arrive=arrive,
+                          epoch=3)
+            to = perm
+        else:
+            kb.landing_copy(src, dst, signal=signal, arrive=arrive, epoch=3)
+            to = list(range(ranks))
+        assert kb.launch_count(name) == before + 1
+        torch.cuda.synchronize()
+        for r in range(ranks):
+            for i in range(tensors):
+                assert torch.equal(dst[to[r]][i], src[r][i])
+        assert bool((signal == 3).all()) and bool((arrive == 0).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("axes,sp_axes,shape,interpret,put", [
+    (("pod", "model"), ("pod", "model"), (2, 4), False, "landing_copy"),
+    (("model",), ("model",), (8,), False, "remote_put")])
+def test_cuda_swift_torus_matches_cpu(cuda, axes, sp_axes, shape, interpret,
+                                      put):
+    """swift_torus on 8 virtual ranks of the card (K1, K2 and one put
+    kernel per torus put) against the same schedule's plain versions on
+    the CPU, float32."""
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 64, 8, 32), generator=gen)
+    k = torch.randn((2, 64, 4, 32), generator=gen)
+    v = torch.randn((2, 64, 4, 32), generator=gen)
+    cfg = SPConfig(strategy="swift_torus", sp_axes=sp_axes,
+                   comm_backend="pallas", kernel_interpret=interpret)
+    want = sp_attention(q, k, v, cfg=cfg, causal=True,
+                        mesh=make_mesh(shape, axes, device="cpu"))
+    fm.reset_launch_count()
+    rf.reset_launch_count()
+    kb.reset_launch_count()
+    got = sp_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg=cfg,
+                       causal=True, mesh=make_mesh(shape, axes, device=cuda))
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    # P_u 4 x P_r 2: 7 ring circulations of 1 K2 + 1 K1 per rank, 9 puts
+    assert fm.launch_count() == rf.launch_count() == 8 * 7
+    assert kb.launch_count(put) == 9
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("strategy", ["ring", "usp", "swift_torus"])
+def test_cuda_xla_backend_matches_cpu(cuda, strategy):
+    """comm_backend "xla" on the card: plain attention per chunk and plain
+    copies for the puts, on the side stream; no kernel of the port runs."""
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 64, 8, 32), generator=gen)
+    k = torch.randn((2, 64, 4, 32), generator=gen)
+    v = torch.randn((2, 64, 4, 32), generator=gen)
+    cfg = SPConfig(strategy=strategy, sp_axes=("pod", "model"),
+                   comm_backend="xla")
+    shape, axes = (2, 4), ("pod", "model")
+    want = sp_attention(q, k, v, cfg=cfg, causal=True,
+                        mesh=make_mesh(shape, axes, device="cpu"))
+    fm.reset_launch_count()
+    rf.reset_launch_count()
+    kb.reset_launch_count()
+    got = sp_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg=cfg,
+                       causal=True, mesh=make_mesh(shape, axes, device=cuda))
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert fm.launch_count() == rf.launch_count() == 0
+    assert kb.launch_count("remote_put") == kb.launch_count("landing_copy") == 0
