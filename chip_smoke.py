@@ -48,18 +48,48 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  request on mesh (model 16) (K3), and once more on (pod 2,
                  model 8) with one KV chunk of every attention dropped,
                  which must break SERVE_SP_TOL.
- 10. numbers   — K1's time per call at the two flux shapes and K2/K3/K4's at
+ 10. k5        — the RWKV6 WKV kernel (K5) against its plain version on the
+                 same card tensors: the reference test's (L, N, chunk) sweep in
+                 float32, bfloat16 and the model's mix (r, k, v, u bfloat16,
+                 w float32), and the rwkv6-1.6b shapes (H 32, N 64, chunk 64)
+                 of the prefill phase, held to WKV_TOL on both the largest
+                 error and the error's norm.
+ 11. lm-block  — one rwkv6-1.6b layer at full width (d 2048, 32 x 64 heads,
+                 d_ff 7168), perturbed weights, L 1024, B 1, float32 on the
+                 card through K5 (launched exactly once) against the same
+                 layer in float32 on the CPU through the plain path.
+ 12. lm-prefill— rwkv6-1.6b at full width and depth (24 layers, bfloat16,
+                 weights from seed 0 with the zero-init tensors perturbed):
+                 last-position logits of B 4 x L 4096 and B 1 x L 1024
+                 prompts, finite, with K5 launched 24 x forwards.  Then in
+                 float32 at B 2, L 256, every layer's prefill output (through
+                 K5) against the same layer decoded token by token from the
+                 same input (rwkv6_decode_step, no kernel) within LM_TOL, and
+                 a negative control — every K5 call split at L/2 into two,
+                 so the second half loses its carried state — that must
+                 exceed LM_TOL ten times over; the end-to-end logits of the
+                 two paths are reported.  Prompt lengths are multiples of
+                 the WKV chunk 64, as the scan requires for L > 64.
+ 13. serve-lm  — ARServer on the bfloat16 model: 4 slots, 6 requests of
+                 16-64 prompt tokens and 16 new tokens each, by aged
+                 priority; every request completes, every token lies in
+                 [0, vocab), the tracker's counters agree.
+ 14. numbers   — K1's time per call at the two flux shapes and K2/K3/K4's at
                  the serve shapes, each beside its bound, its plain version
                  and one PyTorch call that computes the same function
                  (scaled_dot_product_attention, Tensor.copy_; yardsticks the
-                 port never calls); then one bf16 layer at the serve shape,
-                 at degree 1 and under swift_torus, traced by torch.profiler
-                 (host wall clock, device busy time and idle share).
+                 port never calls); one bf16 layer at the serve shape, at
+                 degree 1 and under swift_torus, traced by torch.profiler
+                 (host wall clock, device busy time and idle share); K5's
+                 time at B 4 x L 4096 beside its bound and its plain version
+                 (no single PyTorch call computes the WKV scan), and one
+                 traced rwkv6-1.6b prefill.
 
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
-(model 16), the route that takes the direct put.  The line before the
+(model 16), the route that takes the direct put, and K5's, which come
+from the lm-prefill run.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -67,6 +97,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import itertools
 import json
 import pathlib
@@ -90,7 +121,7 @@ BLOCK_TOL = 1e-4  # block, card vs CPU, relative to max|out|
 FLUX_SHAPES = ((24, 1280), (48, 1280), (24, 4352), (48, 4352))  # (BH, L)
 STEPS = 4  # sampler steps of the serve phases
 ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
-SOURCES = ("flash_mqkv", "ring_flash", "one_sided")  # csrc/<name>.cu
+SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv")  # csrc/<name>.cu
 # serve-sp latents vs the degree-1 serve, as ||x_sp - x_1|| / ||x_1 - noise||
 # (the error relative to what the model moved the latents), bfloat16
 # (2.8x the largest value seen, 1.085e-2, on an H100 80GB HBM3 at 700 W;
@@ -114,6 +145,33 @@ CIRCULATIONS = 1 + 2 * (P_U - 1)
 K1_PER_LAYER = RANKS * CIRCULATIONS
 K2_PER_LAYER = RANKS * CIRCULATIONS * (P_R - 1)
 PUTS_PER_LAYER = 3 * (P_U - 1)
+
+PEAK_F32 = 67e12  # H100 SXM float32 FLOP/s on the CUDA cores (data sheet)
+# K5 vs plain on the same card tensors, (max|d| / max|ref|, ||d|| / ||ref||):
+# ~5x the largest values the first run saw on an H100 80GB HBM3 at 700 W
+# (9.65e-07 and 5.56e-07 over the sweep and the model's shapes; the two
+# differ by summation order only)
+WKV_TOL = (5e-6, 3e-6)
+# the reference test's (L, N, chunk) sweep of the WKV kernel
+WKV_SWEEP = ((32, 8, 8), (64, 16, 16), (128, 64, 64), (64, 32, 64))
+# (r, k, v, w, u) dtypes of the sweep: float32, bfloat16, the model's mix
+WKV_DTYPES = {"f32": ("float32",) * 5, "bf16": ("bfloat16",) * 5,
+              "model": ("bfloat16",) * 3 + ("float32", "bfloat16")}
+WKV_SETS = 3  # input sets of the timed K5 call, each ~470 MB, 9x the L2
+LM_BLOCK_TOL = 1e-4  # lm-block, card vs CPU, relative to max|out|
+# prefill vs teacher-forced decode, max|d| of each layer's output: the
+# reference's own 5e-4 (tests/test_decode_consistency.py, on the logits of
+# the 2-layer reduced config).  At full depth the logits cannot be held: on
+# an H100 (700 W) they differed by 1.18 at max|logit| 5.2 (float32 rounding
+# amplified through 24 random layers) against 7.4 for the dropped-state
+# control, so each layer is held from the same input instead.
+LM_TOL = 5e-4
+# lm-prefill prompts (B, L): L a multiple of the WKV chunk 64
+LM_PREFILL = ((4, 4096), (1, 1024))
+# serve-lm requests: (rid, prompt tokens, priority); 16 new tokens each
+LM_REQUESTS = ((0, 16, 0.0), (1, 64, 0.0), (2, 32, 1.0), (3, 48, 0.0),
+               (4, 24, 2.0), (5, 56, 0.0))
+LM_NEW_TOKENS = 16
 
 
 def log(msg: str) -> None:
@@ -523,10 +581,13 @@ def perturb_zero_init(params, gen, scale: float = 1.0) -> None:
         fill(params["proj_out"])
 
 
-def _to(tree, dev):
+def _cast(tree, **kw):
+    """``Tensor.to(**kw)`` over a tree of dicts and lists."""
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+        return {k: _cast(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, **kw) for v in tree]
+    return tree.to(**kw)
 
 
 def reset_counts() -> None:
@@ -587,7 +648,7 @@ def check_block() -> dict:
                         x, t_emb, pos)
     t_cpu = time.perf_counter() - t0
     dev = torch.device("cuda")
-    lp_d = _to(lp, dev)
+    lp_d = _cast(lp, device=dev)
     before = fm.launch_count()
     with torch.inference_mode():
         out = dit_block(lp_d, cfg, ParallelContext(sp, device=dev),
@@ -1015,6 +1076,425 @@ def layer_breakdown(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# phases 10 to 13: K5 and the rwkv6 language model
+# ---------------------------------------------------------------------------
+
+def wkv_module():
+    """kernels/rwkv6_wkv.py (the package exports its function under the
+    module's name)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.rwkv6_wkv")
+
+
+def rwkv_decays(gen, shape, device):
+    """w = exp(-exp(w0)) with w0 ~ U[-6, -1], RWKV6's decay initialisation
+    range (Finch, arXiv 2404.05892): w in [0.69, 0.998].  The reference's
+    chunk form underflows (ROADMAP F3) only below a mean decay of ~0.25
+    over a chunk of 64, far outside this range."""
+    import torch
+    w0 = torch.rand(shape, generator=gen, device=device) * 5.0 - 6.0
+    return torch.exp(-torch.exp(w0))
+
+
+def wkv_work(b, l, h, n, c, itemsizes):
+    """(FLOPs, bytes) of one WKV call on [B, L, H, N] at chunk c: per
+    chunk and row, the strictly lower att = (r·D₋)(k/D)^T and att·v
+    (2 · c(c-1)/2 · N each), the bonus diagonal and its product (5 c N),
+    (r·D₋)·S and the state's increment (2 · 2 c N²), S's decay (2 N²) and
+    the scalings of r, k and the cumulative sum (3 c N).  Bytes: r, k, v,
+    w read once in their own types (``itemsizes``), u, and o (float32)
+    written once."""
+    per_chunk = (2 * 2 * c * (c - 1) // 2 * n + 5 * c * n
+                 + 2 * 2 * c * n * n + 2 * n * n + 3 * c * n)
+    flops = float(per_chunk) * (l // c) * b * h
+    nbytes = (float(b * l * h * n) * (sum(itemsizes[:4]) + 4)
+              + h * n * itemsizes[4])
+    return flops, nbytes
+
+
+def check_k5(results: dict) -> None:
+    import torch
+    from repro_torch.kernels.ref import rwkv6_wkv_ref
+    wkv = wkv_module()
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def judge(label, got, ref):
+        e = (rel_err(got, ref, floor=0.0), norm_err(got, ref))
+        if not (e[0] <= WKV_TOL[0] and e[1] <= WKV_TOL[1]):
+            fail(f"K5 {label}: max|d|/max|ref| {e[0]}, |d|/|ref| {e[1]} "
+                 f"(limits {WKV_TOL})")
+        return e
+
+    for name, dts in WKV_DTYPES.items():
+        worst = (0.0, 0.0)
+        for l, n, chunk in WKV_SWEEP:
+            shape = (3, l, n)
+            mk = lambda: torch.randn(shape, generator=gen, device="cuda")
+            # the reference test's decays, sigmoid(N(0, 1)) / 2 + 1/2
+            raw = (mk(), mk(), mk(), torch.sigmoid(mk()) * 0.5 + 0.5,
+                   torch.randn((3, n), generator=gen, device="cuda") * 0.1)
+            args = [t.to(getattr(torch, dt)) for t, dt in zip(raw, dts)]
+            got = wkv.rwkv6_wkv(*args, chunk=chunk)
+            ref = rwkv6_wkv_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            e = judge(f"{name} sweep {(l, n, chunk)}", got, ref)
+            worst = tuple(max(a, b) for a, b in zip(worst, e))
+        log(f"k5 {name}: {len(WKV_SWEEP)} sweep shapes, worst max|d|/max|ref| "
+            f"{worst[0]:.2e}, |d|/|ref| {worst[1]:.2e} (limits {WKV_TOL})")
+    # the model's shapes: r, k, v, u bf16 and w f32, [B, L, H, N] read in
+    # place through their strides, the decays of RWKV6's range
+    for b, l in LM_PREFILL + ((2, 256),):
+        h, n = 32, 64
+        mk = lambda: torch.randn((b, l, h, n), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+        r, k, v = mk(), mk(), mk()
+        w = rwkv_decays(gen, (b, l, h, n), "cuda")
+        u = (torch.randn((h, n), generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16)
+        got = wkv.rwkv6_wkv_heads(r, k, v, w, u)
+        ref = wkv.rwkv6_wkv_heads_plain(r, k, v, w, u)
+        torch.cuda.synchronize()
+        e = judge(f"model shape B={b} L={l}", got, ref)
+        err = float((got - ref).abs().max())
+        results.setdefault("k5_err", {})[(b, l)] = err
+        log(f"k5 model shape B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, "
+            f"f32 w in [{float(w.min()):.3f}, {float(w.max()):.4f}]): max|d| "
+            f"{err:.3e} at max|ref| {float(ref.abs().max()):.2f}; "
+            f"max|d|/max|ref| {e[0]:.2e}, |d|/|ref| {e[1]:.2e}")
+        del r, k, v, w, got, ref
+    torch.cuda.empty_cache()
+
+
+def perturb_rwkv(params, gen) -> None:
+    """Draw the rwkv6 tensors that init_lm leaves at zero (in place), from
+    ranges RWKV6 itself initialises them in: the decay base w0 from
+    U[-6, -1] (see rwkv_decays; the LoRA term stays ~0.01, so w stays in
+    about [0.68, 0.998]), every token-shift mix mu_* from U[0, 1], the
+    bonus u from N(0, 0.5^2), wlora_b small.  At init w = 1/e everywhere,
+    the bonus adds nothing and the token shift is unused."""
+    import torch
+    for lp in params["layers"]:
+        tm, cm = lp["tm"], lp["cm"]
+        like = lambda t, x: x.to(device=t.device, dtype=t.dtype)
+        rand = lambda t: torch.rand(t.shape, generator=gen, device=t.device)
+        tm["w0"] = like(tm["w0"], rand(tm["w0"]) * 5.0 - 6.0)
+        for mix in (tm, cm):
+            for name in [k for k in mix if k.startswith("mu_")]:
+                mix[name] = like(mix[name], rand(mix[name]))
+        tm["u"] = like(tm["u"], torch.randn(tm["u"].shape, generator=gen,
+                                            device=tm["u"].device) * 0.5)
+        wb = tm["wlora_b"]["w"]  # [lora, d]
+        tm["wlora_b"]["w"] = like(wb, torch.randn(
+            wb.shape, generator=gen, device=wb.device) * (0.01 / wb.shape[0] ** 0.5))
+
+
+def check_lm_block() -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext, init_lm
+    from repro_torch.models import lm as lm_mod
+    wkv = wkv_module()
+
+    # one layer; the vocab is cut because the block needs no embedding
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=1,
+                              dtype="float32", vocab=256)
+    gen = torch.Generator().manual_seed(11)
+    params = init_lm(cfg, gen, device="cpu")
+    perturb_rwkv(params, gen)
+    lp = params["layers"][0]
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen)
+    sp = SPConfig(strategy="full")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = lm_mod._layer(x, lp, cfg, ParallelContext(sp, device=torch.device("cpu")),
+                            None)[0]
+    t_cpu = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    before = wkv.launch_count()
+    with torch.inference_mode():
+        out = lm_mod._layer(x.to(dev), _cast(lp, device=dev), cfg,
+                            ParallelContext(sp, device=dev), None)[0]
+    torch.cuda.synchronize()
+    launches = wkv.launch_count() - before
+    e = float((out.cpu() - ref).abs().max()) / float(ref.abs().max())
+    h = cfg.ssm.n_ssm_heads
+    log(f"lm-block rwkv6-1.6b d={cfg.d_model} H={h} N={cfg.d_model // h} "
+        f"d_ff={cfg.d_ff} L=1024 "
+        f"fp32: card vs CPU max|d|/max|ref| = {e:.3e} (tol {LM_BLOCK_TOL}), K5 "
+        f"launches {launches}, max|layer-x| {float((ref - x).abs().max()):.3f}, "
+        f"CPU layer {t_cpu:.2f} s")
+    if launches != 1 or not e <= LM_BLOCK_TOL:
+        fail(f"lm-block: err {e} launches {launches}")
+
+
+def lm_prefill(results: dict, card: str):
+    """Returns the bfloat16 model (params, cfg) for serve-lm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext, get_model, init_lm
+    from repro_torch.models import lm as lm_mod
+    wkv = wkv_module()
+
+    cfg = get_config("rwkv6-1.6b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen, device=dev)
+    perturb_rwkv(params, gen)
+    torch.cuda.synchronize()
+    log(f"lm-prefill: rwkv6-1.6b {cfg.n_layers} layers d={cfg.d_model} bf16, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    bundle = get_model(cfg)
+    ctx = ParallelContext(SPConfig(strategy="full"), "prefill", dev)
+    prompts = {bl: torch.randint(0, cfg.vocab, bl, generator=gen, device=dev)
+               for bl in LM_PREFILL}
+
+    def forward(bl):
+        with torch.inference_mode():
+            return bundle.apply(params, {"tokens": prompts[bl]}, cfg, ctx,
+                                last_only=True)
+
+    for bl in LM_PREFILL:  # warm-up (cuBLAS handles, library load)
+        forward(bl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wkv.reset_launch_count()
+    times = {}
+    for bl in LM_PREFILL:
+        t0 = time.perf_counter()
+        logits = forward(bl)
+        torch.cuda.synchronize()
+        times[bl] = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        log(f"lm-prefill B={bl[0]} L={bl[1]}: logits {tuple(logits.shape)} "
+            f"finite={finite}, {times[bl] * 1e3:.1f} ms [{card}]")
+        if tuple(logits.shape) != (bl[0], 1, cfg.vocab) or not finite:
+            fail(f"lm-prefill {bl}: bad logits")
+    launches = wkv.launch_count()
+    other = read_counts()
+    want = cfg.n_layers * len(LM_PREFILL)
+    log(f"lm-prefill: K5 launches {launches} (expected {cfg.n_layers} layers x "
+        f"{len(LM_PREFILL)} forwards = {want}), other kernels {other}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if launches != want or any(other.values()):
+        fail(f"lm-prefill launches: K5 {launches} (want {want}), {other}")
+    results["lm_launches"] = launches
+    results["lm_prefill_s"] = times
+
+    # float32 at B 2, L 256: prefill through K5 against teacher-forced
+    # decode (rwkv6_decode_step, no kernel), layer by layer — each layer's
+    # prefill output against the same layer decoded token by token from the
+    # same input — and end to end on the logits, which is reported only:
+    # 24 random layers amplify float32 rounding ~1e5-fold (see LM_TOL)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _cast(params, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), generator=gen, device=dev)
+    real_layer, real_wkv = lm_mod._layer, lm_mod.rwkv6_wkv_heads
+    seen = []
+
+    def capture(x, lp, cfg_, ctx_, cache):
+        y, nc = real_layer(x, lp, cfg_, ctx_, cache)
+        seen.append((x, y))
+        return y, nc
+
+    def split(r, k, v, w, u, **kw):
+        """K5 on each half of the sequence: the second half starts from
+        S = 0 instead of the state the first half carried."""
+        h = r.shape[1] // 2
+        return torch.cat([real_wkv(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, **kw),
+                          real_wkv(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, **kw)],
+                         dim=1)
+
+    dctx = ParallelContext(SPConfig(strategy="full"), "decode", dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lm_mod._layer = capture
+        try:
+            full = bundle.apply(p32, {"tokens": tokens}, cfg32, ctx)
+        finally:
+            lm_mod._layer = real_layer
+        errs, cut_errs = [], []
+        for (x, y), lp in zip(seen, p32["layers"]):
+            cache = {k: c[0] for k, c in bundle.init_caches(
+                dataclasses.replace(cfg32, n_layers=1), 2, 256, torch.float32,
+                dev).items()}
+            dec = []
+            for t in range(256):
+                out, cache = real_layer(x[:, t:t + 1], lp, cfg32, dctx, cache)
+                dec.append(out)
+            dec = torch.cat(dec, dim=1)
+            errs.append(float((y - dec).abs().max()))
+            lm_mod.rwkv6_wkv_heads = split
+            try:
+                cut = real_layer(x, lp, cfg32, ctx, None)[0]
+            finally:
+                lm_mod.rwkv6_wkv_heads = real_wkv
+            cut_errs.append(float((cut - dec).abs().max()))
+        caches = bundle.init_caches(cfg32, 2, 256, torch.float32, dev)
+        steps = []
+        for t in range(256):
+            logit, caches = bundle.step(p32, {"tokens": tokens[:, t:t + 1]},
+                                        caches, t, cfg32, dctx)
+            steps.append(logit)
+        logits_err = float((full - torch.stack(steps, dim=1)).abs().max())
+    torch.cuda.synchronize()
+    err, cut_err = max(errs), min(cut_errs)
+    log(f"lm-prefill fp32 B=2 L=256, per layer: prefill (K5) vs teacher-forced "
+        f"decode max|d| {err:.3e} (tol {LM_TOL}; by layer "
+        f"{[float(f'{e:.2e}') for e in errs]}) at max|layer out| "
+        f"{max(float(y.abs().max()) for _, y in seen):.2f}; negative control "
+        f"(state dropped at L/2) min over layers {cut_err:.3e} (must exceed "
+        f"{10 * LM_TOL}); end to end, logits max|d| {logits_err:.3e} at "
+        f"max|logit| {float(full.abs().max()):.2f} (reported, not held: depth "
+        f"amplifies rounding); {time.perf_counter() - t0:.1f} s")
+    results["lm_decode_err"] = err
+    if not err <= LM_TOL:
+        fail(f"lm-prefill: prefill vs decode {err} > {LM_TOL}")
+    if not cut_err > 10 * LM_TOL:
+        fail(f"a dropped WKV state passes the lm-prefill check ({cut_err})")
+    del p32, full, seen, steps, caches
+    torch.cuda.empty_cache()
+    return params, cfg
+
+
+def serve_lm(results: dict, card: str, params, cfg) -> None:
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.serving import ARRequest, ARServer, RecordingTracker
+    wkv = wkv_module()
+
+    gen = torch.Generator().manual_seed(13)
+    srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
+                   max_len=128, tracker=RecordingTracker(), device="cuda")
+    for rid, n, prio in LM_REQUESTS:
+        srv.submit(ARRequest(rid=rid, prompt=torch.randint(
+            0, cfg.vocab, (n,), generator=gen), max_new_tokens=LM_NEW_TOKENS,
+            priority=prio))
+    before = wkv.launch_count()
+    t0 = time.perf_counter()
+    out = srv.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = srv.tracker
+    counts = {n: tr.counter_total(f"ar.{n}")
+              for n in ("submitted", "admitted", "ticks", "completed")}
+    waits = {tags["rid"]: st.mean
+             for tags, st in tr.series_items("ar.queue_wait_ticks")}
+    lens = {rid: len(v) for rid, v in sorted(out.items())}
+    log(f"serve-lm: {len(out)} requests, {counts['ticks']:.0f} ticks in "
+        f"{wall:.2f} s ({wall / max(counts['ticks'], 1) * 1e3:.1f} ms per "
+        f"tick of 4 slots), tokens per request {lens}, queue waits (ticks) "
+        f"{waits}, counters {counts}, K5 launches {wkv.launch_count() - before}"
+        f" [{card}]")
+    n = len(LM_REQUESTS)
+    ok = (sorted(out) == [r for r, *_ in LM_REQUESTS]
+          and all(v == LM_NEW_TOKENS for v in lens.values())
+          and all(0 <= t < cfg.vocab for v in out.values() for t in v)
+          and counts["submitted"] == counts["admitted"] == counts["completed"] == n
+          and counts["ticks"] == srv._ticks and len(waits) == n)
+    if not ok:
+        fail(f"serve-lm: results {out}, counters {counts}, waits {waits}")
+    results["serve_lm"] = (wall, counts["ticks"])
+
+
+def k5_numbers(card: str, results: dict) -> dict:
+    """K5 at the main path's largest call: B 4 x L 4096 (BH 128, N 64, chunk
+    64; r, k, v, u bf16, w f32), each timed call on one of WKV_SETS input
+    sets, every one of which is ~9x the L2, so the inputs come from HBM."""
+    import torch
+    wkv = wkv_module()
+
+    b, l, h, n = 4, 4096, 32, 64
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    sets = []
+    for _ in range(WKV_SETS):
+        mk = lambda: torch.randn((b, l, h, n), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+        sets.append((mk(), mk(), mk(), rwkv_decays(gen, (b, l, h, n), "cuda"),
+                     (torch.randn((h, n), generator=gen, device="cuda") * 0.5
+                      ).to(torch.bfloat16)))
+    ms, host = time_call(rotating([lambda a=a: wkv.rwkv6_wkv_heads(*a)
+                                   for a in sets]), reps=20)
+    plain_ms = cuda_ms(rotating([lambda a=a: wkv.rwkv6_wkv_heads_plain(*a)
+                                 for a in sets]), reps=3, warmup=1)
+    flops, nbytes = wkv_work(b, l, h, n, 64, (2, 2, 2, 4, 2))
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BPS
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    steps = ", ".join(f"B {bl[0]} x L {bl[1]} {t * 1e3:.1f} ms"
+                      for bl, t in results["lm_prefill_s"].items())
+    log(f"k5 time B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, f32 w), "
+        f"{WKV_SETS} input sets in turn: {ms:.4f} ms on the device "
+        f"({flops / ms / 1e9:.2f} TFLOP/s f32, {nbytes / (ms * 1e-3) / 1e9:.0f}"
+        f" GB/s; {host:.4f} ms of host time per call); bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP "
+        f"-> {t_ops * 1e3:.4f} ms at 67 TFLOP/s, {nbytes / 1e6:.0f} MB -> "
+        f"{t_bytes * 1e3:.4f} ms at 3.35 TB/s); plain {plain_ms:.3f} ms; no "
+        f"PyTorch call computes the WKV scan; prefill steps: {steps} [{card}]")
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_breakdown(card: str, params, cfg) -> None:
+    """Where one rwkv6-1.6b prefill's time goes (bf16, B 4, L 4096, last
+    position only): traced once by torch.profiler after a warm-up; the
+    host wall clock, the device's busy time and idle share, K5's share and
+    the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext, get_model
+
+    dev = torch.device("cuda")
+    bundle = get_model(cfg)
+    ctx = ParallelContext(SPConfig(strategy="full"), "prefill", dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab, (4, 4096), generator=gen, device=dev)
+    fwd = lambda: bundle.apply(params, {"tokens": tokens}, cfg, ctx,
+                               last_only=True)
+    with torch.inference_mode():
+        fwd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        untraced = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        log(f"lm breakdown: wall {untraced:.1f} ms; the profiler saw no device "
+            "time (device busy share not measured)")
+        return
+    wkv_ms = sum(e.self_device_time_total for e in kernels
+                 if "wkv_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"lm breakdown (rwkv6-1.6b prefill, bf16, B 4, L 4096, last_only): "
+        f"wall {untraced:.1f} ms untraced, {wall:.1f} ms traced; device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / untraced:.3f} of the untraced "
+        f"wall; K5 {wkv_ms:.2f} ms ({wkv_ms / busy:.3f} of busy); top kernels: "
+        + "; ".join(f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.2f} ms" for e in top)
+        + f" [{card}]")
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     from repro_torch.kernels import _build
@@ -1057,6 +1537,7 @@ def main() -> int:
     check_k1(results)
     check_k2(results)
     check_put_kernels(results)
+    check_k5(results)
     check_sp_block(check_block())
     torch.cuda.empty_cache()
 
@@ -1079,12 +1560,20 @@ def main() -> int:
     deg1 = serve(results, card, params, cfg, conds)
     serve_sp(results, card, params, cfg, conds, deg1)
     del params, deg1
+    gc.collect()  # the servers' reference cycles hold the flux weights
     torch.cuda.empty_cache()
+
+    check_lm_block()
+    lm_params, lm_cfg = lm_prefill(results, card)
+    serve_lm(results, card, lm_params, lm_cfg)
 
     k1 = k1_numbers(card)
     k2 = k2_numbers(card)
     puts = put_numbers(card)
     layer_breakdown(card)
+    k5 = k5_numbers(card, results)
+    lm_breakdown(card, lm_params, lm_cfg)
+    del lm_params
 
     main_shape = (48, 4352)
     launches = results["launches"]
@@ -1104,6 +1593,9 @@ def main() -> int:
                    "src/repro/comm/pallas_backend.py:83",
                    launches["landing_copy"], results["put_err"]["landing_copy"],
                    puts["landing_copy"]),
+        kernel_row("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
+                   "src/repro/kernels/rwkv6_wkv.py:81", results["lm_launches"],
+                   results["k5_err"][LM_PREFILL[0]], k5),
     ]
     for row in kernels:
         if row["launches"] <= 0:

@@ -1,10 +1,15 @@
-"""Plain PyTorch oracle for the flash_mqkv kernel (paper Algorithm 2
-semantics) — the plain version of K1.
+"""Plain PyTorch versions of the port's compute kernels.
 
-Same contract as kernels.ops.flash_attention: position-tensor masking
-(k_pos = -1 marks padding), optional carried-in online-softmax state, and
-optional finalization.  It materialises the whole [BH, Lq, Lk] score
-matrix; the CUDA kernel computes the same function tile by tile.
+``flash_attention_ref`` is the plain version of K1 (flash_mqkv, paper
+Algorithm 2 semantics), with the contract of kernels.ops.flash_attention:
+position-tensor masking (k_pos = -1 marks padding), optional carried-in
+online-softmax state, and optional finalization.  It materialises the
+whole [BH, Lq, Lk] score matrix; the CUDA kernel computes the same
+function tile by tile.
+
+``rwkv6_wkv_ref`` is the plain version of K5 (the RWKV6 WKV scan): the
+chunked matmul form of the reference's Pallas kernel, chunk by chunk with
+the [N, N] state carried in float32.
 """
 from __future__ import annotations
 
@@ -59,3 +64,65 @@ def flash_attention_ref(
     # l == 0 only for rows with no visible key: their o is 0, kept as 0
     return (o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
             ).to(q.dtype)
+
+
+# decays are clipped to [WKV_EPS, 1], as in the reference kernel
+WKV_EPS = 1e-6
+WKV_CHUNK = 64
+
+
+def wkv_chunk(l: int, chunk: int) -> int:
+    """The chunk the scan runs at: ``min(chunk, l)``, which must divide l."""
+    if l < 1 or chunk < 1:
+        raise ValueError(f"WKV scan needs L >= 1 and chunk >= 1, got L {l}, "
+                         f"chunk {chunk}")
+    c = min(chunk, l)
+    if l % c:
+        raise ValueError(f"sequence length {l} is not a multiple of the WKV "
+                         f"chunk {c}")
+    return c
+
+
+def rwkv6_wkv_ref(
+    r: torch.Tensor,  # [BH, L, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1]
+    u: torch.Tensor,  # [BH, N] per-head bonus
+    *,
+    chunk: int = WKV_CHUNK,
+) -> torch.Tensor:
+    """o [BH, L, N] (float32) of the recurrence
+
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+        o_t = r_t (S_{t-1} + diag(u) k_t^T v_t),   S_0 = 0,
+
+    in the reference kernel's chunk form: within a chunk of c steps,
+    o = ((r·D₋)(k/D)^T ⊙ tril₋₁) v + diag(r·u·k) v + (r·D₋) S_in with D the
+    inclusive cumulative decay and D₋ the exclusive one, then
+    S = a_c ⊙ S_in + ((k/D) ⊙ a_c)^T v with a_c = D at the chunk's end.
+    Every input may be float32 or bfloat16; the arithmetic is float32."""
+    bh, l, n = r.shape
+    c = wkv_chunk(l, chunk)
+    nc = l // c
+    f = lambda t: t.float().reshape(bh, nc, c, n)
+    rf, kf, vf = f(r), f(k), f(v)
+    logw = torch.log(torch.clamp(f(w), WKV_EPS, 1.0))
+    log_d = torch.cumsum(logw, dim=2)
+    d = torch.exp(log_d)  # [bh, nc, c, n]
+    d_m1 = torch.exp(log_d - logw)
+    r_sc = rf * d_m1
+    k_sc = kf / d
+    att = torch.einsum("bgtn,bgsn->bgts", r_sc, k_sc)
+    att = torch.tril(att, diagonal=-1)
+    diag = (rf * u.float()[:, None, None, :] * kf).sum(dim=-1, keepdim=True)
+    o = torch.einsum("bgts,bgsn->bgtn", att, vf) + diag * vf
+    a_c = d[:, :, -1]  # [bh, nc, n]
+    k_tail = k_sc * a_c[:, :, None, :]
+    s = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    outs = []
+    for g in range(nc):
+        outs.append(o[:, g] + torch.einsum("btn,bnm->btm", r_sc[:, g], s))
+        s = a_c[:, g, :, None] * s + torch.einsum("bsn,bsm->bnm",
+                                                  k_tail[:, g], vf[:, g])
+    return torch.stack(outs, dim=1).reshape(bh, l, n)

@@ -1,0 +1,169 @@
+"""K5: the chunked RWKV6 (Finch) WKV scan — the wrapper of the CUDA kernel
+in ``csrc/rwkv6_wkv.cu`` and its plain PyTorch version.
+
+The recurrence, per (batch, head) row, from S_0 = 0:
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+evaluated chunk by chunk in matmul form over cumulative decays clipped to
+[1e-6, 1] (kernels/ref.py:rwkv6_wkv_ref is the plain version).  It is the
+output of models/ssm.py:rwkv6_chunk_scan with no state carried in.
+
+Two entry points share the kernel:
+
+  * ``rwkv6_wkv`` — the reference's signature, [BH, L, N] and u [BH, N];
+  * ``rwkv6_wkv_heads`` — the model's layout, [B, L, H, N] and u [H, N]:
+    the kernel reads the projections through their strides, so the model
+    makes no transposed copy.
+
+Dispatch is by the device of the tensors, nothing else: CPU tensors run
+the plain version, CUDA tensors launch the kernel or raise on anything it
+does not take, any other device raises.  There is no fallback from the
+kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import WKV_CHUNK, rwkv6_wkv_ref, wkv_chunk
+
+SIZES = (8, 16, 32, 64)  # head sizes N and chunks c the kernel takes
+_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """CUDA kernel launches made by the WKV wrappers since the last reset."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, N] -> [B*H, L, N]"""
+    b, l, h, n = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, l, n)
+
+
+def rwkv6_wkv_heads_plain(r, k, v, w, u, *, chunk: int = WKV_CHUNK):
+    """``rwkv6_wkv_heads`` in plain PyTorch: the [B, L, H, N] layout mapped
+    to the kernel's [BH, L, N] and back."""
+    b, l, h, n = r.shape
+    ub = u.expand(b, h, n).reshape(b * h, n)
+    o = rwkv6_wkv_ref(_flat(r), _flat(k), _flat(v), _flat(w), ub, chunk=chunk)
+    return o.reshape(b, h, l, n).permute(0, 2, 1, 3)
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, r on {device}")
+    if t.dtype not in _BF16:
+        raise TypeError(f"rwkv6_wkv kernel takes float32 or bfloat16, {name} "
+                        f"is {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis")
+
+
+def _bound_library() -> ctypes.CDLL:
+    lib = _build.load("rwkv6_wkv")
+    if lib.rwkv6_wkv_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rwkv6_wkv_fwd.argtypes = [p] * 6 + [i] * 7 + [p, p]
+        lib.rwkv6_wkv_fwd.restype = i
+        lib.rwkv6_wkv_error_string.argtypes = [i]
+        lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(r, k, v, w, u, *, chunk: int) -> torch.Tensor:
+    """The kernel on [B, L, H, N] inputs (any strides with contiguous
+    channels) and u [U, N]: row bh = b * H + h reads u[bh % U].  Returns o
+    [B, L, H, N] float32, contiguous."""
+    global _launches
+    b, l, h, n = r.shape
+    dev = r.device
+    if n not in SIZES:
+        raise ValueError(f"rwkv6_wkv kernel takes head sizes {SIZES}, got {n}")
+    c = wkv_chunk(l, chunk)
+    if c not in SIZES:
+        raise ValueError(f"rwkv6_wkv kernel takes chunks {SIZES}, got "
+                         f"min(chunk, L) = {c}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _check(name, t, (b, l, h, n), dev)
+    if u.dim() != 2 or u.shape[0] < 1:
+        raise ValueError(f"u must be [rows, {n}], got {tuple(u.shape)}")
+    _check("u", u, (u.shape[0], n), dev)
+    u = u.contiguous()
+    o = torch.empty((b, l, h, n), dtype=torch.float32, device=dev)
+    if b * h == 0:
+        return o
+    strides = (ctypes.c_longlong * 15)(*(
+        s for t in (r, k, v, w, o)
+        for s in (t.stride(0), t.stride(2), t.stride(1))))
+    bf16 = sum(_BF16[t.dtype] << i for i, t in enumerate((r, k, v, w, u)))
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _bound_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rwkv6_wkv_fwd(p(r), p(k), p(v), p(w), p(u), p(o), b * h, h,
+                                l, n, c, u.shape[0], bf16, strides,
+                                ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.rwkv6_wkv_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_wkv kernel launch failed: {msg} ({err})")
+    _launches += 1
+    return o
+
+
+def _dispatch(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rwkv6_wkv runs on cpu or cuda, not {x.device}")
+    return x.device.type
+
+
+def rwkv6_wkv(
+    r: torch.Tensor,  # [BH, L, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1]
+    u: torch.Tensor,  # [BH, N] per-head bonus
+    *,
+    chunk: int = WKV_CHUNK,
+) -> torch.Tensor:
+    """Returns o [BH, L, N] (float32)."""
+    if _dispatch(r) == "cpu":
+        return rwkv6_wkv_ref(r, k, v, w, u, chunk=chunk)
+    bh, l, n = r.shape
+    if tuple(u.shape) != (bh, n):
+        raise ValueError(f"u has shape {tuple(u.shape)}, expected {(bh, n)}")
+    o = _launch(*(t[:, :, None] for t in (r, k, v, w)), u, chunk=chunk)
+    return o[:, :, 0]
+
+
+def rwkv6_wkv_heads(
+    r: torch.Tensor,  # [B, L, H, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1]
+    u: torch.Tensor,  # [H, N] per-head bonus
+    *,
+    chunk: int = WKV_CHUNK,
+) -> torch.Tensor:
+    """``rwkv6_wkv`` in the model's layout: returns o [B, L, H, N]
+    (float32), which equals ``rwkv6_chunk_scan(r, k, v, w, u).out``."""
+    if tuple(u.shape) != (r.shape[2], r.shape[3]):
+        raise ValueError(f"u has shape {tuple(u.shape)}, expected "
+                         f"{(r.shape[2], r.shape[3])}")
+    if _dispatch(r) == "cpu":
+        return rwkv6_wkv_heads_plain(r, k, v, w, u, chunk=chunk)
+    return _launch(r, k, v, w, u, chunk=chunk)

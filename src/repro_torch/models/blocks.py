@@ -1,4 +1,5 @@
-"""Transformer building blocks of the DiT (plain functions on tensors).
+"""Transformer building blocks of the DiT and the LM (plain functions on
+tensors).
 
 Conventions, kept from the reference so weights cross over unchanged:
   * params are nested dicts of tensors; linear weights are [d_in, d_out]
@@ -11,8 +12,9 @@ Conventions, kept from the reference so weights cross over unchanged:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +77,31 @@ class ParamBuilder:
         d[keys[-1]] = arr
 
 
+def params_from_numpy(tree: Mapping[str, Any], cfg,
+                      device: str | torch.device | None = None) -> Params:
+    """A reference parameter tree, converted to numpy by the caller, as this
+    package's params: the per-layer leaves the reference stacks on a
+    leading [n_layers] axis are split into one dict per layer; the
+    [d_in, d_out] layout is kept, so nothing is transposed.  Leaves are
+    cast to ``cfg.dtype`` on ``device``."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+
+    def leaf(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
+            device=device, dtype=dtype)
+
+    def convert(node, index=None):
+        if isinstance(node, Mapping):
+            return {k: convert(v, index) for k, v in node.items()}
+        return leaf(node if index is None else np.asarray(node)[index])
+
+    params = {k: convert(v) for k, v in tree.items() if k != "layers"}
+    params["layers"] = [convert(tree["layers"], i)
+                        for i in range(cfg.n_layers)]
+    return params
+
+
 # ---------------------------------------------------------------------------
 # context
 # ---------------------------------------------------------------------------
@@ -94,6 +121,10 @@ class ParallelContext:
     def __post_init__(self):
         if self.mesh is not None:
             object.__setattr__(self, "device", self.mesh.device)
+
+    @property
+    def decode(self) -> bool:
+        return self.mode == "decode"
 
     @property
     def sp_degree(self) -> int:

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +31,7 @@ from .blocks import (
     linear,
     mlp,
     norm,
+    params_from_numpy,
     resolve_device,
     sinusoidal_embedding,
     torch_dtype,
@@ -77,29 +77,10 @@ def init_dit(cfg: ModelConfig, generator: torch.Generator | None = None,
 def load_jax_params(tree: Mapping[str, Any], cfg: ModelConfig,
                     device: str | torch.device | None = None) -> Params:
     """The weight bridge: the reference's ``init_dit`` parameter tree,
-    converted to numpy by the caller, as this package's params.
-
-    The reference stacks the per-layer leaves on a leading [n_layers]
-    axis; they are split into one dict per layer.  The [d_in, d_out]
-    layout is kept, so nothing is transposed.  Leaves are cast to
-    ``cfg.dtype`` on ``device``.
-    """
-    device = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
-
-    def leaf(a) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
-            device=device, dtype=dtype)
-
-    def convert(node, index=None):
-        if isinstance(node, Mapping):
-            return {k: convert(v, index) for k, v in node.items()}
-        return leaf(node if index is None else np.asarray(node)[index])
-
-    params = {k: convert(v) for k, v in tree.items() if k != "layers"}
-    params["layers"] = [convert(tree["layers"], i)
-                        for i in range(cfg.n_layers)]
-    return params
+    converted to numpy by the caller, as this package's params
+    (blocks.params_from_numpy: stacked layers split, nothing transposed,
+    leaves cast to ``cfg.dtype`` on ``device``)."""
+    return params_from_numpy(tree, cfg, device)
 
 
 def _modulate(x, shift, scale):

@@ -1,9 +1,12 @@
-"""DiT serving in PyTorch: engine, sampler, metrics and request scheduler."""
-from .engine import DiTRequest, DiTResult, DiTServer
+"""Serving in PyTorch: the DiT and AR engines, sampler, metrics and request
+scheduler."""
+from .engine import ARRequest, ARServer, DiTRequest, DiTResult, DiTServer, Slot
 from .metrics import JsonlTracker, NullTracker, RecordingTracker, Tracker
 from .sampler import SamplerConfig, sample, sample_step
 
 __all__ = [
+    "ARRequest",
+    "ARServer",
     "DiTRequest",
     "DiTResult",
     "DiTServer",
@@ -11,6 +14,7 @@ __all__ = [
     "NullTracker",
     "RecordingTracker",
     "SamplerConfig",
+    "Slot",
     "Tracker",
     "sample",
     "sample_step",

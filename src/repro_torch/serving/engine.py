@@ -1,4 +1,4 @@
-"""DiT serving engine.
+"""Serving engines: DiT sampling and autoregressive LM decoding.
 
 DiTServer — the paper's scenario: requests ask for an image at a given
 latent sequence length; the SLA-aware request scheduler (serving/sched)
@@ -9,13 +9,17 @@ strategy over a mesh of virtual ranks on one device (launch/mesh.py) —
 the hand-written kernels K1/K2 and the put kernels under
 ``comm_backend="pallas"`` — and results stream back.
 
+ARServer — fixed-slot batched greedy decoding for the language models
+(the ported one is rwkv6-1.6b), with aged-priority slot admission.
+
 Not ported yet: the pipelined (displaced patch) sampler and the span
-profiler (ROADMAP Queue 1 items 5 and 9), and ARServer (item 11).
+profiler (ROADMAP Queue 1 items 5 and 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Callable
 
 import torch
@@ -23,7 +27,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import SPConfig, plan_hybrid
 from ..core.comm_model import NetworkModel
-from ..models import ParallelContext, resolve_device, torch_dtype
+from ..models import ParallelContext, get_model, resolve_device, torch_dtype
 from ..models.dit import COND_TOKENS, LATENT_CHANNELS
 from .metrics import Tracker
 from .sampler import SamplerConfig, sample_step, sync
@@ -35,6 +39,7 @@ from .sched import (
     PlanChoice,
     RequestScheduler,
     SchedConfig,
+    aged_priority,
     steady_t_step,
 )
 
@@ -315,3 +320,144 @@ class DiTServer:
                     continue
             out.extend(self.run_once(flush=True))
         return out
+
+
+# ---------------------------------------------------------------------------
+# AR decode serving (language models)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ARRequest:
+    rid: int
+    prompt: torch.Tensor  # [L_prompt] int
+    max_new_tokens: int = 16
+    priority: float = 0.0  # higher admits sooner; aging bounds starvation
+    submitted: int = 0  # engine tick at submission (stamped by submit())
+
+
+@dataclasses.dataclass
+class Slot:
+    req: ARRequest | None = None
+    pos: int = 0  # next cache index to write
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+
+class ARServer:
+    """Fixed-slot continuous batching over per-slot decode caches, on one
+    device (CUDA unless the caller asks for another; ``params`` must
+    already live there).
+
+    Prefill is teacher-forced decode of the prompt (one engine, one cache
+    layout), as in the reference.  Freed slots are filled by effective
+    priority ``priority + age * aging_rate`` (serving/sched
+    ``aged_priority``) rather than raw FIFO: a request of base priority p
+    is admitted within ``(p_max - p) / aging_rate`` ticks of any fresher
+    competitor.  Ties reduce to FIFO.
+
+    As in the reference, a slot's caches are not reset when a new request
+    takes it, and all slots share one ``cur_index`` per tick; the
+    recurrent model reads no position, so only the first matters to it
+    (ROADMAP Queue 3, F4).  The step runs eagerly under
+    ``torch.inference_mode`` where the reference jits it.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, sp: SPConfig,
+                 batch_slots: int = 4, max_len: int = 256,
+                 cache_dtype: torch.dtype = torch.float32,
+                 aging_rate: float = 0.1, tracker: Tracker | None = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        w = params["embed"]
+        if w.device.type != self.device.type:
+            raise ValueError(f"params are on {w.device}, server on "
+                             f"{self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.ctx = ParallelContext(sp, "decode", self.device)
+        self.bundle = get_model(cfg)
+        self.slots = [Slot() for _ in range(batch_slots)]
+        self.max_len = max_len
+        self.aging_rate = aging_rate
+        self.caches = self.bundle.init_caches(cfg, batch_slots, max_len,
+                                              cache_dtype, self.device)
+        self.queue: deque[ARRequest] = deque()
+        self.results: dict[int, list[int]] = {}
+        self._ticks = 0
+        # metrics sink (DESIGN.md §11): slot admission / completion
+        # counters plus the queue-wait series, same schema as DiTServer
+        self.tracker = tracker if tracker is not None else Tracker()
+
+    def _step(self, params, caches, tokens, cur_index):
+        with torch.inference_mode():
+            logits, caches = self.bundle.step(params, {"tokens": tokens},
+                                              caches, cur_index, self.cfg,
+                                              self.ctx)
+            return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    def submit(self, req: ARRequest) -> None:
+        req.submitted = self._ticks
+        self.queue.append(req)
+        self.tracker.count("ar.submitted")
+
+    def _take_next(self) -> ARRequest:
+        """Pop the waiting request with the highest aged priority (stable:
+        FIFO among equals — max() keeps the first of tied keys)."""
+        best = max(self.queue,
+                   key=lambda r: aged_priority(r.priority,
+                                               self._ticks - r.submitted,
+                                               self.aging_rate))
+        self.queue.remove(best)
+        return best
+
+    def _admit(self) -> None:
+        for s in self.slots:
+            if s.req is None and self.queue:
+                s.req = self._take_next()
+                s.pos = 0
+                s.generated = []
+                self.tracker.count("ar.admitted")
+                self.tracker.log("ar.queue_wait_ticks",
+                                 float(self._ticks - s.req.submitted),
+                                 tags={"rid": s.req.rid})
+
+    def tick(self) -> None:
+        """Advance every active slot one position (slots run in lockstep:
+        the static-batching baseline of the reference)."""
+        self._admit()
+        self._ticks += 1
+        active = [s for s in self.slots if s.req is not None]
+        if not active:
+            return
+        self.tracker.count("ar.ticks")
+        pos = active[0].pos
+        tokens = []
+        for s in self.slots:
+            if s.req is None:
+                tokens.append(0)
+            elif s.pos < len(s.req.prompt):
+                tokens.append(int(s.req.prompt[s.pos]))
+            else:
+                tokens.append(s.generated[-1] if s.generated else 0)
+        tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)[:, None]
+        nxt, self.caches = self._step(self.params, self.caches, tok, pos)
+        nxt = nxt.tolist()
+        for i, s in enumerate(self.slots):
+            if s.req is None:
+                continue
+            s.pos += 1
+            if s.pos >= len(s.req.prompt):
+                s.generated.append(nxt[i])
+            if (len(s.generated) >= s.req.max_new_tokens
+                    or s.pos >= self.max_len - 1):
+                self.results[s.req.rid] = list(s.generated)
+                self.tracker.count("ar.completed")
+                self.tracker.log("ar.request_done", float(len(s.generated)),
+                                 tags={"rid": s.req.rid})
+                s.req = None
+
+    def serve(self, max_ticks: int = 10_000) -> dict[int, list[int]]:
+        t = 0
+        while (self.queue or any(s.req for s in self.slots)) and t < max_ticks:
+            self.tick()
+            t += 1
+        return self.results

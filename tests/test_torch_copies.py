@@ -8,12 +8,14 @@ import pathlib
 import numpy as np
 import pytest
 
+from repro import configs as j_configs
 from repro.core import comm_model as j_cm
 from repro.core import calibration as j_cal
 from repro.core import planner as j_pl
 from repro.core.pipefusion import PipelineConfig as JPipe
 from repro.serving import metrics as j_met
 from repro.serving import sched as j_sched
+from repro_torch import configs as t_configs
 from repro_torch.core import calibration as t_cal
 from repro_torch.core import comm_model as t_cm
 from repro_torch.core import planner as t_pl
@@ -22,7 +24,8 @@ from repro_torch.serving import metrics as t_met
 from repro_torch.serving import sched as t_sched
 
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
-VERBATIM = ["configs/base.py", "configs/flux_12b.py", "core/calibration.py",
+VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
+            "core/calibration.py",
             "serving/metrics.py",
             *(f"serving/sched/{n}.py" for n in (
                 "__init__", "admission", "bucketer", "control", "drift",
@@ -33,6 +36,17 @@ VERBATIM = ["configs/base.py", "configs/flux_12b.py", "core/calibration.py",
 def test_copy_is_verbatim(rel):
     assert ((ROOT / "repro_torch" / rel).read_text()
             == (ROOT / "repro" / rel).read_text())
+
+
+@pytest.mark.parametrize("arch", ["flux-12b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("which", ["get_config", "get_reduced"])
+def test_config_equals_reference(arch, which):
+    """Every field of the port's config, full and reduced, equals the
+    reference's."""
+    assert arch in t_configs.ALL_ARCHS
+    mine = dataclasses.asdict(getattr(t_configs, which)(arch))
+    ref = dataclasses.asdict(getattr(j_configs, which)(arch))
+    assert mine == ref
 
 
 def _asdict(x):

@@ -64,3 +64,12 @@ def test_sp_modules_are_covered():
                  "core.ring", "core.torus", "core.strategy",
                  "kernels.ring_flash"):
         assert f"repro_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("name", [
+    "configs.rwkv6_1_6b", "kernels.rwkv6_wkv", "models.ssm", "models.lm",
+    "models.registry", "serving.engine"])
+def test_rwkv_modules_are_covered(name):
+    """The rwkv6 LM path's modules are among those scanned and imported
+    above."""
+    assert f"repro_torch.{name}" in MODULES

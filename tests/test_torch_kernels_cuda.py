@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1 (flash_mqkv), K2 (ring_flash_step), K3 (remote_put) and K4
-(landing_copy), and the SP schedule that runs them.
+card: K1 (flash_mqkv), K2 (ring_flash_step), K3 (remote_put), K4
+(landing_copy) and K5 (rwkv6_wkv), and the SP schedule that runs them.
 
 Every test here is marked ``needs_cuda`` and skips without a GPU.  The
 file imports neither jax nor the reference package, so it also runs on a
@@ -10,6 +10,8 @@ left out:
     PYTHONPATH=src python -m pytest --noconftest -m needs_cuda \
         tests/test_torch_kernels_cuda.py
 """
+import importlib
+
 import pytest
 import torch
 
@@ -18,7 +20,11 @@ from repro_torch.core import SPConfig, sp_attention
 from repro_torch.kernels import flash_attention, flash_attention_segments
 from repro_torch.kernels import flash_mqkv as fm
 from repro_torch.kernels import ring_flash as rf
+from repro_torch.kernels.ref import rwkv6_wkv_ref
 from repro_torch.launch import make_mesh
+
+# the module (kernels/__init__.py exports its function under the same name)
+wkv = importlib.import_module("repro_torch.kernels.rwkv6_wkv")
 
 
 @pytest.fixture
@@ -238,3 +244,74 @@ def test_cuda_xla_backend_matches_cpu(cuda, strategy):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     assert fm.launch_count() == rf.launch_count() == 0
     assert kb.launch_count("remote_put") == kb.launch_count("landing_copy") == 0
+
+
+def _wkv_inputs(gen, shape, dtypes):
+    """r, k, v, w, u on the card; w = sigmoid(N(0, 1)) / 2 + 1/2, the
+    reference test's decays, in [0.5, 1] (far from the underflow of F3)."""
+    mk = lambda: torch.randn(shape, generator=gen)
+    r, k, v = mk(), mk(), mk()
+    w = torch.sigmoid(mk()) * 0.5 + 0.5
+    u = torch.randn((shape[0], shape[-1]), generator=gen) * 0.1
+    return [t.to(dt).cuda() for t, dt in zip((r, k, v, w, u), dtypes)]
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (r, k, v, w, u) dtypes: all float32, all bfloat16, and the model's mix
+WKV_DTYPES = {"f32": (F32,) * 5, "bf16": (BF16,) * 5,
+              "model": (BF16, BF16, BF16, F32, BF16)}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtypes", list(WKV_DTYPES))
+@pytest.mark.parametrize("l,n,chunk", [(32, 8, 8), (64, 16, 16), (128, 64, 64),
+                                       (64, 32, 64), (256, 64, 64),
+                                       (96, 8, 32), (16, 64, 64)])
+def test_cuda_wkv_matches_plain(cuda, dtypes, l, n, chunk):
+    """K5 against its plain version on the same card tensors: the reference
+    test's (L, N, chunk) sweep, plus several chunks at N 64 and N 8 and a
+    sequence shorter than the chunk.  Both sides compute in float32 from
+    the same inputs, so they differ by summation order only."""
+    gen = torch.Generator().manual_seed(l * n + chunk)
+    r, k, v, w, u = _wkv_inputs(gen, (3, l, n), WKV_DTYPES[dtypes])
+    before = wkv.launch_count()
+    got = wkv.rwkv6_wkv(r, k, v, w, u, chunk=chunk)
+    assert wkv.launch_count() == before + 1
+    want = rwkv6_wkv_ref(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (3, l, n)
+    assert float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max())) <= 2e-4
+
+
+@pytest.mark.needs_cuda
+def test_cuda_wkv_heads_reads_strides(cuda):
+    """The model's [B, L, H, N] entry point on the rwkv6 head shape (H 32,
+    N 64), from views whose batch, time and head strides are not those of a
+    contiguous tensor, against the plain version."""
+    gen = torch.Generator().manual_seed(7)
+    b, l, h, n = 2, 128, 32, 64
+    base = _wkv_inputs(gen, (b * h, l, n), WKV_DTYPES["model"])
+    # [B, H, L, N] storage seen as [B, L, H, N]
+    r, k, v, w = (t.view(b, h, l, n).permute(0, 2, 1, 3) for t in base[:4])
+    u = base[4][:h]
+    got = wkv.rwkv6_wkv_heads(r, k, v, w, u)
+    want = wkv.rwkv6_wkv_heads_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert got.shape == (b, l, h, n) and got.is_contiguous()
+    assert float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max())) <= 2e-4
+
+
+@pytest.mark.needs_cuda
+def test_cuda_wkv_rejects_what_it_does_not_take(cuda):
+    z = lambda *s, dt=F32: torch.zeros(s, device=cuda, dtype=dt)
+    with pytest.raises(ValueError, match="head sizes"):
+        wkv.rwkv6_wkv(*(z(2, 64, 48) for _ in range(4)), z(2, 48))
+    with pytest.raises(ValueError, match="chunks"):
+        wkv.rwkv6_wkv(*(z(2, 24, 16) for _ in range(4)), z(2, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        wkv.rwkv6_wkv(*(z(2, 96, 16) for _ in range(4)), z(2, 16))
+    with pytest.raises(TypeError):
+        wkv.rwkv6_wkv(*(z(2, 64, 16, dt=torch.float16) for _ in range(4)),
+                      z(2, 16))
