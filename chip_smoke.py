@@ -9,7 +9,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  (nvidia-smi), turn TF32 off for the float32 phases.
   2. build     — compile every CUDA source of the port with nvcc (one
                  process per source, all started together) and print
-                 ptxas's report.
+                 ptxas's report, with one line per instantiation of K1/K2's
+                 bf16 Hopper body (registers, spills, dynamic shared
+                 memory); a spill there fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -74,9 +76,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  16-64 prompt tokens and 16 new tokens each, by aged
                  priority; every request completes, every token lies in
                  [0, vocab), the tracker's counters agree.
- 14. numbers   — K1's time per call at the two flux shapes and K2/K3/K4's at
-                 the serve shapes, each beside its bound, its plain version
-                 and one PyTorch call that computes the same function
+ 14. numbers   — K1's time per call at the four flux shapes and at the ring
+                 shapes of the SP path (with TFLOP/s and the share of the
+                 bound), K2/K3/K4's at the serve shapes, each beside its
+                 bound, its plain version (K1 at the flux shapes) and one
+                 PyTorch call that computes the same function
                  (scaled_dot_product_attention, Tensor.copy_; yardsticks the
                  port never calls); one bf16 layer at the serve shape, at
                  degree 1 and under swift_torus, traced by torch.profiler
@@ -383,30 +387,27 @@ def check_k1(results: dict) -> None:
 # phase 4: K2 against K1 and its plain version
 # ---------------------------------------------------------------------------
 
-# (label, BH, Lq, Lk, Lq padded, Lk padded): the ring steps of the serve-sp
-# path (B 2 x 3 heads per Ulysses rank; L 4352 and 1280 over 16 ranks give
-# shards of 272 and 80, gathered Q of 2176 and 640; the ring path pads q
-# and k to its blocks of 128) and the Ulysses-gathered shape of the
-# monolithic strategies
-K2_SHAPES = (("4096 stage0/pull-q", 6, 272, 272, 384, 384),
-             ("4096 pull-kv", 6, 2176, 272, 2176, 384),
-             ("1024 stage0/pull-q", 6, 80, 80, 80, 80),
-             ("1024 pull-kv", 6, 640, 80, 640, 80),
-             ("ulysses-gathered", 6, 2176, 2176, 2176, 2176))
+# (label, BH, Lq, Lk): the ring steps of the serve-sp path (B 2 x 3 heads
+# per Ulysses rank; L 4352 and 1280 over 16 ranks give shards of 272 and
+# 80, gathered Q of 2176 and 640, passed to K1 and K2 unpadded) and the
+# Ulysses-gathered shape of the monolithic strategies
+K2_SHAPES = (("4096 stage0/pull-q", 6, 272, 272),
+             ("4096 pull-kv", 6, 2176, 272),
+             ("1024 stage0/pull-q", 6, 80, 80),
+             ("1024 pull-kv", 6, 640, 80),
+             ("ulysses-gathered", 6, 2176, 2176))
 K2_MAIN = "4096 pull-kv"
+# ring shapes at which K1 is timed too: the SP path launches K1 at each
+SP_K1_SHAPES = K2_SHAPES[:4]
 
 
-def k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad, dtype):
-    """q, k, v and positions as the ring path pads them: q slots past lq
-    hold position 0, k slots past lk hold -1 and garbage."""
+def k2_inputs(gen, bh, lq, lk, dtype):
+    """q, k, v and positions of one ring step: the queries' shard, then a
+    KV chunk of a later shard."""
     import torch
-    q, k, v = k1_inputs(gen, bh, bh, lq_pad, lk_pad, 128, dtype)
-    k[:, lk:] = 999.0
-    v[:, lk:] = 999.0
-    qp = torch.zeros(lq_pad, dtype=torch.int32, device="cuda")
-    qp[:lq] = torch.arange(lq, dtype=torch.int32, device="cuda")
-    kp = torch.full((lk_pad,), -1, dtype=torch.int32, device="cuda")
-    kp[:lk] = torch.arange(lk, dtype=torch.int32, device="cuda") + 272
+    q, k, v = k1_inputs(gen, bh, bh, lq, lk, 128, dtype)
+    qp = torch.arange(lq, dtype=torch.int32, device="cuda")
+    kp = torch.arange(lk, dtype=torch.int32, device="cuda") + 272
     return q, k, v, qp, kp
 
 
@@ -458,9 +459,8 @@ def check_k2(results: dict) -> None:
         log(f"k2 {name}: {2 * len(k1_cases())} sweep cases bitwise equal to "
             f"K1, forwarded chunk bitwise, completion word set; worst rel "
             f"err vs plain {worst:.3e} (tol {TOL[name]})")
-    for label, bh, lq, lk, lq_pad, lk_pad in K2_SHAPES:
-        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad,
-                                    torch.bfloat16)
+    for label, bh, lq, lk in K2_SHAPES:
+        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, torch.bfloat16)
         errs = {}
         for finalize in (True, False):
             epoch += 1
@@ -472,12 +472,10 @@ def check_k2(results: dict) -> None:
                                       scale=128 ** -0.5)
             names = ("o", "l", "m") if finalize else ("o'", "l", "m")
             for n, a, b in list(zip(names, got, ref))[:1 if finalize else 3]:
-                a, b = a[:, :lq], b[:, :lq]
                 errs[n] = (rel_err(a, b, floor=0.0), norm_err(a, b))
             if not finalize and label == K2_MAIN:
-                results["k2_err"] = float(
-                    (got[0][:, :lq] - ref[0][:, :lq]).abs().max())
-        log(f"k2 {label} BH={bh} Lq={lq}({lq_pad}) Lk={lk}({lk_pad}) bf16: "
+                results["k2_err"] = float((got[0] - ref[0]).abs().max())
+        log(f"k2 {label} BH={bh} Lq={lq} Lk={lk} bf16: "
             "bitwise equal to K1; max|d|/max|ref|, |d|/|ref| vs plain: "
             + ", ".join(f"{n} {e[0]:.2e} {e[1]:.2e}" for n, e in errs.items()))
         for n, (e_max, e_norm) in errs.items():
@@ -876,7 +874,25 @@ def _leaves(tree):
 # phase 6: numbers
 # ---------------------------------------------------------------------------
 
+def attention_bound(bh, lq, lk, nbytes) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, FLOP) of one attention call at D 128:
+    4·BH·Lq·Lk·D operations at the bf16 peak against ``nbytes`` at the HBM
+    rate."""
+    flops = 4.0 * bh * lq * lk * 128
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def rate_line(ms, bound_ms, flops) -> str:
+    return (f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound_ms / ms:.1f} % of the bound)")
+
+
 def k1_numbers(card: str) -> dict:
+    """K1 at the flux shapes of degree 1 (one input set: each call is far
+    longer than a pass over the L2) and at the ring shapes of the SP path
+    (ROTATE input sets in turn, so the data comes from HBM)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_mqkv as fm
@@ -893,18 +909,40 @@ def k1_numbers(card: str) -> dict:
         q4, k4, v4 = (t.view(b, 24, l, 128) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
                          reps=20)
-        flops = 4.0 * bh * l * l * 128
-        nbytes = 4.0 * bh * l * 128 * 2  # q, k, v read once, o written once
-        t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        bound_ms = max(t_ops, t_bytes) * 1e3
+        # q, k, v read once, o written once
+        bound_ms, bound_by, flops = attention_bound(bh, l, l,
+                                                    4.0 * bh * l * 128 * 2)
         rows[(bh, l)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
-        log(f"k1 time BH={bh} L={l} D=128 bf16: {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+        plan = fm.tile_plan(bh, l, l, 128)
+        log(f"k1 time BH={bh} L={l} D=128 bf16 (BQ {plan.bq}): "
+            f"{rate_line(ms, bound_ms, flops)}, bound {bound_ms:.4f} ms "
             f"({bound_by}), plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms "
-            f"[{card}]")
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s) [{card}]")
         del q, k, v
+    for label, bh, lq, lk in SP_K1_SHAPES:
+        sets = [k2_inputs(gen, bh, lq, lk, torch.bfloat16)
+                for _ in range(ROTATE)]
+        ms = cuda_ms(rotating([
+            lambda q=q, k=k, v=v, qp=qp, kp=kp: fm.flash_mqkv(
+                q, k, v, qp, kp, finalize=False)
+            for q, k, v, qp, kp in sets]), reps=50)
+        lib_ms = cuda_ms(rotating([
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.view(2, 3, lq, 128), k.view(2, 3, lk, 128),
+                v.view(2, 3, lk, 128))
+            for q, k, v, *_ in sets]), reps=50)
+        # q, k, v read (bf16), o' (f32), l and m written
+        bound_ms, bound_by, flops = attention_bound(
+            bh, lq, lk, 2 * bh * (lq + 2 * lk) * 128 + 4 * bh * lq * 130)
+        rows[label] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        plan = fm.tile_plan(bh, lq, lk, 128)
+        log(f"k1 time {label} BH={bh} Lq={lq} Lk={lk} bf16 unfinalized "
+            f"(BQ {plan.bq}), {ROTATE} input sets in turn: "
+            f"{rate_line(ms, bound_ms, flops)}, bound {bound_ms:.4f} ms "
+            f"({bound_by}), sdpa {lib_ms:.4f} ms [{card}]")
+        del sets
     torch.cuda.empty_cache()
     return rows
 
@@ -916,13 +954,11 @@ def k2_numbers(card: str) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ring_flash as rf
 
-    label, bh, lq, lk, lq_pad, lk_pad = next(
-        c for c in K2_SHAPES if c[0] == K2_MAIN)
+    label, bh, lq, lk = next(c for c in K2_SHAPES if c[0] == K2_MAIN)
     gen = torch.Generator(device="cuda").manual_seed(6)
     sets = []
     for _ in range(ROTATE):
-        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, lq_pad, lk_pad,
-                                    torch.bfloat16)
+        q, k, v, qp, kp = k2_inputs(gen, bh, lq, lk, torch.bfloat16)
         sets.append((q, k, v, qp, kp, torch.empty_like(k), torch.empty_like(v)))
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     arrive = torch.zeros_like(flag)
@@ -936,24 +972,23 @@ def k2_numbers(card: str) -> dict:
         rf.ring_flash_step_plain(q, k, v, qp, kp, k_dst=kd, v_dst=vd,
                                  finalize=False, scale=128 ** -0.5)
         for q, k, v, qp, kp, kd, vd in sets]), reps=5, warmup=1)
-    # SDPA on the unpadded chunk: B 2 x 3 heads
+    # SDPA on the same chunk: B 2 x 3 heads
     lib_ms = cuda_ms(rotating([
         lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-            q[:, :lq].reshape(2, 3, lq, 128), k[:, :lk].reshape(2, 3, lk, 128),
-            v[:, :lk].reshape(2, 3, lk, 128))
+            q.view(2, 3, lq, 128), k.view(2, 3, lk, 128),
+            v.view(2, 3, lk, 128))
         for q, k, v, *_ in sets]), reps=50)
-    flops = 4.0 * bh * lq * lk * 128  # real keys only: padding needs no work
     nbytes = (2 * bh * (lq + 2 * lk) * 128  # q, k, v read once (bf16)
               + 4 * bh * lq * 128 + 8 * bh * lq  # o' (f32), l, m written
               + 2 * 2 * bh * lk * 128)  # forwarded k and v written
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+    bound_ms, bound_by, flops = attention_bound(bh, lq, lk, nbytes)
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"k2 time {label} BH={bh} Lq={lq}({lq_pad}) Lk={lk}({lk_pad}) bf16, "
-        f"{ROTATE} input sets in turn: {ms:.4f} ms on the device ({host:.4f} ms of host time per call), "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms [{card}]")
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"k2 time {label} BH={bh} Lq={lq} Lk={lk} bf16, {ROTATE} input sets "
+        f"in turn: {rate_line(ms, bound_ms, flops)} on the device "
+        f"({host:.4f} ms of host time per call), bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms "
+        f"[{card}]")
     return row
 
 
@@ -1495,9 +1530,33 @@ def lm_breakdown(card: str, params, cfg) -> None:
         + f" [{card}]")
 
 
+def ptxas_report(text: str) -> dict:
+    """{mangled entry: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output."""
+    import re
+    out, entry, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), *spills)
+            entry, spills = None, (0, 0)
+    return out
+
+
 def build_all() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; ptxas's report of the
+    bf16 Hopper body (registers, spills, and the dynamic shared memory it
+    launches with), which must not spill."""
+    import re
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_mqkv as fm
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -1505,9 +1564,24 @@ def build_all() -> None:
     for name, rep in reps.items():
         log(f"build {name}: {rep['seconds']:.1f} s -> {rep['path']}")
         for line in rep["log"].splitlines():
-            if any(w in line for w in ("Compiling entry", "Used", "spill")):
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "arning")):
                 log(f"  {line.strip()}")
     log(f"build total {time.perf_counter() - t0:.1f} s")
+    for name in ("flash_mqkv", "ring_flash"):
+        for entry, (regs, st, ld) in ptxas_report(reps[name]["log"]).items():
+            m = re.search(r"flash_hopper_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          entry)
+            if m is None:
+                continue
+            d, bq = int(m.group(1)), int(m.group(2))
+            smem = fm.smem_bytes(fm.TilePlan(bq, bq, fm.STAGES), d)
+            log(f"ptxas {name} flash_hopper_kernel<D={d}, BQ={bq}, "
+                f"FWD={m.group(3)}>: {regs} registers, {st} + {ld} bytes "
+                f"spilled (stores + loads), {smem} bytes of dynamic shared "
+                f"memory")
+            if st or ld:
+                fail(f"flash_hopper_kernel<{d}, {bq}> spills registers")
 
 
 def kernel_row(name, source, replaces, launches, err, row) -> dict:

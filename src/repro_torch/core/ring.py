@@ -134,32 +134,30 @@ def _ring_attention_kernels(
 ) -> list[Partial]:
     """P_r fused ring steps: kernel-carried (O', l, m) + in-kernel puts.
 
-    The KV chunk circulates in *flattened padded* layout ([B·Hkv, Lk_pad,
-    D], padding masked via k_pos = -1), so a K2 launch writes it straight
-    into the receive buffer of the next ring rank at every step.  Each
-    step allocates fresh receive buffers: the chunk a rank reads in step s
-    is never the buffer another rank writes in step s.
+    The KV chunk circulates in *flattened* layout ([B·Hkv, Lk, D], the
+    shard's own length: the kernels mask ragged edges themselves), so a K2
+    launch writes it straight into the receive buffer of the next ring rank
+    at every step.  Each step allocates fresh receive buffers: the chunk a
+    rank reads in step s is never the buffer another rank writes in step s.
     """
     p_r = layout.p_ring
     ranks = range(len(q))
     b, lq, hq, d = q[0].shape
     lk, hkv = k[0].shape[1], k[0].shape[2]
     group = hq // hkv
-    bq, bk = _ops.ring_blocks(lq, lk)
     dev = q[0].device
     my_r = [layout.coords(p)[1] for p in ranks]
 
-    qf = [_ops.flatten_pad(x, bq) for x in q]
-    qpp = [_ops.pad_pos(q_pos[p] if q_pos is not None
-                        else torch.arange(lq, device=dev), bq, 0)
+    qf = [_ops.flatten_heads(x) for x in q]
+    qpp = [(q_pos[p] if q_pos is not None
+            else torch.arange(lq, device=dev)).to(torch.int32).contiguous()
            for p in ranks]
-    kc = [_ops.flatten_pad(x, bk) for x in k]
-    vc = [_ops.flatten_pad(x, bk) for x in v]
+    kc = [_ops.flatten_heads(x) for x in k]
+    vc = [_ops.flatten_heads(x) for x in v]
 
     def kpos_for(p, owner):
-        base = (k_pos_fn(p, owner) if k_pos_fn is not None
-                else torch.arange(lk, device=dev))
-        return _ops.pad_pos(base, bk, -1)
+        return (k_pos_fn(p, owner) if k_pos_fn is not None
+                else torch.arange(lk, device=dev)).to(torch.int32).contiguous()
 
     stream = Stream("ring", backend="pallas", interpret=interpret)
     heap = heap_for(dev)
@@ -200,10 +198,7 @@ def _ring_attention_kernels(
     out = []
     for p in ranks:
         o, l, m = state[p]
-        part = Partial(
-            o=o.reshape(b, hq, -1, d)[:, :, :lq].transpose(1, 2),
-            l=l.reshape(b, hq, -1)[:, :, :lq],
-            m=m.reshape(b, hq, -1)[:, :, :lq],
-        )
+        part = Partial(o=o.reshape(b, hq, lq, d).transpose(1, 2),
+                       l=l.reshape(b, hq, lq), m=m.reshape(b, hq, lq))
         out.append(part if accum is None else merge(accum[p], part))
     return out

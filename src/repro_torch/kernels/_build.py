@@ -51,10 +51,13 @@ def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its current library exists.
     Returns the wall time of the build (0 when it was already built), the
     library's path and nvcc's output, which holds ptxas's register and
-    shared-memory report."""
+    shared-memory report (kept beside the library, so a library built
+    earlier still reports it)."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.is_file():
-        return {"seconds": 0.0, "log": "", "path": str(out)}
+        text = log.read_text() if log.is_file() else ""
+        return {"seconds": 0.0, "log": text, "path": str(out)}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -63,6 +66,7 @@ def build(name: str) -> dict:
                           text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, out)
     return {"seconds": time.perf_counter() - t0, "log": proc.stdout,
             "path": str(out)}

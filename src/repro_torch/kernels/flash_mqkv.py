@@ -21,6 +21,7 @@ There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -35,7 +36,42 @@ _INT32_MAX = 2**31 - 1
 # ctypes types of flash_mqkv_fwd's arguments before the stream (K2's entry
 # point takes the same ones first)
 ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_int] * 5)
+            + [ctypes.c_int] * 8)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+STAGES = 2  # KV tiles in flight in the bf16 body (csrc/flash_mqkv.cuh, Hop)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Tiles of the bf16 kernel body: ``bq`` query rows per block (64 per
+    consumer warpgroup), ``bk`` keys per KV tile, ``stages`` KV tiles in
+    flight."""
+    bq: int
+    bk: int
+    stages: int
+
+
+def tile_plan(bh: int, lq: int, lk: int, d: int) -> TilePlan:
+    """The bf16 body's tiles for q [bh, lq, d] against lk keys: blocks of
+    128 query rows (two consumer warpgroups) where a grid of them fills the
+    card's SMs, else blocks of 64 rows (one warpgroup; twice the blocks,
+    two to an SM).  A KV tile has as many keys as the block has rows.
+    Neither lk nor d changes the choice: every tile fits in shared memory
+    at every head dim the kernel takes (``smem_bytes``)."""
+    bq = 128 if bh * -(-lq // 128) >= SMS else 64
+    return TilePlan(bq=bq, bk=bq, stages=STAGES)
+
+
+def smem_bytes(plan: TilePlan, d: int) -> int:
+    """Dynamic shared memory of the bf16 body under ``plan`` at head dim
+    ``d`` (``Hop::SMEM`` in csrc/flash_mqkv.cuh): 1024 bytes to align the
+    tiles to the swizzle's period, the Q tile, a K and a V tile per stage,
+    the mbarriers (full and empty for K and for V per stage, one for Q),
+    the k positions per stage and a padding flag per stage."""
+    return (1024 + 2 * d * (plan.bq + 2 * plan.stages * plan.bk)
+            + 8 * (4 * plan.stages + 1) + 4 * plan.stages * plan.bk
+            + 4 * plan.stages)
 
 # kernel launches since the last reset (the port's counterpart of the
 # reference's per-variant trace counter: eager PyTorch has no traces)
@@ -99,8 +135,8 @@ def kernel_args(q, k, v, q_pos, k_pos, *, group, scale, causal, window,
                          f"got {d}")
     if window is not None and not 0 <= window <= _INT32_MAX:
         raise ValueError(f"window {window} out of int32 range")
-    # the bf16 path loads q/k/v rows as 16-byte vectors; everything else
-    # is read element by element
+    # the bf16 path loads q/k/v through TMA (16-byte aligned bases);
+    # everything else is read element by element
     align = 16 if q.dtype == torch.bfloat16 else 4
     check_tensor("q", q, (bh, lq, d), q.dtype, dev, align)
     check_tensor("k", k, (bhkv, lk, d), q.dtype, dev, align)
@@ -117,6 +153,7 @@ def kernel_args(q, k, v, q_pos, k_pos, *, group, scale, causal, window,
     l = torch.empty((bh, lq), dtype=torch.float32, device=dev)
     m = torch.empty((bh, lq), dtype=torch.float32, device=dev)
     null = ctypes.c_void_p(None)
+    plan = tile_plan(bh, lq, lk, d)
     args = (ptr(q), ptr(k), ptr(v), ptr(q_pos), ptr(k_pos),
             *((ptr(t) for t in state) if state is not None
               else (null, null, null)),
@@ -124,7 +161,7 @@ def kernel_args(q, k, v, q_pos, k_pos, *, group, scale, causal, window,
             bh, lq, lk, d, group, _DTYPE_CODE[q.dtype], float(scale),
             int(causal), int(window is not None),
             0 if window is None else int(window), int(state is not None),
-            int(finalize))
+            int(finalize), plan.bq, plan.bk, plan.stages)
     return (o, l, m), args
 
 
@@ -156,6 +193,8 @@ def _bound_library() -> ctypes.CDLL:
         lib.flash_mqkv_fwd.restype = i
         lib.flash_mqkv_error_string.argtypes = [i]
         lib.flash_mqkv_error_string.restype = ctypes.c_char_p
+        lib.flash_mqkv_smem_bytes.argtypes = [i, i]
+        lib.flash_mqkv_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -6,9 +6,10 @@
                                *list* of discontiguous KV chunks, carrying
                                the online-softmax state across kernel calls
                                and finalizing once (Appendix C).
-``ring_blocks`` / ``flatten_pad`` / ``pad_pos`` — the padded flat layout in
-                               which the fused ring path (core/ring.py)
-                               feeds K1 and K2 and circulates KV chunks.
+``flatten_heads``            — the flat [B*H, L, D] layout in which the
+                               fused ring path (core/ring.py) feeds K1 and
+                               K2 and circulates KV chunks, unpadded: the
+                               kernels mask ragged edges themselves.
 
 Lowering is chosen by the tensors' device inside ``flash_mqkv`` (plain
 version on the CPU, the CUDA kernel on the GPU); eager PyTorch has no
@@ -36,7 +37,8 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int, value=0) -> torch.Tensor:
     return torch.cat([x, fill], dim=axis)
 
 
-def _flatten_heads(x: torch.Tensor) -> torch.Tensor:
+def flatten_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> contiguous [B*H, L, D]."""
     b, l, h, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b * h, l, d).contiguous()
 
@@ -51,22 +53,6 @@ def _positions(pos: torch.Tensor | None, n: int,
     if pos is None:
         return torch.arange(n, dtype=torch.int32, device=device)
     return pos.to(device=device, dtype=torch.int32)
-
-
-def ring_blocks(lq: int, lk: int) -> tuple[int, int]:
-    """(block_q, block_k) of the fused ring path: the reference's padding
-    granularity for its block-tiled kernels."""
-    return (min(DEFAULT_BLOCK_Q, max(8, lq)), min(DEFAULT_BLOCK_K, max(8, lk)))
-
-
-def flatten_pad(x: torch.Tensor, block: int) -> torch.Tensor:
-    """[B, L, H, D] -> [B*H, L_pad, D], padded with zeros to ``block``."""
-    return _pad_to(_flatten_heads(x), 1, block)
-
-
-def pad_pos(pos: torch.Tensor, block: int, value: int) -> torch.Tensor:
-    """int32 positions padded to ``block`` (q pads with 0, k with -1)."""
-    return _pad_to(pos.to(torch.int32), 0, block, value=value)
 
 
 def flash_attention(
@@ -88,9 +74,9 @@ def flash_attention(
     group = hq // hkv
     bq = min(block_q, max(8, lq))
     bk = min(block_k, max(8, lk))
-    qf = _pad_to(_flatten_heads(q), 1, bq)
-    kf = _pad_to(_flatten_heads(k), 1, bk)
-    vf = _pad_to(_flatten_heads(v), 1, bk)
+    qf = _pad_to(flatten_heads(q), 1, bq)
+    kf = _pad_to(flatten_heads(k), 1, bk)
+    vf = _pad_to(flatten_heads(v), 1, bk)
     qpp = _pad_to(_positions(q_pos, lq, q.device), 0, bq, value=0)
     kpp = _pad_to(_positions(k_pos, lk, q.device), 0, bk, value=-1)
     o, _, _ = flash_mqkv(qf, kf, vf, qpp, kpp, group=group, scale=scale,
@@ -116,7 +102,7 @@ def flash_attention_segments(
     the very end.  Each segment is ``(k, v, k_pos)``."""
     b, lq, hq, d = q.shape
     bq = min(block_q, max(8, lq))
-    qf = _pad_to(_flatten_heads(q), 1, bq)
+    qf = _pad_to(flatten_heads(q), 1, bq)
     qpp = _pad_to(_positions(q_pos, lq, q.device), 0, bq, value=0)
 
     state = None
@@ -124,8 +110,8 @@ def flash_attention_segments(
         _, lk, hkv, _ = k.shape
         group = hq // hkv
         bk = min(block_k, max(8, lk))
-        kf = _pad_to(_flatten_heads(k), 1, bk)
-        vf = _pad_to(_flatten_heads(v), 1, bk)
+        kf = _pad_to(flatten_heads(k), 1, bk)
+        vf = _pad_to(flatten_heads(v), 1, bk)
         kpp = _pad_to(_positions(k_pos, lk, q.device), 0, bk, value=-1)
         last = i == len(segments) - 1
         out = flash_mqkv(qf, kf, vf, qpp, kpp, group=group, scale=scale,

@@ -7,11 +7,14 @@ The reference (``kernels/ring_flash.py``) starts a *local* DMA of the whole
 after its last compute block; the hop to the next device is a separate
 ppermute.  On Hopper the destination is any preallocated buffer, and the
 ring schedule (core/ring.py) hands in the next ring rank's receive
-buffers, so the kernel's copy is the put itself.  Every block of the grid
-copies its share of the chunk before its attention loop, and the last
-block to finish release-stores ``epoch`` into the completion word
-``flag``.  The attention is K1's kernel body (``csrc/flash_mqkv.cuh``), so
-``(o, l, m)`` equal flash_mqkv's bit for bit.
+buffers, so the kernel's copy is the put itself.  In the bf16 body the
+blocks of each KV head's first q head store the K and V tiles they loaded
+for their attention into the forward buffers, about one tile each (the
+f32 body copies the chunk in a prologue shared by all blocks), and the
+last of those blocks release-stores
+``epoch`` into the completion word ``flag``.  The attention is K1's kernel
+body (``csrc/flash_mqkv.cuh``), so ``(o, l, m)`` equal flash_mqkv's bit
+for bit.
 
 Dispatch is by the device of the tensors, as for K1: CPU tensors run
 ``ring_flash_step_plain``, CUDA tensors launch the kernel or raise.
@@ -62,7 +65,7 @@ def _launch(q, k, v, q_pos, k_pos, *, k_dst, v_dst, flag, arrive, epoch,
     out, args = kernel_args(q, k, v, q_pos, k_pos, **kw)
     for name, t, like in (("k", k, k), ("v", v, k), ("k_dst", k_dst, k),
                           ("v_dst", v_dst, k)):
-        # the chunk is copied as 16-byte vectors
+        # the chunk moves as 16-byte vectors (f32) or TMA tiles (bf16)
         check_tensor(name, t, tuple(like.shape), k.dtype, dev, align=16)
     if (flag is None) != (arrive is None):
         raise ValueError("flag and arrive go together")
@@ -108,7 +111,7 @@ def ring_flash_step(
     k_dst: torch.Tensor | None = None,  # forward buffers, shaped like k / v
     v_dst: torch.Tensor | None = None,
     flag: torch.Tensor | None = None,  # [1] int32 completion word
-    arrive: torch.Tensor | None = None,  # [1] int32 block counter, kept 0
+    arrive: torch.Tensor | None = None,  # [1] int32 counter, kept 0
     epoch: int = 0,
     group: int = 1,
     scale: float | None = None,

@@ -236,3 +236,48 @@ def test_ring_flash_step_writes_into_given_buffers():
     assert kf is kd and vf is vd
     assert torch.equal(kd, k) and torch.equal(vd, v)
     assert rf.launch_count() == 0  # CPU: the plain version
+
+
+# ---------------------------------------------------------------------------
+# the bf16 body's tile plan (csrc/flash_mqkv.cuh runs it only on the card)
+# ---------------------------------------------------------------------------
+
+# (BH, Lq, Lk): the flux shapes at degree 1, the ring steps of the SP path
+# (BH 6; shards of 272 and 80; gathered Q of 2176 and 640), the grid's
+# edge (BH * ceil(Lq / 128) just below, at and above the 132 SMs) and
+# single rows
+PLAN_SHAPES = [(24, 1280, 1280), (48, 1280, 1280), (24, 4352, 4352),
+               (48, 4352, 4352), (6, 272, 272), (6, 2176, 272), (6, 80, 80),
+               (6, 640, 80), (6, 2176, 2176), (131, 128, 64), (132, 128, 64),
+               (66, 129, 300), (1, 1, 1), (1, 1, 65536)]
+
+
+@pytest.mark.parametrize("bh,lq,lk", PLAN_SHAPES)
+def test_tile_plan_fills_the_card(bh, lq, lk):
+    """128-row blocks (two consumer warpgroups) where a grid of them covers
+    the 132 SMs, else 64-row blocks; a KV tile has as many keys as the
+    block has rows, and at least two tiles are in flight."""
+    for d in fm.HEAD_DIMS:
+        plan = fm.tile_plan(bh, lq, lk, d)
+        want = 64 if bh * -(-lq // 128) < fm.SMS else 128
+        assert (plan.bq, plan.bk) == (want, want)
+        assert plan.stages >= 2
+
+
+@pytest.mark.parametrize("d", fm.HEAD_DIMS)
+@pytest.mark.parametrize("bh,lq,lk", PLAN_SHAPES)
+def test_tile_plan_fits_shared_memory(bh, lq, lk, d):
+    """Every plan's tiles fit in the shared memory a block may use on
+    Hopper, at every head dim the kernel takes."""
+    plan = fm.tile_plan(bh, lq, lk, d)
+    assert 0 < fm.smem_bytes(plan, d) <= fm.SMEM_LIMIT
+
+
+def test_smem_bytes_counts_every_buffer():
+    """The formula of Hop::SMEM: alignment slack, Q, K and V per stage,
+    mbarriers, k positions and padding flags per stage."""
+    plan = fm.TilePlan(bq=128, bk=128, stages=2)
+    tiles = 2 * 128 * (128 + 2 * 2 * 128)
+    assert fm.smem_bytes(plan, 128) == 1024 + tiles + 8 * 9 + 4 * 2 * 128 + 8
+    # two 64-row blocks fit on one SM at D 128: the BQ 64 plan's occupancy
+    assert 2 * fm.smem_bytes(fm.TilePlan(64, 64, 2), 128) <= 228 * 1024

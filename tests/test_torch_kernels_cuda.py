@@ -97,7 +97,8 @@ def test_cuda_ops_match_cpu(cuda, dtype, tol):
 def test_cuda_kernel_takes_offset_views(cuda, dtype, tol):
     """Positions and carried state are read element by element, so
     contiguous views 4 bytes past a 16-byte boundary launch as they run on
-    the CPU; so do f32 q/k/v (bf16 q/k/v are loaded as 16-byte vectors)."""
+    the CPU; so do f32 q/k/v (bf16 q/k/v are loaded by TMA, from 16-byte
+    aligned bases)."""
     gen = torch.Generator().manual_seed(3)
     bh, lq, lk, d = 4, 24, 40, 32
     nq, nk = bh * lq * d, bh * lk * d
@@ -157,6 +158,79 @@ def test_cuda_ring_step_is_k1_bitwise(cuda, dtype, d, lq, lk, group, state):
         assert torch.equal(g, w)
     assert torch.equal(kf, k) and torch.equal(vf, v)
     assert int(flag) == 9 and int(arrive) == 0
+
+
+# (BH, group, Lq, Lk) reaching each tile plan of the bf16 body: Lq below
+# the block's rows, Lk not a multiple of the KV tile (the hardware fills
+# the ragged end with zeros) and of at least three tiles (the two-stage
+# ring wraps)
+HOPPER_CASES = {64: (4, 2, 40, 200), 128: (132, 2, 40, 400)}
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("d", fm.HEAD_DIMS)
+@pytest.mark.parametrize("bq", sorted(HOPPER_CASES))
+@pytest.mark.parametrize("causal,window", [(False, None), (True, 50)])
+def test_cuda_hopper_body_edges(cuda, d, bq, causal, window):
+    """The bf16 body under both tile plans at its edges: K1 against the
+    plain version, K2 bitwise equal to K1 with the chunk forwarded whole
+    and the completion word set."""
+    bh, group, lq, lk = HOPPER_CASES[bq]
+    plan = fm.tile_plan(bh, lq, lk, d)
+    assert plan.bq == bq and lq < bq and lk % plan.bk and lk >= 3 * plan.bk
+    gen = torch.Generator(device=cuda).manual_seed(bq + d)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = mk(bh, lq, d), mk(bh // group, lk, d), mk(bh // group, lk, d)
+    qp = torch.arange(lq, dtype=torch.int32, device=cuda) + lk - lq
+    kp = torch.arange(lk, dtype=torch.int32, device=cuda)
+    kw = dict(group=group, causal=causal, window=window, finalize=False)
+    got = fm.flash_mqkv(q, k, v, qp, kp, **kw)
+    want = fm.flash_mqkv_plain(q, k, v, qp, kp, **kw)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) / scale <= 2e-2
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    arrive = torch.zeros_like(flag)
+    out, (kf, vf) = rf.ring_flash_step(q, k, v, qp, kp, flag=flag,
+                                       arrive=arrive, epoch=3, **kw)
+    for g, w in zip(out, got):
+        assert torch.equal(g, w)
+    assert torch.equal(kf, k) and torch.equal(vf, v)
+    assert int(flag) == 3 and int(arrive) == 0
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("group", [2, 4])
+def test_cuda_ring_step_forwards_under_gqa(cuda, group):
+    """Under GQA one block per KV head forwards the chunk: every KV head
+    lands, and over consecutive launches the completion word takes each
+    epoch and the arrive counter is back at 0 after each, so the count of
+    forwarding blocks is right."""
+    gen = torch.Generator(device=cuda).manual_seed(group)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+    bhkv, lq, lk, d = 3, 150, 272, 128
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    arrive = torch.zeros_like(flag)
+    pos = torch.arange(lk, dtype=torch.int32, device=cuda)
+    for epoch in (5, 6, 7):
+        q, k, v = mk(bhkv * group, lq, d), mk(bhkv, lk, d), mk(bhkv, lk, d)
+        kd, vd = torch.zeros_like(k), torch.zeros_like(v)
+        rf.ring_flash_step(q, k, v, pos[:lq], pos, k_dst=kd, v_dst=vd,
+                           flag=flag, arrive=arrive, epoch=epoch,
+                           group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, k) and torch.equal(vd, v)
+        assert int(flag) == epoch and int(arrive) == 0
+
+
+@pytest.mark.needs_cuda
+def test_cuda_smem_bytes_match_the_plan(cuda):
+    """The wrapper's shared-memory formula is the kernel's (Hop::SMEM)."""
+    lib = fm._bound_library()
+    for d in fm.HEAD_DIMS:
+        for bq in (64, 128):
+            plan = fm.TilePlan(bq=bq, bk=bq, stages=fm.STAGES)
+            assert lib.flash_mqkv_smem_bytes(d, bq) == fm.smem_bytes(plan, d)
 
 
 @pytest.mark.needs_cuda

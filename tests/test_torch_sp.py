@@ -232,3 +232,37 @@ def test_one_dropped_kv_chunk_breaks_parity(dit, monkeypatch):
     got = _dit_sp(cfg, params, inputs)
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel > 1e3 * DIT_TOL, rel
+
+
+def test_ring_path_hands_kernels_unpadded_shards(monkeypatch):
+    """The fused ring path gives K1 and K2 the shard's own Lk (136 here,
+    not a multiple of the old 128-row padding) and the real positions,
+    and swift_torus still matches the reference's oracle at SP_TOL."""
+    from repro_torch.core import ring as t_ring
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((1, 1088, h, 32)).astype(np.float32)
+               for h in (8, 4, 4))
+    shapes = []
+
+    def recording(kernel):
+        def call(q_, k_, v_, q_pos, k_pos, **kw):
+            assert q_pos.shape[0] == q_.shape[1]
+            assert k_pos.shape[0] == k_.shape[1] and bool((k_pos >= 0).all())
+            shapes.append((kernel.__name__, q_.shape[1], k_.shape[1]))
+            return kernel(q_, k_, v_, q_pos, k_pos, **kw)
+        return call
+
+    monkeypatch.setattr(t_ring, "flash_mqkv", recording(t_ring.flash_mqkv))
+    monkeypatch.setattr(t_ring, "ring_flash_step",
+                        recording(t_ring.ring_flash_step))
+    got = sp_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                       cfg=_cfg("swift_torus", "pallas"), causal=True,
+                       mesh=make_mesh(*MESH, device="cpu")).numpy()
+    want = np.asarray(j_reference(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), mask=JMask(causal=True)))
+    np.testing.assert_allclose(got, want, rtol=SP_TOL, atol=SP_TOL)
+    names = {name for name, _, _ in shapes}
+    assert names == {"flash_mqkv", "ring_flash_step"}
+    shard = 1088 // 8
+    assert shard % 128 and all(lk == shard for _, _, lk in shapes)
+    assert all(lq % shard == 0 for _, lq, _ in shapes)
