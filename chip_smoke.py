@@ -11,7 +11,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  process per source, all started together) and print
                  ptxas's report, with one line per instantiation of K1/K2's
                  bf16 Hopper body (registers, spills, dynamic shared
-                 memory); a spill there fails the phase.
+                 memory) and one per put kernel K3/K4 (registers, spills,
+                 static and dynamic shared memory, tile plan); a spill in
+                 either fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -26,7 +28,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. k3/k4     — the put kernels on the reference's uneven shapes and on
                  the serve shapes, float32 and bfloat16, over a 16-rank
                  shift and a Ulysses stage perm: bitwise delivery, every
-                 signal word at the put's epoch.
+                 signal word at the put's epoch.  Then the PUT_EDGES cases:
+                 offset views at 2- and 4-byte alignment (nothing written
+                 outside a view), entries of very different sizes and of
+                 sizes no multiple of 16 bytes in one launch, 96 entries,
+                 and three puts back to back on one side stream and one
+                 set of words; every arrive word back at 0.
   6. block     — one flux-12b DiT block at full width (d 3072, 24 x 128
                  heads, d_ff 12288), perturbed weights, L = 1280, float32 on
                  the card through K1, against the same block in float32 on
@@ -78,7 +85,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  [0, vocab), the tracker's counters agree.
  14. numbers   — K1's time per call at the four flux shapes and at the ring
                  shapes of the SP path (with TFLOP/s and the share of the
-                 bound), K2/K3/K4's at the serve shapes, each beside its
+                 bound), K2/K3/K4's at the serve shapes (K3/K4 also at the
+                 1024-latent put, [1, 80, 3, 128]), each beside its
                  bound, its plain version (K1 at the flux shapes) and one
                  PyTorch call that computes the same function
                  (scaled_dot_product_attention, Tensor.copy_; yardsticks the
@@ -104,6 +112,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -114,6 +123,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
+L2_BYTES = 50 * 2**20  # H100 L2 cache
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # K1 vs plain, relative to max|ref|
 # K1 vs plain at the flux shapes, bfloat16, per output:
 # (max|d| / max|ref|, ||d|| / ||ref||), 2-10x the largest seen on an H100
@@ -493,13 +503,120 @@ def check_k2(results: dict) -> None:
 
 UNEVEN_SHAPES = ((3, 5), (7, 3, 2), (1, 13))  # tests/test_comm_backends.py
 SERVE_PUT_SHAPE = (2, 272, 3, 128)  # one rank's Q/K/V/O chunk, 4096 bucket
+SMALL_PUT_SHAPE = (1, 80, 3, 128)  # the same chunk of the 1024 bucket
+# The cases a tiled body can get wrong, each K3 and K4 over a random
+# permutation: (dtype, ranks, shapes of one rank's tensors, (src, dst)
+# element offsets into flat buffers, puts back to back on one side stream
+# and one set of signal and arrive words, with no synchronisation between)
+PUT_EDGES = {
+    # views at 2- and 4-byte alignment, equal mod 16 bytes (bulk body
+    # behind a head) or not (word path)
+    **{f"{dt} offsets ({so}, {do})": (dt, RANKS, (SERVE_PUT_SHAPE,),
+                                      (so, do), 1)
+       for dt, so, do in (("bfloat16", 1, 0), ("bfloat16", 0, 1),
+                          ("bfloat16", 1, 1), ("bfloat16", 2, 0),
+                          ("bfloat16", 2, 2), ("bfloat16", 1, 3),
+                          ("float32", 1, 0), ("float32", 1, 1),
+                          ("float32", 0, 3))},
+    "mixed sizes": ("bfloat16", RANKS, ((13,), SERVE_PUT_SHAPE), (0, 0), 1),
+    "sizes no multiple of 16 B": (
+        "bfloat16", RANKS, ((5, 4099), (7, 3, 2), (1,), SMALL_PUT_SHAPE),
+        (0, 0), 1),
+    "96 entries": ("bfloat16", 48, (SMALL_PUT_SHAPE,) * 2, (0, 0), 1),
+    "three puts back to back": ("bfloat16", RANKS, (SERVE_PUT_SHAPE,) * 2,
+                                (0, 0), 3),
+}
+
+
+def run_put(name, src, dst, perm, signal, arrive, epoch) -> list:
+    """K3 over ``perm`` or K4; returns each source rank's destination."""
+    from repro_torch.comm import kernel_backend as kb
+    if name == "remote_put":
+        kb.remote_put(src, dst, perm, signal=signal, arrive=arrive,
+                      epoch=epoch)
+        return list(perm)
+    kb.landing_copy(src, dst, signal=signal, arrive=arrive, epoch=epoch)
+    return list(range(len(src)))
+
+
+def judge_put(label, src, dst, to, err: float) -> float:
+    """Fails unless every dst[to[r]][i] equals src[r][i] bit for bit;
+    returns err raised to the largest |dst - src| seen."""
+    import torch
+    for r, row in enumerate(src):
+        for i, sent in enumerate(row):
+            got = dst[to[r]][i]
+            err = max(err, float((got.float() - sent.float()).abs().max()))
+            if not torch.equal(got, sent):
+                fail(f"{label}: rank {r} tensor {i} not bitwise")
+    return err
+
+
+def judge_words(label, signal, arrive, epoch) -> None:
+    if not (bool((signal == epoch).all()) and bool((arrive == 0).all())):
+        fail(f"{label}: signal words {signal.tolist()} (want {epoch}), "
+             f"arrive words {arrive.tolist()} (want 0)")
+
+
+def put_words(n):
+    import torch
+    signal = torch.zeros(n, dtype=torch.int32, device="cuda")
+    return signal, torch.zeros_like(signal)
+
+
+def flat_views(flat, off, shapes):
+    """Views of ``shapes`` at element ``off`` of each rank's flat buffers."""
+    return [[f[off:off + math.prod(s)].view(s) for f, s in zip(row, shapes)]
+            for row in flat]
+
+
+def check_put_edges(gen, err: dict) -> int:
+    """Every PUT_EDGES case through K3 and K4: bitwise, no byte outside a
+    destination view written, every signal word at the last put's epoch
+    and every arrive word at 0.  Returns the number of puts."""
+    import random
+    import torch
+
+    n_puts = 0
+    for label, (dt, ranks, shapes, (so, do), puts) in PUT_EDGES.items():
+        dtype = getattr(torch, dt)
+        numels = [math.prod(s) for s in shapes]
+        perm = list(range(ranks))
+        random.Random(ranks).shuffle(perm)
+        for name in ("remote_put", "landing_copy"):
+            sets = []
+            for _ in range(puts):
+                src = flat_views([[torch.randn(n + 8, generator=gen,
+                                               device="cuda").to(dtype)
+                                   for n in numels] for _ in range(ranks)],
+                                 so, shapes)
+                flat = [[torch.full((n + 8,), float("nan"), device="cuda")
+                         .to(dtype) for n in numels] for _ in range(ranks)]
+                sets.append((src, flat, flat_views(flat, do, shapes)))
+            signal, arrive = put_words(ranks * len(shapes))
+            side = torch.cuda.Stream()
+            torch.cuda.synchronize()
+            with torch.cuda.stream(side):
+                tos = [run_put(name, src, dst, perm, signal, arrive, 20 + n)
+                       for n, (src, _, dst) in enumerate(sets)]
+            torch.cuda.synchronize()
+            for (src, flat, dst), to in zip(sets, tos):
+                err[name] = judge_put(f"{name} {label}", src, dst, to,
+                                      err[name])
+                for row in flat:
+                    for f, n in zip(row, numels):
+                        if not (bool(f[:do].isnan().all())
+                                and bool(f[do + n:].isnan().all())):
+                            fail(f"{name} {label}: wrote outside the view")
+            judge_words(f"{name} {label}", signal, arrive, 19 + puts)
+            n_puts += puts
+    return n_puts
 
 
 def check_put_kernels(results: dict) -> None:
     """Bitwise delivery; records the largest |dst - src| each kernel left
     (the kernels line's max_abs_err)."""
     import torch
-    from repro_torch.comm import kernel_backend as kb
     from repro_torch.core.collectives import GroupLayout
 
     layout = GroupLayout(("pod", "model"), P_U, P_R, ulysses_outer=True)
@@ -520,37 +637,23 @@ def check_put_kernels(results: dict) -> None:
                         dst = [[torch.full(shape, float("nan"), device="cuda")
                                 .to(dtype) for _ in range(tensors)]
                                for _ in range(RANKS)]
-                        words = RANKS * tensors
-                        signal = torch.zeros(words, dtype=torch.int32,
-                                             device="cuda")
-                        arrive = torch.zeros_like(signal)
+                        signal, arrive = put_words(RANKS * tensors)
                         epoch = 1000 + n_cases
-                        if name == "remote_put":
-                            kb.remote_put(src, dst, perm, signal=signal,
-                                          arrive=arrive, epoch=epoch)
-                            to = perm
-                        else:
-                            kb.landing_copy(src, dst, signal=signal,
-                                            arrive=arrive, epoch=epoch)
-                            to = list(range(RANKS))
+                        label = f"{name} {dtype} {shape} {perm_name}"
+                        to = run_put(name, src, dst, perm, signal, arrive,
+                                     epoch)
                         torch.cuda.synchronize()
-                        for r in range(RANKS):
-                            for i in range(tensors):
-                                got, sent = dst[to[r]][i], src[r][i]
-                                err[name] = max(err[name], float(
-                                    (got.float() - sent.float()).abs().max()))
-                                if not torch.equal(got, sent):
-                                    fail(f"{name} {dtype} {shape} {perm_name}"
-                                         f": rank {r} tensor {i} not bitwise")
-                        if not (bool((signal == epoch).all())
-                                and bool((arrive == 0).all())):
-                            fail(f"{name} {dtype} {shape} {perm_name}: signal "
-                                 f"words {signal.tolist()} (want {epoch})")
+                        err[name] = judge_put(label, src, dst, to, err[name])
+                        judge_words(label, signal, arrive, epoch)
                         n_cases += 1
     log(f"k3/k4: {n_cases} puts (f32/bf16, shapes {list(UNEVEN_SHAPES)} and "
         f"{SERVE_PUT_SHAPE}, 16-rank shift and Ulysses stage perms, 1 and 2 "
-        "tensors) delivered bitwise, every signal word at its epoch; max "
-        f"|dst - src| {err}")
+        "tensors) delivered bitwise, every signal word at its epoch")
+    n_edges = check_put_edges(gen, err)
+    log(f"k3/k4: {n_edges} more puts delivered bitwise, nothing written "
+        "outside a destination view, every signal word at its epoch and "
+        f"every arrive word at 0: {', '.join(PUT_EDGES)}; max |dst - src| "
+        f"{err}")
 
 
 # ---------------------------------------------------------------------------
@@ -993,56 +1096,66 @@ def k2_numbers(card: str) -> dict:
 
 
 def put_numbers(card: str) -> dict:
-    """K3 and K4 on the largest torus put of the serve-sp path: Pull-KV of
-    the 4096 bucket, K and V of 16 ranks.  Each timed call copies one of
-    ROTATE input sets, so source and destination come from HBM."""
+    """K3 and K4 on the largest torus put of the serve-sp path, Pull-KV of
+    the 4096 bucket (K and V of 16 ranks), and on the same put of the 1024
+    bucket, each beside its plain version and one copy_ of the same bytes.
+    Each timed call copies one of at least ROTATE input sets that together
+    touch four times the L2, so source and destination come from HBM.
+    Returns the kernels line's rows, at the serve shape."""
     import torch
     from repro_torch.comm import kernel_backend as kb
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    sets = []
-    for _ in range(ROTATE):
-        src = [[torch.randn(SERVE_PUT_SHAPE, generator=gen, device="cuda")
-                .to(torch.bfloat16) for _ in range(2)] for _ in range(RANKS)]
-        dst = [[torch.empty_like(t) for t in r] for r in src]
-        flat = torch.cat([t.reshape(-1) for r in src for t in r])
-        sets.append((src, dst, flat, torch.empty_like(flat)))
     perm = [(r + 1) % RANKS for r in range(RANKS)]
-    signal = torch.zeros(2 * RANKS, dtype=torch.int32, device="cuda")
-    arrive = torch.zeros_like(signal)
-    nbytes = sum(t.numel() * t.element_size() for r in sets[0][0] for t in r)
-    lib_ms = cuda_ms(rotating([lambda a=a, b=b: b.copy_(a)
-                               for _, _, a, b in sets]), reps=50)
-    bound_ms = 2 * nbytes / HBM_BPS * 1e3
-    log(f"copy_ of {nbytes / 2**20:.2f} MiB, {ROTATE} sets in turn: "
-        f"{lib_ms:.4f} ms ({2 * nbytes / (lib_ms * 1e-3) / 1e9:.0f} GB/s read "
-        f"+ written), {lib_ms / bound_ms:.3f} x the byte bound {bound_ms:.4f} "
-        f"ms{'' if lib_ms >= bound_ms else ' (BELOW the bound: cached?)'} "
-        f"[{card}]")
+    signal, arrive = put_words(2 * RANKS)
     rows = {}
-    for name in ("remote_put", "landing_copy"):
-        if name == "remote_put":
-            fn = [lambda s=s_, d=d_: kb.remote_put(
-                s, d, perm, signal=signal, arrive=arrive, epoch=1)
-                for s_, d_, *_ in sets]
-            plain = [lambda s=s_, d=d_: kb.remote_put_plain(
-                s, d, perm, signal, 1) for s_, d_, *_ in sets]
-        else:
-            fn = [lambda s=s_, d=d_: kb.landing_copy(
-                s, d, signal=signal, arrive=arrive, epoch=1)
-                for s_, d_, *_ in sets]
-            plain = [lambda s=s_, d=d_: kb.landing_copy_plain(
-                s, d, signal, 1) for s_, d_, *_ in sets]
-        ms, host = time_call(rotating(fn), reps=50)
-        plain_ms = cuda_ms(rotating(plain), reps=20)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by="bytes")
-        log(f"{name} time 16 ranks x 2 x {SERVE_PUT_SHAPE} bf16 "
-            f"({nbytes / 2**20:.2f} MiB), {ROTATE} sets in turn: {ms:.4f} ms "
-            f"on the device ({2 * nbytes / (ms * 1e-3) / 1e9:.0f} GB/s read + "
-            f"written, {ms / lib_ms:.2f} x one copy_; {host:.4f} ms of host "
-            f"time per call), bound {bound_ms:.4f} ms (bytes), plain "
-            f"{plain_ms:.4f} ms, one copy_ {lib_ms:.4f} ms [{card}]")
+    for shape in (SERVE_PUT_SHAPE, SMALL_PUT_SHAPE):
+        nbytes = 2 * RANKS * 2 * math.prod(shape)
+        # as many sets as touch four times the L2 (ROTATE at the serve shape)
+        n_sets = max(ROTATE, -(-4 * L2_BYTES // (2 * nbytes)))
+        sets = []
+        for _ in range(n_sets):
+            src = [[torch.randn(shape, generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2)]
+                   for _ in range(RANKS)]
+            dst = [[torch.empty_like(t) for t in r] for r in src]
+            flat = torch.cat([t.reshape(-1) for r in src for t in r])
+            sets.append((src, dst, flat, torch.empty_like(flat)))
+        lib_ms = cuda_ms(rotating([lambda a=a, b=b: b.copy_(a)
+                                   for _, _, a, b in sets]), reps=50)
+        bound_ms = 2 * nbytes / HBM_BPS * 1e3
+        put = f"16 ranks x 2 x {shape} bf16 ({nbytes / 2**20:.2f} MiB)"
+        log(f"copy_ of {put}, {n_sets} sets in turn: {lib_ms:.4f} ms "
+            f"({2 * nbytes / (lib_ms * 1e-3) / 1e9:.0f} GB/s read + "
+            f"written), {lib_ms / bound_ms:.3f} x the byte bound "
+            f"{bound_ms:.4f} ms"
+            f"{'' if lib_ms >= bound_ms else ' (BELOW the bound: cached?)'} "
+            f"[{card}]")
+        for name in ("remote_put", "landing_copy"):
+            if name == "remote_put":
+                fn = [lambda s=s_, d=d_: kb.remote_put(
+                    s, d, perm, signal=signal, arrive=arrive, epoch=1)
+                    for s_, d_, *_ in sets]
+                plain = [lambda s=s_, d=d_: kb.remote_put_plain(
+                    s, d, perm, signal, 1) for s_, d_, *_ in sets]
+            else:
+                fn = [lambda s=s_, d=d_: kb.landing_copy(
+                    s, d, signal=signal, arrive=arrive, epoch=1)
+                    for s_, d_, *_ in sets]
+                plain = [lambda s=s_, d=d_: kb.landing_copy_plain(
+                    s, d, signal, 1) for s_, d_, *_ in sets]
+            ms, host = time_call(rotating(fn), reps=50)
+            plain_ms = cuda_ms(rotating(plain), reps=20)
+            if shape == SERVE_PUT_SHAPE:
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bound_ms, bound_by="bytes")
+            log(f"{name} time {put}, {n_sets} sets in turn: {ms:.4f} ms on "
+                f"the device ({2 * nbytes / (ms * 1e-3) / 1e9:.0f} GB/s read "
+                f"+ written, {bound_ms / ms:.3f} of the bound, "
+                f"{ms / lib_ms:.2f} x one copy_; {host:.4f} ms of host time "
+                f"per call), bound {bound_ms:.4f} ms (bytes), plain "
+                f"{plain_ms:.4f} ms, one copy_ {lib_ms:.4f} ms [{card}]")
+        del sets
     return rows
 
 
@@ -1531,8 +1644,8 @@ def lm_breakdown(card: str, params, cfg) -> None:
 
 
 def ptxas_report(text: str) -> dict:
-    """{mangled entry: (registers, spill store bytes, spill load bytes)}
-    from nvcc's -Xptxas -v output."""
+    """{mangled entry: (registers, spill store bytes, spill load bytes,
+    static shared-memory bytes)} from nvcc's -Xptxas -v output."""
     import re
     out, entry, spills = {}, None, (0, 0)
     for line in text.splitlines():
@@ -1545,15 +1658,25 @@ def ptxas_report(text: str) -> dict:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            out[entry] = (int(m.group(1)), *spills)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry] = (int(m.group(1)), *spills,
+                          int(smem.group(1)) if smem else 0)
             entry, spills = None, (0, 0)
     return out
+
+
+def source_constants(name: str) -> dict:
+    """The ``constexpr int NAME = value;`` constants of csrc/<name>.cu."""
+    import re
+    text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
 def build_all() -> None:
     """One nvcc per source, all started together; ptxas's report of the
     bf16 Hopper body (registers, spills, and the dynamic shared memory it
-    launches with), which must not spill."""
+    launches with) and of the put kernels K3/K4, none of which may spill."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_mqkv as fm
@@ -1569,7 +1692,7 @@ def build_all() -> None:
                 log(f"  {line.strip()}")
     log(f"build total {time.perf_counter() - t0:.1f} s")
     for name in ("flash_mqkv", "ring_flash"):
-        for entry, (regs, st, ld) in ptxas_report(reps[name]["log"]).items():
+        for entry, (regs, st, ld, _) in ptxas_report(reps[name]["log"]).items():
             m = re.search(r"flash_hopper_kernelILi(\d+)ELi(\d+)ELb([01])E",
                           entry)
             if m is None:
@@ -1582,6 +1705,19 @@ def build_all() -> None:
                 f"memory")
             if st or ld:
                 fail(f"flash_hopper_kernel<{d}, {bq}> spills registers")
+    put = source_constants("one_sided")
+    for entry, (regs, st, ld, smem) in ptxas_report(
+            reps["one_sided"]["log"]).items():
+        kernel = re.search(r"(remote_put|landing_copy)_kernel", entry)
+        if kernel:
+            log(f"ptxas one_sided {kernel.group(0)}: {regs} registers, {st} + "
+                f"{ld} bytes spilled (stores + loads), {smem} bytes of static "
+                f"and {put['STAGES'] * put['TILE']} of dynamic shared memory "
+                f"({put['STAGES']} stages x {put['TILE']} B tiles, "
+                f"{put['THREADS']} threads, {put['BLOCKS_PER_SM']} blocks per "
+                "SM)")
+            if st or ld:
+                fail(f"one_sided {kernel.group(0)} spills registers")
 
 
 def kernel_row(name, source, replaces, launches, err, row) -> dict:

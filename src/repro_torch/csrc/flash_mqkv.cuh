@@ -94,6 +94,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 // The forwarded chunk of a fused ring step (K2): k and v are copied whole
@@ -202,47 +204,6 @@ struct Hop {
 struct Bf16Maps {
   CUtensorMap q, k, v, k_dst, v_dst;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of asynchronous copies in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that is
-// still open after ~2^34 SM cycles (seconds) traps instead of hanging the
-// card, so a broken protocol fails the launch
-__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1LL << 34)) {
-      __trap();
-    }
-  }
-}
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1,

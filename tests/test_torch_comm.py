@@ -83,6 +83,18 @@ def test_put_kernels_reject_what_they_do_not_take():
         kb.landing_copy(many, many, signal=sig, arrive=sig, epoch=1)
 
 
+def test_wrapper_mirrors_the_kernel_constants():
+    """The wrapper's MAX_ENTRIES is the one csrc/one_sided.cu sizes its
+    table by, and the heap's signal rows hold a full launch's words."""
+    import pathlib
+    import re
+    src = (pathlib.Path(kb.__file__).resolve().parents[1] / "csrc"
+           / "one_sided.cu").read_text()
+    found = re.findall(r"constexpr int MAX_ENTRIES = (\d+);", src)
+    assert found == [str(kb.MAX_ENTRIES)]
+    assert kb.SIGNAL_WORDS >= kb.MAX_ENTRIES
+
+
 @pytest.mark.parametrize("p_u,p_r,outer", LAYOUTS)
 def test_routes_equal_reference_tables(p_u, p_r, outer):
     mine = GroupLayout(("pod", "model"), p_u, p_r, ulysses_outer=outer)

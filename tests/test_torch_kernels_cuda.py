@@ -233,37 +233,81 @@ def test_cuda_smem_bytes_match_the_plan(cuda):
             assert lib.flash_mqkv_smem_bytes(d, bq) == fm.smem_bytes(plan, d)
 
 
+SERVE_PUT, SMALL_PUT = (2, 272, 3, 128), (1, 80, 3, 128)
+# case: (dtype, ranks, shapes of one rank's tensors, (src, dst) element
+# offsets into flat buffers, puts back to back on one set of words)
+PUT_CASES = {
+    **{f"{dt}-{'x'.join(map(str, shape))}": (
+        getattr(torch, dt), 16, [shape] * 2, (0, 0), 1)
+       for dt in ("float32", "bfloat16")
+       for shape in ((3, 5), (7, 3, 2), (1, 13), (6, 272, 128))},
+    # views at 2- and 4-byte alignment, equal mod 16 bytes (bulk body
+    # behind a head) or not (word path)
+    **{f"{dt}-offsets-{so}-{do}": (getattr(torch, dt), 8, [SERVE_PUT],
+                                   (so, do), 1)
+       for dt, so, do in (("bfloat16", 1, 0), ("bfloat16", 0, 1),
+                          ("bfloat16", 1, 1), ("bfloat16", 1, 3),
+                          ("bfloat16", 2, 2), ("float32", 1, 0),
+                          ("float32", 1, 1))},
+    "mixed-sizes": (torch.bfloat16, 16, [(13,), SERVE_PUT], (0, 0), 1),
+    "no-multiple-of-16": (torch.bfloat16, 16, [(5, 4099), (3, 1001), (1,)],
+                          (0, 0), 1),
+    "max-entries": (torch.bfloat16, 48, [SMALL_PUT] * 2, (0, 0), 1),
+    "back-to-back": (torch.bfloat16, 16, [SERVE_PUT] * 2, (0, 0), 3),
+}
+
+
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 5), (7, 3, 2), (1, 13), (6, 272, 128)])
-def test_cuda_put_kernels_deliver_bitwise(cuda, dtype, shape):
-    """K3 and K4 deliver every rank's tensors bitwise (uneven shapes, the
-    reference's) and release the expected epoch in every signal word."""
-    ranks, tensors = 16, 2
-    gen = torch.Generator(device=cuda).manual_seed(len(shape))
-    src = [[torch.randn(shape, generator=gen, device=cuda).to(dtype)
-            for _ in range(tensors)] for _ in range(ranks)]
-    perm = [(r + 5) % ranks for r in range(ranks)]
-    words = ranks * tensors
-    for name in ("remote_put", "landing_copy"):
-        dst = [[torch.empty(shape, dtype=dtype, device=cuda)
-                for _ in range(tensors)] for _ in range(ranks)]
-        signal = torch.zeros(words, dtype=torch.int32, device=cuda)
-        arrive = torch.zeros_like(signal)
-        before = kb.launch_count(name)
-        if name == "remote_put":
-            kb.remote_put(src, dst, perm, signal=signal, arrive=arrive,
-                          epoch=3)
-            to = perm
-        else:
-            kb.landing_copy(src, dst, signal=signal, arrive=arrive, epoch=3)
-            to = list(range(ranks))
-        assert kb.launch_count(name) == before + 1
-        torch.cuda.synchronize()
+@pytest.mark.parametrize("name", ["remote_put", "landing_copy"])
+@pytest.mark.parametrize("case", list(PUT_CASES))
+def test_cuda_put_kernels_deliver_bitwise(cuda, name, case):
+    """K3 and K4 deliver every rank's tensors bitwise and release the
+    expected epoch in every signal word, leaving every arrive word at 0:
+    the reference's uneven shapes, offset views (no byte outside a
+    destination view is written), entries of very different sizes and of
+    sizes no multiple of 16 bytes in one launch, MAX_ENTRIES entries, and
+    puts back to back on one side stream and one set of words with rising
+    epochs and no synchronisation between them."""
+    dtype, ranks, shapes, (so, do), puts = PUT_CASES[case]
+    assert ranks * len(shapes) <= kb.MAX_ENTRIES
+    gen = torch.Generator(device=cuda).manual_seed(ranks + len(shapes))
+    perm = [(7 * r + 5) % ranks for r in range(ranks)]
+    assert sorted(perm) == list(range(ranks))
+
+    def views(off, fill):
+        flat = [[fill(s.numel() + 8) for s in map(torch.Size, shapes)]
+                for _ in range(ranks)]
+        return flat, [[f[off:off + f.numel() - 8].view(s)
+                       for f, s in zip(row, shapes)] for row in flat]
+
+    sets = [(views(so, lambda n: torch.randn(n, generator=gen, device=cuda)
+                   .to(dtype))[1],
+             views(do, lambda n: torch.full((n,), float("nan"), device=cuda)
+                   .to(dtype))) for _ in range(puts)]
+    signal = torch.zeros(ranks * len(shapes), dtype=torch.int32, device=cuda)
+    arrive = torch.zeros_like(signal)
+    before = kb.launch_count(name)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        for n, (src, (_, dst)) in enumerate(sets):
+            if name == "remote_put":
+                kb.remote_put(src, dst, perm, signal=signal, arrive=arrive,
+                              epoch=3 + n)
+            else:
+                kb.landing_copy(src, dst, signal=signal, arrive=arrive,
+                                epoch=3 + n)
+    assert kb.launch_count(name) == before + puts
+    torch.cuda.synchronize()
+    to = perm if name == "remote_put" else list(range(ranks))
+    for src, (flat, dst) in sets:
         for r in range(ranks):
-            for i in range(tensors):
-                assert torch.equal(dst[to[r]][i], src[r][i])
-        assert bool((signal == 3).all()) and bool((arrive == 0).all())
+            for i, sent in enumerate(src[r]):
+                assert torch.equal(dst[to[r]][i], sent)
+                f = flat[to[r]][i]
+                assert bool(f[:do].isnan().all())
+                assert bool(f[do + sent.numel():].isnan().all())
+    assert bool((signal == 2 + puts).all()) and bool((arrive == 0).all())
 
 
 @pytest.mark.needs_cuda
