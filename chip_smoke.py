@@ -11,9 +11,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  process per source, all started together) and print
                  ptxas's report, with one line per instantiation of K1/K2's
                  bf16 Hopper body (registers, spills, dynamic shared
-                 memory) and one per put kernel K3/K4 (registers, spills,
-                 static and dynamic shared memory, tile plan); a spill in
-                 either fails the phase.
+                 memory), one per put kernel K3/K4 (registers, spills,
+                 static and dynamic shared memory, tile plan) and one per
+                 instantiation of the WKV kernel K5 (registers, spills,
+                 shared memory at the model's dtypes); a spill in any of
+                 them fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -62,7 +64,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  float32, bfloat16 and the model's mix (r, k, v, u bfloat16,
                  w float32), and the rwkv6-1.6b shapes (H 32, N 64, chunk 64)
                  of the prefill phase, held to WKV_TOL on both the largest
-                 error and the error's norm.
+                 error and the error's norm; and the model's mix at N 64
+                 on the rows that make the wrapper split a row's value
+                 columns over 1, 2 and 4 blocks.
  11. lm-block  — one rwkv6-1.6b layer at full width (d 2048, 32 x 64 heads,
                  d_ff 7168), perturbed weights, L 1024, B 1, float32 on the
                  card through K5 (launched exactly once) against the same
@@ -93,9 +97,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  port never calls); one bf16 layer at the serve shape, at
                  degree 1 and under swift_torus, traced by torch.profiler
                  (host wall clock, device busy time and idle share); K5's
-                 time at B 4 x L 4096 beside its bound and its plain version
-                 (no single PyTorch call computes the WKV scan), and one
-                 traced rwkv6-1.6b prefill.
+                 time at B 4 x L 4096 and B 1 x L 1024 beside its bound (the
+                 operations at the CUDA-core and the TF32 rate, and the
+                 bytes) and its plain version (no single PyTorch call
+                 computes the WKV scan), and one traced rwkv6-1.6b prefill
+                 with K5's share.
 
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
@@ -161,6 +167,7 @@ K2_PER_LAYER = RANKS * CIRCULATIONS * (P_R - 1)
 PUTS_PER_LAYER = 3 * (P_U - 1)
 
 PEAK_F32 = 67e12  # H100 SXM float32 FLOP/s on the CUDA cores (data sheet)
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 # K5 vs plain on the same card tensors, (max|d| / max|ref|, ||d|| / ||ref||):
 # ~5x the largest values the first run saw on an H100 80GB HBM3 at 700 W
 # (9.65e-07 and 5.56e-07 over the sweep and the model's shapes; the two
@@ -171,7 +178,7 @@ WKV_SWEEP = ((32, 8, 8), (64, 16, 16), (128, 64, 64), (64, 32, 64))
 # (r, k, v, w, u) dtypes of the sweep: float32, bfloat16, the model's mix
 WKV_DTYPES = {"f32": ("float32",) * 5, "bf16": ("bfloat16",) * 5,
               "model": ("bfloat16",) * 3 + ("float32", "bfloat16")}
-WKV_SETS = 3  # input sets of the timed K5 call, each ~470 MB, 9x the L2
+WKV_SETS = 3  # input sets of a timed K5 call, at least (~470 MB each at B 4 x L 4096)
 LM_BLOCK_TOL = 1e-4  # lm-block, card vs CPU, relative to max|out|
 # prefill vs teacher-forced decode, max|d| of each layer's output: the
 # reference's own 5e-4 (tests/test_decode_consistency.py, on the logits of
@@ -1293,7 +1300,11 @@ def check_k5(results: dict) -> None:
         log(f"k5 {name}: {len(WKV_SWEEP)} sweep shapes, worst max|d|/max|ref| "
             f"{worst[0]:.2e}, |d|/|ref| {worst[1]:.2e} (limits {WKV_TOL})")
     # the model's shapes: r, k, v, u bf16 and w f32, [B, L, H, N] read in
-    # place through their strides, the decays of RWKV6's range
+    # place through their strides, the decays of RWKV6's range; on an H100
+    # (132 SMs) their 128, 32 and 64 rows make the wrapper split each row's
+    # value columns over 1, 4 and 2 blocks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = set()
     for b, l in LM_PREFILL + ((2, 256),):
         h, n = 32, 64
         mk = lambda: torch.randn((b, l, h, n), generator=gen,
@@ -1308,12 +1319,18 @@ def check_k5(results: dict) -> None:
         e = judge(f"model shape B={b} L={l}", got, ref)
         err = float((got - ref).abs().max())
         results.setdefault("k5_err", {})[(b, l)] = err
-        log(f"k5 model shape B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, "
+        split = wkv.value_split(b * h, n, sms)
+        splits.add(split)
+        log(f"k5 model shape B={b} L={l} H={h} N={n} chunk 64, split {split} "
+            f"(bf16 r/k/v/u, "
             f"f32 w in [{float(w.min()):.3f}, {float(w.max()):.4f}]): max|d| "
             f"{err:.3e} at max|ref| {float(ref.abs().max()):.2f}; "
             f"max|d|/max|ref| {e[0]:.2e}, |d|/|ref| {e[1]:.2e}")
         del r, k, v, w, got, ref
     torch.cuda.empty_cache()
+    if sms >= 128 and splits != set(wkv.SPLITS):
+        fail(f"K5 model shapes covered the value-column splits {splits}, "
+             f"not {wkv.SPLITS}")
 
 
 def perturb_rwkv(params, gen) -> None:
@@ -1554,43 +1571,59 @@ def serve_lm(results: dict, card: str, params, cfg) -> None:
 
 
 def k5_numbers(card: str, results: dict) -> dict:
-    """K5 at the main path's largest call: B 4 x L 4096 (BH 128, N 64, chunk
-    64; r, k, v, u bf16, w f32), each timed call on one of WKV_SETS input
-    sets, every one of which is ~9x the L2, so the inputs come from HBM."""
+    """K5 at the main path's two prefill calls, B 4 x L 4096 (BH 128) and
+    B 1 x L 1024 (BH 32) (N 64, chunk 64; r, k, v, u bf16, w f32), each
+    timed call on one of at least WKV_SETS input sets that together touch
+    4x the L2 or more, so the inputs come from HBM.  The bound is the
+    larger of the bytes and the operations at the TF32 tensor-core rate
+    (the products run there); the operations at the CUDA-core float32 rate
+    are printed beside them.  Returns the B 4 x L 4096 row."""
     import torch
     wkv = wkv_module()
 
-    b, l, h, n = 4, 4096, 32, 64
+    h, n = 32, 64
     gen = torch.Generator(device="cuda").manual_seed(14)
-    sets = []
-    for _ in range(WKV_SETS):
-        mk = lambda: torch.randn((b, l, h, n), generator=gen,
-                                 device="cuda").to(torch.bfloat16)
-        sets.append((mk(), mk(), mk(), rwkv_decays(gen, (b, l, h, n), "cuda"),
-                     (torch.randn((h, n), generator=gen, device="cuda") * 0.5
-                      ).to(torch.bfloat16)))
-    ms, host = time_call(rotating([lambda a=a: wkv.rwkv6_wkv_heads(*a)
-                                   for a in sets]), reps=20)
-    plain_ms = cuda_ms(rotating([lambda a=a: wkv.rwkv6_wkv_heads_plain(*a)
-                                 for a in sets]), reps=3, warmup=1)
-    flops, nbytes = wkv_work(b, l, h, n, 64, (2, 2, 2, 4, 2))
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BPS
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for b, l in LM_PREFILL:
+        flops, nbytes = wkv_work(b, l, h, n, 64, (2, 2, 2, 4, 2))
+        sets = []
+        for _ in range(max(WKV_SETS, math.ceil(4 * L2_BYTES / nbytes))):
+            mk = lambda: torch.randn((b, l, h, n), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+            sets.append((mk(), mk(), mk(),
+                         rwkv_decays(gen, (b, l, h, n), "cuda"),
+                         (torch.randn((h, n), generator=gen, device="cuda")
+                          * 0.5).to(torch.bfloat16)))
+        ms, host = time_call(rotating([lambda a=a: wkv.rwkv6_wkv_heads(*a)
+                                       for a in sets]), reps=20)
+        plain_ms = cuda_ms(rotating([lambda a=a: wkv.rwkv6_wkv_heads_plain(*a)
+                                     for a in sets]), reps=3, warmup=1)
+        t_f32, t_tf32, t_bytes = (flops / PEAK_F32, flops / PEAK_TF32,
+                                  nbytes / HBM_BPS)
+        bound = max(t_tf32, t_bytes)
+        rows[(b, l)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                            bound_ms=bound * 1e3,
+                            bound_by="operations" if t_tf32 >= t_bytes
+                            else "bytes")
+        log(f"k5 time B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, f32 w; "
+            f"split {wkv.value_split(b * h, n, sms)} on {sms} SMs), "
+            f"{len(sets)} input sets in turn: {ms:.4f} ms on the device "
+            f"({flops / ms / 1e9:.2f} TFLOP/s, {nbytes / (ms * 1e-3) / 1e9:.0f}"
+            f" GB/s; {host:.4f} ms of host time per call); bound "
+            f"{bound * 1e3:.4f} ms ({rows[(b, l)]['bound_by']}), "
+            f"{bound / (ms * 1e-3):.2f} of it reached; terms: "
+            f"{flops / 1e9:.2f} GFLOP -> {t_f32 * 1e3:.4f} ms at 67 TFLOP/s "
+            f"on the CUDA cores, {t_tf32 * 1e3:.4f} ms at 495 TFLOP/s TF32 "
+            f"(at most {3 * t_tf32 * 1e3:.4f} ms as 3xTF32), {nbytes / 1e6:.0f} MB -> "
+            f"{t_bytes * 1e3:.4f} ms at 3.35 TB/s; plain {plain_ms:.3f} ms; no "
+            f"PyTorch call computes the WKV scan [{card}]")
+        del sets
+        torch.cuda.empty_cache()
     steps = ", ".join(f"B {bl[0]} x L {bl[1]} {t * 1e3:.1f} ms"
                       for bl, t in results["lm_prefill_s"].items())
-    log(f"k5 time B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, f32 w), "
-        f"{WKV_SETS} input sets in turn: {ms:.4f} ms on the device "
-        f"({flops / ms / 1e9:.2f} TFLOP/s f32, {nbytes / (ms * 1e-3) / 1e9:.0f}"
-        f" GB/s; {host:.4f} ms of host time per call); bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP "
-        f"-> {t_ops * 1e3:.4f} ms at 67 TFLOP/s, {nbytes / 1e6:.0f} MB -> "
-        f"{t_bytes * 1e3:.4f} ms at 3.35 TB/s); plain {plain_ms:.3f} ms; no "
-        f"PyTorch call computes the WKV scan; prefill steps: {steps} [{card}]")
-    del sets
-    torch.cuda.empty_cache()
-    return row
+    log(f"k5: rwkv6-1.6b prefill wall clock: {steps} [{card}]")
+    return rows[LM_PREFILL[0]]
 
 
 def lm_breakdown(card: str, params, cfg) -> None:
@@ -1676,7 +1709,8 @@ def source_constants(name: str) -> dict:
 def build_all() -> None:
     """One nvcc per source, all started together; ptxas's report of the
     bf16 Hopper body (registers, spills, and the dynamic shared memory it
-    launches with) and of the put kernels K3/K4, none of which may spill."""
+    launches with), of the put kernels K3/K4 and of every instantiation of
+    K5, none of which may spill."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_mqkv as fm
@@ -1718,6 +1752,20 @@ def build_all() -> None:
                 "SM)")
             if st or ld:
                 fail(f"one_sided {kernel.group(0)} spills registers")
+    wkv = wkv_module()
+    for entry, (regs, st, ld, _) in ptxas_report(
+            reps["rwkv6_wkv"]["log"]).items():
+        m = re.search(r"wkv_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+        if m is None:
+            continue
+        c, n, tv = (int(x) for x in m.groups())
+        plan = wkv.smem_plan(c, n, n // tv, bf16=0b0111)
+        log(f"ptxas rwkv6_wkv wkv_kernel<C={c}, N={n}, TV={tv}>: {regs} "
+            f"registers, {st} + {ld} bytes spilled (stores + loads), "
+            f"{plan['bytes']} bytes of dynamic shared memory at the model's "
+            f"dtypes ({plan['stages']} TMA stages)")
+        if st or ld:
+            fail(f"rwkv6_wkv wkv_kernel<{c}, {n}, {tv}> spills registers")
 
 
 def kernel_row(name, source, replaces, launches, err, row) -> dict:

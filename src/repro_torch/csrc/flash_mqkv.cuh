@@ -95,6 +95,7 @@
 #include <string.h>
 
 #include "mbarrier.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -891,32 +892,6 @@ struct Args {
   Forward fwd;  // read only by the FWD instantiations
   cudaStream_t stream;
 };
-
-// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A tensor map over a row-major bf16 [heads, rows, d] tensor whose box is
 // `box_rows` rows of one column block of `rowb` bytes, swizzled over

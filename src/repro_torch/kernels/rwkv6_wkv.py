@@ -20,7 +20,10 @@ Two entry points share the kernel:
 Dispatch is by the device of the tensors, nothing else: CPU tensors run
 the plain version, CUDA tensors launch the kernel or raise on anything it
 does not take, any other device raises.  There is no fallback from the
-kernel to the plain version.
+kernel to the plain version.  The kernel loads r, k, v and w with TMA, so
+each needs a 16-byte aligned base and byte strides that are multiples of
+16 (the model's projections are); a view that is not raises ValueError,
+and the kernel never copies one quietly.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from . import _build
 from .ref import WKV_CHUNK, rwkv6_wkv_ref, wkv_chunk
 
 SIZES = (8, 16, 32, 64)  # head sizes N and chunks c the kernel takes
+SPLITS = (1, 2, 4)  # blocks of value columns per row the kernel takes
+MIN_SPLIT_COLUMNS = 16  # value columns of a block when a row is split
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 _launches = 0
@@ -74,21 +79,63 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
         raise ValueError(f"{name} must be contiguous along its last axis")
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """TMA's terms for a [B, L, H, N] input: a 16-byte aligned base, and
+    byte strides of the batch, time and head axes (those of extent > 1)
+    that are multiples of 16."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(d) * es % 16
+                                for d in range(3) if t.shape[d] > 1):
+        raise ValueError(
+            f"rwkv6_wkv kernel loads {name} with TMA, which needs a 16-byte "
+            f"aligned base and strides of 16-byte multiples; got "
+            f"{name}.data_ptr() % 16 = {t.data_ptr() % 16}, byte strides "
+            f"{tuple(s * es for s in t.stride())} (pass .contiguous())")
+
+
+def value_split(bh: int, n: int, sms: int) -> int:
+    """Blocks over which the kernel splits a row's N value columns: the
+    largest of SPLITS that keeps N / split >= MIN_SPLIT_COLUMNS and the
+    BH x split blocks (one per SM) within one wave of ``sms`` SMs.  Each
+    block recomputes the chunk's decays and att, which the tensor cores
+    make cheap, so few rows (B 1 x L 1024: 32) still fill the card."""
+    split = 1
+    while (2 * split in SPLITS and n // (2 * split) >= MIN_SPLIT_COLUMNS
+           and bh * 2 * split <= sms):
+        split *= 2
+    return split
+
+
 def _bound_library() -> ctypes.CDLL:
     lib = _build.load("rwkv6_wkv")
     if lib.rwkv6_wkv_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv6_wkv_fwd.argtypes = [p] * 6 + [i] * 7 + [p, p]
+        lib.rwkv6_wkv_fwd.argtypes = [p] * 6 + [i] * 8 + [p, p]
         lib.rwkv6_wkv_fwd.restype = i
+        lib.rwkv6_wkv_smem.argtypes = [i] * 4 + [p]
+        lib.rwkv6_wkv_smem.restype = i
         lib.rwkv6_wkv_error_string.argtypes = [i]
         lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def smem_plan(chunk: int, n: int, split: int, bf16: int) -> dict:
+    """The kernel's dynamic shared memory per block ("bytes") and its ring
+    of TMA stages ("stages") at (chunk, N, split), for the input dtypes
+    ``bf16`` (bit 0 r, 1 k, 2 v, 3 w set where that input is bfloat16), as
+    the library computes them at launch; 0 and 0 for a shape it does not
+    take."""
+    lib = _bound_library()
+    stages = ctypes.c_int(0)
+    nbytes = lib.rwkv6_wkv_smem(chunk, n, split, bf16, ctypes.byref(stages))
+    return {"bytes": nbytes, "stages": stages.value}
+
+
 def _launch(r, k, v, w, u, *, chunk: int) -> torch.Tensor:
-    """The kernel on [B, L, H, N] inputs (any strides with contiguous
-    channels) and u [U, N]: row bh = b * H + h reads u[bh % U].  Returns o
-    [B, L, H, N] float32, contiguous."""
+    """The kernel on [B, L, H, N] inputs (contiguous channels, strides and
+    base TMA can load: see _check_aligned) and u [U, N]: row bh = b * H + h
+    reads u[bh % U].  Each row's value columns go to value_split(...)
+    blocks.  Returns o [B, L, H, N] float32, contiguous."""
     global _launches
     b, l, h, n = r.shape
     dev = r.device
@@ -100,6 +147,7 @@ def _launch(r, k, v, w, u, *, chunk: int) -> torch.Tensor:
                          f"min(chunk, L) = {c}")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _check(name, t, (b, l, h, n), dev)
+        _check_aligned(name, t)
     if u.dim() != 2 or u.shape[0] < 1:
         raise ValueError(f"u must be [rows, {n}], got {tuple(u.shape)}")
     _check("u", u, (u.shape[0], n), dev)
@@ -112,11 +160,13 @@ def _launch(r, k, v, w, u, *, chunk: int) -> torch.Tensor:
         for s in (t.stride(0), t.stride(2), t.stride(1))))
     bf16 = sum(_BF16[t.dtype] << i for i, t in enumerate((r, k, v, w, u)))
     p = lambda t: ctypes.c_void_p(t.data_ptr())
+    split = value_split(b * h, n,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _bound_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rwkv6_wkv_fwd(p(r), p(k), p(v), p(w), p(u), p(o), b * h, h,
-                                l, n, c, u.shape[0], bf16, strides,
+                                l, n, c, u.shape[0], bf16, split, strides,
                                 ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.rwkv6_wkv_error_string(err).decode()

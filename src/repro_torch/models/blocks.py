@@ -110,17 +110,19 @@ def params_from_numpy(tree: Mapping[str, Any], cfg,
 class ParallelContext:
     """How a model runs: SP strategy, mode, device and the mesh of virtual
     ranks attention is spread over (launch/mesh.py).  Without a mesh the
-    model runs as on a 1-rank mesh on ``device``; with one, ``device`` is
-    the mesh's."""
+    model runs as on a 1-rank mesh on ``device``, which defaults to CUDA
+    (and raises without it: pass device="cpu" for the plain path); with
+    one, ``device`` is the mesh's."""
 
     sp: SPConfig
     mode: str = "prefill"  # train | prefill | decode
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str | None = None
     mesh: Any = None  # launch.mesh.Mesh | None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            object.__setattr__(self, "device", self.mesh.device)
+        device = (self.mesh.device if self.mesh is not None
+                  else resolve_device(self.device))
+        object.__setattr__(self, "device", device)
 
     @property
     def decode(self) -> bool:

@@ -422,6 +422,61 @@ def test_cuda_wkv_heads_reads_strides(cuda):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("bh", [32, 128])
+@pytest.mark.parametrize("split", wkv.SPLITS)
+def test_cuda_wkv_value_splits(cuda, monkeypatch, bh, split):
+    """Each split of a row's 64 value columns over blocks that the wrapper
+    can choose, at the rwkv6 head shape (H 32, N 64) in the model's dtypes,
+    at 32 rows (B 1, where it picks 4 on an H100) and 128 (B 4, where it
+    picks 1), against the plain version."""
+    monkeypatch.setattr(wkv, "value_split", lambda bh_, n_, sms_: split)
+    gen = torch.Generator().manual_seed(bh + split)
+    b, l, h, n = bh // 32, 256, 32, 64
+    r, k, v, w, u = _wkv_inputs(gen, (b, l, h, n), WKV_DTYPES["model"])
+    u = u[0].expand(h, n).contiguous()
+    before = wkv.launch_count()
+    got = wkv.rwkv6_wkv_heads(r, k, v, w, u)
+    assert wkv.launch_count() == before + 1
+    want = wkv.rwkv6_wkv_heads_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max())) <= 2e-4
+
+
+@pytest.mark.needs_cuda
+def test_cuda_wkv_model_shape_b1_l1024(cuda):
+    """The B 1 x L 1024 rwkv6-1.6b prefill call (32 rows, 16 chunks of 64)
+    in the model's dtypes against the plain version."""
+    gen = torch.Generator().manual_seed(1024)
+    b, l, h, n = 1, 1024, 32, 64
+    r, k, v, w, _ = _wkv_inputs(gen, (b, l, h, n), WKV_DTYPES["model"])
+    u = (torch.randn((h, n), generator=gen) * 0.5).to(BF16).cuda()
+    got = wkv.rwkv6_wkv_heads(r, k, v, w, u)
+    want = wkv.rwkv6_wkv_heads_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max())) <= 2e-4
+
+
+@pytest.mark.needs_cuda
+def test_cuda_wkv_rejects_misaligned_views(cuda):
+    """The kernel loads r, k, v, w with TMA: a base address off 16 bytes,
+    or a stride that is no multiple of 16 bytes, raises ValueError (the
+    kernel does not copy)."""
+    b, l, h, n = 1, 64, 2, 16
+    ok = lambda: torch.zeros((b, l, h, n), device=cuda, dtype=BF16)
+    u = torch.zeros((h, n), device=cuda, dtype=BF16)
+    shifted = torch.zeros(b * l * h * n + 1, device=cuda,
+                          dtype=BF16)[1:].view(b, l, h, n)
+    wide = torch.zeros((b, l, h, n + 1), device=cuda, dtype=BF16)[..., :n]
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            wkv.rwkv6_wkv_heads(ok(), ok(), bad, ok(), u)
+    wkv.rwkv6_wkv_heads(ok(), ok(), ok(), ok().float() + 0.5, u)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.needs_cuda
 def test_cuda_wkv_rejects_what_it_does_not_take(cuda):
     z = lambda *s, dt=F32: torch.zeros(s, device=cuda, dtype=dt)
     with pytest.raises(ValueError, match="head sizes"):

@@ -15,6 +15,7 @@ decay of about 0.25 or less over a chunk of 64.  Prompts are 128 tokens,
 two chunks of 64, so that the state carried between chunks is exercised.
 """
 import dataclasses
+import pathlib
 import importlib
 
 import jax
@@ -124,6 +125,24 @@ def test_wkv_wrapper_dispatch_and_checks():
         rwkv6_wkv(r, k, v, w, u)  # c = 64 does not divide 96
     with pytest.raises(ValueError, match="u has shape"):
         rwkv6_wkv_heads(*(t[None] for t in (r, k, v, w)), u[:1])
+
+
+@pytest.mark.parametrize("bh,n,sms,split", [
+    (128, 64, 132, 1),   # B 4 x L 4096 on an H100: 128 blocks fill it
+    (32, 64, 132, 4),    # B 1 x L 1024: 32 rows, 128 blocks
+    (64, 64, 132, 2),    # B 2: 64 rows
+    (66, 64, 132, 2), (67, 64, 132, 1), (33, 64, 132, 4), (34, 64, 132, 2),
+    (32, 32, 132, 2),    # N 32: at most 2 blocks of 16 columns
+    (3, 16, 132, 1), (3, 8, 132, 1),  # N 16 and 8 are never split
+    (8, 64, 16, 2), (1, 64, 1, 1),
+])
+def test_wkv_value_split(bh, n, sms, split):
+    """The wrapper's value-column split, a pure function of (BH, N, SMs):
+    the largest of 1, 2, 4 that keeps 16 or more columns a block and BH x
+    split blocks within one wave of the SMs."""
+    assert wkv_mod.value_split(bh, n, sms) == split
+    assert split in wkv_mod.SPLITS and n // split >= min(
+        n, wkv_mod.MIN_SPLIT_COLUMNS)
 
 
 # ---------------------------------------------------------------------------
@@ -530,3 +549,29 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(lm):
         load_jax_lm_params(lm["tree"], cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         ARServer(lm["tparams"], cfg, SP1)
+
+
+def test_parallel_context_needs_cuda_unless_given_a_device(monkeypatch):
+    """ParallelContext without a device or a mesh runs on CUDA, as the
+    servers do, so the sampler's noise is drawn where the model runs;
+    without CUDA it raises and names device='cpu', and a device given or a
+    mesh's device is kept."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelContext(SPConfig(strategy="full"))
+    assert ParallelContext(SP1, device="cpu").device == CPU
+    mesh = make_mesh((2,), ("model",), device="cpu")
+    assert ParallelContext(SP1, mesh=mesh).device == mesh.device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert ParallelContext(SP1).device == torch.device("cuda")
+
+
+def test_wkv_wrapper_mirrors_the_kernel_constants():
+    """The wrapper's split rule and the kernel's instantiations agree: the
+    kernel source's MIN_SPLIT_COLUMNS is the wrapper's (the kernel only
+    takes splits that leave that many columns a block)."""
+    import re
+    src = (pathlib.Path(wkv_mod.__file__).resolve().parents[1] / "csrc"
+           / "rwkv6_wkv.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["MIN_SPLIT_COLUMNS"]) == wkv_mod.MIN_SPLIT_COLUMNS
