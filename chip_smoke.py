@@ -103,6 +103,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  computes the WKV scan), and one traced rwkv6-1.6b prefill
                  with K5's share.
 
+Phases 15 to 18 run after serve-sp:
+
+ 15. paper-attn — K1 at the paper's workloads (configs/shapes.py) at degree
+                 1: flux_3072 (BH 24, L 37,120, D 128) and cogvideox_20s (BH
+                 24, L 49,408, D 64), bf16, not causal, against its plain
+                 version on the first PAPER_ROWS query rows (the whole score
+                 matrix does not fit); K2 at their Pull-KV ring step on mesh
+                 (pod 2, model 8) against its plain version; each timed
+                 beside its bound and SDPA.
+ 16. layer-paper— the breakdown of one bf16 layer (B 1) of each workload,
+                 at degree 1 and under swift_torus on mesh (pod 2, model 8):
+                 wall clock, device time, idle share, top kernels.
+ 17. serve-cogvideox — the fp32 cogvideox-5b block (d 3072, 24 x 64 heads)
+                 card vs CPU at L 1280, then DiTServer at degree 1 on
+                 cogvideox-5b at full width and depth (42 layers, bf16), one
+                 request of 49,152 latent tokens, COGVIDEO_STEPS steps:
+                 finite, moved latents, K1 launched 42 x forwards.
+ 18. serve-hybrid — DiTServer on the same weights over mesh (cfg 2, pipe 2,
+                 data 1, model 4): swift_torus on the model axis (K1 and the
+                 direct put K3), the CFG pair (guidance 4) on the cfg axis,
+                 the displaced pipeline (pp 2, 4 patches) with its hand-offs
+                 through K3; one request of 12,288 latent tokens, STEPS
+                 steps.  Gates (a)-(d) of ``serve_hybrid``: all-warm latents
+                 within SERVE_SP_TOL of the degree-1 server's sequential
+                 CFG; the displaced run finite, drifting, within
+                 DISPLACED_SHARE of the all-warm run yet not equal to it; a
+                 displaced forward on a warm state equal to the warm forward
+                 within DISPLACED_FWD_TOL (and not so with the stale segment
+                 dropped); the launch counts the schedule implies.
+
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
@@ -689,6 +719,17 @@ def perturb_zero_init(params, gen, scale: float = 1.0) -> None:
         fill(params["proj_out"])
 
 
+def cast_(tree, dtype) -> None:
+    """Convert every tensor of a tree of dicts and lists to ``dtype`` in
+    place (each leaf is freed as its copy is made)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            cast_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+
+
 def _cast(tree, **kw):
     """``Tensor.to(**kw)`` over a tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -731,7 +772,9 @@ def sp_config(sp_axes):
                     kernel_interpret=False)
 
 
-def check_block() -> dict:
+def check_block(arch: str = "flux-12b") -> dict:
+    """One full-width fp32 block of ``arch`` at L 1280 on the card through
+    K1 against the same block on the CPU through the plain path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import SPConfig
@@ -739,8 +782,7 @@ def check_block() -> dict:
     from repro_torch.models.blocks import ParallelContext, _rope_angles
     from repro_torch.models.dit import dit_block, init_dit
 
-    cfg = dataclasses.replace(get_config("flux-12b"), n_layers=1,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype="float32")
     gen = torch.Generator().manual_seed(1)
     params = init_dit(cfg, gen, device="cpu")
     perturb_zero_init(params, gen)
@@ -770,12 +812,13 @@ def check_block() -> dict:
     tables = [_rope_angles(pos.to(d), cfg.resolved_head_dim, cfg.rope_theta)
               for d in (torch.device("cpu"), dev)]
     rope_d = max(float((a - b.cpu()).abs().max()) for a, b in zip(*tables))
-    log(f"block flux-12b d={cfg.d_model} L={l} fp32: card vs CPU max|d|/max|ref| = "
+    log(f"block {arch} d={cfg.d_model} heads {cfg.n_heads} x "
+        f"{cfg.resolved_head_dim} L={l} fp32: card vs CPU max|d|/max|ref| = "
         f"{e:.3e} (tol {BLOCK_TOL}), K1 launches {launches}, max|block-x| "
         f"{attn_share:.3f}, rope table card vs CPU max|d| {rope_d:.3e}, "
         f"CPU block {t_cpu:.2f} s")
     if launches != 1 or not e <= BLOCK_TOL:
-        fail(f"block: err {e} launches {launches}")
+        fail(f"block {arch}: err {e} launches {launches}")
     return dict(cfg=cfg, lp=lp_d, x=x, t_emb=t_emb, pos=pos, ref=ref)
 
 
@@ -811,14 +854,16 @@ def check_sp_block(blk: dict) -> None:
 REQUESTS = ((0, 4096), (1, 4096), (2, 1024))  # (rid, latent tokens)
 
 
-def run_server(params, cfg, conds, requests, sp, mesh=None):
-    """Serve ``requests`` with fresh counts; returns the results by rid,
-    the wall time, the launch counts and the forwards run."""
+def run_server(params, cfg, conds, requests, sp, mesh=None, sampler=None):
+    """Serve ``requests`` with fresh counts (by default STEPS unguided
+    steps); returns the results by rid, the wall time, the launch counts
+    and the steps run (admissions x steps)."""
     import torch
     from repro_torch.serving import (DiTRequest, DiTServer, RecordingTracker,
                                      SamplerConfig)
 
-    srv = DiTServer(params, cfg, sp, sampler=SamplerConfig(num_steps=STEPS),
+    sampler = sampler or SamplerConfig(num_steps=STEPS)
+    srv = DiTServer(params, cfg, sp, sampler=sampler,
                     max_batch=4, tracker=RecordingTracker(), mesh=mesh,
                     device=None if mesh is not None else "cuda")
     for rid, seq in requests:
@@ -832,17 +877,18 @@ def run_server(params, cfg, conds, requests, sp, mesh=None):
     counts = read_counts()
     if sorted(r.rid for r in out) != sorted(rid for rid, _ in requests):
         fail(f"served rids {[r.rid for r in out]}")
-    # one unguided forward per step per admitted batch
-    forwards = srv.scheduler.admissions * STEPS
+    # one forward per step per admitted batch (unguided, or cfg-parallel)
+    forwards = srv.scheduler.admissions * sampler.num_steps
     return {r.rid: r for r in out}, wall, counts, forwards, srv
 
 
-def check_latents(label: str, out: dict, srv, card: str) -> None:
+def check_latents(label: str, out: dict, srv, card: str,
+                  requests=REQUESTS) -> None:
     """Finite, of the right shape, and moved from their noise."""
     import torch
     from repro_torch.serving import DiTRequest
     for rid, r in sorted(out.items()):
-        seq = dict(REQUESTS)[rid]
+        seq = dict(requests)[rid]
         noise = srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
         moved = float((r.latents.float() - noise.float()).abs().max())
         finite = bool(torch.isfinite(r.latents).all())
@@ -969,6 +1015,400 @@ def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
             fail(msg)
 
 
+# ---------------------------------------------------------------------------
+# phases 15 to 18: the paper's workloads and the hybrid DiT path
+# ---------------------------------------------------------------------------
+
+# the paper's DiT workloads (configs/shapes.py) and their models
+PAPER_WORKLOADS = (("flux_3072", "flux-12b"), ("cogvideox_20s", "cogvideox-5b"))
+PAPER_ROWS = 512  # query rows on which the plain version checks K1 there
+COGVIDEO_STEPS = 2  # sampler steps of serve-cogvideox
+# serve-hybrid: mesh (cfg, pipe, data, model), one request, guidance 4, the
+# displaced pipeline over two stages; STEPS steps
+HYBRID_MESH = (2, 2, 1, 4)
+HYBRID_LATENTS = 12_288
+HYBRID_PIPE = dict(pp=2, num_patches=4)
+GUIDANCE = 4.0
+# displaced latents vs the all-warm run: the reference's bound, 0.05 of
+# max|ref| (tests/test_pipefusion.py, tests/multidevice/test_hybrid.py)
+DISPLACED_SHARE = 0.05
+# one displaced forward on the state of a warm pass at the same (x, t)
+# against that warm forward, ||v_d - v_w|| / ||v_w||, bfloat16: serve-sp's
+# limit; the negative control (the stale segment dropped) must break it
+DISPLACED_FWD_TOL = SERVE_SP_TOL
+# cogvideox-5b's output projection scaled down from fan-in.  A random model
+# at fan-in scale predicts |v| ~ 1, so each of 4 Euler steps moves the
+# latents by ~25 %: far from the inter-step similarity the displaced
+# pipeline relies on (a trained model's late steps, or a sampler of a few
+# dozen steps).  Smaller still, the bf16 rounding of the latents grows
+# beside what the model moved them, which gate (a) measures.  0.2 keeps
+# both: on the reduced model on the CPU, (a) 1.5e-2 of 0.03 and (b) 0.4 of
+# its bound, where 1.0 gave 3.5x the (b) bound
+VELOCITY_SCALE = 0.2
+
+
+def paper_attn(card: str) -> None:
+    """K1 at the paper's two workloads at degree 1 (B 1, every head, not
+    causal, bf16) and K2 at their Pull-KV ring step on mesh (pod 2, model
+    8) (P_u 8 x P_r 2: BH 24 / P_u, the gathered Q of P_u shards against
+    one shard).  Each is held against its plain version — K1 on PAPER_ROWS
+    query rows against the full KV, since the whole score matrix does not
+    fit on the card — and timed beside its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import DIT_SHAPES, get_config
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ring_flash as rf
+    from repro_torch.models.dit import COND_TOKENS
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    checks = []
+    epoch = 1000
+    for name, arch in PAPER_WORKLOADS:
+        cfg = get_config(arch)
+        h, d = cfg.n_heads, cfg.resolved_head_dim
+        l = COND_TOKENS + DIT_SHAPES[name].seq_len
+        q, k, v = k1_inputs(gen, h, h, l, l, d, torch.bfloat16)
+        pos = torch.arange(l, dtype=torch.int32, device="cuda")
+        rows = slice(0, PAPER_ROWS)
+        got = fm.flash_mqkv(q, k, v, pos, pos)[0][:, rows]
+        ref = fm.flash_mqkv_plain(q[:, rows], k, v, pos[rows], pos)[0]
+        err = (rel_err(got, ref, floor=0.0), norm_err(got, ref))
+        del got, ref
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fm.flash_mqkv(q, k, v, pos, pos), reps=5,
+                     warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *(t.view(1, h, l, d) for t in (q, k, v))), reps=5, warmup=1)
+        # q, k, v read once, o written once
+        bound_ms, bound_by, flops = attention_bound(h, l, l,
+                                                    4.0 * h * l * d * 2, d)
+        plan = fm.tile_plan(h, l, l, d)
+        log(f"paper-attn k1 {name} ({arch}) BH={h} L={l} D={d} bf16 (BQ "
+            f"{plan.bq}): {rate_line(ms, bound_ms, flops)}, bound "
+            f"{bound_ms:.3f} ms ({bound_by}), sdpa {lib_ms:.3f} ms "
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s), K1 / sdpa "
+            f"{ms / lib_ms:.3f}; o vs plain on {PAPER_ROWS} query rows: "
+            f"max|d|/max|ref| {err[0]:.2e}, |d|/|ref| {err[1]:.2e} [{card}]")
+        checks.append((err[0] <= FLUX_TOL["o"][0] and err[1] <= FLUX_TOL["o"][1],
+                       f"K1 {name}: o err {err} (limits {FLUX_TOL['o']})"))
+        del q, k, v
+
+        shard = l // RANKS
+        lq, bh = P_U * shard, h // P_U
+        sets = [k1_inputs(gen, bh, bh, lq, shard, d, torch.bfloat16)
+                for _ in range(ROTATE)]
+        qp = torch.arange(lq, dtype=torch.int32, device="cuda")
+        kp = torch.arange(shard, dtype=torch.int32, device="cuda") + shard
+        q, k, v = sets[0]
+        epoch += 1
+        got = run_k2(q, k, v, qp, kp, epoch, finalize=False)
+        ref = fm.flash_mqkv_plain(q, k, v, qp, kp, finalize=False)
+        errs = {n: (rel_err(a, b, floor=0.0), norm_err(a, b))
+                for n, a, b in zip(("o'", "l", "m"), got, ref)}
+        del got, ref
+        flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+        arrive = torch.zeros_like(flag)
+        dst = [(torch.empty_like(k), torch.empty_like(v))
+               for _, k, v in sets]
+        ms, host = time_call(rotating([
+            lambda q=q, k=k, v=v, kd=kd, vd=vd: rf.ring_flash_step(
+                q, k, v, qp, kp, k_dst=kd, v_dst=vd, flag=flag,
+                arrive=arrive, epoch=1, finalize=False)
+            for (q, k, v), (kd, vd) in zip(sets, dst)]), reps=50)
+        plain_ms = cuda_ms(rotating([
+            lambda q=q, k=k, v=v, kd=kd, vd=vd: rf.ring_flash_step_plain(
+                q, k, v, qp, kp, k_dst=kd, v_dst=vd, finalize=False,
+                scale=d ** -0.5)
+            for (q, k, v), (kd, vd) in zip(sets, dst)]), reps=3, warmup=1)
+        lib_ms = cuda_ms(rotating([
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.view(1, bh, lq, d), k.view(1, bh, shard, d),
+                v.view(1, bh, shard, d))
+            for q, k, v in sets]), reps=50)
+        nbytes = (2 * bh * (lq + 2 * shard) * d  # q, k, v read once (bf16)
+                  + 4 * bh * lq * d + 8 * bh * lq  # o' (f32), l, m written
+                  + 2 * 2 * bh * shard * d)  # forwarded k and v written
+        bound_ms, bound_by, flops = attention_bound(bh, lq, shard, nbytes, d)
+        log(f"paper-attn k2 {name} pull-kv on pod2xmodel8 BH={bh} Lq={lq} "
+            f"Lk={shard} D={d} bf16, {ROTATE} input sets in turn: "
+            f"{rate_line(ms, bound_ms, flops)} on the device ({host:.4f} ms "
+            f"of host time per call), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, K2 / sdpa "
+            f"{ms / lib_ms:.3f}; vs plain max|d|/max|ref|, |d|/|ref|: "
+            + ", ".join(f"{n} {e[0]:.2e} {e[1]:.2e}" for n, e in errs.items())
+            + f" [{card}]")
+        for n, (e_max, e_norm) in errs.items():
+            lim = FLUX_TOL[n]
+            checks.append((e_max <= lim[0] and e_norm <= lim[1],
+                           f"K2 {name} {n}: errs {e_max}, {e_norm} (limits "
+                           f"{lim})"))
+        del sets, dst, q, k, v
+        torch.cuda.empty_cache()
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+
+
+def layer_paper(card: str) -> None:
+    """One bf16 layer of each paper workload (B 1), at degree 1 and under
+    swift_torus on mesh (pod 2, model 8): is the SP layer still host-bound
+    where attention outgrows the GEMMs?"""
+    from repro_torch.configs import DIT_SHAPES
+    from repro_torch.models.dit import COND_TOKENS
+    for name, arch in PAPER_WORKLOADS:
+        layer_breakdown(card, arch, 1, COND_TOKENS + DIT_SHAPES[name].seq_len)
+
+
+def serve_cogvideox(results: dict, card: str):
+    """DiTServer at degree 1 on cogvideox-5b at full width and depth (bf16,
+    random weights from a seed, zero-init tensors perturbed): one request
+    of cogvideox_20s's latent tokens, COGVIDEO_STEPS steps.  First the
+    card-vs-CPU parity of one full-width fp32 block.  Returns the weights
+    for serve-hybrid."""
+    import torch
+    from repro_torch.configs import DIT_SHAPES, get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.models import init_dit
+    from repro_torch.models.dit import COND_TOKENS
+    from repro_torch.serving import SamplerConfig
+
+    check_block("cogvideox-5b")
+    cfg = get_config("cogvideox-5b")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    t0 = time.perf_counter()
+    params = init_dit(cfg, gen, device="cuda")
+    perturb_zero_init(params, gen)
+    params["proj_out"]["w"] *= VELOCITY_SCALE
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve-cogvideox: cogvideox-5b {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads {cfg.n_heads} x {cfg.resolved_head_dim} bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} "
+        f"s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    requests = ((0, DIT_SHAPES["cogvideox_20s"].seq_len),)
+    conds = {0: torch.randn((COND_TOKENS, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)}
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, counts, forwards, srv = run_server(
+        params, cfg, conds, requests, SPConfig(strategy="full"),
+        sampler=SamplerConfig(num_steps=COGVIDEO_STEPS))
+    expect = {"flash_mqkv": cfg.n_layers * forwards, "ring_flash_step": 0,
+              "remote_put": 0, "landing_copy": 0}
+    log(f"serve-cogvideox: 1 request of {requests[0][1]} latent tokens (L "
+        f"{COND_TOKENS + requests[0][1]}) in {wall:.2f} s, launches {counts} "
+        f"(expected {cfg.n_layers} layers x {forwards} forwards of K1), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    check_latents("serve-cogvideox", out, srv, card, requests)
+    if counts != expect:
+        fail(f"serve-cogvideox launches {counts} != {expect}")
+    results["cogvideox_step_times"] = out[0].step_times
+    return params, cfg
+
+
+def serve_hybrid(results: dict, card: str, params, cfg) -> None:
+    """DiTServer on cogvideox-5b (full width and depth, bf16) over the
+    hybrid mesh (cfg 2, pipe 2, data 1, model 4): swift_torus on the model
+    axis through K1 and the direct put K3, the CFG pair on the cfg axis,
+    the displaced pipeline over the pipe axis (hand-offs through K3).  One
+    request of HYBRID_LATENTS, STEPS steps, guidance GUIDANCE.  Gates:
+    (a) all warm, the latents are within SERVE_SP_TOL of the degree-1
+    server's sequential CFG, in float32 (the bfloat16 error is printed),
+    and with one KV chunk of every attention dropped they are not; (b) with one warm step the run is finite, its
+    kv_drift 0 at the warm step and > 0 after, its latents within
+    DISPLACED_SHARE of max|all-warm| yet not equal to them; (c) a
+    displaced forward on the state of a warm pass at the same (x, t)
+    equals that warm forward within DISPLACED_FWD_TOL, and with the stale
+    segment dropped it does not; (d) the launch counts the schedule
+    implies."""
+    import torch
+    from repro_torch.core import PipelineConfig, SPConfig, torus
+    from repro_torch.core.softmax import empty_partial
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.launch import make_hybrid_mesh
+    from repro_torch.models import ParallelContext, blocks
+    from repro_torch.models.dit import (COND_TOKENS, dit_forward,
+                                        dit_forward_displaced)
+    from repro_torch.serving import DiTRequest, SamplerConfig
+    from repro_torch.serving.sampler import _stack_cfg_branches
+
+    mesh = make_hybrid_mesh(*HYBRID_MESH, device="cuda")
+    sp = SPConfig(strategy="swift_torus", sp_axes=("model",),
+                  batch_axes=("data",), cfg_axis="cfg", pp_axis="pipe",
+                  comm_backend="pallas", kernel_interpret=False)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    requests = ((0, HYBRID_LATENTS),)
+    cond = torch.randn((COND_TOKENS, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    pp, n_layers = HYBRID_PIPE["pp"], cfg.n_layers
+
+    def sampler(warmup):
+        return SamplerConfig(num_steps=STEPS, guidance_scale=GUIDANCE,
+                             cfg_parallel=True, pipeline=PipelineConfig(
+                                 warmup_steps=warmup, **HYBRID_PIPE))
+
+    # launches per layer of a warm forward: every slice of the batch (the
+    # CFG pair on the cfg axis) runs swift_torus on its own model ranks;
+    # a ring circulation (stage 0, P_u - 1 Pull-Q, P_u - 1 Pull-KV) is
+    # P_r - 1 K2 and one K1 per rank, and every torus put is ONE K3 for
+    # all ranks of all slices (a single-axis route)
+    lay = resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+    ranks = mesh.axes_size(sp.effective_batch_axes(mesh)) * lay.size
+    circ = 1 + 2 * (lay.p_ulysses - 1)
+    warm_layer = {"flash_mqkv": ranks * circ,
+                  "ring_flash_step": ranks * circ * (lay.p_ring - 1),
+                  "remote_put": 3 * (lay.p_ulysses - 1), "landing_copy": 0}
+
+    def expected(warm: int, displaced: int, patches: int) -> dict:
+        """Launches of ``warm`` warm and ``displaced`` displaced forwards:
+        a displaced forward attends each (patch, layer) in two K1 launches
+        (fresh rows, then stale rows; both CFG branches ride one batch)
+        and hands each patch over each of the pp - 1 stage boundaries in
+        one K3."""
+        c = {k: v * n_layers * warm for k, v in warm_layer.items()}
+        c["flash_mqkv"] += displaced * 2 * patches * n_layers
+        c["remote_put"] += displaced * patches * (pp - 1)
+        return c
+
+    log(f"serve-hybrid: mesh (cfg, pipe, data, model) {HYBRID_MESH}, "
+        f"swift_torus P_u {lay.p_ulysses} x P_r {lay.p_ring} on model over "
+        f"{ranks} virtual ranks; per warm layer {warm_layer}")
+
+    def degree1(tag: str):
+        """The degree-1 server's sequential CFG: (latents, noise)."""
+        one, wall, _, _, srv = run_server(
+            params, cfg, {0: cond}, requests, SPConfig(strategy="full"),
+            sampler=SamplerConfig(num_steps=STEPS, guidance_scale=GUIDANCE))
+        log(f"serve-hybrid {tag} degree 1 (sequential CFG): {wall:.2f} s, "
+            f"step wall clock {[round(t, 4) for t in one[0].step_times]} s "
+            f"[{card}]")
+        return one[0].latents, srv._noise(
+            [DiTRequest(rid=0, seq_len=HYBRID_LATENTS)], 1, HYBRID_LATENTS)[0]
+
+    def all_warm(tag: str, ref, drop_kv: bool = False):
+        """The all-warm hybrid run (with ``drop_kv``, with the first
+        Pull-KV chunk of every attention dropped): its result and its
+        latents' error beside the degree-1 ``ref`` (latents, noise)."""
+        real = torus.ring_attention
+        calls = [0]
+
+        def dropping(q, *args, **kw):
+            parts = real(q, *args, **kw)
+            calls[0] += 1
+            if calls[0] % circ == lay.p_ulysses + 1:  # the first Pull-KV
+                return [empty_partial(*x.shape, device=x.device) for x in q]
+            return parts
+
+        torus.ring_attention = dropping if drop_kv else real
+        try:
+            warm, wall, counts, forwards, srv = run_server(
+                params, cfg, {0: cond}, requests, sp, mesh, sampler(STEPS))
+        finally:
+            torus.ring_attention = real
+        check_latents(f"serve-hybrid {tag} all-warm", warm, srv, card,
+                      requests)
+        err = latent_err(warm[0].latents, *ref)
+        want = expected(forwards, 0, 0)
+        log(f"serve-hybrid {tag} all-warm{' (KV chunk dropped)' * drop_kv}: "
+            f"{wall:.2f} s, latents vs degree 1 ||d||/||x1-noise|| = "
+            f"{err:.3e}; step wall clock "
+            f"{[round(t, 4) for t in warm[0].step_times]} s; launches "
+            f"{counts} (expected {want}) [{card}]")
+        checks.append((counts == want, f"serve-hybrid {tag} all-warm "
+                                       f"launches {counts} != {want}"))
+        return warm[0], err
+
+    checks = []
+    # bfloat16: the all-warm run is gate (b)'s reference
+    x_one, noise = degree1("bf16")
+    warm, err_bf16 = all_warm("bf16", (x_one, noise))
+    x_warm = warm.latents
+    results["hybrid_warm_step_times"] = warm.step_times
+
+    # (b) warmup 1, then displaced
+    disp, wall, counts, forwards, srv = run_server(
+        params, cfg, {0: cond}, requests, sp, mesh, sampler(1))
+    check_latents("serve-hybrid displaced", disp, srv, card, requests)
+    r = disp[0]
+    (choice,) = srv.plan_cache.plans.values()
+    patches = srv._bucket_sampler(choice).pipeline.patches
+    want = expected(1, forwards - 1, patches)
+    diff = float((r.latents.float() - x_warm.float()).abs().max())
+    bound = DISPLACED_SHARE * float(x_warm.float().abs().max())
+    log(f"serve-hybrid displaced (pp {pp}, {patches} patches, warmup 1): "
+        f"{wall:.2f} s, step wall clock {[round(t, 4) for t in r.step_times]}"
+        f" s (step 0 warm), kv_drift {[f'{d:.3e}' for d in r.kv_drift]}, "
+        f"max|x - x_warm| {diff:.3e} (bound {bound:.3e}), launches {counts} "
+        f"(expected {want}) [{card}]")
+    finite = bool(torch.isfinite(r.latents).all())
+    drift_ok = (r.kv_drift[0] == 0.0 and all(
+        0.0 < d < float("inf") for d in r.kv_drift[1:]))
+    checks += [(finite and drift_ok and 0.0 < diff < bound,
+                f"serve-hybrid (b): finite {finite}, kv_drift {r.kv_drift}, "
+                f"diff {diff} (bound {bound})"),
+               (counts == want, f"serve-hybrid displaced launches {counts} "
+                                f"!= {want}")]
+    results["hybrid_disp_step_times"] = r.step_times
+    results["hybrid_launches"] = counts
+    del srv, disp, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one displaced forward on a warm pass's state at the same (x, t)
+    ctx = ParallelContext(sp, mesh=mesh)
+    lat, cnd = _stack_cfg_branches(noise[None], cond[None], 2)
+    tt = torch.full((2,), 1.0 - 1.0 / STEPS, device="cuda")
+    kw = dict(latents=lat, cond=cnd, timesteps=tt)
+    pipe_kw = dict(num_patches=HYBRID_PIPE["num_patches"], pp=pp)
+    real = blocks.displaced_attention
+    with torch.inference_mode():
+        v_w, state = dit_forward(params, cfg, ctx, return_layer_kv=True, **kw)
+        reset_counts()
+        v_d, new = dit_forward_displaced(params, cfg, ctx, kv_state=state,
+                                         **pipe_kw, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        del new
+        blocks.displaced_attention = (
+            lambda q, kf, vf, ks, vs: real(q, kf, vf, ks[:, :0], vs[:, :0]))
+        try:
+            v_x, new = dit_forward_displaced(params, cfg, ctx,
+                                             kv_state=state, **pipe_kw, **kw)
+        finally:
+            blocks.displaced_attention = real
+        del new, state
+    err = latent_err(v_d, v_w, torch.zeros_like(v_w))
+    drop = latent_err(v_x, v_w, torch.zeros_like(v_w))
+    want = expected(0, 1, HYBRID_PIPE["num_patches"])
+    log(f"serve-hybrid one displaced forward on a warm state: ||v_d - v_w|| "
+        f"/ ||v_w|| = {err:.3e} (tol {DISPLACED_FWD_TOL}); stale segment "
+        f"dropped: {drop:.3e} (must exceed it); launches {counts} (expected "
+        f"{want})")
+    checks += [(err <= DISPLACED_FWD_TOL < drop,
+                f"serve-hybrid (c): err {err}, dropped {drop}"),
+               (counts == want, f"serve-hybrid (d): one displaced forward "
+                                f"launched {counts} != {want}")]
+
+    # (a) in float32, the weights converted in place: in bfloat16 the
+    # guidance (4 v_c - 3 v_u) amplifies the ~1e-2 by which two equal
+    # bf16 forwards differ (gate (c)) past SERVE_SP_TOL, whatever the path
+    cast_(params, torch.float32)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    cond = cond.float()
+    ref = degree1("fp32")
+    _, err = all_warm("fp32", ref)
+    _, dropped = all_warm("fp32", ref, drop_kv=True)
+    log(f"serve-hybrid (a): all-warm latents vs degree 1, fp32 {err:.3e} "
+        f"(tol {SERVE_SP_TOL}; one KV chunk of every attention dropped "
+        f"{dropped:.3e}, must exceed it); bf16 {err_bf16:.3e} (not gated)")
+    checks.append((err <= SERVE_SP_TOL < dropped,
+                   f"serve-hybrid (a): fp32 err {err}, dropped {dropped}"))
+    results["hybrid_err"] = (err, dropped, err_bf16)
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -984,11 +1424,11 @@ def _leaves(tree):
 # phase 6: numbers
 # ---------------------------------------------------------------------------
 
-def attention_bound(bh, lq, lk, nbytes) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, FLOP) of one attention call at D 128:
-    4·BH·Lq·Lk·D operations at the bf16 peak against ``nbytes`` at the HBM
-    rate."""
-    flops = 4.0 * bh * lq * lk * 128
+def attention_bound(bh, lq, lk, nbytes, d=128) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, FLOP) of one attention call at head dim
+    d: 4·BH·Lq·Lk·D operations at the bf16 peak against ``nbytes`` at the
+    HBM rate."""
+    flops = 4.0 * bh * lq * lk * d
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
@@ -1166,12 +1606,13 @@ def put_numbers(card: str) -> dict:
     return rows
 
 
-def layer_breakdown(card: str) -> None:
-    """Where one layer's time goes at the serve shape (bf16, B 2, L 4352):
-    one flux-12b block at degree 1 and under swift_torus on mesh (pod 2,
-    model 8), each traced once by torch.profiler after a warm-up.  Prints
-    the host wall clock, the device's busy time (the sum of kernel times)
-    and its idle share, and the kernels by device time."""
+def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
+                    l: int = 4352) -> None:
+    """Where one layer's time goes (bf16, B ``b``, L ``l``; by default the
+    serve shape): one block of ``arch`` at degree 1 and under swift_torus
+    on mesh (pod 2, model 8), each traced once by torch.profiler after a
+    warm-up.  Prints the host wall clock, the device's busy time (the sum
+    of kernel times) and its idle share, and the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1180,16 +1621,16 @@ def layer_breakdown(card: str) -> None:
     from repro_torch.models.blocks import ParallelContext
     from repro_torch.models.dit import dit_block, init_dit
 
-    cfg = dataclasses.replace(get_config("flux-12b"), n_layers=1)
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
     gen = torch.Generator(device="cuda").manual_seed(8)
     params = init_dit(cfg, gen, device="cuda")
     perturb_zero_init(params, gen)
     lp = params["layers"][0]
-    x = torch.randn((2, 4352, cfg.d_model), generator=gen,
+    x = torch.randn((b, l, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    t_emb = torch.randn((2, cfg.d_model), generator=gen,
+    t_emb = torch.randn((b, cfg.d_model), generator=gen,
                         device="cuda").to(torch.bfloat16)
-    pos = torch.arange(4352, device="cuda")[None].expand(2, 4352)
+    pos = torch.arange(l, device="cuda")[None].expand(b, l)
     shape, axes, sp_axes, _ = SP_MESHES["pod2xmodel8"]
     for label, ctx in (
             ("degree 1", ParallelContext(SPConfig(strategy="full"),
@@ -1216,11 +1657,12 @@ def layer_breakdown(card: str) -> None:
                    and e.self_device_time_total > 0]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         if busy == 0.0:
-            log(f"breakdown {label}: wall {untraced:.1f} ms; the profiler saw no "
-                "device time (device busy share not measured)")
+            log(f"breakdown {label} {arch} L {l}: wall {untraced:.1f} ms; the "
+                "profiler saw no device time (device busy share not "
+                "measured)")
             continue
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        log(f"breakdown {label} (one layer, bf16, B 2, L 4352): wall "
+        log(f"breakdown {label} (one {arch} layer, bf16, B {b}, L {l}): wall "
             f"{untraced:.1f} ms untraced, {wall:.1f} ms traced; device busy "
             f"{busy:.2f} ms, idle share {1 - busy / untraced:.3f} of the "
             f"untraced wall; top kernels: "
@@ -1819,6 +2261,14 @@ def main() -> int:
     serve_sp(results, card, params, cfg, conds, deg1)
     del params, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
+    torch.cuda.empty_cache()
+
+    paper_attn(card)
+    layer_paper(card)
+    cv_params, cv_cfg = serve_cogvideox(results, card)
+    serve_hybrid(results, card, cv_params, cv_cfg)
+    del cv_params
+    gc.collect()
     torch.cuda.empty_cache()
 
     check_lm_block()

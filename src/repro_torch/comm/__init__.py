@@ -7,7 +7,7 @@ of ``src/repro/comm``).
                    consuming stream.
   stream         — staged transfer programs composed from channels: ring
                    shifts, distance-k torus hops, the decomposed
-                   all-to-all and its inverse.
+                   all-to-all and its inverse, the pipeline hand-off.
   kernel_backend — the ``comm_backend="pallas"`` lowering: the put
                    kernels K3 (direct put) and K4 (landing copy) with
                    per-tensor signal words.
@@ -21,6 +21,7 @@ from .channel import Channel, InFlight, fence, pin, ring_perm_of, shift_perm
 from .kernel_backend import BACKENDS
 from .stream import (
     Stream,
+    pipe_handoff,
     ring_shift,
     staged_all_to_all,
     staged_ungroup,
@@ -48,6 +49,7 @@ __all__ = [
     "fence",
     "mark_compute",
     "pin",
+    "pipe_handoff",
     "record",
     "ring_perm_of",
     "ring_shift",

@@ -25,7 +25,7 @@ A ``Channel`` is a fixed (mesh axes, permutation) route; every ``put``
 returns an ``InFlight`` handle whose payload is the receive buffers.
 Streams (stream.py) compose channels into staged transfer programs;
 trace.py records every put for ``validate_semaphores``.  The reference's
-runtime-profiler legs wait for ROADMAP Queue 1 item 9.
+runtime-profiler legs wait for ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 

@@ -11,6 +11,8 @@ rank lists.  The programs the flat SP schedules need:
   staged_all_to_all — the full P_u-stage decomposition with the stationary
                       diagonal chunk (grouped_all_to_all)
   staged_ungroup    — its inverse (the Push-O / fourth all-to-all)
+  pipe_handoff      — the displaced pipeline's stage-boundary hand-off,
+                      one put over the pipe axis
 
 Every program runs all ranks of the group in lockstep: stage k's put
 carries every rank's chunk, and no rank reads stage k's receive buffer
@@ -18,9 +20,9 @@ before every rank's stage-k chunk was issued.  ``layout`` ducks as any
 object with ``axes``, ``p_ulysses``, ``coords(p)``, ``ring_perm(k)`` and
 ``ulysses_stage_perm(k)`` (core/collectives.GroupLayout in practice).
 
-Not ported yet (ROADMAP): the hierarchical programs ``intra_hop``,
-``inter_hop``, ``hier_all_to_all``, ``hier_ungroup``, the fp8 wire codec
-and ``pipe_handoff``.
+Not ported yet (ROADMAP Queue 1 item 4): the hierarchical programs
+``intra_hop``, ``inter_hop``, ``hier_all_to_all``, ``hier_ungroup`` and the
+fp8 wire codec.
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ from typing import Any
 
 import torch
 
-from .channel import Channel, InFlight, RankList
+from .channel import Channel, InFlight, RankList, shift_perm
 
-__all__ = ["Stream", "ring_shift", "torus_hop", "staged_all_to_all",
-           "staged_ungroup"]
+__all__ = ["Stream", "pipe_handoff", "ring_shift", "torus_hop",
+           "staged_all_to_all", "staged_ungroup"]
 
 
 @dataclasses.dataclass
@@ -157,3 +159,39 @@ def staged_ungroup(
         for p, u in enumerate(us):
             out[p][(u - k) % p_u] = recv[p]
     return [torch.cat(o, dim=concat_axis) for o in out]
+
+
+def pipe_handoff(
+    x: torch.Tensor,
+    mesh: Any,
+    axis: str,
+    *,
+    shift: int = 1,
+    batch_axes: tuple[str, ...] | None = None,
+    stream: Stream | None = None,
+    backend: str = "xla",
+    interpret: bool = True,
+) -> torch.Tensor:
+    """Stage-boundary hand-off of the displaced patch pipeline: rotate the
+    activation one stage forward along the pipe ``axis``.
+
+    The activation is replicated over the pipe axis and split over
+    ``batch_axes`` (the reference's shard_map spec), so the rank list holds
+    one batch slice per (slice, pipe rank), slice-major, and ONE put over
+    the single axis moves every rank's slice: with ``backend="pallas"``
+    and ``interpret=False`` that is one direct put, K3.  The rotation
+    preserves values; the result is what pipe rank 0 received, per slice.
+    """
+    stream = stream or Stream("pipe", backend=backend, interpret=interpret)
+    pp = mesh.shape[axis]
+    if pp == 1:
+        return x
+    n = mesh.axes_size(batch_axes or ())
+    perm = [(s * pp + a, s * pp + b) for s in range(n)
+            for a, b in shift_perm(pp, shift)]
+    ch = stream.channel((axis,), perm, f"handoff{stream.stage}")
+    stream.next_stage()
+    ranks = [xs for xs in torch.chunk(x.contiguous(), n, dim=0)
+             for _ in range(pp)]
+    recv = ch.put(ranks, overlaps="stage compute").wait()
+    return torch.cat(recv[::pp], dim=0)

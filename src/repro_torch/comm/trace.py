@@ -9,7 +9,7 @@ well-formedness (each put signalled exactly once, no wait before its put,
 no blocking wait on a fused put).
 
 The reference's other half checks the compiled XLA HLO; it has no
-counterpart here (ROADMAP Queue 1 item 9 replaces it with a check on CUDA
+counterpart here (ROADMAP Queue 1 item 5 replaces it with a check on CUDA
 streams and events).
 """
 from __future__ import annotations

@@ -1,17 +1,20 @@
-"""Architecture configs of the port: the models it serves (the flux-12b DiT
-and the rwkv6-1.6b language model)."""
+"""Architecture configs of the port: the models it serves (the flux-12b and
+cogvideox-5b DiTs and the rwkv6-1.6b language model), and the input shapes
+(the paper's DiT workloads among them)."""
 from __future__ import annotations
 
 import importlib
 
 from .base import ModelConfig
+from .shapes import DIT_SHAPES, SHAPES, InputShape
 
 _MODULES = {
     "flux-12b": "flux_12b",
+    "cogvideox-5b": "cogvideox_5b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
-DIT_ARCHS = ("flux-12b",)
+DIT_ARCHS = ("flux-12b", "cogvideox-5b")
 SSM_ARCHS = ("rwkv6-1.6b",)
 ALL_ARCHS = tuple(_MODULES)
 
@@ -29,8 +32,11 @@ def get_reduced(arch_id: str) -> ModelConfig:
 __all__ = [
     "ALL_ARCHS",
     "DIT_ARCHS",
-    "SSM_ARCHS",
+    "DIT_SHAPES",
+    "InputShape",
     "ModelConfig",
+    "SHAPES",
+    "SSM_ARCHS",
     "get_config",
     "get_reduced",
 ]

@@ -7,10 +7,18 @@ Public API:
   reference_attention         — single-device oracle
   plan / SPPlan               — the paper's §4.2 topology planner (copy)
   plan_hybrid / HybridPlan    — (cfg, pp, P_u, P_r) hybrid planner (copy)
-  PipelineConfig / KVState    — displaced patch pipelining types
+  PipelineConfig / KVState    — displaced patch pipelining (core/pipefusion.py:
+                                the schedule helpers, displaced_attention
+                                through K1, kv_drift)
   comm_model, calibration     — analytical latency model and its fitter (copies)
 """
-from .pipefusion import KVState, PipelineConfig
+from .pipefusion import (
+    KVState,
+    PipelineConfig,
+    displaced_attention,
+    init_kv_state,
+    kv_drift,
+)
 from .planner import (
     HybridPlan,
     SPPlan,
@@ -42,8 +50,11 @@ __all__ = [
     "STRATEGIES",
     "attend_partial",
     "candidate_hybrid_plans",
+    "displaced_attention",
     "empty_partial",
     "finalize",
+    "init_kv_state",
+    "kv_drift",
     "merge",
     "plan",
     "plan_for_shape",

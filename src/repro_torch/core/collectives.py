@@ -33,7 +33,7 @@ from ..comm.channel import RankList
 AxisNames = tuple[str, ...]
 
 HIER_A2A_ITEM = ("the hierarchical all-to-all (hier_a2a, a2a_wire_dtype) is "
-                 "not ported yet: ROADMAP Queue 1 item 3b")
+                 "not ported yet: ROADMAP Queue 1 item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +126,57 @@ class GroupLayout:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class SlicedLayout:
+    """``group`` repeated over ``slices`` slices of the batch (the mesh's
+    batch axes, the CFG axis first).  The rank lists then hold every rank
+    of the batch and SP axes, slice-major as the reference numbers them:
+    flat rank ``s * group.size + p`` is rank p of slice s.  Each slice runs
+    the group's schedule on its own ranks; a perm table covers every
+    slice, so one put moves the chunks of all slices."""
+
+    group: GroupLayout
+    slices: int
+
+    @property
+    def axes(self) -> AxisNames:
+        return self.group.axes
+
+    @property
+    def p_ulysses(self) -> int:
+        return self.group.p_ulysses
+
+    @property
+    def p_ring(self) -> int:
+        return self.group.p_ring
+
+    @property
+    def ulysses_outer(self) -> bool:
+        return self.group.ulysses_outer
+
+    @property
+    def u_groups(self) -> int:
+        return self.group.u_groups
+
+    @property
+    def size(self) -> int:
+        return self.group.size * self.slices
+
+    def coords(self, p: int) -> tuple[int, int]:
+        return self.group.coords(p % self.group.size)
+
+    def _tiled(self, perm: list[tuple[int, int]]) -> list[tuple[int, int]]:
+        n = self.group.size
+        return [(s * n + a, s * n + b) for s in range(self.slices)
+                for a, b in perm]
+
+    def ring_perm(self, shift: int = 1) -> list[tuple[int, int]]:
+        return self._tiled(self.group.ring_perm(shift))
+
+    def ulysses_stage_perm(self, k: int) -> list[tuple[int, int]]:
+        return self._tiled(self.group.ulysses_stage_perm(k))
+
+
 # ---------------------------------------------------------------------------
 # Grouped all-to-all via staged channel puts (the one-sided decomposition);
 # the transfer programs live in repro_torch.comm.stream.
@@ -153,13 +204,15 @@ def grouped_all_to_all(
                              backend=backend, interpret=interpret)
 
 
-def _all_to_all(chunks: list[list[torch.Tensor]], layout: GroupLayout
-                ) -> RankList:
+def _all_to_all(chunks: list[list[torch.Tensor]], layout) -> RankList:
     """The atomic all-to-all of the reference (``lax.all_to_all`` over the
-    whole group): rank p receives chunk p of every rank, stacked in source
-    order."""
-    return [torch.stack([chunks[j][p] for j in range(layout.size)], dim=0)
-            for p in range(layout.size)]
+    whole group, P_r == 1): rank p receives its own chunk of every rank of
+    its group, stacked in source order.  A group is P_u consecutive ranks
+    of the list (one per batch slice under ``SlicedLayout``)."""
+    n = layout.p_ulysses
+    return [torch.stack([chunks[p - p % n + j][p % n] for j in range(n)],
+                        dim=0)
+            for p in range(len(chunks))]
 
 
 def monolithic_all_to_all(
@@ -169,14 +222,13 @@ def monolithic_all_to_all(
     """Baseline atomic all-to-all (what Ulysses does before Torus).
 
     Same contract as :func:`grouped_all_to_all`.  One atomic exchange when
-    the ulysses group covers the whole flattened SP axis and the backend is
-    "xla", as the reference's ``lax.all_to_all``; otherwise the staged
-    implementation.
+    the ulysses group covers the whole flattened SP axis (P_r == 1) and the
+    backend is "xla", as the reference's ``lax.all_to_all``; otherwise the
+    staged implementation.
     """
     if layout.u_groups > 1:
         raise NotImplementedError(HIER_A2A_ITEM)
-    if (layout.p_ring == 1 and layout.p_ulysses == layout.size
-            and backend == "xla"):
+    if layout.p_ring == 1 and backend == "xla":
         return _all_to_all(
             [torch.chunk(t, layout.p_ulysses, dim=split_axis) for t in x],
             layout)
@@ -196,8 +248,7 @@ def ungroup_all_to_all(
         return [s[0] for s in stacked]
     if layout.u_groups > 1:
         raise NotImplementedError(HIER_A2A_ITEM)
-    if (layout.p_ring == 1 and layout.p_ulysses == layout.size
-            and backend == "xla"):
+    if layout.p_ring == 1 and backend == "xla":
         moved = _all_to_all([list(s) for s in stacked], layout)
         return [torch.cat(list(m), dim=concat_axis) for m in moved]
     return staged_ungroup(stacked, layout, concat_axis=concat_axis,

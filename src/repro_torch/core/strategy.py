@@ -10,7 +10,11 @@ axes.  Here every rank of the mesh is a *virtual rank* in this process
 (launch/mesh.py): ``sp_attention`` splits the global [B, L, H, D] tensors
 into per-rank sequence shards in flat-rank order, runs the schedule for all
 ranks in lockstep (stage s of every rank is issued before any rank
-consumes stage s's receive buffers) and concatenates the result.  At SP
+consumes stage s's receive buffers) and concatenates the result.  Batch
+axes of the mesh (``effective_batch_axes``: the CFG axis, then the data
+axes) split the batch into slices; each slice runs the schedule on its own
+SP ranks, and the rank lists hold the ranks of every slice (slice-major,
+``collectives.SlicedLayout``), so one put still covers every rank.  At SP
 degree 1 every strategy computes plain attention through the flash_mqkv
 kernel (``kernels.ops.flash_attention``).
 
@@ -25,8 +29,7 @@ Strategies (P = SP degree, N = machines, M = devices per machine):
                 with compute, one-sided puts.
 
 Not ported yet: the hierarchical all-to-all and its fp8 wire codec
-(``hier_a2a``, ``a2a_wire_dtype``) and batch axes of size > 1 on the mesh
-(ROADMAP Queue 1 item 3b).
+(``hier_a2a``, ``a2a_wire_dtype``; ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch
 
 from ..kernels.ops import flash_attention
 from . import planner
-from .collectives import HIER_A2A_ITEM, GroupLayout
+from .collectives import HIER_A2A_ITEM, GroupLayout, SlicedLayout
 from .ring import ring_attention
 from .softmax import finalize
 from .torus import torus_attention
@@ -157,9 +160,10 @@ def sp_attention(
     ranks.
 
     The sequence is split over ``cfg.sp_axes`` (flat-rank order, major axis
-    first); heads and head dim stay whole inside the SP group.  Without a
-    mesh, or at SP degree 1, or with strategy "full", it runs the
-    flash_mqkv kernel on the whole sequence.
+    first) and the batch over the mesh's batch axes; heads and head dim
+    stay whole inside the SP group.  Without a mesh, or at SP degree 1, or
+    with strategy "full", it runs the flash_mqkv kernel on the whole
+    sequence and batch.
     """
     sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
     if cfg.strategy == "full" or sp == 1:
@@ -167,12 +171,10 @@ def sp_attention(
                                scale=scale)
     if q.device != mesh.device:
         raise ValueError(f"q is on {q.device}, the mesh on {mesh.device}")
-    for a in cfg.effective_batch_axes(mesh) or ():
-        if mesh.shape[a] > 1:
-            raise NotImplementedError(
-                f"batch axis {a!r} of size {mesh.shape[a]}: sharding the "
-                "batch over the mesh is not ported yet (ROADMAP Queue 1 "
-                "item 3b)")
+    slices = mesh.axes_size(cfg.effective_batch_axes(mesh) or ())
+    if q.shape[0] % slices:
+        raise ValueError(f"batch {q.shape[0]} does not split evenly over "
+                         f"{slices} batch slices (as shard_map requires)")
     seq = q.shape[1]
     if seq % sp:
         raise ValueError(f"sequence length {seq} does not split evenly over "
@@ -188,10 +190,16 @@ def sp_attention(
     kw = dict(scale=scale, causal=causal, window=window,
               kv_block=cfg.attn_kv_block,
               backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
-    shards = [list(torch.chunk(x, sp, dim=1)) for x in (q, k, v)]
+    if slices > 1:
+        layout = SlicedLayout(layout, slices)
+    # rank lists, slice-major: rank s * sp + p holds sequence shard p of
+    # batch slice s
+    shards = [[c for xs in torch.chunk(x, slices, dim=0)
+               for c in torch.chunk(xs, sp, dim=1)] for x in (q, k, v)]
     if cfg.strategy == "swift_torus":
         out = torus_attention(*shards, layout,
                               fused_pull_q=cfg.torus_fused_pull_q, **kw)
     else:
         out = _usp_like(*shards, layout, **kw)
-    return torch.cat(out, dim=1)
+    return torch.cat([torch.cat(out[s * sp:(s + 1) * sp], dim=1)
+                      for s in range(slices)], dim=0)

@@ -57,7 +57,7 @@
 //     The add that completes the entry's tile count resets the word and
 //     release-stores the epoch.  No thread fences per byte it copied, and
 //     thread 0 starts its loads without waiting on the block's barrier.
-// Across cards (ROADMAP Queue 1 item 3c): the bulk store takes any global
+// Across cards (ROADMAP Queue 1 item 8): the bulk store takes any global
 // address, so pointing dst at a peer's mapped buffer (CUDA IPC or
 // symmetric memory over NVLink) should need no change to the body; with one
 // card that is unverified.

@@ -71,3 +71,14 @@ def make_host_mesh(model: int = 1, data: int = 1,
                    device: str | torch.device | None = None) -> Mesh:
     """(data, model) mesh, as the reference's ``make_host_mesh``."""
     return make_mesh((data, model), ("data", "model"), device)
+
+
+def make_hybrid_mesh(cfg: int = 1, pipe: int = 1, data: int = 1,
+                     model: int = 1,
+                     device: str | torch.device | None = None) -> Mesh:
+    """(cfg, pipe, data, model) mesh for hybrid-parallel DiT serving, in
+    the reference's axis order: cfg (syncs once per step) outermost, then
+    pipe (stage hand-offs), then the batch and SP axes.  Size-1 axes are
+    kept, so one SPConfig works across degrees."""
+    return make_mesh((cfg, pipe, data, model), ("cfg", "pipe", "data", "model"),
+                     device)

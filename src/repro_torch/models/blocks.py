@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import SPConfig, sp_attention
+from ..core import SPConfig, displaced_attention, sp_attention
 
 Params = dict[str, Any]
 
@@ -226,7 +226,7 @@ def apply_rope(
         return q, k
     if variant != "rope":
         raise NotImplementedError(f"rope variant {variant!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 11)")
+                                  "yet (ROADMAP Queue 1 item 7)")
     rot = int(q.shape[-1] * rope_pct) // 2 * 2
     sin, cos = _rope_angles(positions, rot, theta)
     sin, cos = sin[:, :, None, :], cos[:, :, None, :]
@@ -271,9 +271,21 @@ def attention(
     positions: torch.Tensor,  # [B, L]
     *,
     causal: bool | None = None,
-) -> torch.Tensor:
+    extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    return_kv: bool = False,
+):
     """Self-attention block: projections, RoPE, SP attention, output
-    projection.  Returns [B, L, d]."""
+    projection.  Returns [B, L, d].
+
+    ``extra_kv`` — one-step-stale full-sequence KV of the *non-resident*
+    rows for the displaced patch pipeline (K already post-RoPE): the
+    patch's fresh KV and these rows are attended as two segments of one
+    carried softmax (core/pipefusion.py ``displaced_attention``) instead
+    of the SP schedule.  Only for non-causal, unwindowed attention (DiT).
+
+    ``return_kv`` — also return this call's (post-RoPE K, V), as
+    ``(out, (k, v))``, so the sampler can populate the stale-KV state.
+    """
     b_, l_, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     causal = cfg.causal if causal is None else causal
@@ -282,8 +294,15 @@ def attention(
     v = linear(x, p["wv"]).reshape(b_, l_, hkv, hd)
     q, k = apply_rope(q, k, positions, variant=cfg.rope, theta=cfg.rope_theta,
                       rope_pct=cfg.rope_pct)
-    o = sp_attention(q, k, v, cfg=ctx.sp, mesh=ctx.mesh, causal=causal)
-    return linear(o.reshape(b_, l_, hq * hd), p["wo"])
+    if extra_kv is not None:
+        if causal or ctx.decode:
+            raise ValueError("displaced attention is DiT-only "
+                             "(bidirectional, unwindowed prefill)")
+        o = displaced_attention(q, k, v, extra_kv[0], extra_kv[1])
+    else:
+        o = sp_attention(q, k, v, cfg=ctx.sp, mesh=ctx.mesh, causal=causal)
+    out = linear(o.reshape(b_, l_, hq * hd), p["wo"])
+    return (out, (k, v)) if return_kv else out
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +312,7 @@ def attention(
 def _check_act(cfg) -> None:
     if cfg.act != "gelu":
         raise NotImplementedError(f"MLP activation {cfg.act!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 11)")
+                                  "yet (ROADMAP Queue 1 item 7)")
 
 
 def init_mlp(b: ParamBuilder, cfg) -> None:

@@ -10,6 +10,8 @@ predicting the flow-matching velocity.
 This is the model the serving engine (serving/engine.py) samples with.
 Weights come from ``init_dit`` (on the device, from a ``torch.Generator``)
 or from the reference's parameter tree through ``load_jax_params``.
+``dit_forward_displaced`` is the displaced patch pipeline's forward
+(PipeFusion, core/pipefusion.py).
 """
 from __future__ import annotations
 
@@ -18,7 +20,15 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 
+from ..comm import Stream, pipe_handoff
 from ..configs.base import ModelConfig
+from ..core.pipefusion import (
+    KVState,
+    drop_rows,
+    patch_slices,
+    stage_layers,
+    update_state_rows,
+)
 from .blocks import (
     ParallelContext,
     ParamBuilder,
@@ -113,16 +123,32 @@ def _final_projection(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def dit_block(lp: Params, cfg: ModelConfig, ctx: ParallelContext,
-              x: torch.Tensor, t_emb: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """One adaLN-zero DiT block: x [B, L, d] -> [B, L, d]."""
+              x: torch.Tensor, t_emb: torch.Tensor, positions: torch.Tensor,
+              *, extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+              return_kv: bool = False):
+    """One adaLN-zero DiT block: x [B, L, d] -> [B, L, d]; with
+    ``return_kv`` also the attention's post-RoPE (K, V).  ``extra_kv`` is
+    the stale KV of the displaced pipeline (blocks.attention)."""
     mod = linear(t_emb, lp["ada"])  # [B, 6d]
     sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
     h = _modulate(norm(x, lp["ln_attn"], cfg.norm), sh1, sc1)
-    o = attention(h, lp["attn"], cfg, ctx, positions, causal=False)
+    o = attention(h, lp["attn"], cfg, ctx, positions, causal=False,
+                  extra_kv=extra_kv, return_kv=return_kv)
+    if return_kv:
+        o, kv = o
     x = x + g1[:, None] * o
     h = _modulate(norm(x, lp["ln_mlp"], cfg.norm), sh2, sc2)
-    return x + g2[:, None] * mlp(h, lp["mlp"], cfg)
+    x = x + g2[:, None] * mlp(h, lp["mlp"], cfg)
+    return (x, kv) if return_kv else x
+
+
+def _embed(params: Params, latents: torch.Tensor, cond: torch.Tensor,
+           timesteps: torch.Tensor):
+    """[cond ; latents] projected to d_model, and the time embedding."""
+    x_lat = linear(latents, params["proj_in"])
+    x_cond = linear(cond, params["cond_proj"])
+    x = torch.cat([x_cond, x_lat], dim=1)
+    return x, _time_embedding(params, timesteps, x.dtype)
 
 
 def dit_forward(
@@ -133,17 +159,103 @@ def dit_forward(
     latents: torch.Tensor,  # [B, T, LATENT_CHANNELS]
     cond: torch.Tensor,  # [B, COND_TOKENS, d] (stub text encoder output)
     timesteps: torch.Tensor,  # [B] in [0, 1], float32
-) -> torch.Tensor:
-    """Returns predicted velocity [B, T, LATENT_CHANNELS]."""
+    return_layer_kv: bool = False,
+    kv_out: KVState | None = None,
+):
+    """Returns predicted velocity [B, T, LATENT_CHANNELS].
+
+    With ``return_layer_kv`` also returns a KVState of every layer's
+    full-sequence post-RoPE (K, V) — the warm pass of the displaced patch
+    pipeline seeds the stale-KV state with it — written into ``kv_out``
+    when given (else into a new buffer).  The x-path computation is
+    identical either way.
+    """
     b_, _, _ = latents.shape
-    x_lat = linear(latents, params["proj_in"])
-    x_cond = linear(cond, params["cond_proj"])
-    x = torch.cat([x_cond, x_lat], dim=1)
+    x, t_emb = _embed(params, latents, cond, timesteps)
     l_ = x.shape[1]
     # 1-D positions over [cond ; latents], as in the reference (not Flux's
     # 2-D rope)
     positions = torch.arange(l_, device=x.device)[None].expand(b_, l_)
-    t_emb = _time_embedding(params, timesteps, x.dtype)
-    for lp in params["layers"]:
-        x = dit_block(lp, cfg, ctx, x, t_emb, positions)
-    return _final_projection(params, cfg, x, t_emb)[:, COND_TOKENS:]
+    state = None
+    if return_layer_kv:
+        shape = (cfg.n_layers, b_, l_, cfg.n_kv_heads, cfg.resolved_head_dim)
+        state = kv_out if kv_out is not None else KVState(
+            *(torch.empty(shape, dtype=x.dtype, device=x.device)
+              for _ in range(2)))
+    for i, lp in enumerate(params["layers"]):
+        if state is None:
+            x = dit_block(lp, cfg, ctx, x, t_emb, positions)
+            continue
+        x, (k, v) = dit_block(lp, cfg, ctx, x, t_emb, positions,
+                              return_kv=True)
+        update_state_rows(state, k[None], v[None], 0, first_layer=i)
+    vel = _final_projection(params, cfg, x, t_emb)[:, COND_TOKENS:]
+    return (vel, state) if return_layer_kv else vel
+
+
+def dit_forward_displaced(
+    params: Params,
+    cfg: ModelConfig,
+    ctx: ParallelContext,
+    *,
+    latents: torch.Tensor,  # [B, T, LATENT_CHANNELS]
+    cond: torch.Tensor,  # [B, COND_TOKENS, d]
+    timesteps: torch.Tensor,  # [B]
+    kv_state: KVState,  # per-layer stale KV from the previous sampler step
+    num_patches: int,
+    pp: int = 1,
+    out: KVState | None = None,
+) -> tuple[torch.Tensor, KVState]:
+    """One displaced-pipeline DiT forward (PipeFusion async).
+
+    The latent sequence is split into ``num_patches`` patches (patch 0 also
+    owns the conditioning tokens); each patch runs the full block stack
+    with fresh Q/KV for its own rows and one-step-stale KV (``kv_state``)
+    for every other row.  Fresh per-layer KV is written into ``out`` (a
+    second buffer: every patch reads the untouched ``kv_state``), which
+    becomes the next step's stale state.  Returns (velocity, new KVState).
+
+    The patch loop realises the dataflow of the pp-stage pipeline: stage s
+    is the contiguous layer slice ``stage_layers(L, pp)[s]`` of
+    ``params["layers"]`` (a view: the same tensors), and when the mesh
+    carries a ``pp``-sized ``ctx.sp.pp_axis`` every stage boundary is an
+    explicit put over the pipe axis (``comm.pipe_handoff``), one per
+    (patch, boundary), lowered by the context's comm backend.  Without the
+    axis the hand-off is skipped and the maths is unchanged.
+    """
+    b_, t_, _ = latents.shape
+    stages = stage_layers(cfg.n_layers, pp)
+    slices = patch_slices(COND_TOKENS, t_, num_patches)
+    mesh, pp_axis = ctx.mesh, ctx.sp.pp_axis
+    explicit_handoff = (pp > 1 and mesh is not None and pp_axis is not None
+                        and pp_axis in mesh.axis_names
+                        and mesh.shape[pp_axis] == pp)
+    stream = Stream("pipe", backend=ctx.sp.comm_backend,
+                    interpret=ctx.sp.kernel_interpret)
+    batch_axes = ctx.sp.effective_batch_axes(mesh)
+
+    x_full, t_emb = _embed(params, latents, cond, timesteps)
+    new_state = out if out is not None else KVState(
+        torch.empty_like(kv_state.k), torch.empty_like(kv_state.v))
+    vel_chunks = []
+    for start, length in slices:
+        xp = x_full[:, start:start + length]
+        pos = torch.arange(start, start + length,
+                           device=xp.device)[None].expand(b_, length)
+        for s, (l0, cnt) in enumerate(stages):
+            for l, lp in enumerate(params["layers"][l0:l0 + cnt], start=l0):
+                # stale KV of every NON-resident row of this layer
+                stale = (drop_rows(kv_state.k[l], start, length, axis=1),
+                         drop_rows(kv_state.v[l], start, length, axis=1))
+                xp, (kp, vp) = dit_block(lp, cfg, ctx, xp, t_emb, pos,
+                                         extra_kv=stale, return_kv=True)
+                update_state_rows(new_state, kp[None], vp[None], start,
+                                  first_layer=l)
+            if explicit_handoff and s < pp - 1:
+                xp = pipe_handoff(xp, mesh, pp_axis, batch_axes=batch_axes,
+                                  stream=stream)
+        vp_out = _final_projection(params, cfg, xp, t_emb)
+        if start == 0:  # patch 0 carries the conditioning tokens
+            vp_out = vp_out[:, COND_TOKENS:]
+        vel_chunks.append(vp_out)
+    return torch.cat(vel_chunks, dim=1), new_state

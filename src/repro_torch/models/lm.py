@@ -20,7 +20,7 @@ The reference runs the layers in one ``lax.scan`` over stacked weights;
 here they are a Python loop over a list of per-layer dicts, and caches
 stay stacked on a leading layer axis, as the reference's.  The other
 families (dense, moe, hybrid, vlm) and whisper are not ported yet
-(ROADMAP Queue 1 item 11).
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from .blocks import (
     torch_dtype,
 )
 
-LM_ITEM = "ROADMAP Queue 1 item 11"
+LM_ITEM = "ROADMAP Queue 1 item 7"
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -150,8 +150,8 @@ def _sp_shards(x: torch.Tensor, ctx: ParallelContext) -> list[torch.Tensor]:
         if mesh.shape[a] > 1:
             raise NotImplementedError(
                 f"batch axis {a!r} of size {mesh.shape[a]}: sharding the "
-                "batch over the mesh is not ported yet (ROADMAP Queue 1 "
-                "item 3b)")
+                "batch over the mesh in the LM's SP prefill is not ported "
+                "yet (ROADMAP Queue 1 item 7)")
     size = ctx.sp_degree
     if x.shape[1] % size:
         raise ValueError(f"sequence length {x.shape[1]} does not split "

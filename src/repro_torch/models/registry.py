@@ -7,7 +7,7 @@
     caches       = bundle.init_caches(cfg, batch, max_len, dtype, device)
 
 Batches are plain dicts.  The reference's ``loss`` and ``input_specs``
-come with training (ROADMAP Queue 1 item 11); so does whisper.
+come with training (ROADMAP Queue 1 item 7); so does whisper.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ sharded over the SP ranks with a **two-pass distributed prefix scan**
 
 The composition ((a₂,b₂)∘(a₁,b₁) = (a₂a₁, a₂b₁+b₂)) is associative, so the
 cross-rank pass is exact.  The SSD half (the hymba branch) is not ported
-yet (ROADMAP Queue 1 item 11).
+yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

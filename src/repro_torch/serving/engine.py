@@ -7,17 +7,20 @@ deadlines, and memoizes one step function per bucket shape; the
 flow-matching sampler runs every attention through the configured SP
 strategy over a mesh of virtual ranks on one device (launch/mesh.py) —
 the hand-written kernels K1/K2 and the put kernels under
-``comm_backend="pallas"`` — and results stream back.
+``comm_backend="pallas"`` — and results stream back.  On a hybrid mesh
+(cfg, pipe, data, model) the server also drives CFG parallelism, data
+parallelism with padding rows, and the displaced patch pipeline with its
+drift-triggered resync.
 
 ARServer — fixed-slot batched greedy decoding for the language models
 (the ported one is rwkv6-1.6b), with aged-priority slot admission.
 
-Not ported yet: the pipelined (displaced patch) sampler and the span
-profiler (ROADMAP Queue 1 items 5 and 9).
+Not ported yet: the span profiler (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Callable
@@ -27,13 +30,22 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import SPConfig, plan_hybrid
 from ..core.comm_model import NetworkModel
+from ..core.pipefusion import stage_layers
 from ..models import ParallelContext, get_model, resolve_device, torch_dtype
 from ..models.dit import COND_TOKENS, LATENT_CHANNELS
 from .metrics import Tracker
-from .sampler import SamplerConfig, sample_step, sync
+from .sampler import (
+    SamplerConfig,
+    hybrid_sample_step,
+    hybrid_state_shape,
+    sample_step,
+    spare_state,
+    sync,
+)
 from .sched import (
     ArrivalForecaster,
     ControlConfig,
+    DriftPolicy,
     OnlineCalibrator,
     PlanCache,
     PlanChoice,
@@ -52,6 +64,9 @@ class DiTRequest:
     submitted: float = 0.0
     # SLA: seconds from submission to deadline; None = best-effort
     sla: float | None = None
+    # per-request KV-staleness bound for the displaced pipeline; crossing
+    # it triggers a resync step (None = the server DriftPolicy's default)
+    drift_threshold: float | None = None
     # times this request's batch was parked by the preemption policy
     preemptions: int = 0
 
@@ -62,6 +77,11 @@ class DiTResult:
     latents: torch.Tensor
     latency: float
     sampling_steps: int
+    # per-step KV staleness trajectory of the displaced pipeline (empty for
+    # non-pipelined sampling); see core/pipefusion.kv_drift
+    kv_drift: list[float] = dataclasses.field(default_factory=list)
+    # warm steps the drift policy injected after warmup
+    resyncs: int = 0
     # whether the request's deadline (submitted + sla) was met
     sla_met: bool = True
     # per-step wall clocks of the final run of this request's batch (empty
@@ -81,6 +101,21 @@ class DiTServer:
     functions come from the plan cache (one build per bucket shape, with
     hit/miss counters).  ``device`` defaults to CUDA and raises without
     it; ``params`` must already live on that device.
+
+    Beyond plain SP:
+
+      * ``sampler.cfg_parallel`` — the CFG branches ride one batch, split
+        over the ``sp.cfg_axis`` slices of the mesh.
+      * data parallelism — batches are padded to a multiple of the mesh's
+        ``sp.batch_axes`` size; pad rows draw their own noise and are
+        dropped before results.
+      * ``sampler.pipeline`` — displaced patch pipelining: warm and
+        displaced step variants per bucket (keyed by the plan's patch
+        count), the per-layer KV state threaded across the loop in two
+        buffers that swap roles, and ``drift`` (a DriftPolicy) resyncing
+        a request whose ``kv_drift`` crosses its ``drift_threshold``.
+        ``stages`` holds each pipeline stage's contiguous slice of
+        ``params["layers"]`` (the same tensors, not copies).
     """
 
     # noise is drawn per REQUEST from a generator seeded by
@@ -95,19 +130,16 @@ class DiTServer:
                  sampler: SamplerConfig = SamplerConfig(),
                  max_batch: int = 4,
                  sched: SchedConfig | None = None,
+                 drift: DriftPolicy | None = None,
                  net: NetworkModel | None = None,
                  control: ControlConfig | None = None,
                  tracker: Tracker | None = None,
                  profile: bool = False,
                  device: str | torch.device | None = None,
                  mesh=None):
-        if sampler.pipelined:
-            raise NotImplementedError(
-                "pipelined serving (displaced patch pipeline) is not ported "
-                "yet: ROADMAP Queue 1 item 5")
         if profile:
             raise NotImplementedError(
-                "span profiling is not ported yet: ROADMAP Queue 1 item 9")
+                "span profiling is not ported yet: ROADMAP Queue 1 item 5")
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is not None and device is not None and (
                 resolve_device(device).type != mesh.device.type):
@@ -123,28 +155,38 @@ class DiTServer:
         self.ctx = ParallelContext(sp, "prefill", self.device, mesh)
         self.sampler = sampler
         self.tracker = tracker if tracker is not None else Tracker()
+        self.drift = drift if drift is not None else DriftPolicy()
         self.control = control if control is not None else ControlConfig()
         # instrumentation hook: on_step(server, step_index) after every
         # completed sampler step, before the preemption check
         self.on_step: Callable[[DiTServer, int], None] | None = None
 
-        dp = 1
+        pipe = sampler.pipeline if sampler.pipelined else None
+        pp = pipe.pp if pipe else 1
+        # stage partitioning: each pipeline stage's contiguous layer slice
+        self.stages = [params["layers"][l0:l0 + n]
+                       for l0, n in stage_layers(cfg.n_layers, pp)]
+
+        dp = self._dp_degree()
         sched = sched if sched is not None else SchedConfig(max_batch=max_batch)
         self.sched_cfg = dataclasses.replace(sched, dp=dp)
         cfg_deg = (sampler.cfg_degree
                    if (sampler.guided and sampler.cfg_parallel) else 1)
         sp_deg = self.ctx.sp_degree
-        # the one plan this device can execute, as in the reference
-        fixed = plan_hybrid(1, cfg_deg * sp_deg, cfg.n_heads,
+        # the one plan this mesh and sampler can execute, planned as one
+        # machine of cfg x pp x sp devices, as in the reference; the plan
+        # cache chooses the patch count per bucket
+        fixed = plan_hybrid(1, cfg_deg * pp * sp_deg, cfg.n_heads,
                             cfg.n_kv_heads, cfg_parallel=cfg_deg > 1,
-                            cfg_degree=max(cfg_deg, 2), pp=1,
+                            cfg_degree=max(cfg_deg, 2), pp=pp,
                             n_layers=cfg.n_layers)
         self.plan_cache = PlanCache(
             heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
             kv_heads=cfg.n_kv_heads, n_layers=cfg.n_layers,
             num_steps=sampler.num_steps, guided=sampler.guided,
             guidance_branches=sampler.cfg_degree, dp=dp, net=net,
-            candidates=[fixed], base_patches=0, tracker=self.tracker)
+            candidates=[fixed], base_patches=pipe.patches if pipe else 0,
+            tracker=self.tracker)
         forecaster = (ArrivalForecaster(self.control.forecast_alpha,
                                         tracker=self.tracker)
                       if self.control.forecast else None)
@@ -169,13 +211,32 @@ class DiTServer:
     def pending(self) -> int:
         return self.scheduler.pending
 
+    def _bucket_sampler(self, choice: PlanChoice) -> SamplerConfig:
+        """The sampler config for one bucket: the server's, with the plan
+        cache's per-bucket patch count applied."""
+        if not (self.sampler.pipelined and choice.num_patches):
+            return self.sampler
+        return dataclasses.replace(
+            self.sampler, pipeline=dataclasses.replace(
+                self.sampler.pipeline, num_patches=choice.num_patches))
+
     def _step_fn(self, batch: int, seq: int, choice: PlanChoice) -> Callable:
-        """The bucket's step function, memoized by the plan cache (one
-        build per bucket shape; eager PyTorch compiles nothing)."""
-        sc = self.sampler
+        """The bucket's step function — for a pipelined sampler the pair
+        (warm, displaced) — memoized by the plan cache (one build per
+        bucket shape and patch count; eager PyTorch compiles nothing)."""
+        sc = self._bucket_sampler(choice)
 
         def build():
             dt = 1.0 / sc.num_steps
+            if sc.pipelined:
+                def variant(warm: bool):
+                    def f(params, x, cond, t, state, out):
+                        return hybrid_sample_step(
+                            params, self.cfg, self.ctx, x, cond, t, dt, sc,
+                            state, warm=warm, out=out)
+                    return f
+
+                return variant(True), variant(False)
 
             def f(params, x, cond, t):
                 return sample_step(params, self.cfg, self.ctx, x, cond, t,
@@ -185,6 +246,15 @@ class DiTServer:
 
         return self.plan_cache.step_fn(batch, seq, build,
                                        variant=choice.num_patches)
+
+    def _dp_degree(self) -> int:
+        """Size of the mesh's data (batch) axes: batches are padded to a
+        multiple of it."""
+        mesh = self.ctx.mesh
+        if mesh is None:
+            return 1
+        return math.prod(mesh.shape[a] for a in self.ctx.sp.batch_axes or ()
+                         if a in mesh.axis_names)
 
     def _noise(self, batch: list[DiTRequest], b: int, t: int) -> torch.Tensor:
         """Initial latent noise, drawn per ROW from a generator seeded by
@@ -245,7 +315,7 @@ class DiTServer:
         b = adm.batch_rows
         t = adm.seq_len
         d = self.cfg.d_model
-        sc = self.sampler
+        sc = self._bucket_sampler(adm.plan)
         cond = torch.stack([
             (batch[i].cond.to(device=self.device, dtype=self.dtype)
              if i < n_real and batch[i].cond is not None
@@ -259,11 +329,13 @@ class DiTServer:
         measure = self.control.engaged or self.tracker.persistent
         step_tags = {"adm": adm_id, "seq": t, "rows": b}
         step_times: list[float] = []
+        drift_vals = []
+        resyncs = 0
 
-        parked = False
-        for i in range(sc.num_steps):
-            t0 = time.perf_counter()
-            x = fn(self.params, x, cond, 1.0 - i * dt)
+        def tick(i: int, t0: float) -> bool:
+            """Post-step control point: stamp the step's wall clock (the
+            clock stops when the outputs are ready), run the hook, then the
+            preemption check.  True = the batch was parked."""
             if measure:
                 sync(self.device)
                 t_step = time.perf_counter() - t0
@@ -274,16 +346,64 @@ class DiTServer:
                 self.on_step(self, i)
             if self._should_park(adm, i, sc.num_steps, step_times):
                 self._park(adm, adm_id, i)
-                parked = True
-                break
+                return True
+            return False
+
+        parked = False
+        if sc.pipelined:
+            warm_fn, displaced_fn = fn
+            pipe = sc.pipeline
+            thresholds = [r.drift_threshold for r in batch]
+            use_drift = self.drift.engaged(thresholds)
+            # the threaded state and a second buffer: each step writes the
+            # new state into the buffer the step before last filled, which
+            # no one needs any more, then the two swap roles
+            state = hybrid_state_shape(self.cfg, b, t, sc, self.device)
+            spare = spare_state(state)
+            last_drift: list[float] | None = None
+            for i in range(sc.num_steps):
+                if use_drift:
+                    warm = self.drift.warm(pipe, i, last_drift, thresholds,
+                                           tracker=self.tracker)
+                    if warm and i >= pipe.warmup_steps:
+                        resyncs += 1
+                        self.tracker.count("engine.resyncs", tags={"seq": t})
+                else:
+                    warm = pipe.warm_step(i)
+                f = warm_fn if warm else displaced_fn
+                t0 = time.perf_counter()
+                x, new, m = f(self.params, x, cond, 1.0 - i * dt, state,
+                              spare)
+                state, spare = new, state
+                per = m["kv_drift_per_request"]
+                drift_vals.append(per)
+                if use_drift:
+                    # threshold-triggered resync reads the drift on the
+                    # host: one device sync per step, only with a bound
+                    last_drift = [float(per[j]) for j in range(n_real)]
+                if tick(i, t0):
+                    parked = True
+                    break
+            del state, spare
+        else:
+            for i in range(sc.num_steps):
+                t0 = time.perf_counter()
+                x = fn(self.params, x, cond, 1.0 - i * dt)
+                if tick(i, t0):
+                    parked = True
+                    break
         if parked:
             return []
         sync(self.device)
         now = time.time()
         if self.calibrator is not None and step_times:
             self.calibrator.observe(adm.plan, b, t, step_times)
+        # read after the timed region; row i is request i's own trajectory
+        # (pad rows are never handed to a request)
+        drifts = [[float(v[i]) for v in drift_vals] for i in range(n_real)]
         results = [
             DiTResult(r.rid, x[i], now - r.submitted, sc.num_steps,
+                      kv_drift=drifts[i], resyncs=resyncs,
                       sla_met=(r.sla is None or now <= r.submitted + r.sla),
                       step_times=list(step_times),
                       preemptions=r.preemptions)
@@ -292,6 +412,11 @@ class DiTServer:
         tr = self.tracker
         tr.log("engine.batch_done", float(n_real),
                tags={"adm": adm_id, "seq": t, "rows": b})
+        if drift_vals and n_real:
+            for step in range(len(drift_vals)):
+                mean = sum(drifts[i][step] for i in range(n_real)) / n_real
+                tr.log("engine.kv_drift", mean, step=step,
+                       tags={"adm": adm_id, "seq": t})
         for r, req in zip(results, batch):
             tr.count("engine.completed", tags={"seq": t})
             if r.preemptions:

@@ -25,6 +25,7 @@ from repro_torch.serving import sched as t_sched
 
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
+            "configs/cogvideox_5b.py", "configs/shapes.py",
             "core/calibration.py",
             "serving/metrics.py",
             *(f"serving/sched/{n}.py" for n in (
@@ -38,7 +39,7 @@ def test_copy_is_verbatim(rel):
             == (ROOT / "repro" / rel).read_text())
 
 
-@pytest.mark.parametrize("arch", ["flux-12b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["flux-12b", "cogvideox-5b", "rwkv6-1.6b"])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_equals_reference(arch, which):
     """Every field of the port's config, full and reduced, equals the
@@ -47,6 +48,16 @@ def test_config_equals_reference(arch, which):
     mine = dataclasses.asdict(getattr(t_configs, which)(arch))
     ref = dataclasses.asdict(getattr(j_configs, which)(arch))
     assert mine == ref
+
+
+def test_dit_archs_and_shapes_equal_reference():
+    """The port serves every DiT of the reference, and its input shapes
+    (the paper's DiT workloads among them) are the reference's."""
+    assert t_configs.DIT_ARCHS == j_configs.DIT_ARCHS
+    for name in ("SHAPES", "DIT_SHAPES"):
+        mine, ref = getattr(t_configs, name), getattr(j_configs, name)
+        assert {k: dataclasses.asdict(v) for k, v in mine.items()} == {
+            k: dataclasses.asdict(v) for k, v in ref.items()}
 
 
 def _asdict(x):

@@ -179,21 +179,27 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup):
 
 
 def test_multi_rank_strategies_not_ported_yet(setup):
-    """The flat multi-rank schedules are ported (tests/test_torch_sp.py);
-    the hierarchical all-to-all and a batch axis of size > 1 on the mesh
-    are not, and say where they stand."""
+    """The flat multi-rank schedules are ported (tests/test_torch_sp.py),
+    and so is a batch axis of size > 1 on the mesh: each data slice of the
+    batch runs swift_torus on its own model ranks, and the DiT's output is
+    the single-rank one.  The hierarchical all-to-all is not, and says
+    where it stands."""
     cfg, *_, tparams, tctx = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         SPConfig(strategy="swift_torus", hier_a2a=True)
     ctx = dataclasses.replace(
         tctx, sp=SPConfig(strategy="swift_torus"),
         mesh=make_mesh((2, 2), ("data", "model"), device="cpu"))
     assert ctx.sp_degree == 2
-    x = torch.zeros((2, 16, 64))
-    cond = torch.zeros((2, 256, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dit_forward(tparams, cfg, ctx, latents=x, cond=cond,
-                    timesteps=torch.zeros(2))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 64)).astype(np.float32))
+    cond = torch.from_numpy(
+        rng.standard_normal((2, 256, cfg.d_model)).astype(np.float32))
+    t = torch.tensor([0.3, 0.8])
+    want = dit_forward(tparams, cfg, tctx, latents=x, cond=cond, timesteps=t)
+    got = dit_forward(tparams, cfg, ctx, latents=x, cond=cond, timesteps=t)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_rope_table_is_the_rounded_float64_table():

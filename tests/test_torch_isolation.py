@@ -1,9 +1,11 @@
 """The port stands alone: no module of src/repro_torch imports jax or the
 reference package, every module imports with jax blocked, and importing
-builds no kernel (no nvcc, no CUDA needed)."""
+builds no kernel (no nvcc, no CUDA needed).  Its pointers into ROADMAP.md
+name open items."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -73,3 +75,40 @@ def test_rwkv_modules_are_covered(name):
     """The rwkv6 LM path's modules are among those scanned and imported
     above."""
     assert f"repro_torch.{name}" in MODULES
+
+
+def _roadmap_items() -> dict[int, dict[int, str]]:
+    """{queue: {item number: item text}} of ROADMAP.md's numbered queues."""
+    text = (SRC.parent / "ROADMAP.md").read_text()
+    queues = {}
+    for m in re.finditer(r"^### Queue (\d+):(.*?)(?=^##|\Z)", text,
+                         re.M | re.S):
+        queues[int(m.group(1))] = {
+            int(n): item for n, item in
+            re.findall(r"^(\d+)\. (.*)$", m.group(2), re.M)}
+    return queues
+
+
+def test_roadmap_pointers_name_open_items():
+    """Every "ROADMAP Queue N item M" under src/repro_torch (in code,
+    comments, docstrings and messages, also where a string or a comment
+    wraps) names item M of ROADMAP.md's Queue N, and that item is not
+    done: a re-anchor that renumbers the queue cannot leave them stale
+    unseen."""
+    queues = _roadmap_items()
+    assert 1 in queues and len(queues[1]) >= 5
+    refs = []
+    for path in sorted(PORT.rglob("*")):
+        if path.suffix not in (".py", ".cu", ".cuh"):
+            continue
+        text = re.sub(r'"\s*\n\s*[rf]?"', "", path.read_text())
+        text = re.sub(r"\s*\n\s*(#|//)?\s*", " ", text)
+        for m in re.finditer(r"ROADMAP Queue (\d+),? items? (\w+)", text):
+            refs.append((path.relative_to(SRC), m.group(1), m.group(2)))
+    assert len(refs) >= 10
+    for where, queue, item in refs:
+        assert item.isdigit(), (where, queue, item)
+        got = queues.get(int(queue), {}).get(int(item))
+        assert got is not None, f"{where}: no Queue {queue} item {item}"
+        assert not got.startswith("*Done"), (
+            f"{where}: Queue {queue} item {item} is done: {got}")

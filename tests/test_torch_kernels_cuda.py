@@ -340,6 +340,55 @@ def test_cuda_swift_torus_matches_cpu(cuda, axes, sp_axes, shape, interpret,
 
 
 @pytest.mark.needs_cuda
+def test_cuda_swift_torus_over_batch_slices_matches_cpu(cuda):
+    """A data axis of 2 on the card: each batch slice runs swift_torus on
+    its own 4 ranks of (pod 2, model 2), and every put is still ONE launch
+    covering both slices."""
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 64, 8, 32), generator=gen)
+    k = torch.randn((2, 64, 4, 32), generator=gen)
+    v = torch.randn((2, 64, 4, 32), generator=gen)
+    cfg = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                   batch_axes=("data",), comm_backend="pallas",
+                   kernel_interpret=False)
+    shape, axes = (2, 2, 2), ("pod", "data", "model")
+    want = sp_attention(q, k, v, cfg=cfg, causal=True,
+                        mesh=make_mesh(shape, axes, device="cpu"))
+    fm.reset_launch_count()
+    kb.reset_launch_count()
+    got = sp_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg=cfg,
+                       causal=True, mesh=make_mesh(shape, axes, device=cuda))
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    # P_u 4 x P_r 1 per slice: 7 circulations of one K1 per rank, 8 ranks;
+    # 9 torus puts over (pod, model), each one K4 launch for both slices
+    assert fm.launch_count() == 8 * 7
+    assert kb.launch_count("landing_copy") == 9
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_displaced_attention_matches_cpu(cuda, dtype, tol):
+    """The displaced pipeline's attention on the card: two K1 launches
+    (the patch's fresh rows, then the other rows' stale ones) carrying one
+    softmax state, against the same call's plain version on the CPU."""
+    from repro_torch.core import displaced_attention
+    gen = torch.Generator().manual_seed(7)
+    q, kf, vf = (torch.randn((2, 48, 4, 64), generator=gen).to(dtype)
+                 for _ in range(3))
+    ks, vs = (torch.randn((2, 144, 4, 64), generator=gen).to(dtype)
+              for _ in range(2))
+    want = displaced_attention(q, kf, vf, ks, vs).float()
+    fm.reset_launch_count()
+    got = displaced_attention(*(t.to(cuda) for t in (q, kf, vf, ks, vs)))
+    torch.cuda.synchronize()
+    assert fm.launch_count() == 2
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.float().cpu() - want).abs().max()) / scale <= tol
+
+
+@pytest.mark.needs_cuda
 @pytest.mark.parametrize("strategy", ["ring", "usp", "swift_torus"])
 def test_cuda_xla_backend_matches_cpu(cuda, strategy):
     """comm_backend "xla" on the card: plain attention per chunk and plain

@@ -146,15 +146,31 @@ def test_ulysses_needs_sp_to_divide_heads():
         sp_attention(q, k, v, cfg=cfg, mesh=mesh, causal=True)
 
 
-def test_mesh_shape_rules():
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_mesh_shape_rules(backend):
+    """A data axis of size 2 splits the batch into two slices, each running
+    swift_torus (P_u 4 x P_r 2) on its own eight ranks, every put covering
+    both slices: the result is the reference's oracle at SP_TOL, and the
+    signal word of every one of the 16 ranks is set.  What shard_map cannot split
+    raises."""
     q, k, v = (torch.from_numpy(x) for x in _qkv())
-    cfg = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"))
-    with pytest.raises(NotImplementedError, match="batch"):
-        sp_attention(q, k, v, cfg=cfg, causal=True, mesh=make_mesh(
-            (2, 2, 2), ("pod", "data", "model"), device="cpu"))
+    want = np.asarray(j_reference(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                  mask=JMask(causal=True)))
+    cfg = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                   batch_axes=("data",), comm_backend=backend)
+    mesh = make_mesh((2, 2, 4), ("pod", "data", "model"), device="cpu")
+    heap = kb.heap_for(torch.device("cpu"))
+    heap.signals.zero_()
+    got = sp_attention(q, k, v, cfg=cfg, causal=True, mesh=mesh).numpy()
+    np.testing.assert_allclose(got, want, rtol=SP_TOL, atol=SP_TOL)
+    if backend == "pallas":
+        for row in ("fused", "landing_copy"):
+            assert int(heap.words(row, 0, 16)[0].min()) > 0
+    with pytest.raises(ValueError, match="batch 1 does not split"):
+        sp_attention(q[:1], k[:1], v[:1], cfg=cfg, causal=True, mesh=mesh)
     with pytest.raises(ValueError, match="split evenly"):
         sp_attention(q[:, :60], k[:, :60], v[:, :60], cfg=cfg, causal=True,
-                     mesh=make_mesh(*MESH, device="cpu"))
+                     mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
