@@ -103,7 +103,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  computes the WKV scan), and one traced rwkv6-1.6b prefill
                  with K5's share.
 
-Phases 15 to 18 run after serve-sp:
+Phases 15 to 21 run after serve-sp (20 right after it):
 
  15. paper-attn — K1 at the paper's workloads (configs/shapes.py) at degree
                  1: flux_3072 (BH 24, L 37,120, D 128) and cogvideox_20s (BH
@@ -132,6 +132,29 @@ Phases 15 to 18 run after serve-sp:
                  displaced forward on a warm state equal to the warm forward
                  within DISPLACED_FWD_TOL (and not so with the stale segment
                  dropped); the launch counts the schedule implies.
+ 19. hier      — the hierarchical all-to-all on one flux-12b layer at the
+                 serve shape (B 2, L 4352, bf16), kernel path: swift_torus
+                 on mesh (pod 2, model 8) with hier_a2a bitwise equal to
+                 the flat layer, with 18 K4 launches per layer against 21
+                 and K1/K2 unchanged; ulysses on mesh (pod 2, model 4)
+                 hierarchical vs flat, bitwise; the fp8 wires (e4m3, e5m2)
+                 engaged and within FP8_TOL of exact beside a control with
+                 one Push-O chunk dropped, one inter put's payload and
+                 scale from the card equal to the CPU codec's, and K4 on
+                 that fp8 payload plus its 0-d float32 scale bitwise as the
+                 plain landing copy (timed); each variant's wall clock,
+                 device time and put time.
+ 20. profile   — run right after serve-sp, on its weights:
+                 DiTServer(profile=True) on flux-12b at full width and
+                 depth on mesh (pod 2, model 8), one 1024-latent request,
+                 2 steps: latents bitwise those of profile=False, the spans'
+                 JSONL passing ``python -m repro_torch.launch.trace_report
+                 --check``, the overlap rows of the torus hops, the ring
+                 shifts and the Push-O puts, and the step wall clock with
+                 and without the profiler.
+ 21. commcheck — ``python -m repro_torch.launch.commcheck --profile`` on the
+                 card: six comm.trace lines OK, exit 0, its spans passing
+                 the trace report's check.
 
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
@@ -1409,6 +1432,367 @@ def serve_hybrid(results: dict, card: str, params, cfg) -> None:
             fail(msg)
 
 
+# ---------------------------------------------------------------------------
+# phases 19 to 21: the hierarchical all-to-all, the span profiler and the
+# schedule gate of the comm layer
+# ---------------------------------------------------------------------------
+
+# fp8 wire vs exact, max|d| / max|O| of the attention output: the
+# reference's roundtrip bounds for one quantisation (tests/test_compress.py;
+# e4m3 keeps 3 mantissa bits, a relative step of 2^-3, e5m2 2 bits).  The
+# negative control (one Push-O chunk of every rank dropped) must exceed it.
+FP8_TOL = {"float8_e4m3fn": 0.08, "float8_e5m2": 0.15}
+# K4 launches per layer on mesh (pod 2, model 8), P_u 8 = 2 machines x 4:
+# 7 Pull-Q + 7 Pull-KV + 7 Push-O flat; the hierarchical Push-O is 3 intra
+# puts (of 2-chunk bundles) and 1 inter put (of a 4-chunk bundle)
+HIER_PUTS = {False: 3 * (P_U - 1), True: 2 * (P_U - 1) + (P_U // 2 - 1) + 1}
+PROFILE_LATENTS = 1024  # the profile phase's one request
+PROFILE_STEPS = 2
+
+
+def _layer_times(fn, label: str, card: str) -> dict:
+    """Three calls of ``fn`` (a layer, already warm) untraced, then one
+    traced by torch.profiler: the median wall ms, device busy ms, and the
+    put kernels' and the copies' device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(3):  # the host clock of one layer is noisy: a median
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k4 = sum(e.self_device_time_total for e in kernels
+             if "landing_copy" in e.key) / 1e3
+    copies = sum(e.self_device_time_total for e in kernels
+                 if "copy" in e.key.lower() and "landing_copy" not in e.key
+                 ) / 1e3
+    out = dict(wall=wall, busy=busy, k4=k4, copies=copies)
+    log(f"hier {label}: wall {wall:.1f} ms (median of "
+        f"{[round(w, 1) for w in walls]}), device busy {busy:.2f} ms "
+        f"(idle share {1 - busy / wall:.3f}), K4 {k4:.3f} ms, copy kernels "
+        f"{copies:.3f} ms [{card}]")
+    return out
+
+
+def hier(results: dict, card: str) -> None:
+    """Phase 19: the hierarchical all-to-all on one flux-12b layer at the
+    serve shape (B 2, L 4352, bf16), kernel path.  (a) swift_torus on mesh
+    (pod 2, model 8) with and without hier_a2a: bitwise equal, K4 18
+    against 21 per layer, K1/K2 unchanged; (b) ulysses on mesh (pod 2,
+    model 4), hierarchical against flat: bitwise equal; (c) the fp8 wires:
+    engaged, within FP8_TOL of exact beside the dropped-chunk control, and
+    one inter put's payload and scale from the card equal to the CPU
+    codec's, then delivered by K4 bitwise as the plain landing copy does;
+    (d) each variant's wall clock and device time."""
+    import torch
+    from repro_torch.comm import compress
+    from repro_torch.comm import kernel_backend as kb
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig, sp_attention, torus
+    from repro_torch.launch import make_mesh
+    from repro_torch.models.blocks import ParallelContext
+    from repro_torch.models.dit import dit_block, init_dit
+
+    cfg = dataclasses.replace(get_config("flux-12b"), n_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = init_dit(cfg, gen, device="cuda")
+    perturb_zero_init(params, gen)
+    lp = params["layers"][0]
+    b, l = 2, 4352
+    x = torch.randn((b, l, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t_emb = torch.randn((b, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    pos = torch.arange(l, device="cuda")[None].expand(b, l)
+    meshes = {"pod2xmodel8": make_mesh((2, 8), ("pod", "model"), "cuda"),
+              "pod2xmodel4": make_mesh((2, 4), ("pod", "model"), "cuda")}
+
+    def spc(strategy, hier_a2a, wire=None):
+        return SPConfig(strategy=strategy, sp_axes=("pod", "model"),
+                        machine_axis="pod", comm_backend="pallas",
+                        kernel_interpret=False, hier_a2a=hier_a2a,
+                        a2a_wire_dtype=wire)
+
+    checks, times, outs = [], {}, {}
+    variants = (("swift_torus", "pod2xmodel8", False, None),
+                ("swift_torus", "pod2xmodel8", True, None),
+                ("swift_torus", "pod2xmodel8", True, "float8_e4m3fn"),
+                ("swift_torus", "pod2xmodel8", True, "float8_e5m2"),
+                ("ulysses", "pod2xmodel4", False, None),
+                ("ulysses", "pod2xmodel4", True, None))
+    for strategy, mesh_name, hier_a2a, wire in variants:
+        label = (f"{strategy} {mesh_name} "
+                 f"{'hier' if hier_a2a else 'flat'}"
+                 f"{' ' + wire if wire else ''}")
+        ctx = ParallelContext(spc(strategy, hier_a2a, wire),
+                              mesh=meshes[mesh_name])
+        with torch.inference_mode():
+            reset_counts()
+            outs[label] = dit_block(lp, cfg, ctx, x, t_emb, pos)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            times[label] = _layer_times(
+                lambda: dit_block(lp, cfg, ctx, x, t_emb, pos), label, card)
+        log(f"hier {label}: launches per layer {counts}")
+        if strategy == "swift_torus":
+            want = {"flash_mqkv": K1_PER_LAYER,
+                    "ring_flash_step": K2_PER_LAYER, "remote_put": 0,
+                    "landing_copy": HIER_PUTS[hier_a2a]}
+        else:  # P_u 8 x P_r 1: one K1 per rank; four all-to-alls of 7
+            # staged puts, or of 3 intra and 1 inter put
+            want = {"flash_mqkv": 8, "ring_flash_step": 0, "remote_put": 0,
+                    "landing_copy": 4 * (4 if hier_a2a else 7)}
+        checks.append((counts == want,
+                       f"hier {label}: launches {counts} != {want}"))
+    for flat, two_level in (("swift_torus pod2xmodel8 flat",
+                             "swift_torus pod2xmodel8 hier"),
+                            ("ulysses pod2xmodel4 flat",
+                             "ulysses pod2xmodel4 hier")):
+        same = torch.equal(outs[flat], outs[two_level])
+        log(f"hier (a/b) {two_level} vs flat: bitwise equal {same}")
+        checks.append((same, f"{two_level} differs from the flat layer"))
+    base = times["swift_torus pod2xmodel8 flat"]
+    for label, t in times.items():
+        dev = (f"{t['busy']:.2f} ms ({t['busy'] / base['busy']:.3f} x)"
+               if base["busy"] > 0 else "not measured (no device time seen)")
+        log(f"hier (d) {label}: wall {t['wall']:.1f} ms "
+            f"({t['wall'] / base['wall']:.3f} x flat swift_torus), device "
+            f"{dev}, K4 {t['k4']:.3f} ms, copy kernels {t['copies']:.3f} ms "
+            f"[{card}]")
+    results["hier_times"] = times
+
+    # (c) the fp8 wire on the attention output itself
+    q, k, v = (torch.randn((b, l, cfg.n_heads, cfg.resolved_head_dim),
+                           generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    mesh = meshes["pod2xmodel8"]
+    with torch.inference_mode():
+        exact = sp_attention(q, k, v, cfg=spc("swift_torus", True),
+                             mesh=mesh).float()
+        real_scatter = torus.scatter_o
+
+        def dropping(o, layout, **kw):
+            # every rank's chunk for its ulysses peer u + 1 is lost
+            for p, part in enumerate(o):
+                u = layout.coords(p)[0]
+                j = (u + 1) % layout.p_ulysses
+                rows = part.shape[1] // layout.p_ulysses
+                part[:, j * rows:(j + 1) * rows] = 0
+            return real_scatter(o, layout, **kw)
+
+        torus.scatter_o = dropping
+        try:
+            dropped = sp_attention(q, k, v, cfg=spc("swift_torus", True),
+                                   mesh=mesh).float()
+        finally:
+            torus.scatter_o = real_scatter
+        o_max = float(exact.abs().max())
+        control = float((dropped - exact).abs().max()) / o_max
+        for wire, tol in FP8_TOL.items():
+            seen = []
+            real_q = compress.quantize
+
+            def capture(xq, wd, seen=seen, real_q=real_q):
+                wire_t, scale = real_q(xq, wd)
+                if not seen:
+                    seen.append((xq.clone(), wire_t.clone(), scale.clone()))
+                return wire_t, scale
+
+            compress.quantize = capture
+            try:
+                got = sp_attention(q, k, v, mesh=mesh,
+                                   cfg=spc("swift_torus", True, wire)).float()
+            finally:
+                compress.quantize = real_q
+            err = float((got - exact).abs().max()) / o_max
+            xq, card_wire, card_scale = seen[0]
+            cpu_wire, cpu_scale = compress.quantize(xq.cpu(), wire)
+            codec_ok = (torch.equal(card_wire.cpu().view(torch.uint8),
+                                    cpu_wire.view(torch.uint8))
+                        and card_scale.item() == cpu_scale.item())
+            log(f"hier (c) {wire}: max|d|/max|O| vs exact {err:.4e} (tol "
+                f"{tol}; one Push-O chunk dropped: {control:.4e}); one inter "
+                f"bundle {tuple(xq.shape)} {xq.dtype}: card payload and scale "
+                f"== CPU codec's: {codec_ok} (scale {card_scale.item():.6e})")
+            checks += [(err > 0.0, f"{wire}: the fp8 wire did not engage"),
+                       (err <= tol < control,
+                        f"{wire}: err {err}, tol {tol}, control {control}"),
+                       (codec_ok, f"{wire}: card codec != CPU codec")]
+            if wire == "float8_e4m3fn":
+                checks.append(fp8_landing_copy(card_wire, card_scale, gen,
+                                               results, card))
+    del params
+    torch.cuda.empty_cache()
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+
+
+def fp8_landing_copy(wire, scale, gen, results: dict, card: str):
+    """K4 on the inter put of the fp8 Push-O: 16 ranks x (an fp8 bundle
+    like ``wire`` and a 0-d float32 scale), bitwise as the plain landing
+    copy, timed beside it and one copy_ of the same bytes."""
+    import torch
+    from repro_torch.comm import kernel_backend as kb
+
+    def rank_set():
+        return [[(torch.randn(wire.shape, generator=gen, device="cuda")
+                  * 64).to(wire.dtype),
+                 torch.rand((), generator=gen, device="cuda")]
+                for _ in range(RANKS)]
+
+    src = [[wire, scale]] + rank_set()[1:]
+    dst = [[torch.empty_like(t) for t in r] for r in src]
+    ref = [[torch.empty_like(t) for t in r] for r in src]
+    signal, arrive = put_words(2 * RANKS)
+    kb.landing_copy(src, dst, signal=signal, arrive=arrive, epoch=5)
+    kb.landing_copy_plain(src, ref, torch.zeros_like(signal), 5)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.reshape(-1).view(torch.uint8),
+                           c.reshape(-1).view(torch.uint8))
+               for ra, rc in zip(dst, ref) for a, c in zip(ra, rc))
+    judge_words("k4 fp8 + scale", signal, arrive, 5)
+    nbytes = sum(t.numel() * t.element_size() for r in src for t in r)
+    n_sets = max(ROTATE, -(-4 * L2_BYTES // (2 * nbytes)))
+    sets = [rank_set() for _ in range(n_sets)]
+    outs = [[[torch.empty_like(t) for t in r] for r in s] for s in sets]
+    ms = cuda_ms(rotating([lambda s=s, d=d: kb.landing_copy(
+        s, d, signal=signal, arrive=arrive, epoch=6)
+        for s, d in zip(sets, outs)]), reps=50)
+    plain_ms = cuda_ms(rotating([lambda s=s, d=d: kb.landing_copy_plain(
+        s, d, signal, 6) for s, d in zip(sets, outs)]), reps=20)
+    flats = [(torch.cat([t.reshape(-1).view(torch.uint8) for r in s
+                         for t in r]),) for s in sets]
+    flats = [(f, torch.empty_like(f)) for (f,) in flats]
+    lib_ms = cuda_ms(rotating([lambda a=a, c=c: c.copy_(a)
+                               for a, c in flats]), reps=50)
+    bound_ms = 2 * nbytes / HBM_BPS * 1e3
+    results["k4_fp8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms)
+    log(f"hier (c) K4 on the fp8 inter put, 16 ranks x ({tuple(wire.shape)} "
+        f"{wire.dtype} + 0-d float32 scale), {nbytes / 2**20:.3f} MiB: "
+        f"bitwise as the plain landing copy {same}; {ms:.4f} ms on the "
+        f"device, bound {bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms, "
+        f"one copy_ {lib_ms:.4f} ms [{card}]")
+    return same, "K4 on an fp8 payload + 0-d scale differs from plain"
+
+
+def profile_phase(results: dict, card: str, params, cfg, conds) -> None:
+    """Phase 20: DiTServer(profile=True) on flux-12b at full width and
+    depth, mesh (pod 2, model 8), swift_torus, one PROFILE_LATENTS-latent
+    request, PROFILE_STEPS steps: latents bitwise those of profile=False,
+    the spans' JSONL passes ``launch.trace_report --check``, the overlap
+    table's rows of the torus hops, the ring shifts and the Push-O puts,
+    and the profiler's cost (step wall clock with and without it)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.launch import make_mesh, trace_report
+    from repro_torch.serving import (DiTRequest, DiTServer, JsonlTracker,
+                                     RecordingTracker, SamplerConfig)
+
+    mesh = make_mesh((2, 8), ("pod", "model"), device="cuda")
+    sp = sp_config(("pod", "model"))
+    rid = 2
+    path = pathlib.Path(tempfile.mkdtemp()) / "serve_profile.jsonl"
+
+    def run(profile_on):
+        tracker = JsonlTracker(path) if profile_on else RecordingTracker()
+        srv = DiTServer(params, cfg, sp, mesh=mesh, tracker=tracker,
+                        sampler=SamplerConfig(num_steps=PROFILE_STEPS),
+                        profile=profile_on, max_batch=1)
+        srv.submit(DiTRequest(rid=rid, seq_len=PROFILE_LATENTS,
+                              cond=conds[rid]))
+        reset_counts()
+        (res,) = srv.serve()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        tracker.close()
+        return res, counts
+
+    plain, _ = run(False)
+    prof, counts = run(True)
+    same = torch.equal(prof.latents, plain.latents)
+    log(f"profile: flux-12b {cfg.n_layers} layers, 1 x {PROFILE_LATENTS} "
+        f"latents, {PROFILE_STEPS} steps on mesh (pod 2, model 8): latents "
+        f"bitwise equal to profile=False {same}; step wall clock "
+        f"{[round(t, 4) for t in prof.step_times]} s profiled vs "
+        f"{[round(t, 4) for t in plain.step_times]} s without (cost "
+        f"{sum(prof.step_times) / sum(plain.step_times) - 1:+.3f}); "
+        f"launches {counts} [{card}]")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.trace_report", str(path),
+         "--check"], capture_output=True, text=True, timeout=300,
+        env=dict(__import__("os").environ,
+                 PYTHONPATH=str(ROOT / "src")))
+    log(f"profile: trace_report --check rc {proc.returncode}: "
+        f"{proc.stderr.strip()[-300:]}")
+    spans = trace_report.load_spans(path)
+    rows = trace_report.overlap_table(spans)
+    for row in rows:
+        if row["stream"] in ("torus", "ring", "a2a.inv"):
+            exposed_ms = row["exposed_s"] * 1e3
+            log(f"profile overlap {row['stream']}/{row['channel']}/"
+                f"s{row['stage']}: n {row['n']}, mean {row['mean_us']:.1f} "
+                f"us, hidden {row['hidden_frac']:.3f}, exposed "
+                f"{exposed_ms:.3f} ms in all ({exposed_ms / row['n']:.4f} "
+                f"ms each), under compute {row['compute_overlap_frac']:.3f}, "
+                f"intended {row['intended_hidden']} [{card}]")
+    steps = [r for r in spans if r.name == "engine.step"]
+    legs = [r for r in spans if r.name == "comm.leg"]
+    log(f"profile: {len(spans)} spans ({len(legs)} comm legs, {len(steps)} "
+        f"engine.step) in {path}")
+    results["profile"] = dict(rows=rows, plain=plain.step_times,
+                              profiled=prof.step_times)
+    if not same:
+        fail("profile: profiled latents differ from profile=False")
+    if proc.returncode != 0 or not legs or len(steps) != PROFILE_STEPS:
+        fail(f"profile: trace_report rc {proc.returncode}, {len(legs)} legs, "
+             f"{len(steps)} step spans")
+    if counts["landing_copy"] <= 0 or counts["ring_flash_step"] <= 0:
+        fail(f"profile: the put kernels did not run: {counts}")
+
+
+def commcheck_phase(card: str) -> None:
+    """Phase 21: ``python -m repro_torch.launch.commcheck`` on the card, its
+    spans checked by the trace report: every comm.trace line OK, exit 0."""
+    import os
+    import tempfile
+
+    path = pathlib.Path(tempfile.mkdtemp()) / "commcheck.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.commcheck", "--profile",
+         str(path)], capture_output=True, text=True, timeout=600, env=env)
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("comm.trace")]
+    for line in proc.stdout.splitlines():
+        log(f"commcheck: {line}")
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.trace_report", str(path),
+         "--check"], capture_output=True, text=True, timeout=300, env=env)
+    log(f"commcheck: rc {proc.returncode}, {len(lines)} comm.trace lines, "
+        f"trace_report --check rc {rep.returncode} "
+        f"({rep.stderr.strip()[-200:]}), {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    if (proc.returncode != 0 or len(lines) != 6
+            or not all(" OK" in x for x in lines) or rep.returncode != 0):
+        fail(f"commcheck: rc {proc.returncode}: {proc.stderr[-1500:]}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2259,6 +2643,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     deg1 = serve(results, card, params, cfg, conds)
     serve_sp(results, card, params, cfg, conds, deg1)
+    profile_phase(results, card, params, cfg, conds)
     del params, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
     torch.cuda.empty_cache()
@@ -2270,6 +2655,8 @@ def main() -> int:
     del cv_params
     gc.collect()
     torch.cuda.empty_cache()
+    hier(results, card)
+    commcheck_phase(card)
 
     check_lm_block()
     lm_params, lm_cfg = lm_prefill(results, card)

@@ -24,8 +24,11 @@ On the CPU everything runs in program order and there is no event.
 A ``Channel`` is a fixed (mesh axes, permutation) route; every ``put``
 returns an ``InFlight`` handle whose payload is the receive buffers.
 Streams (stream.py) compose channels into staged transfer programs;
-trace.py records every put for ``validate_semaphores``.  The reference's
-runtime-profiler legs wait for ROADMAP Queue 1 item 5.
+trace.py records every put, wait and signal for ``validate`` and
+``validate_semaphores``, and under an active profiler (profiler.py) each
+put is one leg observed at its issue, signal and wait.  Between cards
+(one process per card) the puts are not modelled yet: ROADMAP Queue 1
+item 8.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from . import profiler as _profiler
 from . import trace as _trace
 
 __all__ = ["Channel", "InFlight", "RankList", "fence", "pin", "ring_perm_of",
@@ -78,19 +82,29 @@ def receive_buffers(tensors: Sequence[RankList],
 
 
 def issue(device: torch.device, side: "torch.cuda.Stream | None",
-          work: Callable[[], None], touched: Sequence[torch.Tensor]):
+          work: Callable[[], None], touched: Sequence[torch.Tensor],
+          meta: "_profiler.LegMeta | None" = None):
     """Run ``work`` (the copies of one put) on the side stream after what
     the current stream has issued so far, and return the event that
     signals its completion.  Every tensor the copies touch was allocated
     on the current stream; ``record_stream`` keeps the allocator from
     reusing it while the copies run.  On the CPU ``work`` runs now and
-    there is no event."""
+    there is no event.  With ``meta`` (an active profiler's leg), the
+    put's issue is observed on the current stream where the side stream
+    joins it, and its signal on the side stream after the copies."""
+    prof = _profiler.active() if meta is not None else None
+    if prof is not None:
+        _profiler.mark(prof, meta, "issue", device)
     if device.type != "cuda":
         work()
+        if prof is not None:
+            _profiler.mark(prof, meta, "signal", device)
         return None
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         work()
+        if prof is not None:
+            _profiler.mark(prof, meta, "signal", device)
         done = torch.cuda.Event()
         done.record(side)
     for t in touched:
@@ -150,9 +164,26 @@ class Channel:
                     out[dst[s]].copy_(t)
 
         touched = [t for ranks in tensors + recv for t in ranks]
-        event = issue(dev, _kb.heap_for(dev).side_stream(), work, touched)
+        meta = self._leg_meta(tensors, overlaps, "xla")
+        event = issue(dev, _kb.heap_for(dev).side_stream(), work, touched,
+                      meta)
         _trace.emit(self._event(tensors, overlaps, "xla"))
-        return InFlight(channel=self, payload=recv, event=event)
+        put = _trace.emit_issue(_lowering(dev), dev.type)
+        return InFlight(channel=self, payload=recv, event=event, meta=meta,
+                        put=put)
+
+    def _leg_meta(self, tensors: tuple[RankList, ...], overlaps: str,
+                  backend: str) -> "_profiler.LegMeta | None":
+        """The profiler's leg for one put, or None when no profiler is
+        active (the zero-cost default)."""
+        prof = _profiler.active()
+        if prof is None:
+            return None
+        return prof.new_leg(
+            kind="comm", stream=self.stream, channel=self.name,
+            stage=self.stage, axes=tuple(self.axes),
+            nbytes=_profiler.nbytes_of(tensors), n_tensors=len(tensors),
+            backend=backend, intent=overlaps, ranks=len(tensors[0]))
 
     def _put_kernel(self, tensors: tuple[RankList, ...],
                     overlaps: str) -> "InFlight":
@@ -161,33 +192,55 @@ class Channel:
 
         sem = _kb.new_sem(self.name, self.stage)
         _trace.emit(self._event(tensors, overlaps, "pallas"))
+        dev = tensors[0][0].device
+        put = _trace.emit_issue(_lowering(dev), dev.type)
         _trace.emit_sem(_trace.SemEvent(
             kind="put", sem=sem, stream=self.stream, channel=self.name,
             stage=self.stage))
+        meta = self._leg_meta(tensors, overlaps, "pallas")
         out, event = _kb.deliver(tensors, tuple(self.axes), tuple(self.perm),
-                                 interpret=self.interpret)
+                                 interpret=self.interpret, meta=meta)
         _trace.emit_sem(_trace.SemEvent(
             kind="signal", sem=sem, stream=self.stream, channel=self.name,
             stage=self.stage))
-        return InFlight(channel=self, payload=out, sem=sem, event=event)
+        return InFlight(channel=self, payload=out, sem=sem, event=event,
+                        meta=meta, put=put)
 
-    def put_fused(self, *tensors: RankList, overlaps: str = "") -> "InFlight":
-        """Account for a put that a fused kernel (K2, kernels/ring_flash.py)
-        already performed: its blocks wrote the chunk straight into the
-        receive buffers ``tensors`` of the destination ranks, on the
-        current stream.  So there is nothing to copy — where the reference
-        still needs a ppermute for the hop — and this records the schedule
-        (a put flagged ``overlap=True``, whose wait the validator requires
-        to follow a compute block) and hands the buffers on."""
+    def put_fused(self, *tensors: RankList, launch: Callable[[], None],
+                  overlaps: str = "") -> "InFlight":
+        """A put that a fused kernel (K2, kernels/ring_flash.py) performs:
+        ``launch`` enqueues the kernels, whose blocks write the chunk
+        straight into the receive buffers ``tensors`` of the destination
+        ranks while they compute, on the current stream.  So there is
+        nothing to copy — where the reference still needs a ppermute for
+        the hop — and this records the schedule (a put flagged
+        ``overlap=True``, whose wait the validator requires to follow a
+        compute block), brackets ``launch`` with the leg's issue and signal
+        observations, and hands the buffers on."""
         assert self.backend == "pallas", "put_fused is a Pallas-path verb"
         from . import kernel_backend as _kb
 
+        dev = tensors[0][0].device
+        meta = self._leg_meta(tensors, overlaps, "pallas")
+        if meta is not None:
+            _profiler.mark(_profiler.active(), meta, "issue", dev)
         sem = _kb.fused_transfer_events(
             self, tuple(tensors[0][0].shape), len(tensors), overlaps=overlaps)
+        put = _trace.emit_issue("kernel", dev.type)
+        launch()
         _trace.emit_sem(_trace.SemEvent(
             kind="signal", sem=sem, stream=self.stream, channel=self.name,
             stage=self.stage))
-        return InFlight(channel=self, payload=tuple(tensors), sem=sem)
+        if meta is not None:
+            _profiler.mark(_profiler.active(), meta, "signal", dev)
+        return InFlight(channel=self, payload=tuple(tensors), sem=sem,
+                        meta=meta, put=put)
+
+
+def _lowering(device: torch.device) -> str:
+    """Where a put's copies run: the side stream on CUDA, program order on
+    the CPU (trace.HostOp)."""
+    return "side" if device.type == "cuda" else "program"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +251,8 @@ class InFlight:
     payload: tuple[RankList, ...]
     sem: str = ""  # semaphore id (kernel backend only)
     event: Any = None  # completion event on the side stream (CUDA only)
+    meta: Any = None  # the profiler's leg (profiling only)
+    put: int = -1  # the put's index in the recording trace (-1: none)
 
     def wait(self, *deps: Any) -> Any:
         """Signal-wait: the current stream waits for the put's completion.
@@ -210,9 +265,15 @@ class InFlight:
             _trace.emit_sem(_trace.SemEvent(
                 kind="wait", sem=self.sem, stream=self.channel.stream,
                 channel=self.channel.name, stage=self.channel.stage))
+        _trace.emit_wait(self.put)
+        dev = self.payload[0][0].device
+        prof = _profiler.active()
+        if self.meta is not None and prof is not None:
+            # when the consumer needs the buffer: the current stream has
+            # enqueued everything before this wait
+            _profiler.mark(prof, self.meta, "wait", dev)
         if self.event is not None:
-            torch.cuda.current_stream(self.payload[0][0].device).wait_event(
-                self.event)
+            torch.cuda.current_stream(dev).wait_event(self.event)
         if not deps:
             return self.payload[0] if len(self.payload) == 1 else self.payload
         if len(self.payload) == 1:

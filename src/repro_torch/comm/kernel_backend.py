@@ -75,9 +75,13 @@ class SymmetricHeap:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.signals = torch.zeros((len(self.ROWS), SIGNAL_WORDS),
-                                   dtype=torch.int32, device=device)
-        self.arrive = torch.zeros_like(self.signals)
+        # the heap outlives the call that makes it: a heap first made under
+        # inference mode (a served step) must still take in-place writes
+        # outside it
+        with torch.inference_mode(False):
+            self.signals = torch.zeros((len(self.ROWS), SIGNAL_WORDS),
+                                       dtype=torch.int32, device=device)
+            self.arrive = torch.zeros_like(self.signals)
         self.epoch = 0
         self._side = None
 
@@ -256,12 +260,14 @@ def deliver(
     perm: Sequence[tuple[int, int]],
     *,
     interpret: bool = True,
+    meta=None,
 ):
     """Move rank lists one hop along the route through the put kernels.
 
     Returns the receive buffers (one rank list per tensor) and the event
     that signals their completion (None on the CPU).  The caller
-    (Channel.put) owns the trace events; this function owns the branch.
+    (Channel.put) owns the trace events and the profiler's leg ``meta``;
+    this function owns the branch.
     """
     tensors = tuple(tensors)
     n, ranks = len(tensors), len(tensors[0])
@@ -296,7 +302,7 @@ def deliver(
                     moved[s][i].copy_(src[s][i])
             landing_copy(moved_at, by_rank, signal=signal, arrive=arrive,
                          epoch=epoch)
-    event = issue(dev, heap.side_stream(), work, touched)
+    event = issue(dev, heap.side_stream(), work, touched, meta)
     return recv, event
 
 

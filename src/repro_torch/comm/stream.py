@@ -3,26 +3,36 @@
 
 A ``Stream`` is an ordered sequence of channel stages making up one logical
 transfer program; each stage opens a channel (a fixed route) and puts its
-rank lists.  The programs the flat SP schedules need:
+rank lists.  The programs the SP schedules need:
 
-  ring_shift        — one intra-ring rotation (Ring Attention's KV hop)
-  torus_hop         — distance-k hop inside the Ulysses group (§4.3 stage k
-                      of the decomposed all-to-all)
-  staged_all_to_all — the full P_u-stage decomposition with the stationary
-                      diagonal chunk (grouped_all_to_all)
-  staged_ungroup    — its inverse (the Push-O / fourth all-to-all)
-  pipe_handoff      — the displaced pipeline's stage-boundary hand-off,
-                      one put over the pipe axis
+  ring_shift          — one intra-ring rotation (Ring Attention's KV hop)
+  torus_hop           — distance-k hop inside the Ulysses group (§4.3
+                        stage k of the decomposed all-to-all)
+  staged_all_to_all   — the full P_u-stage decomposition with the
+                        stationary diagonal chunk (grouped_all_to_all)
+  staged_ungroup      — its inverse (the Push-O / fourth all-to-all)
+  intra_hop/inter_hop — the two legs of the hierarchical all-to-all:
+                        distance-j rotation inside a machine sub-group /
+                        distance-k rotation across machine sub-groups
+  hier_all_to_all     — the two-level (intra-machine exchange, then staged
+                        inter-machine hops) decomposition of the Ulysses
+                        all-to-all; bitwise the flat path's output,
+                        optionally fp8 on the inter-machine wire
+  hier_ungroup        — its inverse (the hierarchical Push-O)
+  pipe_handoff        — the displaced pipeline's stage-boundary hand-off,
+                        one put over the pipe axis
 
 Every program runs all ranks of the group in lockstep: stage k's put
 carries every rank's chunk, and no rank reads stage k's receive buffer
-before every rank's stage-k chunk was issued.  ``layout`` ducks as any
+before every rank's stage-k chunk was issued.  The stages of one leg are
+independent of each other, and in eager PyTorch the order of issue is the
+schedule: a leg issues all its stage puts, then places the stationary
+diagonal chunk (the compute block they run beside; the reference's update
+fusions), then waits for the stages in turn.  ``layout`` ducks as any
 object with ``axes``, ``p_ulysses``, ``coords(p)``, ``ring_perm(k)`` and
-``ulysses_stage_perm(k)`` (core/collectives.GroupLayout in practice).
-
-Not ported yet (ROADMAP Queue 1 item 4): the hierarchical programs
-``intra_hop``, ``inter_hop``, ``hier_all_to_all``, ``hier_ungroup`` and the
-fp8 wire codec.
+``ulysses_stage_perm(k)`` (core/collectives.GroupLayout in practice; the
+hierarchical programs also read ``u_groups`` and the intra / inter stage
+perms).
 """
 from __future__ import annotations
 
@@ -31,10 +41,13 @@ from typing import Any
 
 import torch
 
+from . import compress as _compress
 from .channel import Channel, InFlight, RankList, shift_perm
+from .profiler import mark_compute
 
-__all__ = ["Stream", "pipe_handoff", "ring_shift", "torus_hop",
-           "staged_all_to_all", "staged_ungroup"]
+__all__ = ["Handoff", "Stream", "hier_all_to_all", "hier_ungroup",
+           "inter_hop", "intra_hop", "pipe_handoff", "ring_shift",
+           "staged_all_to_all", "staged_ungroup", "torus_hop"]
 
 
 @dataclasses.dataclass
@@ -90,8 +103,51 @@ def torus_hop(layout: Any, k: int, *tensors: RankList,
                       label=f"hop{k}", overlaps=overlaps)
 
 
+def intra_hop(layout: Any, j: int, *tensors: RankList,
+              stream: Stream | None = None,
+              overlaps: str = "", backend: str = "xla",
+              interpret: bool = True) -> InFlight:
+    """Distance-j hop inside the machine-local Ulysses sub-group (same
+    u_hi, same r): stage j of the hierarchical all-to-all's fast leg.
+    Never crosses the slow boundary."""
+    stream = stream or Stream("hier", backend=backend, interpret=interpret)
+    return stream.put(layout.axes, layout.ulysses_intra_stage_perm(j),
+                      *tensors, label=f"intra{j}", overlaps=overlaps)
+
+
+def inter_hop(layout: Any, k: int, *tensors: RankList,
+              stream: Stream | None = None,
+              overlaps: str = "", backend: str = "xla",
+              interpret: bool = True) -> InFlight:
+    """Distance-k hop across machine sub-groups (same u_lo, same r): stage
+    k of the hierarchical all-to-all's slow leg, the only leg that touches
+    the inter-machine wire."""
+    stream = stream or Stream("hier", backend=backend, interpret=interpret)
+    return stream.put(layout.axes, layout.ulysses_inter_stage_perm(k),
+                      *tensors, label=f"inter{k}", overlaps=overlaps)
+
+
 def _u_of(layout: Any, p: int) -> int:
     return layout.coords(p)[0]
+
+
+def _split(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    """``x`` split into ``n`` chunks along ``axis``, stacked on a new
+    leading axis, as a view."""
+    if x.shape[axis] % n:
+        raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
+                         f"split into {n} chunks")
+    return x.unflatten(axis, (n, -1)).movedim(axis, 0)
+
+
+def _diagonal(out: RankList, src: RankList, idx: list[int], layout: Any,
+              stream: Stream) -> None:
+    """Place each rank's stationary chunk, ``out[p][idx[p]] =
+    src[p][idx[p]]``: the compute block a leg's puts run beside."""
+    with mark_compute(f"{stream.name} diagonal", layout.axes,
+                      src[0].device, stream=stream.name):
+        for p, i in enumerate(idx):
+            out[p][i].copy_(src[p][i])
 
 
 def staged_all_to_all(
@@ -113,23 +169,22 @@ def staged_all_to_all(
     """
     stream = stream or Stream("a2a", backend=backend, interpret=interpret)
     p_u = layout.p_ulysses
-    if x[0].shape[split_axis] % p_u:
-        raise ValueError(f"axis {split_axis} of size {x[0].shape[split_axis]} "
-                         f"does not split into {p_u} chunks")
-    chunks = [torch.chunk(t, p_u, dim=split_axis) for t in x]
+    chunks = [_split(t, p_u, split_axis) for t in x]
     if p_u == 1:
-        return [torch.stack(c, dim=0) for c in chunks]
+        return [c.clone(memory_format=torch.contiguous_format)
+                for c in chunks]
     us = [_u_of(layout, p) for p in range(len(x))]
-    out = [[None] * p_u for _ in x]
-    for p, u in enumerate(us):
-        out[p][u] = chunks[p][u]
-    for k in range(1, p_u):
-        # each rank puts its chunk for peer (u + k); peer (u - k) puts its own
-        send = [chunks[p][(u + k) % p_u] for p, u in enumerate(us)]
-        recv = torus_hop(layout, k, send, stream=stream).wait()
-        for p, u in enumerate(us):
-            out[p][(u - k) % p_u] = recv[p]
-    return [torch.stack(o, dim=0) for o in out]
+    # each rank puts its chunk for peer (u + k); peer (u - k) puts its own
+    futs = [torus_hop(layout, k,
+                      [chunks[p][(u + k) % p_u] for p, u in enumerate(us)],
+                      stream=stream) for k in range(1, p_u)]
+    out = [torch.empty_like(c, memory_format=torch.contiguous_format)
+           for c in chunks]
+    _diagonal(out, chunks, us, layout, stream)
+    for k, fut in enumerate(futs, start=1):
+        for p, (u, r) in enumerate(zip(us, fut.wait())):
+            out[p][(u - k) % p_u].copy_(r)
+    return out
 
 
 def staged_ungroup(
@@ -149,16 +204,198 @@ def staged_ungroup(
     if p_u == 1:
         return [s[0] for s in stacked]
     us = [_u_of(layout, p) for p in range(len(stacked))]
-    out = [[None] * p_u for _ in stacked]
-    for p, u in enumerate(us):
-        out[p][u] = stacked[p][u]
-    for k in range(1, p_u):
-        send = [stacked[p][(u + k) % p_u] for p, u in enumerate(us)]
-        recv = torus_hop(layout, k, send, stream=stream,
-                         overlaps="next-layer compute").wait()
-        for p, u in enumerate(us):
-            out[p][(u - k) % p_u] = recv[p]
-    return [torch.cat(o, dim=concat_axis) for o in out]
+    futs = [torus_hop(layout, k,
+                      [stacked[p][(u + k) % p_u] for p, u in enumerate(us)],
+                      stream=stream, overlaps="next-layer compute")
+            for k in range(1, p_u)]
+    out = [_concat_buffer(s, concat_axis) for s in stacked]
+    _diagonal(out, stacked, us, layout, stream)
+    for k, fut in enumerate(futs, start=1):
+        for p, (u, r) in enumerate(zip(us, fut.wait())):
+            out[p][(u - k) % p_u].copy_(r)
+    return [o.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+            for o in out]
+
+
+def _concat_buffer(stacked: torch.Tensor, axis: int) -> torch.Tensor:
+    """A buffer for ``torch.cat(list(stacked), dim=axis)``, as the view
+    [P_u, ...] that ``stacked`` indexes into: writing ``buf[j]`` writes
+    chunk j of the concatenation."""
+    n, *rest = stacked.shape
+    shape = rest[:axis] + [n * rest[axis]] + rest[axis + 1:]
+    buf = stacked.new_empty(shape)
+    return buf.unflatten(axis, (n, -1)).movedim(axis, 0)
+
+
+def _hier_exchange(
+    chunks: RankList,
+    layout: Any,
+    *,
+    stream: Stream,
+    wire_dtype: str | None = None,
+    err: list[tuple[torch.Tensor, ...]] | None = None,
+    overlaps_inter: str = "peer inter hops + update fusions",
+    out: RankList | None = None,
+) -> RankList | tuple[RankList, list[tuple[torch.Tensor, ...]]]:
+    """Two-level routing core shared by hier_all_to_all / hier_ungroup.
+
+    ``chunks[p]`` is [P_u, ...] in destination-u order (chunk j is what
+    rank p owes peer u = j); writes, per rank, [P_u, ...] in source-u order
+    (``out[p][j]`` = what peer u = j produced for rank p) — the exact
+    contract of the flat staged path — into ``out`` (fresh buffers when
+    None) and returns it.
+
+    Factor u = u_hi * m_u + u_lo over (machine sub-group, local slot),
+    g = layout.u_groups, m_u = P_u / g.  Two legs:
+
+      fast leg (m_u - 1 intra stages): within each machine, local slot b
+        sends the whole [g]-bundle of chunks destined for local slot
+        (b + j) — after it, W[b'] holds the g chunks source (a, b')
+        produced for the b-slots of every machine sub-group.
+      slow leg (g - 1 inter stages): across machines, sub-group a sends
+        the [m_u]-bundle W[:, (a + k) % g] — m_u chunks in one message, so
+        the inter-machine wire sees g - 1 stages instead of P_u - 1.
+
+    Both diagonals are stationary.  The program only routes, so the output
+    is bitwise the flat path's.  With ``wire_dtype`` the slow leg
+    quantises each bundle (compress.py) before the put — each rank with
+    its own absmax scale, a 0-d float32 tensor in the same put — and
+    dequantises on arrival; ``err`` (per rank, a tuple of g - 1 float32
+    buffers) turns on error feedback, and the new residuals are returned
+    beside the output.
+    """
+    g = layout.u_groups
+    p_u = layout.p_ulysses
+    m_u = p_u // g
+    ranks = range(len(chunks))
+    rest = tuple(chunks[0].shape[1:])
+    ab = [divmod(_u_of(layout, p), m_u) for p in ranks]
+    shaped = [c.reshape((g, m_u) + rest) for c in chunks]
+
+    # fast leg: intra-machine exchange of dest-local-slot bundles
+    futs = [intra_hop(layout, j, [shaped[p][:, (b + j) % m_u]
+                                  for p, (_, b) in enumerate(ab)],
+                      stream=stream) for j in range(1, m_u)]
+    # w[p][b'] = the [g] bundle source (a, b') produced for rank p's slot
+    w = [c.new_empty((g, m_u) + rest).transpose(0, 1) for c in chunks]
+    _diagonal(w, [s.transpose(0, 1) for s in shaped], [b for _, b in ab],
+              layout, stream)
+    for j, fut in enumerate(futs, start=1):
+        for p, ((_, b), r) in enumerate(zip(ab, fut.wait())):
+            w[p][(b - j) % m_u].copy_(r)
+
+    # slow leg: inter-machine exchange of per-sub-group bundles, every
+    # stage in flight at once
+    new_err: list[list[torch.Tensor]] = [[] for _ in ranks]
+    futs = []
+    for k in range(1, g):
+        send = [w[p][:, (a + k) % g] for p, (a, _) in enumerate(ab)]
+        if wire_dtype is None:
+            futs.append(inter_hop(layout, k, send, stream=stream,
+                                  overlaps=overlaps_inter))
+            continue
+        wires, scales = [], []
+        for p, x in enumerate(send):
+            if err is not None:
+                wire, scale, e = _compress.ef_encode(x, err[p][k - 1],
+                                                     wire_dtype)
+                new_err[p].append(e)
+            else:
+                wire, scale = _compress.quantize(x, wire_dtype)
+            wires.append(wire)
+            scales.append(scale)
+        futs.append(inter_hop(layout, k, wires, scales, stream=stream,
+                              overlaps=overlaps_inter))
+    if out is None:
+        out = [c.new_empty((p_u,) + rest) for c in chunks]
+    hier_out = [o.unflatten(0, (g, m_u)) for o in out]
+    _diagonal(hier_out, [x.transpose(0, 1) for x in w],
+              [a for a, _ in ab], layout, stream)
+    for k, fut in enumerate(futs, start=1):
+        recv = fut.wait()
+        if wire_dtype is not None:
+            rw, rs = recv
+            recv = [_compress.dequantize(rw[p], rs[p], chunks[p].dtype)
+                    for p in ranks]
+        for p, ((a, _), r) in enumerate(zip(ab, recv)):
+            hier_out[p][(a - k) % g].copy_(r)
+    if err is not None:
+        return out, [tuple(e) for e in new_err]
+    return out
+
+
+def hier_all_to_all(
+    x: RankList,
+    layout: Any,
+    *,
+    split_axis: int,
+    stream: Stream | None = None,
+    backend: str = "xla",
+    interpret: bool = True,
+    wire_dtype: str | None = None,
+    err: list[tuple[torch.Tensor, ...]] | None = None,
+) -> RankList | tuple[RankList, list[tuple[torch.Tensor, ...]]]:
+    """Hierarchical two-level grouped all-to-all: the contract of
+    :func:`staged_all_to_all` — split into P_u chunks along
+    ``split_axis``, deliver chunk j to ulysses-peer j, return the received
+    chunks stacked on a new leading axis in source-u order — routed as an
+    intra-machine exchange followed by g - 1 bundled inter-machine hops."""
+    stream = stream or Stream("hier.a2a", backend=backend,
+                              interpret=interpret)
+    p_u = layout.p_ulysses
+    chunks = [_split(t, p_u, split_axis) for t in x]
+    if p_u == 1:
+        out = [c.clone(memory_format=torch.contiguous_format)
+               for c in chunks]
+        return out if err is None else (out, [() for _ in x])
+    return _hier_exchange(chunks, layout, stream=stream,
+                          wire_dtype=wire_dtype, err=err)
+
+
+def hier_ungroup(
+    stacked: RankList,
+    layout: Any,
+    *,
+    concat_axis: int,
+    stream: Stream | None = None,
+    backend: str = "xla",
+    interpret: bool = True,
+    wire_dtype: str | None = None,
+    err: list[tuple[torch.Tensor, ...]] | None = None,
+) -> RankList | tuple[RankList, list[tuple[torch.Tensor, ...]]]:
+    """Hierarchical inverse: the contract of :func:`staged_ungroup` —
+    ``stacked[p][j]`` goes back to ulysses-peer j, the received chunks
+    concatenate along ``concat_axis``.  The exchange core is its own
+    inverse (a transpose of the u coordinate), so this is the same two-leg
+    program, writing straight into the concatenated output."""
+    stream = stream or Stream("hier.a2a.inv", backend=backend,
+                              interpret=interpret)
+    p_u = layout.p_ulysses
+    if p_u == 1:
+        out = [s[0] for s in stacked]
+        return out if err is None else (out, [() for _ in stacked])
+    bufs = [_concat_buffer(s, concat_axis) for s in stacked]
+    res = _hier_exchange(stacked, layout, stream=stream,
+                         wire_dtype=wire_dtype, err=err,
+                         overlaps_inter="next-layer compute", out=bufs)
+    moved, new_err = res if err is not None else (res, None)
+    out = [o.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+           for o in moved]
+    return out if err is None else (out, new_err)
+
+
+@dataclasses.dataclass(frozen=True)
+class Handoff:
+    """A pipeline hand-off in flight; ``wait`` returns the activation."""
+
+    fut: InFlight | None  # None: no put (pp == 1)
+    x: torch.Tensor | None = None  # the activation when there is no put
+    pp: int = 1
+
+    def wait(self) -> torch.Tensor:
+        if self.fut is None:
+            return self.x
+        return torch.cat(self.fut.wait()[::self.pp], dim=0)
 
 
 def pipe_handoff(
@@ -171,7 +408,7 @@ def pipe_handoff(
     stream: Stream | None = None,
     backend: str = "xla",
     interpret: bool = True,
-) -> torch.Tensor:
+) -> Handoff:
     """Stage-boundary hand-off of the displaced patch pipeline: rotate the
     activation one stage forward along the pipe ``axis``.
 
@@ -180,12 +417,14 @@ def pipe_handoff(
     one batch slice per (slice, pipe rank), slice-major, and ONE put over
     the single axis moves every rank's slice: with ``backend="pallas"``
     and ``interpret=False`` that is one direct put, K3.  The rotation
-    preserves values; the result is what pipe rank 0 received, per slice.
+    preserves values.  Returns the put in flight: the caller computes
+    beside it (the next patch's stage) before ``wait`` gives what pipe
+    rank 0 received, per slice — the reference waits inside the call.
     """
     stream = stream or Stream("pipe", backend=backend, interpret=interpret)
     pp = mesh.shape[axis]
     if pp == 1:
-        return x
+        return Handoff(None, x)
     n = mesh.axes_size(batch_axes or ())
     perm = [(s * pp + a, s * pp + b) for s in range(n)
             for a, b in shift_perm(pp, shift)]
@@ -193,5 +432,4 @@ def pipe_handoff(
     stream.next_stage()
     ranks = [xs for xs in torch.chunk(x.contiguous(), n, dim=0)
              for _ in range(pp)]
-    recv = ch.put(ranks, overlaps="stage compute").wait()
-    return torch.cat(recv[::pp], dim=0)
+    return Handoff(ch.put(ranks, overlaps="stage compute"), pp=pp)

@@ -27,13 +27,11 @@ import dataclasses
 
 import torch
 
-from ..comm import staged_all_to_all, staged_ungroup
+from ..comm import (hier_all_to_all, hier_ungroup, staged_all_to_all,
+                    staged_ungroup)
 from ..comm.channel import RankList
 
 AxisNames = tuple[str, ...]
-
-HIER_A2A_ITEM = ("the hierarchical all-to-all (hier_a2a, a2a_wire_dtype) is "
-                 "not ported yet: ROADMAP Queue 1 item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +157,10 @@ class SlicedLayout:
         return self.group.u_groups
 
     @property
+    def u_group_size(self) -> int:
+        return self.group.u_group_size
+
+    @property
     def size(self) -> int:
         return self.group.size * self.slices
 
@@ -176,6 +178,12 @@ class SlicedLayout:
     def ulysses_stage_perm(self, k: int) -> list[tuple[int, int]]:
         return self._tiled(self.group.ulysses_stage_perm(k))
 
+    def ulysses_intra_stage_perm(self, j: int) -> list[tuple[int, int]]:
+        return self._tiled(self.group.ulysses_intra_stage_perm(j))
+
+    def ulysses_inter_stage_perm(self, k: int) -> list[tuple[int, int]]:
+        return self._tiled(self.group.ulysses_inter_stage_perm(k))
+
 
 # ---------------------------------------------------------------------------
 # Grouped all-to-all via staged channel puts (the one-sided decomposition);
@@ -189,6 +197,7 @@ def grouped_all_to_all(
     split_axis: int,
     backend: str = "xla",
     interpret: bool = True,
+    wire_dtype: str | None = None,
 ) -> RankList:
     """All-to-all restricted to Ulysses groups of ``layout``.
 
@@ -196,10 +205,16 @@ def grouped_all_to_all(
     chunk j is delivered to ulysses-peer j.  Returns, per rank, the
     received chunks stacked on a new leading axis ordered by *source*
     ulysses coordinate.  Implemented as P_u - 1 one-sided channel stages;
-    the diagonal chunk is stationary (§4.3) and never moves.
+    the diagonal chunk is stationary (§4.3) and never moves.  With
+    ``layout.u_groups > 1`` the exchange runs the hierarchical two-level
+    program instead: an intra-machine exchange followed by staged
+    inter-machine hops, bitwise the same output (it only routes), with
+    ``wire_dtype`` optionally fp8 on the inter-machine wire.
     """
     if layout.u_groups > 1:
-        raise NotImplementedError(HIER_A2A_ITEM)
+        return hier_all_to_all(x, layout, split_axis=split_axis,
+                               backend=backend, interpret=interpret,
+                               wire_dtype=wire_dtype)
     return staged_all_to_all(x, layout, split_axis=split_axis,
                              backend=backend, interpret=interpret)
 
@@ -218,16 +233,20 @@ def _all_to_all(chunks: list[list[torch.Tensor]], layout) -> RankList:
 def monolithic_all_to_all(
     x: RankList, layout: GroupLayout, *, split_axis: int,
     backend: str = "xla", interpret: bool = True,
+    wire_dtype: str | None = None,
 ) -> RankList:
     """Baseline atomic all-to-all (what Ulysses does before Torus).
 
     Same contract as :func:`grouped_all_to_all`.  One atomic exchange when
     the ulysses group covers the whole flattened SP axis (P_r == 1) and the
     backend is "xla", as the reference's ``lax.all_to_all``; otherwise the
-    staged implementation.
+    staged implementation.  A hierarchical layout (``u_groups > 1``)
+    always takes the two-level program.
     """
     if layout.u_groups > 1:
-        raise NotImplementedError(HIER_A2A_ITEM)
+        return hier_all_to_all(x, layout, split_axis=split_axis,
+                               backend=backend, interpret=interpret,
+                               wire_dtype=wire_dtype)
     if layout.p_ring == 1 and backend == "xla":
         return _all_to_all(
             [torch.chunk(t, layout.p_ulysses, dim=split_axis) for t in x],
@@ -239,6 +258,7 @@ def monolithic_all_to_all(
 def ungroup_all_to_all(
     stacked: RankList, layout: GroupLayout, *, concat_axis: int,
     backend: str = "xla", interpret: bool = True,
+    wire_dtype: str | None = None,
 ) -> RankList:
     """Inverse transform: send ``stacked[p][j]`` back to ulysses-peer j and
     concatenate the received chunks along ``concat_axis`` (the fourth
@@ -247,7 +267,9 @@ def ungroup_all_to_all(
     if p_u == 1:
         return [s[0] for s in stacked]
     if layout.u_groups > 1:
-        raise NotImplementedError(HIER_A2A_ITEM)
+        return hier_ungroup(stacked, layout, concat_axis=concat_axis,
+                            backend=backend, interpret=interpret,
+                            wire_dtype=wire_dtype)
     if layout.p_ring == 1 and backend == "xla":
         moved = _all_to_all([list(s) for s in stacked], layout)
         return [torch.cat(list(m), dim=concat_axis) for m in moved]

@@ -154,7 +154,7 @@ class HybridPlan:
         assert self.pp >= 1, self
         assert self.comm_backend in ("xla", "pallas"), self
         if self.a2a_wire_dtype is not None:
-            from .strategy import WIRE_DTYPES
+            from ..comm.compress import WIRE_DTYPES
             assert self.a2a_wire_dtype in WIRE_DTYPES, self
             assert self.hier_a2a, "wire compression rides the hier path only"
         self.sp.validate()

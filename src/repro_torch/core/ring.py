@@ -25,6 +25,7 @@ import torch
 
 from ..comm import Stream, ring_shift
 from ..comm import trace as _trace
+from ..comm.profiler import mark_compute
 from ..comm.channel import RankList, dest_table
 from ..comm.kernel_backend import heap_for
 from ..kernels import ops as _ops
@@ -93,10 +94,14 @@ def ring_attention(
             k_pos=k_pos_fn(p, owner_r) if k_pos_fn is not None else None,
         )
 
+    dev = q[0].device
     if p_r == 1:
-        # pure-Ulysses plan: no ring rotation, one local attend per rank
-        return [merge(acc[p], _attend(q[p], k[p], v[p], mask_for(p, my_r[p])))
-                for p in ranks]
+        # pure-Ulysses plan: no ring rotation, one local attend per rank —
+        # still the compute the torus hops are scheduled to hide behind
+        with mark_compute("local attend", layout.axes, dev, stream="ring"):
+            return [merge(acc[p], _attend(q[p], k[p], v[p],
+                                          mask_for(p, my_r[p])))
+                    for p in ranks]
 
     stream = Stream("ring")
     kc, vc = k, v
@@ -105,10 +110,12 @@ def ring_attention(
         # the last step computes only (2(P-1)/P volume, §2.2)
         nxt = (ring_shift(layout, kc, vc, stream=stream,
                           overlaps="ring attend") if s < p_r - 1 else None)
-        for p in ranks:
-            owner = (my_r[p] - s) % p_r  # ring rank whose shard p holds
-            acc[p] = merge(acc[p], _attend(q[p], kc[p], vc[p],
-                                           mask_for(p, owner)))
+        with mark_compute("ring attend", layout.axes, dev,
+                          stream=stream.name):
+            for p in ranks:
+                owner = (my_r[p] - s) % p_r  # ring rank whose shard p holds
+                acc[p] = merge(acc[p], _attend(q[p], kc[p], vc[p],
+                                               mask_for(p, owner)))
         if nxt is not None:
             kc, vc = nxt.wait()
     return acc
@@ -178,22 +185,31 @@ def _ring_attention_kernels(
             k_recv = [torch.empty_like(t) for t in kc]
             v_recv = [torch.empty_like(t) for t in vc]
             epoch = heap.next_epoch()
-            for p in ranks:
-                flag, arrive = heap.words("fused", dst[p])
-                owner = (my_r[p] - s) % p_r
-                state[p], _ = ring_flash_step(
-                    qf[p], kc[p], vc[p], qpp[p], kpos_for(p, owner),
-                    k_dst=k_recv[dst[p]], v_dst=v_recv[dst[p]], flag=flag,
-                    arrive=arrive, epoch=epoch, state=state[p], **kw)
-            fut = ch.put_fused(k_recv, v_recv, overlaps="ring attend")
+
+            def launch():  # called right away, by put_fused
+                for p in ranks:
+                    flag, arrive = heap.words("fused", dst[p])
+                    owner = (my_r[p] - s) % p_r
+                    state[p], _ = ring_flash_step(
+                        qf[p], kc[p], vc[p], qpp[p], kpos_for(p, owner),
+                        k_dst=k_recv[dst[p]], v_dst=v_recv[dst[p]],
+                        flag=flag, arrive=arrive, epoch=epoch,
+                        state=state[p], **kw)
+
+            with mark_compute("ring attend", layout.axes, dev,
+                              stream=stream.name):
+                fut = ch.put_fused(k_recv, v_recv, launch=launch,
+                                   overlaps="ring attend")
             _trace.mark_compute("ring attend", stream=stream.name)
         else:
             # last step: compute only (2(P-1)/P volume, §2.2)
-            for p in ranks:
-                owner = (my_r[p] - s) % p_r
-                state[p] = flash_mqkv(qf[p], kc[p], vc[p], qpp[p],
-                                      kpos_for(p, owner), state=state[p],
-                                      **kw)
+            with mark_compute("ring attend", layout.axes, dev,
+                              stream=stream.name):
+                for p in ranks:
+                    owner = (my_r[p] - s) % p_r
+                    state[p] = flash_mqkv(qf[p], kc[p], vc[p], qpp[p],
+                                          kpos_for(p, owner),
+                                          state=state[p], **kw)
 
     out = []
     for p in ranks:

@@ -28,8 +28,10 @@ Strategies (P = SP degree, N = machines, M = devices per machine):
   swift_torus — TAS + Torus Attention (§4.3): chunked all-to-all overlapped
                 with compute, one-sided puts.
 
-Not ported yet: the hierarchical all-to-all and its fp8 wire codec
-(``hier_a2a``, ``a2a_wire_dtype``; ROADMAP Queue 1 item 4).
+``hier_a2a`` decomposes every Ulysses all-to-all that spans the machine
+boundary into an intra-machine exchange and staged inter-machine hops
+(comm/stream.py ``hier_all_to_all``), and ``a2a_wire_dtype`` puts the
+inter-machine leg in fp8 (comm/compress.py).
 """
 from __future__ import annotations
 
@@ -40,15 +42,14 @@ import torch
 
 from ..kernels.ops import flash_attention
 from . import planner
-from .collectives import HIER_A2A_ITEM, GroupLayout, SlicedLayout
+from ..comm.compress import WIRE_DTYPES
+from .collectives import GroupLayout, SlicedLayout
 from .ring import ring_attention
 from .softmax import finalize
 from .torus import torus_attention
 from .ulysses import gather_qkv, group_positions, scatter_o
 
 STRATEGIES = ("full", "ring", "ulysses", "usp", "swift", "swift_torus")
-# wire dtypes the fp8 a2a codec produces (the reference's comm/compress.py)
-WIRE_DTYPES = ("float8_e4m3fn", "float8_e5m2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +78,14 @@ class SPConfig:
     # selects the direct put K3, as on the TPU.
     comm_backend: str = "xla"
     kernel_interpret: bool = True
-    # hierarchical a2a and its fp8 wire compression
+    # Hierarchical a2a: decompose every Ulysses all-to-all into an
+    # intra-machine exchange plus staged inter-machine hops whenever the
+    # Ulysses groups span machines (it engages only when the topology
+    # qualifies: ulysses-outer placement, N > 1, N | P_u, P_u > N —
+    # otherwise the flat path runs unchanged).  a2a_wire_dtype compresses
+    # the inter-machine leg ("float8_e4m3fn" / "float8_e5m2",
+    # comm/compress.py); None keeps the wire exact, which is what makes
+    # the hierarchical path bitwise the flat one.
     hier_a2a: bool = False
     a2a_wire_dtype: str | None = None
 
@@ -86,8 +94,6 @@ class SPConfig:
         assert self.comm_backend in ("xla", "pallas"), self.comm_backend
         if self.a2a_wire_dtype is not None:
             assert self.a2a_wire_dtype in WIRE_DTYPES, self.a2a_wire_dtype
-        if self.hier_a2a or self.a2a_wire_dtype is not None:
-            raise NotImplementedError(HIER_A2A_ITEM)
 
     def effective_batch_axes(self, mesh=None) -> tuple[str, ...] | None:
         """Batch mesh axes with the CFG axis prepended (when present); with
@@ -102,10 +108,20 @@ class SPConfig:
 def resolve_layout(cfg: SPConfig, mesh, num_q_heads: int,
                    num_kv_heads: int) -> GroupLayout:
     """Instantiate the paper's (P_u x P_r) plan for this mesh + head count
-    (the reference's rule; the hierarchical factorisation is not ported)."""
+    (the reference's rule)."""
     sp = mesh.axes_size(cfg.sp_axes)
     n = mesh.shape[cfg.machine_axis] if cfg.machine_axis in cfg.sp_axes else 1
     m = sp // n
+
+    def u_groups(p_u: int, outer: bool) -> int:
+        # The hierarchical decomposition applies when the Ulysses groups
+        # span the machine boundary with > 1 member per machine: u-blocks
+        # are then machine-contiguous (block size (P_u/N)·P_r = M) and the
+        # two-level factorisation u = u_hi·m_u + u_lo is exact.
+        if (cfg.hier_a2a and outer and n > 1 and p_u > n
+                and p_u % n == 0):
+            return n
+        return 1
     if cfg.strategy == "ring":
         return GroupLayout(cfg.sp_axes, 1, sp, ulysses_outer=True)
     if cfg.strategy == "ulysses":
@@ -115,22 +131,25 @@ def resolve_layout(cfg: SPConfig, mesh, num_q_heads: int,
             raise ValueError(
                 f"ulysses needs SP ({sp}) | heads ({heads}); use usp/swift "
                 "instead")
-        return GroupLayout(cfg.sp_axes, sp, 1, ulysses_outer=True)
+        return GroupLayout(cfg.sp_axes, sp, 1, ulysses_outer=True,
+                           u_groups=u_groups(sp, True))
     swift = cfg.strategy in ("swift", "swift_torus")
     pl = planner.plan(n, m, num_q_heads, num_kv_heads, swift=swift,
                       replicate_kv=cfg.replicate_kv)
     return GroupLayout(cfg.sp_axes, pl.p_ulysses, pl.p_ring,
-                       ulysses_outer=swift)
+                       ulysses_outer=swift,
+                       u_groups=u_groups(pl.p_ulysses, swift))
 
 
 def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
-              kv_block=None, backend="xla", interpret=True):
+              kv_block=None, backend="xla", interpret=True, wire_dtype=None):
     """Shared body for usp/swift/ulysses/ring: monolithic Ulysses gather ->
     Ring Attention -> scatter.  The layout decides which boundary each
     technique crosses (that single bit is the paper's §4.2 contribution)."""
     ls = q[0].shape[1]
     dev = q[0].device
-    g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret)
+    g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret,
+                   wire_dtype=wire_dtype)
 
     def kpos_fn(p, owner_r):
         return group_positions(layout, ls, owner_r, dev)
@@ -142,7 +161,8 @@ def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
         kv_block=kv_block, backend=backend, interpret=interpret,
     )
     return scatter_o([finalize(pt, dtype=q[0].dtype) for pt in parts], layout,
-                     backend=backend, interpret=interpret)
+                     backend=backend, interpret=interpret,
+                     wire_dtype=wire_dtype)
 
 
 def sp_attention(
@@ -189,7 +209,8 @@ def sp_attention(
 
     kw = dict(scale=scale, causal=causal, window=window,
               kv_block=cfg.attn_kv_block,
-              backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
+              backend=cfg.comm_backend, interpret=cfg.kernel_interpret,
+              wire_dtype=cfg.a2a_wire_dtype)
     if slices > 1:
         layout = SlicedLayout(layout, slices)
     # rank lists, slice-major: rank s * sp + p holds sequence shard p of

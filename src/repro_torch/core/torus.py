@@ -67,9 +67,14 @@ def torus_attention(
     kv_block: int | None = None,
     backend: str = "xla",
     interpret: bool = True,
+    wire_dtype: str | None = None,
 ) -> RankList:
     """Full SwiftFusion attention with the Torus schedule; returns O in the
     original [B, Ls, Hq, D] sharding, per rank.
+
+    ``wire_dtype`` compresses the inter-machine leg of the Push-O when the
+    layout is hierarchical (``layout.u_groups > 1``); the Pull legs stay
+    exact (Q and KV feed compute directly).
 
     Every Pull hop is issued one stage ahead (double buffering, as in
     ring.py): hop j+1 goes onto the side stream before the ring attention
@@ -180,4 +185,5 @@ def torus_attention(
 
     # ---- Push-O: staged inverse all-to-all; diagonal O never moves
     o = [finalize(a, dtype=q[0].dtype) for a in acc]  # [B, P_u * Ls, h, D]
-    return scatter_o(o, layout, backend=backend, interpret=interpret)
+    return scatter_o(o, layout, backend=backend, interpret=interpret,
+                     wire_dtype=wire_dtype)

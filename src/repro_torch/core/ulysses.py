@@ -48,13 +48,17 @@ def group_positions(layout: GroupLayout, shard_len: int, ring_r: int,
 def gather_qkv(
     q: RankList, k: RankList, v: RankList, layout: GroupLayout,
     *, backend: str = "xla", interpret: bool = True,
+    wire_dtype: str | None = None,
 ) -> Gathered:
-    """The first three all-to-alls of Ulysses Attention."""
+    """The first three all-to-alls of Ulysses Attention.  ``wire_dtype``
+    compresses the inter-machine leg when the layout is hierarchical
+    (``layout.u_groups > 1``); ignored otherwise."""
     shard_len = q[0].shape[SEQ_AXIS]
 
     def fwd(x: RankList) -> RankList:
         stacked = monolithic_all_to_all(x, layout, split_axis=HEAD_AXIS,
-                                        backend=backend, interpret=interpret)
+                                        backend=backend, interpret=interpret,
+                                        wire_dtype=wire_dtype)
         # [P_u, B, Ls, h, D] -> [B, P_u * Ls, h, D], source-u order
         out = []
         for s in stacked:
@@ -70,7 +74,8 @@ def gather_qkv(
 
 
 def scatter_o(o: RankList, layout: GroupLayout, *, backend: str = "xla",
-              interpret: bool = True) -> RankList:
+              interpret: bool = True,
+              wire_dtype: str | None = None) -> RankList:
     """The fourth all-to-all: restore O from [B, P_u*Ls, H/P_u, D] to the
     original [B, Ls, H, D] sequence sharding."""
     p_u = layout.p_ulysses
@@ -79,4 +84,5 @@ def scatter_o(o: RankList, layout: GroupLayout, *, backend: str = "xla",
         b, lg, h, d = x.shape
         stacked.append(x.reshape(b, p_u, lg // p_u, h, d).transpose(0, 1))
     return ungroup_all_to_all(stacked, layout, concat_axis=HEAD_AXIS,
-                              backend=backend, interpret=interpret)
+                              backend=backend, interpret=interpret,
+                              wire_dtype=wire_dtype)

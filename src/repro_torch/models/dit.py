@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..comm import Stream, pipe_handoff
+from ..comm.profiler import mark_compute
 from ..configs.base import ModelConfig
 from ..core.pipefusion import (
     KVState,
@@ -221,7 +222,11 @@ def dit_forward_displaced(
     carries a ``pp``-sized ``ctx.sp.pp_axis`` every stage boundary is an
     explicit put over the pipe axis (``comm.pipe_handoff``), one per
     (patch, boundary), lowered by the context's comm backend.  Without the
-    axis the hand-off is skipped and the maths is unchanged.
+    axis the hand-off is skipped and the maths is unchanged.  Patches run
+    in the pipeline's order (at tick τ, stage s runs patch τ - s), so
+    that patch p's hand-off into stage s + 1 is in flight while stage s
+    runs patch p + 1.  Each patch reads only the untouched ``kv_state``
+    and writes only its own rows, so the order changes no value.
     """
     b_, t_, _ = latents.shape
     stages = stage_layers(cfg.n_layers, pp)
@@ -233,29 +238,43 @@ def dit_forward_displaced(
     stream = Stream("pipe", backend=ctx.sp.comm_backend,
                     interpret=ctx.sp.kernel_interpret)
     batch_axes = ctx.sp.effective_batch_axes(mesh)
+    stage_axes = (pp_axis,) if explicit_handoff else ()
 
     x_full, t_emb = _embed(params, latents, cond, timesteps)
     new_state = out if out is not None else KVState(
         torch.empty_like(kv_state.k), torch.empty_like(kv_state.v))
-    vel_chunks = []
-    for start, length in slices:
-        xp = x_full[:, start:start + length]
-        pos = torch.arange(start, start + length,
-                           device=xp.device)[None].expand(b_, length)
+    xs = [x_full[:, start:start + length] for start, length in slices]
+    in_flight = [None] * len(slices)  # patch i's hand-off into its next stage
+    vel_chunks = [None] * len(slices)
+    for tick in range(len(slices) + len(stages) - 1):
         for s, (l0, cnt) in enumerate(stages):
-            for l, lp in enumerate(params["layers"][l0:l0 + cnt], start=l0):
-                # stale KV of every NON-resident row of this layer
-                stale = (drop_rows(kv_state.k[l], start, length, axis=1),
-                         drop_rows(kv_state.v[l], start, length, axis=1))
-                xp, (kp, vp) = dit_block(lp, cfg, ctx, xp, t_emb, pos,
-                                         extra_kv=stale, return_kv=True)
-                update_state_rows(new_state, kp[None], vp[None], start,
-                                  first_layer=l)
+            i = tick - s
+            if not 0 <= i < len(slices):
+                continue
+            start, length = slices[i]
+            if in_flight[i] is not None:
+                xs[i], in_flight[i] = in_flight[i].wait(), None
+            pos = torch.arange(start, start + length,
+                               device=latents.device)[None].expand(b_, length)
+            with mark_compute("stage compute", stage_axes, latents.device,
+                              stream="pipe"):
+                for l, lp in enumerate(params["layers"][l0:l0 + cnt],
+                                       start=l0):
+                    # stale KV of every NON-resident row of this layer
+                    stale = (drop_rows(kv_state.k[l], start, length, axis=1),
+                             drop_rows(kv_state.v[l], start, length, axis=1))
+                    xs[i], (kp, vp) = dit_block(lp, cfg, ctx, xs[i], t_emb,
+                                                pos, extra_kv=stale,
+                                                return_kv=True)
+                    update_state_rows(new_state, kp[None], vp[None], start,
+                                      first_layer=l)
             if explicit_handoff and s < pp - 1:
-                xp = pipe_handoff(xp, mesh, pp_axis, batch_axes=batch_axes,
-                                  stream=stream)
-        vp_out = _final_projection(params, cfg, xp, t_emb)
-        if start == 0:  # patch 0 carries the conditioning tokens
-            vp_out = vp_out[:, COND_TOKENS:]
-        vel_chunks.append(vp_out)
+                in_flight[i] = pipe_handoff(xs[i], mesh, pp_axis,
+                                            batch_axes=batch_axes,
+                                            stream=stream)
+            elif s == len(stages) - 1:
+                vp_out = _final_projection(params, cfg, xs[i], t_emb)
+                if start == 0:  # patch 0 carries the conditioning tokens
+                    vp_out = vp_out[:, COND_TOKENS:]
+                vel_chunks[i] = vp_out
     return torch.cat(vel_chunks, dim=1), new_state

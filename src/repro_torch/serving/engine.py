@@ -15,10 +15,13 @@ drift-triggered resync.
 ARServer — fixed-slot batched greedy decoding for the language models
 (the ported one is rwkv6-1.6b), with aged-priority slot admission.
 
-Not ported yet: the span profiler (ROADMAP Queue 1 item 5).
+Each step runs eagerly, op by op (the reference compiles one step per
+bucket shape; capturing it is ROADMAP Queue 1 item 2), so the span
+profiler (``profile=True``) reads it put by put.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -27,6 +30,8 @@ from typing import Callable
 
 import torch
 
+from ..comm import CommProfiler, emit_leg_spans
+from ..comm import profile as comm_profile
 from ..configs.base import ModelConfig
 from ..core import SPConfig, plan_hybrid
 from ..core.comm_model import NetworkModel
@@ -116,6 +121,12 @@ class DiTServer:
         a request whose ``kv_drift`` crosses its ``drift_threshold``.
         ``stages`` holds each pipeline stage's contiguous slice of
         ``params["layers"]`` (the same tensors, not copies).
+
+    ``profile=True`` runs every step under the comm span profiler
+    (comm/profiler.py): each put and marked compute block is observed
+    with timing events, the step loop emits an ``engine.step`` span per
+    step (with the plan's predictions), and each admission's observations
+    are drained into the tracker as ``comm.*`` spans.
     """
 
     # noise is drawn per REQUEST from a generator seeded by
@@ -137,9 +148,6 @@ class DiTServer:
                  profile: bool = False,
                  device: str | torch.device | None = None,
                  mesh=None):
-        if profile:
-            raise NotImplementedError(
-                "span profiling is not ported yet: ROADMAP Queue 1 item 5")
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is not None and device is not None and (
                 resolve_device(device).type != mesh.device.type):
@@ -154,6 +162,7 @@ class DiTServer:
         self.dtype = torch_dtype(cfg.dtype)
         self.ctx = ParallelContext(sp, "prefill", self.device, mesh)
         self.sampler = sampler
+        self.profiler = CommProfiler() if profile else None
         self.tracker = tracker if tracker is not None else Tracker()
         self.drift = drift if drift is not None else DriftPolicy()
         self.control = control if control is not None else ControlConfig()
@@ -326,22 +335,36 @@ class DiTServer:
         x = self._noise(batch, b, t)
         fn = self._step_fn(b, t, adm.plan)
         dt = 1.0 / sc.num_steps
-        measure = self.control.engaged or self.tracker.persistent
+        # profiling implies measurement: the step spans need the clocks
+        measure = (self.control.engaged or self.tracker.persistent
+                   or self.profiler is not None)
         step_tags = {"adm": adm_id, "seq": t, "rows": b}
         step_times: list[float] = []
         drift_vals = []
         resyncs = 0
 
-        def tick(i: int, t0: float) -> bool:
+        def tick(i: int, t0: float, warm: bool | None = None) -> bool:
             """Post-step control point: stamp the step's wall clock (the
-            clock stops when the outputs are ready), run the hook, then the
-            preemption check.  True = the batch was parked."""
+            clock stops when the outputs are ready, before any span is
+            emitted), run the hook, then the preemption check.  True = the
+            batch was parked."""
             if measure:
                 sync(self.device)
                 t_step = time.perf_counter() - t0
                 step_times.append(t_step)
                 self.tracker.log("engine.t_step_s", t_step, step=i,
                                  tags=step_tags)
+                if self.profiler is not None:
+                    tags = dict(step_tags)
+                    tags["pred_t_step_s"] = adm.plan.t_step
+                    if "t_compute_step" in adm.plan.pred:
+                        tags["pred_compute_s"] = adm.plan.pred[
+                            "t_compute_step"]
+                    if warm is not None:
+                        tags["warm"] = bool(warm)
+                    self.tracker.span_event(
+                        "engine.step", t0 - self.tracker.epoch, t_step,
+                        step=i, tags=tags)
             if self.on_step is not None:
                 self.on_step(self, i)
             if self._should_park(adm, i, sc.num_steps, step_times):
@@ -350,48 +373,57 @@ class DiTServer:
             return False
 
         parked = False
-        if sc.pipelined:
-            warm_fn, displaced_fn = fn
-            pipe = sc.pipeline
-            thresholds = [r.drift_threshold for r in batch]
-            use_drift = self.drift.engaged(thresholds)
-            # the threaded state and a second buffer: each step writes the
-            # new state into the buffer the step before last filled, which
-            # no one needs any more, then the two swap roles
-            state = hybrid_state_shape(self.cfg, b, t, sc, self.device)
-            spare = spare_state(state)
-            last_drift: list[float] | None = None
-            for i in range(sc.num_steps):
-                if use_drift:
-                    warm = self.drift.warm(pipe, i, last_drift, thresholds,
-                                           tracker=self.tracker)
-                    if warm and i >= pipe.warmup_steps:
-                        resyncs += 1
-                        self.tracker.count("engine.resyncs", tags={"seq": t})
-                else:
-                    warm = pipe.warm_step(i)
-                f = warm_fn if warm else displaced_fn
-                t0 = time.perf_counter()
-                x, new, m = f(self.params, x, cond, 1.0 - i * dt, state,
-                              spare)
-                state, spare = new, state
-                per = m["kv_drift_per_request"]
-                drift_vals.append(per)
-                if use_drift:
-                    # threshold-triggered resync reads the drift on the
-                    # host: one device sync per step, only with a bound
-                    last_drift = [float(per[j]) for j in range(n_real)]
-                if tick(i, t0):
-                    parked = True
-                    break
-            del state, spare
-        else:
-            for i in range(sc.num_steps):
-                t0 = time.perf_counter()
-                x = fn(self.params, x, cond, 1.0 - i * dt)
-                if tick(i, t0):
-                    parked = True
-                    break
+        prof_ctx = (comm_profile(self.profiler) if self.profiler is not None
+                    else contextlib.nullcontext())
+        with prof_ctx:
+            if sc.pipelined:
+                warm_fn, displaced_fn = fn
+                pipe = sc.pipeline
+                thresholds = [r.drift_threshold for r in batch]
+                use_drift = self.drift.engaged(thresholds)
+                # the threaded state and a second buffer: each step writes
+                # the new state into the buffer the step before last filled,
+                # which no one needs any more, then the two swap roles
+                state = hybrid_state_shape(self.cfg, b, t, sc, self.device)
+                spare = spare_state(state)
+                last_drift: list[float] | None = None
+                for i in range(sc.num_steps):
+                    if use_drift:
+                        warm = self.drift.warm(pipe, i, last_drift,
+                                               thresholds,
+                                               tracker=self.tracker)
+                        if warm and i >= pipe.warmup_steps:
+                            resyncs += 1
+                            self.tracker.count("engine.resyncs",
+                                               tags={"seq": t})
+                    else:
+                        warm = pipe.warm_step(i)
+                    f = warm_fn if warm else displaced_fn
+                    t0 = time.perf_counter()
+                    x, new, m = f(self.params, x, cond, 1.0 - i * dt, state,
+                                  spare)
+                    state, spare = new, state
+                    per = m["kv_drift_per_request"]
+                    drift_vals.append(per)
+                    if use_drift:
+                        # threshold-triggered resync reads the drift on the
+                        # host: one device sync per step, only with a bound
+                        last_drift = [float(per[j]) for j in range(n_real)]
+                    if tick(i, t0, warm=warm):
+                        parked = True
+                        break
+                del state, spare
+            else:
+                for i in range(sc.num_steps):
+                    t0 = time.perf_counter()
+                    x = fn(self.params, x, cond, 1.0 - i * dt)
+                    if tick(i, t0):
+                        parked = True
+                        break
+        if self.profiler is not None:
+            # pair and publish this admission's observations
+            # (comm.leg / comm.compute / comm.exposed_wait spans)
+            emit_leg_spans(self.profiler, self.tracker)
         if parked:
             return []
         sync(self.device)

@@ -232,10 +232,20 @@ def test_torus_pull_hops_are_issued_a_stage_ahead(fused_pull_q):
 
 
 def test_hierarchical_a2a_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SPConfig(hier_a2a=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SPConfig(a2a_wire_dtype="float8_e4m3fn")
+    """The hierarchical all-to-all and its wire codec are ported now: the
+    options configure, an unknown wire dtype is refused, and the layout
+    engages the two-level factorisation only where the topology
+    qualifies (tests/test_torch_hier.py holds the path itself)."""
+    from repro_torch.core.strategy import resolve_layout
+
+    SPConfig(hier_a2a=True, a2a_wire_dtype="float8_e4m3fn")
+    with pytest.raises(AssertionError):
+        SPConfig(hier_a2a=True, a2a_wire_dtype="int4")
+    mesh = make_mesh((2, 4), ("pod", "model"), device="cpu")
+    for hier, want in ((True, 2), (False, 1)):
+        cfg = SPConfig(strategy="ulysses", sp_axes=("pod", "model"),
+                       hier_a2a=hier)
+        assert resolve_layout(cfg, mesh, 8, 8).u_groups == want
 
 
 def test_mesh_axis_sizes():

@@ -212,11 +212,13 @@ def _between(text: str, start: str, end: str | None) -> str:
 
 def test_trace_recording_is_a_copy():
     """The framework-free half of comm/trace.py (recording and semaphore
-    validation) is the reference's text, unchanged."""
+    validation) is the reference's text, unchanged; the port's eager
+    validation follows it in sections of its own."""
     start = "# -------------------------------------------------------------"\
             "--------------\n# schedule recording"
     mine = _between((ROOT / "repro_torch/comm/trace.py").read_text(), start,
-                    None)
+                    "# -----------------------------------------------------"
+                    "----------------------\n# the eager schedule")
     ref = _between((ROOT / "repro/comm/trace.py").read_text(), start,
                    "# -----------------------------------------------------"
                    "----------------------\n# HLO parsing")
@@ -258,3 +260,75 @@ def test_semaphore_validation_equal():
         assert (a.puts, a.waits, a.failures, a.summary()) == (
             b.puts, b.waits, b.failures, b.summary())
 
+
+
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "float8_e5m2"])
+def test_wire_codec_equal(wire):
+    """comm/compress.py: the same payload bytes, scale and residual as the
+    reference's codec (tests/test_torch_hier.py covers more inputs)."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.comm import compress as j_c
+    from repro_torch.comm import compress as t_c
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((48, 80)) * 3).astype(np.float32)
+    err = (rng.standard_normal(x.shape) * 1e-3).astype(np.float32)
+    tw, ts, te = t_c.ef_encode(torch.from_numpy(x), torch.from_numpy(err),
+                               wire)
+    jw, js, je = j_c.ef_encode(jnp.asarray(x), jnp.asarray(err), wire)
+    assert np.array_equal(tw.view(torch.uint8).numpy(),
+                          np.asarray(jw).view(np.uint8))
+    assert ts.item() == float(js)
+    assert np.array_equal(te.numpy(), np.asarray(je))
+    tq, tsq = t_c.quantize(torch.from_numpy(x), wire)
+    jq, jsq = j_c.quantize(jnp.asarray(x), wire)
+    assert np.array_equal(
+        t_c.dequantize(tq, tsq, torch.float32).numpy(),
+        np.asarray(j_c.dequantize(jq, jsq, jnp.float32)))
+
+
+def _leg_events(prof_mod):
+    """One synthetic event stream: comm legs hidden, exposed, unsignalled
+    and on two tracks, a compute block, and events before the epoch."""
+    p = prof_mod.CommProfiler()
+    comm_kw = dict(kind="comm", stream="torus", channel="torus.hop1",
+                   stage=2, axes=("pod", "model"), nbytes=4096,
+                   n_tensors=2, backend="pallas", intent="diag-KV attend")
+    a, b = p.new_leg(**comm_kw), p.new_leg(**comm_kw)
+    c = p.new_leg(kind="compute", stream="ring", channel="ring attend",
+                  stage=0, axes=("model",), nbytes=0, n_tensors=0,
+                  backend="", intent="", label="ring attend")
+    ev = prof_mod.LegEvent
+    p.events = [
+        ev(a, "issue", (0, 1), 1.0), ev(a, "signal", (0, 1), 1.01),
+        ev(a, "wait", (0, 1), 1.02), ev(a, "issue", (0, 1), 2.0),
+        ev(a, "wait", (0, 1), 2.005), ev(a, "signal", (0, 1), 2.008),
+        ev(a, "issue", (1, 0), 3.0), ev(b, "issue", (), 0.5),
+        ev(b, "issue", (), 4.0), ev(b, "signal", (), 4.5),
+        ev(c, "start", (), 0.2), ev(c, "end", (), 1.5),
+        ev(c, "end", (), 1.6), ev(c, "start", (), 2.0),
+        ev(c, "end", (), 2.25)]
+    return p
+
+
+def test_profiler_pairing_equal():
+    """comm/profiler.py's ``emit_leg_spans``: the same events give the same
+    spans in both packages.  The port adds one tag, ``ranks`` (the rank
+    count of the route one put covers)."""
+    from repro.comm import profiler as j_prof
+    from repro_torch.comm import profiler as t_prof
+
+    def spans(prof_mod, met):
+        t = met.RecordingTracker()
+        t.epoch = 0.7
+        n = prof_mod.emit_leg_spans(_leg_events(prof_mod), t)
+        recs = [{k: v for k, v in r.to_dict().items() if k != "t"}
+                for r in t.records]
+        for r in recs:
+            r["tags"].pop("ranks", None)
+        return n, recs
+
+    mine, ref = spans(t_prof, t_met), spans(j_prof, j_met)
+    assert mine == ref and mine[0] == 6

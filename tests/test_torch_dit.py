@@ -182,11 +182,10 @@ def test_multi_rank_strategies_not_ported_yet(setup):
     """The flat multi-rank schedules are ported (tests/test_torch_sp.py),
     and so is a batch axis of size > 1 on the mesh: each data slice of the
     batch runs swift_torus on its own model ranks, and the DiT's output is
-    the single-rank one.  The hierarchical all-to-all is not, and says
-    where it stands."""
+    the single-rank one.  The hierarchical all-to-all is ported too
+    (tests/test_torch_hier.py)."""
     cfg, *_, tparams, tctx = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        SPConfig(strategy="swift_torus", hier_a2a=True)
+    SPConfig(strategy="swift_torus", hier_a2a=True)
     ctx = dataclasses.replace(
         tctx, sp=SPConfig(strategy="swift_torus"),
         mesh=make_mesh((2, 2), ("data", "model"), device="cpu"))

@@ -62,9 +62,10 @@ def test_chip_smoke_imports_nothing_of_jax():
 def test_sp_modules_are_covered():
     """The SP path's modules are among those scanned and imported above."""
     for name in ("launch.mesh", "comm.trace", "comm.channel", "comm.stream",
-                 "comm.kernel_backend", "core.collectives", "core.ulysses",
-                 "core.ring", "core.torus", "core.strategy",
-                 "kernels.ring_flash"):
+                 "comm.kernel_backend", "comm.compress", "comm.profiler",
+                 "core.collectives", "core.ulysses", "core.ring",
+                 "core.torus", "core.strategy", "kernels.ring_flash",
+                 "launch.commcheck", "launch.trace_report"):
         assert f"repro_torch.{name}" in MODULES
 
 

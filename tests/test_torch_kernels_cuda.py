@@ -311,6 +311,80 @@ def test_cuda_put_kernels_deliver_bitwise(cuda, name, case):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "float8_e5m2"])
+def test_cuda_landing_copy_takes_an_fp8_payload_and_its_scale(cuda, wire):
+    """The inter put of the hierarchical Push-O: every rank's fp8 bundle
+    and its 0-d float32 scale (a 4-byte entry, through the kernel's
+    head-and-tail path) in one K4 launch, bitwise as the plain landing
+    copy, every signal word at the put's epoch."""
+    from repro_torch.comm import compress
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    src = []
+    for _ in range(16):
+        x = torch.randn((4, 2, 272, 3, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        src.append(list(compress.quantize(x, wire)))
+    dst = [[torch.empty_like(t) for t in r] for r in src]
+    ref = [[torch.empty_like(t) for t in r] for r in src]
+    signal = torch.zeros(32, dtype=torch.int32, device=cuda)
+    arrive = torch.zeros_like(signal)
+    before = kb.launch_count("landing_copy")
+    kb.landing_copy(src, dst, signal=signal, arrive=arrive, epoch=9)
+    kb.landing_copy_plain(src, ref, torch.zeros_like(signal), 9)
+    torch.cuda.synchronize()
+    assert kb.launch_count("landing_copy") == before + 1
+    for row, want in zip(dst, ref):
+        for got, w in zip(row, want):
+            assert torch.equal(got.reshape(-1).view(torch.uint8),
+                               w.reshape(-1).view(torch.uint8))
+    assert bool((signal == 9).all()) and bool((arrive == 0).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "float8_e5m2"])
+def test_cuda_wire_codec_is_the_cpu_codec(cuda, wire):
+    """The fp8 codec on the card gives the CPU's bytes, scale and residual
+    bit for bit (the scale divides by a tensor: CUDA would multiply by the
+    reciprocal of a Python scalar)."""
+    from repro_torch.comm import compress
+
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn((4, 2, 272, 3, 128), generator=gen) * 3).to(
+        torch.bfloat16)
+    err = torch.randn(x.shape, generator=gen) * 1e-3
+    cpu = compress.ef_encode(x, err, wire)
+    card = compress.ef_encode(x.to(cuda), err.to(cuda), wire)
+    assert torch.equal(card[0].cpu().view(torch.uint8),
+                       cpu[0].view(torch.uint8))
+    assert card[1].item() == cpu[1].item()
+    assert torch.equal(card[2].cpu(), cpu[2])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("wire", [None, "float8_e4m3fn"])
+def test_cuda_hier_swift_torus_matches_cpu(cuda, wire):
+    """swift_torus with the hierarchical Push-O on mesh (pod 2, model 4)
+    of the card against the same schedule on the CPU: the fp8 codec
+    rounds the same on both (float32 division, then the cast)."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((2, 64, 4, 32), generator=gen) for _ in range(3))
+    cfg = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                   comm_backend="pallas", hier_a2a=True, a2a_wire_dtype=wire)
+    want = sp_attention(q, k, v, cfg=cfg, causal=True,
+                        mesh=make_mesh((2, 4), ("pod", "model"),
+                                       device="cpu"))
+    kb.reset_launch_count()
+    got = sp_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg=cfg,
+                       causal=True,
+                       mesh=make_mesh((2, 4), ("pod", "model"), device=cuda))
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    # P_u 4 = 2 machines x 2: 3 Pull-Q + 3 Pull-KV, then 1 intra + 1 inter
+    assert kb.launch_count("landing_copy") == 8
+
+
+@pytest.mark.needs_cuda
 @pytest.mark.parametrize("axes,sp_axes,shape,interpret,put", [
     (("pod", "model"), ("pod", "model"), (2, 4), False, "landing_copy"),
     (("model",), ("model",), (8,), False, "remote_put")])
