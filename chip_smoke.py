@@ -51,7 +51,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  requests batched and one 1024-latent request, STEPS steps,
                  no guidance.  Outputs must be finite and moved from their
                  noise, and K1's launch count must equal 96 x steps x
-                 forwards.
+                 forwards.  Every DiTServer and ARServer of the script
+                 serves captured (serving/graphs.py: step 0 of a bucket is
+                 its eager warm-up, step 1 its capture and first replay,
+                 the rest replays) unless it is an eager oracle; each
+                 captured server prints one line per graph (capture and
+                 instantiation host seconds, replays, launches per
+                 replay).
   9. serve-sp  — the same server, weights and requests under swift_torus on
                  mesh (pod 2, model 8): finite, moved latents, K1/K2/K4
                  launch counts as the schedule implies, and latents within
@@ -147,14 +153,30 @@ Phases 15 to 21 run after serve-sp (20 right after it):
  20. profile   — run right after serve-sp, on its weights:
                  DiTServer(profile=True) on flux-12b at full width and
                  depth on mesh (pod 2, model 8), one 1024-latent request,
-                 2 steps: latents bitwise those of profile=False, the spans'
-                 JSONL passing ``python -m repro_torch.launch.trace_report
-                 --check``, the overlap rows of the torus hops, the ring
-                 shifts and the Push-O puts, and the step wall clock with
-                 and without the profiler.
+                 PROFILE_STEPS steps (an eager warm-up, the capture and its
+                 replay, a replay): latents bitwise those of profile=False,
+                 the spans' JSONL passing ``python -m
+                 repro_torch.launch.trace_report --check``, the overlap rows
+                 of the torus hops, the ring shifts and the Push-O puts, for
+                 the warm-up and for the replays apart, and the step wall
+                 clock with and without the profiler.
  21. commcheck — ``python -m repro_torch.launch.commcheck --profile`` on the
                  card: six comm.trace lines OK, exit 0, its spans passing
                  the trace report's check.
+
+Phase 22, capture, holds each captured server bitwise to the same server
+with capture=False, on the same requests in the same run: degree 1 at full
+depth (after serve-sp), swift_torus on mesh (pod 2, model 8) and (model
+16) at CAPTURE_LAYERS layers with launches per replay equal to the eager
+step's and every signal word the steps' puts write at its epoch after a
+replay onto zeroed words, a captured batch parked after step 1 and
+restarted against the unparked run; the hybrid warm/displaced graphs in
+float32 at HYBRID_CAPTURE_LAYERS layers (end of serve-hybrid); ARServer's
+tokens (end of serve-lm).  It prints each step's wall clock captured
+against eager.  layer-paper and numbers add one captured swift_torus layer
+(wall clock, device time, idle share).  Phase 23, serve-cli (after
+commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
+flux-12b at degree 1 and on --mesh pod, and rwkv6-1.6b.
 
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
@@ -877,18 +899,38 @@ def check_sp_block(blk: dict) -> None:
 REQUESTS = ((0, 4096), (1, 4096), (2, 1024))  # (rid, latent tokens)
 
 
-def run_server(params, cfg, conds, requests, sp, mesh=None, sampler=None):
+def run_server(params, cfg, conds, requests, sp, mesh=None, sampler=None,
+               capture=None, max_batch=4, park=None):
     """Serve ``requests`` with fresh counts (by default STEPS unguided
-    steps); returns the results by rid, the wall time, the launch counts
-    and the steps run (admissions x steps)."""
+    steps, each bucket's step captured as a CUDA graph unless ``capture``
+    is False); returns the results by rid, the wall time, the launch
+    counts, the steps run (admissions x steps) and the server.  ``park``
+    (an admission's step index) parks the first admission once, after
+    that step."""
     import torch
     from repro_torch.serving import (DiTRequest, DiTServer, RecordingTracker,
                                      SamplerConfig)
 
+    # a server is a reference cycle (its steps close over it) and holds
+    # its graphs' pool and a pipelined bucket's KV-state buffers: collect
+    # the last one before making the next
+    gc.collect()
+    torch.cuda.empty_cache()
     sampler = sampler or SamplerConfig(num_steps=STEPS)
     srv = DiTServer(params, cfg, sp, sampler=sampler,
-                    max_batch=4, tracker=RecordingTracker(), mesh=mesh,
-                    device=None if mesh is not None else "cuda")
+                    max_batch=max_batch, tracker=RecordingTracker(), mesh=mesh,
+                    device=None if mesh is not None else "cuda",
+                    capture=capture)
+    if park is not None:
+        parked = []
+
+        def once(adm, step, num_steps, step_times):
+            if parked or step != park:
+                return False
+            parked.append(step)
+            return True
+
+        srv._should_park = once
     for rid, seq in requests:
         srv.submit(DiTRequest(rid=rid, seq_len=seq, cond=conds[rid]))
     torch.cuda.synchronize()
@@ -900,8 +942,11 @@ def run_server(params, cfg, conds, requests, sp, mesh=None, sampler=None):
     counts = read_counts()
     if sorted(r.rid for r in out) != sorted(rid for rid, _ in requests):
         fail(f"served rids {[r.rid for r in out]}")
-    # one forward per step per admitted batch (unguided, or cfg-parallel)
+    # one forward per step per admitted batch (unguided, or cfg-parallel);
+    # a parked batch's steps ran too
     forwards = srv.scheduler.admissions * sampler.num_steps
+    if park is not None:
+        forwards += park + 1 - sampler.num_steps
     return {r.rid: r for r in out}, wall, counts, forwards, srv
 
 
@@ -929,6 +974,56 @@ def latent_err(a, b, noise) -> float:
     return float((a - b).norm()) / max(float((b - noise).norm()), 1e-30)
 
 
+def rss_gib() -> float:
+    """The process's resident host memory, GiB (Linux /proc)."""
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def log_graphs(label: str, srv, card: str) -> list:
+    """One line per step of ``srv``: its capture and instantiation host
+    seconds, replays and launches per replay.  Returns the steps."""
+    steps = srv.captured_steps()
+    for st in steps:
+        if st.graph is None:
+            log(f"{label} graph {st.name}: not captured ({st.calls} calls)")
+            continue
+        log(f"{label} graph {st.name}: capture {st.capture_s:.3f} s, "
+            f"instantiation {st.instantiate_s:.3f} s (host), {st.replays} "
+            f"replays, launches per replay {st.launches} [{card}]")
+    return steps
+
+
+def check_signal_words(label: str, steps, checks: list) -> None:
+    """Zero the heap's signal words, replay each captured step, and hold
+    every word its puts write to the epoch the capture gave it."""
+    import torch
+    from repro_torch.comm import kernel_backend as kb
+    heap = kb.heap_for(torch.device("cuda"))
+    words = bad = 0
+    for st in steps:
+        if st.graph is None or not st.signal_words:
+            continue
+        heap.signals.zero_()
+        st.graph.replay()
+        torch.cuda.synchronize()
+        got = heap.signals.cpu()
+        for (row, w), epoch in st.signal_words.items():
+            words += 1
+            bad += int(got[row, w]) != epoch
+    log(f"{label}: signal words after a replay onto zeroed words: "
+        f"{words - bad} of {words} hold their epoch")
+    checks.append((words > 0 and bad == 0,
+                   f"{label}: {bad} of {words} signal words stale"))
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
 def serve(results: dict, card: str, params, cfg, conds) -> dict:
     import torch
     from repro_torch.core import SPConfig
@@ -945,9 +1040,11 @@ def serve(results: dict, card: str, params, cfg, conds) -> dict:
                   "remote_put": 0, "landing_copy": 0}:
         fail(f"serve launches {counts}, expected {expect} K1 only")
     check_latents("serve", out, srv, card)
+    log_graphs("serve", srv, card)
     for rid, r in out.items():
         results.setdefault("step_times", {})[dict(REQUESTS)[rid]] = r.step_times
     results["launches_degree1"] = counts["flash_mqkv"]
+    results["counts_degree1"] = counts
     noise = {rid: srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
              for rid, seq in REQUESTS}
     return {"latents": {rid: r.latents for rid, r in out.items()},
@@ -971,9 +1068,14 @@ def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
 
     # the main path: three requests on mesh (pod 2, model 8)
     mesh, sp, put = mesh_of("pod2xmodel8")
+    rss0 = rss_gib()
     out, wall, counts, forwards, srv = run_server(params, cfg, conds,
                                                   REQUESTS, sp, mesh)
+    rss1 = rss_gib()
     want = expected_counts(put, cfg.n_layers * forwards)
+    log_graphs("serve-sp pod2xmodel8", srv, card)
+    log(f"serve-sp pod2xmodel8: host memory {rss0:.2f} -> {rss1:.2f} GiB "
+        f"with the two {cfg.n_layers}-layer graphs held")
     errs = errors(out)
     log(f"serve-sp pod2xmodel8: {len(out)} requests in {wall:.2f} s on "
         f"{srv.ctx.sp_degree} virtual ranks, launches {counts} (expected "
@@ -1033,6 +1135,106 @@ def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
     checks.append((err > SERVE_SP_TOL,
                    f"a dropped KV chunk passes the serve-sp check ({err})"))
     results["drop_err"] = err
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+
+
+def capture_dit(results: dict, card: str, params, cfg, conds,
+                deg1: dict) -> None:
+    """Phase 22 (flux-12b part): each captured server held bitwise to the
+    same server with capture=False, on the same requests in the same run.
+    Degree 1 at full depth (the serve phase's captured latents against an
+    eager server); swift_torus on mesh (pod 2, model 8) and (model 16) at
+    CAPTURE_LAYERS of the 96 layers, with launches per replay equal to the
+    eager step's (so the runs' totals agree) and every signal word the
+    steps' puts write holding its epoch after a replay onto zeroed words;
+    a captured batch parked after its second step and restarted, against
+    the unparked captured run.  Prints each step's wall clock, captured
+    (replays) against eager."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+
+    checks = []
+
+    def bitwise(a, b):
+        return sorted(a) == sorted(b) and all(
+            torch.equal(a[rid].latents, b[rid].latents) for rid in a)
+
+    def steps_line(label, cap, eag):
+        """``cap`` / ``eag``: step wall clocks by rid."""
+        for rid in sorted(cap):
+            c, e = cap[rid], eag[rid]
+            log(f"capture {label} rid={rid}: step wall clock captured "
+                f"{[round(t, 4) for t in c]} s (warm-up, capture + replay, "
+                f"replays), eager {[round(t, 4) for t in e]} s; median "
+                f"replay {median(c[2:]):.4f} s vs eager {median(e[1:]):.4f} "
+                f"s [{card}]")
+
+    # degree 1, full depth: the serve phase ran captured
+    eager, wall, counts, _, _ = run_server(params, cfg, conds, REQUESTS,
+                                           SPConfig(strategy="full"),
+                                           capture=False)
+    same = all(torch.equal(eager[rid].latents, deg1["latents"][rid])
+               for rid in eager)
+    log(f"capture degree 1 ({cfg.n_layers} layers): captured latents "
+        f"bitwise the eager server's {same}; launches captured "
+        f"{results['counts_degree1']} eager {counts} [{card}]")
+    steps_line("degree 1", {0: results["step_times"][4096],
+                            2: results["step_times"][1024]},
+               {rid: eager[rid].step_times for rid in (0, 2)})
+    checks += [(same, "capture degree 1: captured != eager"),
+               (counts == results["counts_degree1"],
+                f"capture degree 1: launches {counts} != "
+                f"{results['counts_degree1']}")]
+    results["capture_deg1"] = {seq: eager[rid].step_times
+                               for rid, seq in ((0, 4096), (2, 1024))}
+
+    sub = dict(params, layers=params["layers"][:CAPTURE_LAYERS])
+    cfg_s = dataclasses.replace(cfg, n_layers=CAPTURE_LAYERS)
+    for name, requests in (("pod2xmodel8", REQUESTS),
+                           ("model16", (REQUESTS[2],))):
+        shape, axes, sp_axes, put = SP_MESHES[name]
+        mesh = make_mesh(shape, axes, device="cuda")
+        sp = sp_config(sp_axes)
+        cap, cwall, ccounts, forwards, csrv = run_server(
+            sub, cfg_s, conds, requests, sp, mesh)
+        eag, ewall, ecounts, _, _ = run_server(sub, cfg_s, conds, requests,
+                                               sp, mesh, capture=False)
+        want = expected_counts(put, CAPTURE_LAYERS * forwards)
+        same = bitwise(cap, eag)
+        log(f"capture swift_torus {name} ({CAPTURE_LAYERS} layers): captured "
+            f"bitwise the eager server's {same}; {cwall:.2f} s captured vs "
+            f"{ewall:.2f} s eager; launches captured {ccounts} eager "
+            f"{ecounts} (expected {want}) [{card}]")
+        steps = log_graphs(f"capture {name}", csrv, card)
+        steps_line(f"swift_torus {name}",
+                   {rid: r.step_times for rid, r in cap.items()},
+                   {rid: r.step_times for rid, r in eag.items()})
+        checks += [(same, f"capture {name}: captured != eager"),
+                   (ccounts == ecounts == want,
+                    f"capture {name}: launches {ccounts} / {ecounts} != "
+                    f"{want}")]
+        check_signal_words(f"capture {name}", steps, checks)
+        results.setdefault("capture_sp", {})[name] = {
+            rid: (cap[rid].step_times, eag[rid].step_times) for rid in cap}
+        if name != "pod2xmodel8":
+            continue
+        del csrv
+        parked, _, pcounts, pforwards, psrv = run_server(
+            sub, cfg_s, conds, requests, sp, mesh, park=1)
+        same = bitwise(parked, cap)
+        log(f"capture park: the first admission parked after step 1 and "
+            f"restarted ({psrv.preemptions} park): latents bitwise the "
+            f"unparked captured run's {same}; launches {pcounts} (expected "
+            f"{expected_counts(put, CAPTURE_LAYERS * pforwards)}); "
+            f"{psrv.plan_cache.traces} builds, {psrv.captures} "
+            f"captures [{card}]")
+        checks += [(same and psrv.preemptions == 1,
+                    "capture park: restarted latents differ"),
+                   (pcounts == expected_counts(put, CAPTURE_LAYERS * pforwards),
+                    f"capture park: launches {pcounts}")]
     for ok, msg in checks:
         if not ok:
             fail(msg)
@@ -1374,6 +1576,23 @@ def serve_hybrid(results: dict, card: str, params, cfg) -> None:
     results["hybrid_disp_step_times"] = r.step_times
     results["hybrid_launches"] = counts
     del srv, disp, warm
+
+    # phase 22 (hybrid part, bf16, full depth): three admissions of the
+    # bucket one after another: the first one's steps are the graphs'
+    # eager warm-ups (warm, then displaced), the third one only replays
+    reqs = tuple((rid, HYBRID_LATENTS) for rid in range(3))
+    rep, wall, _, _, _ = run_server(params, cfg, {rid: cond for rid, _ in reqs},
+                                    reqs, sp, mesh, sampler(1), max_batch=1)
+    first, *_, last = sorted(rep.values(), key=lambda r: r.latency)
+    warm_e, disp_e = first.step_times[0], median(first.step_times[1:3])
+    warm_c, disp_c = last.step_times[0], median(last.step_times[1:])
+    log(f"capture hybrid bf16 ({n_layers} layers, 3 admissions, {wall:.2f} "
+        f"s): warm step {warm_c:.4f} s replayed vs {warm_e:.4f} s eager, "
+        f"displaced {disp_c:.4f} s replayed vs {disp_e:.4f} s eager; step "
+        f"wall clocks {[[round(t, 4) for t in r.step_times] for r in (first, last)]}"
+        f" [{card}]")
+    results["hybrid_replay"] = (warm_c, warm_e, disp_c, disp_e)
+    del rep
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1427,9 +1646,59 @@ def serve_hybrid(results: dict, card: str, params, cfg) -> None:
     checks.append((err <= SERVE_SP_TOL < dropped,
                    f"serve-hybrid (a): fp32 err {err}, dropped {dropped}"))
     results["hybrid_err"] = (err, dropped, err_bf16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    capture_hybrid(results, card, params, cfg, cond, sp, mesh, sampler,
+                   checks)
     for ok, msg in checks:
         if not ok:
             fail(msg)
+
+
+def capture_hybrid(results: dict, card: str, params, cfg, cond, sp, mesh,
+                   sampler, checks: list) -> None:
+    """Phase 22 (hybrid part): the captured hybrid server against the same
+    server with capture=False, in float32, at HYBRID_CAPTURE_LAYERS
+    layers: three requests of HYBRID_LATENTS served one at a time (warm
+    step 0, then displaced), so that the third admission replays all four
+    graphs of the bucket; latents and kv_drift bitwise, launches equal,
+    the K3 signal words re-written by a replay."""
+    import torch
+
+    sub = dict(params, layers=params["layers"][:HYBRID_CAPTURE_LAYERS])
+    cfg_s = dataclasses.replace(cfg, n_layers=HYBRID_CAPTURE_LAYERS)
+    reqs = tuple((rid, HYBRID_LATENTS) for rid in range(3))
+    conds = {rid: cond for rid, _ in reqs}
+    cap, cwall, ccounts, _, csrv = run_server(
+        sub, cfg_s, conds, reqs, sp, mesh, sampler(1), max_batch=1)
+    eag, ewall, ecounts, _, _ = run_server(
+        sub, cfg_s, conds, reqs, sp, mesh, sampler(1), capture=False,
+        max_batch=1)
+    same = all(torch.equal(cap[r].latents, eag[r].latents)
+               and cap[r].kv_drift == eag[r].kv_drift for r in cap)
+    log(f"capture hybrid ({HYBRID_CAPTURE_LAYERS} layers, fp32, 3 "
+        f"admissions): captured latents and kv_drift bitwise the eager "
+        f"server's {same}; {cwall:.2f} s vs {ewall:.2f} s; launches "
+        f"captured {ccounts} eager {ecounts} [{card}]")
+    steps = log_graphs("capture hybrid", csrv, card)
+    last = max(cap, key=lambda r: cap[r].latency)  # admitted last
+    for rid in sorted(cap):
+        log(f"capture hybrid rid={rid}: step wall clock captured "
+            f"{[round(t, 4) for t in cap[rid].step_times]} s, eager "
+            f"{[round(t, 4) for t in eag[rid].step_times]} s (step 0 warm)")
+    c, e = cap[last].step_times, eag[last].step_times
+    log(f"capture hybrid: the third admission's replays: warm step "
+        f"{c[0]:.4f} s vs eager {e[0]:.4f} s, displaced median "
+        f"{median(c[1:]):.4f} s vs eager {median(e[1:]):.4f} s [{card}]")
+    results["capture_hybrid"] = (c, e)
+    checks += [(same, "capture hybrid: captured != eager"),
+               (ccounts == ecounts and ccounts["remote_put"] > 0,
+                f"capture hybrid: launches {ccounts} != {ecounts}"),
+               # warmup 1: the warm step is always step 0 (parity 0)
+               (sum(st.replays > 0 for st in steps) == 3,
+                "capture hybrid: warm0, displaced0 and displaced1 must "
+                "each replay")]
+    check_signal_words("capture hybrid", steps, checks)
 
 
 # ---------------------------------------------------------------------------
@@ -1446,8 +1715,10 @@ FP8_TOL = {"float8_e4m3fn": 0.08, "float8_e5m2": 0.15}
 # 7 Pull-Q + 7 Pull-KV + 7 Push-O flat; the hierarchical Push-O is 3 intra
 # puts (of 2-chunk bundles) and 1 inter put (of a 4-chunk bundle)
 HIER_PUTS = {False: 3 * (P_U - 1), True: 2 * (P_U - 1) + (P_U // 2 - 1) + 1}
+CAPTURE_LAYERS = 8  # depth of the capture phase's swift_torus oracle
+HYBRID_CAPTURE_LAYERS = 2  # depth of its fp32 hybrid oracle (cogvideox-5b)
 PROFILE_LATENTS = 1024  # the profile phase's one request
-PROFILE_STEPS = 2
+PROFILE_STEPS = 3  # an eager warm-up, a capture + replay, a replay
 
 
 def _layer_times(fn, label: str, card: str) -> dict:
@@ -1741,17 +2012,27 @@ def profile_phase(results: dict, card: str, params, cfg, conds) -> None:
     log(f"profile: trace_report --check rc {proc.returncode}: "
         f"{proc.stderr.strip()[-300:]}")
     spans = trace_report.load_spans(path)
-    rows = trace_report.overlap_table(spans)
-    for row in rows:
-        if row["stream"] in ("torus", "ring", "a2a.inv"):
+    steps = sorted((r for r in spans if r.name == "engine.step"),
+                   key=lambda r: r.t_start)
+    # step 0 is the eager warm-up, step 1 the capture and first replay,
+    # the rest replays: read the replays' legs apart from the warm-up's
+    t_replay = steps[2].t_start if len(steps) > 2 else float("inf")
+    for label, part in (
+            ("eager warm-up", [r for r in spans if r.t_start < steps[1].t_start]),
+            ("replays", [r for r in spans if r.t_start >= t_replay])):
+        rows = trace_report.overlap_table(part)
+        for row in rows:
+            if row["stream"] not in ("torus", "ring", "a2a.inv"):
+                continue
             exposed_ms = row["exposed_s"] * 1e3
-            log(f"profile overlap {row['stream']}/{row['channel']}/"
-                f"s{row['stage']}: n {row['n']}, mean {row['mean_us']:.1f} "
-                f"us, hidden {row['hidden_frac']:.3f}, exposed "
-                f"{exposed_ms:.3f} ms in all ({exposed_ms / row['n']:.4f} "
-                f"ms each), under compute {row['compute_overlap_frac']:.3f}, "
-                f"intended {row['intended_hidden']} [{card}]")
-    steps = [r for r in spans if r.name == "engine.step"]
+            log(f"profile overlap ({label}) {row['stream']}/"
+                f"{row['channel']}/s{row['stage']}: n {row['n']}, mean "
+                f"{row['mean_us']:.1f} us, hidden {row['hidden_frac']:.3f}, "
+                f"exposed {exposed_ms:.3f} ms in all "
+                f"({exposed_ms / row['n']:.4f} ms each), under compute "
+                f"{row['compute_overlap_frac']:.3f}, intended "
+                f"{row['intended_hidden']} [{card}]")
+    rows = trace_report.overlap_table(spans)
     legs = [r for r in spans if r.name == "comm.leg"]
     log(f"profile: {len(spans)} spans ({len(legs)} comm legs, {len(steps)} "
         f"engine.step) in {path}")
@@ -1791,6 +2072,45 @@ def commcheck_phase(card: str) -> None:
     if (proc.returncode != 0 or len(lines) != 6
             or not all(" OK" in x for x in lines) or rep.returncode != 0):
         fail(f"commcheck: rc {proc.returncode}: {proc.stderr[-1500:]}")
+
+
+SERVE_CLI = (
+    ("flux-12b degree 1", ["--arch", "flux-12b", "--requests", "2",
+                           "--seq", "1024", "--steps", "3"]),
+    ("flux-12b mesh pod", ["--arch", "flux-12b", "--mesh", "pod",
+                           "--requests", "1", "--seq", "256", "--steps",
+                           "3"]),
+    ("rwkv6-1.6b", ["--arch", "rwkv6-1.6b", "--requests", "4"]),
+)
+
+
+def serve_cli_phase(card: str) -> None:
+    """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
+    size with random weights: flux-12b at degree 1 and on the paper's mesh
+    (pod 2, model 8), and rwkv6-1.6b; each run prints its requests, the
+    DiT runs their scheduler line, and every run its captured graphs."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for label, argv in SERVE_CLI:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            capture_output=True, text=True, timeout=600, env=env)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            log(f"serve-cli {label}: {line}")
+        dit = "rwkv" not in label
+        ok = (proc.returncode == 0
+              and any(x.startswith("request 0:") for x in lines)
+              and any(x.startswith("graphs:") and " captured," in x
+                      for x in lines)
+              and (not dit or any(x.startswith("scheduler:") for x in lines)))
+        log(f"serve-cli {label}: rc {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if not ok:
+            fail(f"serve-cli {label}: rc {proc.returncode}: "
+                 f"{proc.stderr[-1500:]}")
 
 
 def _leaves(tree):
@@ -1994,8 +2314,8 @@ def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
                     l: int = 4352) -> None:
     """Where one layer's time goes (bf16, B ``b``, L ``l``; by default the
     serve shape): one block of ``arch`` at degree 1 and under swift_torus
-    on mesh (pod 2, model 8), each traced once by torch.profiler after a
-    warm-up.  Prints the host wall clock, the device's busy time (the sum
+    on mesh (pod 2, model 8), eagerly and captured as a CUDA graph, each
+    traced once by torch.profiler after a warm-up.  Prints the host wall clock, the device's busy time (the sum
     of kernel times) and its idle share, and the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2004,6 +2324,7 @@ def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
     from repro_torch.launch import make_mesh
     from repro_torch.models.blocks import ParallelContext
     from repro_torch.models.dit import dit_block, init_dit
+    from repro_torch.serving.graphs import CapturedStep
 
     cfg = dataclasses.replace(get_config(arch), n_layers=1)
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -2016,23 +2337,33 @@ def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
                         device="cuda").to(torch.bfloat16)
     pos = torch.arange(l, device="cuda")[None].expand(b, l)
     shape, axes, sp_axes, _ = SP_MESHES["pod2xmodel8"]
-    for label, ctx in (
-            ("degree 1", ParallelContext(SPConfig(strategy="full"),
-                                         device=torch.device("cuda"))),
-            ("swift_torus pod2xmodel8",
-             ParallelContext(sp_config(sp_axes),
-                             mesh=make_mesh(shape, axes, device="cuda")))):
+    sp_ctx = ParallelContext(sp_config(sp_axes),
+                             mesh=make_mesh(shape, axes, device="cuda"))
+    block = lambda ctx: (lambda: dit_block(lp, cfg, ctx, x, t_emb, pos))
+    captured = CapturedStep(block(sp_ctx), "cuda", name="sp layer")
+    for label, fn in (
+            ("degree 1", block(ParallelContext(SPConfig(strategy="full"),
+                                               device=torch.device("cuda")))),
+            ("swift_torus pod2xmodel8", block(sp_ctx)),
+            ("swift_torus pod2xmodel8 captured", captured)):
         with torch.inference_mode():
-            dit_block(lp, cfg, ctx, x, t_emb, pos)
+            fn()  # warm-up (the captured layer: its eager warm-up, then
+            fn()  # its capture and first replay)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dit_block(lp, cfg, ctx, x, t_emb, pos)
+            fn()
             torch.cuda.synchronize()
             untraced = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            span = ev[0].elapsed_time(ev[1])
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                dit_block(lp, cfg, ctx, x, t_emb, pos)
+                fn()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
         # kernel events only (an aten op also reports its kernels' time)
@@ -2040,6 +2371,11 @@ def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        if fn is captured:
+            log(f"breakdown {label}: capture {captured.capture_s:.3f} s, "
+                f"instantiation {captured.instantiate_s:.3f} s (host), "
+                f"launches per replay {captured.launches}; CUDA events "
+                f"around one replay {span:.2f} ms [{card}]")
         if busy == 0.0:
             log(f"breakdown {label} {arch} L {l}: wall {untraced:.1f} ms; the "
                 "profiler saw no device time (device busy share not "
@@ -2053,6 +2389,7 @@ def layer_breakdown(card: str, arch: str = "flux-12b", b: int = 2,
             + "; ".join(f"{e.key[:60]} x{e.count} "
                         f"{e.self_device_time_total / 1e3:.2f} ms"
                         for e in top) + f" [{card}]")
+    del captured
     del params
     torch.cuda.empty_cache()
 
@@ -2357,23 +2694,34 @@ def lm_prefill(results: dict, card: str):
 
 
 def serve_lm(results: dict, card: str, params, cfg) -> None:
+    """ARServer on the bfloat16 model, its tick captured as a CUDA graph,
+    then (phase 22, AR part) the same requests with capture=False: the
+    same tokens, and each tick's wall clock captured against eager."""
     import torch
     from repro_torch.core import SPConfig
     from repro_torch.serving import ARRequest, ARServer, RecordingTracker
     wkv = wkv_module()
 
-    gen = torch.Generator().manual_seed(13)
-    srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
-                   max_len=128, tracker=RecordingTracker(), device="cuda")
-    for rid, n, prio in LM_REQUESTS:
-        srv.submit(ARRequest(rid=rid, prompt=torch.randint(
-            0, cfg.vocab, (n,), generator=gen), max_new_tokens=LM_NEW_TOKENS,
-            priority=prio))
+    def run(capture):
+        gen = torch.Generator().manual_seed(13)
+        srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
+                       max_len=128, tracker=RecordingTracker(), device="cuda",
+                       capture=capture)
+        for rid, n, prio in LM_REQUESTS:
+            srv.submit(ARRequest(rid=rid, prompt=torch.randint(
+                0, cfg.vocab, (n,), generator=gen),
+                max_new_tokens=LM_NEW_TOKENS, priority=prio))
+        ticks = []  # each tick ends in a host read of its tokens
+        t0 = time.perf_counter()
+        while srv.queue or any(s.req for s in srv.slots):
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        return srv, dict(srv.results), time.perf_counter() - t0, ticks
+
     before = wkv.launch_count()
-    t0 = time.perf_counter()
-    out = srv.serve()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    srv, out, wall, ticks = run(None)
     tr = srv.tracker
     counts = {n: tr.counter_total(f"ar.{n}")
               for n in ("submitted", "admitted", "ticks", "completed")}
@@ -2393,7 +2741,23 @@ def serve_lm(results: dict, card: str, params, cfg) -> None:
           and counts["ticks"] == srv._ticks and len(waits) == n)
     if not ok:
         fail(f"serve-lm: results {out}, counters {counts}, waits {waits}")
+    step = srv._step
+    log(f"serve-lm graph: captured at tick {step.calls - step.replays} "
+        f"(the caches' dtypes settle over the first ticks), capture "
+        f"{step.capture_s:.3f} s, instantiation {step.instantiate_s:.3f} s "
+        f"(host), {step.replays} replays [{card}]")
+    replayed = ticks[len(ticks) - step.replays + 1:]  # after the capture
+    del srv, step
+    _, eager, ewall, eticks = run(False)
+    same = eager == out
+    log(f"capture serve-lm: captured tokens equal the eager server's {same}; "
+        f"tick wall clock median {median(replayed) * 1e3:.2f} ms captured "
+        f"(replays) vs {median(eticks) * 1e3:.2f} ms eager; {wall:.2f} s vs "
+        f"{ewall:.2f} s in all [{card}]")
+    if not same:
+        fail("capture serve-lm: captured tokens differ from eager")
     results["serve_lm"] = (wall, counts["ticks"])
+    results["capture_lm"] = (median(replayed), median(eticks))
 
 
 def k5_numbers(card: str, results: dict) -> dict:
@@ -2617,12 +2981,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     build_all()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after build_all")
     results: dict = {}
     check_k1(results)
     check_k2(results)
     check_put_kernels(results)
     check_k5(results)
     check_sp_block(check_block())
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after check_sp_block")
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
@@ -2642,32 +3008,49 @@ def main() -> int:
              for rid, _ in REQUESTS}
     torch.cuda.reset_peak_memory_stats()
     deg1 = serve(results, card, params, cfg, conds)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve")
     serve_sp(results, card, params, cfg, conds, deg1)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_sp")
+    capture_dit(results, card, params, cfg, conds, deg1)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after capture_dit")
     profile_phase(results, card, params, cfg, conds)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after profile_phase")
     del params, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
     torch.cuda.empty_cache()
 
     paper_attn(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after paper_attn")
     layer_paper(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_paper")
     cv_params, cv_cfg = serve_cogvideox(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_cogvideox")
     serve_hybrid(results, card, cv_params, cv_cfg)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_hybrid")
     del cv_params
     gc.collect()
     torch.cuda.empty_cache()
     hier(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after hier")
     commcheck_phase(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after commcheck_phase")
+    serve_cli_phase(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_cli_phase")
 
     check_lm_block()
     lm_params, lm_cfg = lm_prefill(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_prefill")
     serve_lm(results, card, lm_params, lm_cfg)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_lm")
 
     k1 = k1_numbers(card)
     k2 = k2_numbers(card)
     puts = put_numbers(card)
     layer_breakdown(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_breakdown")
     k5 = k5_numbers(card, results)
     lm_breakdown(card, lm_params, lm_cfg)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_breakdown")
     del lm_params
 
     main_shape = (48, 4352)

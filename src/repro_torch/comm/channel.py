@@ -85,13 +85,18 @@ def issue(device: torch.device, side: "torch.cuda.Stream | None",
           work: Callable[[], None], touched: Sequence[torch.Tensor],
           meta: "_profiler.LegMeta | None" = None):
     """Run ``work`` (the copies of one put) on the side stream after what
-    the current stream has issued so far, and return the event that
-    signals its completion.  Every tensor the copies touch was allocated
-    on the current stream; ``record_stream`` keeps the allocator from
-    reusing it while the copies run.  On the CPU ``work`` runs now and
-    there is no event.  With ``meta`` (an active profiler's leg), the
-    put's issue is observed on the current stream where the side stream
-    joins it, and its signal on the side stream after the copies."""
+    the current stream has issued so far.  Returns the event that signals
+    its completion and the tensors the put's handle must hold until its
+    wait.  Every tensor the copies touch was allocated on the current
+    stream: ``record_stream`` keeps the allocator from reusing it while
+    the copies run.  While a CUDA graph is being captured, record_stream
+    would bar the memory from reuse for the rest of the capture, so the
+    handle holds the tensors instead: the wait joins the side stream
+    back, and only later work can reuse them.  On the CPU ``work`` runs
+    now and there is no event.  With ``meta`` (an active profiler's leg),
+    the put's issue is observed on the current stream where the side
+    stream joins it, and its signal on the side stream after the
+    copies."""
     prof = _profiler.active() if meta is not None else None
     if prof is not None:
         _profiler.mark(prof, meta, "issue", device)
@@ -99,7 +104,7 @@ def issue(device: torch.device, side: "torch.cuda.Stream | None",
         work()
         if prof is not None:
             _profiler.mark(prof, meta, "signal", device)
-        return None
+        return None, ()
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         work()
@@ -107,9 +112,11 @@ def issue(device: torch.device, side: "torch.cuda.Stream | None",
             _profiler.mark(prof, meta, "signal", device)
         done = torch.cuda.Event()
         done.record(side)
+    if torch.cuda.is_current_stream_capturing():
+        return done, tuple(touched)
     for t in touched:
         t.record_stream(side)
-    return done
+    return done, ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,12 +172,12 @@ class Channel:
 
         touched = [t for ranks in tensors + recv for t in ranks]
         meta = self._leg_meta(tensors, overlaps, "xla")
-        event = issue(dev, _kb.heap_for(dev).side_stream(), work, touched,
-                      meta)
+        event, keep = issue(dev, _kb.heap_for(dev).side_stream(), work,
+                            touched, meta)
         _trace.emit(self._event(tensors, overlaps, "xla"))
         put = _trace.emit_issue(_lowering(dev), dev.type)
         return InFlight(channel=self, payload=recv, event=event, meta=meta,
-                        put=put)
+                        put=put, keep=keep)
 
     def _leg_meta(self, tensors: tuple[RankList, ...], overlaps: str,
                   backend: str) -> "_profiler.LegMeta | None":
@@ -198,13 +205,14 @@ class Channel:
             kind="put", sem=sem, stream=self.stream, channel=self.name,
             stage=self.stage))
         meta = self._leg_meta(tensors, overlaps, "pallas")
-        out, event = _kb.deliver(tensors, tuple(self.axes), tuple(self.perm),
-                                 interpret=self.interpret, meta=meta)
+        out, event, keep = _kb.deliver(tensors, tuple(self.axes),
+                                       tuple(self.perm),
+                                       interpret=self.interpret, meta=meta)
         _trace.emit_sem(_trace.SemEvent(
             kind="signal", sem=sem, stream=self.stream, channel=self.name,
             stage=self.stage))
         return InFlight(channel=self, payload=out, sem=sem, event=event,
-                        meta=meta, put=put)
+                        meta=meta, put=put, keep=keep)
 
     def put_fused(self, *tensors: RankList, launch: Callable[[], None],
                   overlaps: str = "") -> "InFlight":
@@ -253,6 +261,8 @@ class InFlight:
     event: Any = None  # completion event on the side stream (CUDA only)
     meta: Any = None  # the profiler's leg (profiling only)
     put: int = -1  # the put's index in the recording trace (-1: none)
+    # the put's tensors, held until the wait while a graph is captured
+    keep: tuple = ()
 
     def wait(self, *deps: Any) -> Any:
         """Signal-wait: the current stream waits for the put's completion.

@@ -37,9 +37,9 @@ import torch
 from . import trace as _trace
 from .channel import RankList, dest_table, issue, receive_buffers
 
-__all__ = ["BACKENDS", "SymmetricHeap", "deliver", "fused_transfer_events",
-           "heap_for", "landing_copy", "launch_count", "new_sem",
-           "remote_put", "reset_launch_count"]
+__all__ = ["BACKENDS", "SymmetricHeap", "deliver", "existing_heap",
+           "fused_transfer_events", "heap_for", "landing_copy", "launch_count",
+           "new_sem", "remote_put", "reset_launch_count", "reset_signals"]
 
 BACKENDS = ("xla", "pallas")
 MAX_ENTRIES = 96  # ranks x tensors of one K3/K4 launch (csrc/one_sided.cu)
@@ -84,17 +84,24 @@ class SymmetricHeap:
             self.arrive = torch.zeros_like(self.signals)
         self.epoch = 0
         self._side = None
+        # while a step is captured: (row, start, n, epoch) of every put
+        self.log: list | None = None
 
     def next_epoch(self) -> int:
-        """A fresh epoch for one put (words are never reset)."""
+        """A fresh epoch for one put (eager steps never reset the words; a
+        captured step zeroes them at its start, serving/graphs.py)."""
         self.epoch = self.epoch % (2**31 - 1) + 1
         return self.epoch
 
-    def words(self, kind: str, start: int = 0, n: int = 1):
-        """``n`` signal words of row ``kind`` and their block counters."""
+    def words(self, kind: str, start: int = 0, n: int = 1,
+              epoch: int | None = None):
+        """``n`` signal words of row ``kind`` and their block counters, for
+        a put of ``epoch``."""
         if start + n > SIGNAL_WORDS:
             raise ValueError(f"{start + n} signal words > {SIGNAL_WORDS}")
         row = self.ROWS[kind]
+        if self.log is not None and epoch is not None:
+            self.log.append((row, start, n, epoch))
         return (self.signals[row, start:start + n],
                 self.arrive[row, start:start + n])
 
@@ -110,14 +117,32 @@ class SymmetricHeap:
 _heaps: dict[torch.device, SymmetricHeap] = {}
 
 
+def _key(device: torch.device) -> torch.device:
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def heap_for(device: torch.device) -> SymmetricHeap:
     """The heap of ``device``, made on first use."""
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _key(device)
     heap = _heaps.get(device)
     if heap is None:
         heap = _heaps[device] = SymmetricHeap(device)
     return heap
+
+
+def existing_heap(device: torch.device) -> SymmetricHeap | None:
+    """The heap of ``device`` if one was made."""
+    return _heaps.get(_key(device))
+
+
+def reset_signals(device: torch.device) -> None:
+    """Zero every signal word of ``device``'s heap (none made: nothing to
+    do).  A captured step runs this first, as a memset node."""
+    heap = existing_heap(device)
+    if heap is not None:
+        heap.signals.zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +289,9 @@ def deliver(
 ):
     """Move rank lists one hop along the route through the put kernels.
 
-    Returns the receive buffers (one rank list per tensor) and the event
-    that signals their completion (None on the CPU).  The caller
+    Returns the receive buffers (one rank list per tensor), the event
+    that signals their completion (None on the CPU) and the tensors the
+    caller's handle holds until its wait (see ``channel.issue``).  The caller
     (Channel.put) owns the trace events and the profiler's leg ``meta``;
     this function owns the branch.
     """
@@ -281,7 +307,7 @@ def deliver(
     epoch = heap.next_epoch()
     touched = [t for row in src + by_rank for t in row]
     if not interpret and len(axes) == 1:
-        signal, arrive = heap.words("remote_put", 0, ranks * n)
+        signal, arrive = heap.words("remote_put", 0, ranks * n, epoch)
 
         def work():
             remote_put(src, by_rank, to, signal=signal, arrive=arrive,
@@ -294,7 +320,7 @@ def deliver(
         for s in range(ranks):
             moved_at[to[s]] = moved[s]
         touched += [t for row in moved for t in row]
-        signal, arrive = heap.words("landing_copy", 0, ranks * n)
+        signal, arrive = heap.words("landing_copy", 0, ranks * n, epoch)
 
         def work():
             for s in range(ranks):
@@ -302,8 +328,8 @@ def deliver(
                     moved[s][i].copy_(src[s][i])
             landing_copy(moved_at, by_rank, signal=signal, arrive=arrive,
                          epoch=epoch)
-    event = issue(dev, heap.side_stream(), work, touched, meta)
-    return recv, event
+    event, keep = issue(dev, heap.side_stream(), work, touched, meta)
+    return recv, event, keep
 
 
 def fused_transfer_events(

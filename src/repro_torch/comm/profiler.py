@@ -41,9 +41,11 @@ Exposure per occurrence of a leg: ``exposed = max(0, t_signal - t_wait)``.
 ``emit_leg_spans`` pairs the events into ``comm.leg`` / ``comm.compute`` /
 ``comm.exposed_wait`` spans (the reference's pairing, copied;
 ``tests/test_torch_copies.py`` pins it), which ``launch/trace_report.py``
-renders.  Each observation is an event enqueued by the host per put, so a
-step replayed from a CUDA graph (ROADMAP Queue 1 item 2) would need its
-events captured with it.
+renders.  In a step captured as a CUDA graph (serving/graphs.py) the
+events are captured with it, as external event-record nodes: the
+capture files them once, and after each replay ``replayed`` reads them
+as that replay's observations, so a captured leg has one occurrence per
+replay, as a leg of the reference's jitted step has.
 """
 from __future__ import annotations
 
@@ -129,6 +131,17 @@ class CommProfiler:
         ev.synchronize()
         self._anchor = (device, ev, (t0 + time.perf_counter()) / 2)
 
+    def replayed(self, captured: Sequence[LegEvent]) -> None:
+        """File the observations of a captured step's replay: ``captured``
+        holds the events its capture recorded (external event nodes, which
+        every replay records again).  One device synchronisation."""
+        dev, ref, t_ref = self._anchor
+        torch.cuda.synchronize(dev)
+        evs = [dataclasses.replace(e, t=t_ref + ref.elapsed_time(e.t) / 1e3)
+               for e in captured]
+        with self._lock:
+            self.events.extend(evs)
+
     def take(self) -> list[LegEvent]:
         """Atomically drain the recorded events, with every event time in
         ``perf_counter`` seconds (one device synchronisation on CUDA)."""
@@ -171,8 +184,16 @@ def mark(prof: CommProfiler, meta: LegMeta, phase: str,
     if device.type != "cuda":
         prof._record(meta, phase, ())
         return
-    prof.anchor(device)
-    ev = torch.cuda.Event(enable_timing=True)
+    if torch.cuda.is_current_stream_capturing():
+        # an event-record node of the graph: the anchor was set by the
+        # step's eager warm-up (no synchronisation while capturing)
+        if prof._anchor is None:
+            raise RuntimeError("a profiled step was captured before its "
+                               "profiler was anchored")
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+    else:
+        prof.anchor(device)
+        ev = torch.cuda.Event(enable_timing=True)
     ev.record(torch.cuda.current_stream(device))
     prof._record(meta, phase, (), ev)
 

@@ -266,6 +266,17 @@ def host_ops(trace: ScheduleTrace) -> list[HostOp]:
     return vars(trace).setdefault("host_ops", [])
 
 
+@contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """Record nothing inside the context (a captured step's eager warm-up:
+    its schedule is recorded once, when the step is captured)."""
+    tok = _ACTIVE.set(None)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(tok)
+
+
 def emit_issue(lowering: str, device: str) -> int:
     """Called by Channel right after it emitted a put's TransferEvent;
     returns the put's index (-1 unless a trace is recording)."""

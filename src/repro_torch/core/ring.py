@@ -188,7 +188,7 @@ def _ring_attention_kernels(
 
             def launch():  # called right away, by put_fused
                 for p in ranks:
-                    flag, arrive = heap.words("fused", dst[p])
+                    flag, arrive = heap.words("fused", dst[p], epoch=epoch)
                     owner = (my_r[p] - s) % p_r
                     state[p], _ = ring_flash_step(
                         qf[p], kc[p], vc[p], qpp[p], kpos_for(p, owner),

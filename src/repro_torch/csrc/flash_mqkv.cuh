@@ -936,9 +936,11 @@ cudaError_t launch_hopper(const Args& a) {
   }
   if (!ok) return cudaErrorInvalidValue;
   auto kern = flash_hopper_kernel<D, BQ, FWD>;
-  cudaError_t err = cudaFuncSetAttribute(
+  // once per instantiation: a launch inside a CUDA graph capture then
+  // makes no call beside the launch itself
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((a.lq + BQ - 1) / BQ, a.bh);
   kern<<<grid, T::THREADS, T::SMEM, a.stream>>>(
       maps, a.q_pos, a.k_pos, a.o_in, a.l_in, a.m_in, a.o, a.l, a.m, a.lq,
@@ -960,9 +962,9 @@ template <int D, bool FWD>
 cudaError_t launch_f32(const Args& a) {
   using T = F32Tile<D>;
   auto kern = flash_f32_kernel<D, FWD>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(a.bh, (a.lq + T::BQ - 1) / T::BQ);
   kern<<<grid, T::THREADS, T::SMEM, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),

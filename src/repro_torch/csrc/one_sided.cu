@@ -341,12 +341,14 @@ cudaError_t fill(Table& t, int ranks, int tensors, const void* const* src,
   return cudaSuccess;
 }
 
+// ``attr`` is the result of the kernel's one cudaFuncSetAttribute, made
+// once per process by the caller, so that a launch inside a CUDA graph
+// capture makes no call beside the launch itself.
 cudaError_t launch(void (*kernel)(Table, unsigned*, unsigned*, unsigned),
-                   const Table& t, unsigned blocks, unsigned* signal,
-                   unsigned* arrive, unsigned epoch, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return err;
+                   cudaError_t attr, const Table& t, unsigned blocks,
+                   unsigned* signal, unsigned* arrive, unsigned epoch,
+                   void* stream) {
+  if (attr != cudaSuccess) return attr;
   kernel<<<blocks, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       t, signal, arrive, epoch);
   return cudaGetLastError();
@@ -365,7 +367,10 @@ extern "C" int remote_put(int ranks, int tensors, const void* const* src,
   unsigned blocks = 0;
   cudaError_t err = fill(t, ranks, tensors, src, dst, nbytes, perm, blocks);
   if (err != cudaSuccess) return err;
-  return launch(remote_put_kernel, t, blocks, signal, arrive, epoch, stream);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      remote_put_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  return launch(remote_put_kernel, attr, t, blocks, signal, arrive, epoch,
+                stream);
 }
 
 // src[e] is a received tensor, dst[e] its delivered buffer, signal[e] its
@@ -378,7 +383,10 @@ extern "C" int landing_copy(int ranks, int tensors, const void* const* src,
   unsigned blocks = 0;
   cudaError_t err = fill(t, ranks, tensors, src, dst, nbytes, nullptr, blocks);
   if (err != cudaSuccess) return err;
-  return launch(landing_copy_kernel, t, blocks, signal, arrive, epoch, stream);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      landing_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  return launch(landing_copy_kernel, attr, t, blocks, signal, arrive, epoch,
+                stream);
 }
 
 extern "C" const char* one_sided_error_string(int err) {

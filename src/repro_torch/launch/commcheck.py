@@ -15,8 +15,11 @@ one-sided schedules (``comm.record``) and validates each one:
 ``comm.validate`` checks that every put's route is the reference's ppermute
 route and that every put declaring an overlap has compute enqueued between
 its issue and its wait (off the compute stream on CUDA); the eager
-counterpart of the reference's gate on compiled HLO.  Exit code 1 on any
-failure.
+counterpart of the reference's gate on compiled HLO.  On CUDA each program
+runs as the server runs a step: captured as a CUDA graph
+(serving/graphs.py) after an eager warm-up, and replayed; the schedule is
+recorded once, while it is captured, as the reference records it once per
+trace.  Exit code 1 on any failure.
 
     python -m repro_torch.launch.commcheck [--device cpu] [--profile T.jsonl]
 
@@ -39,11 +42,23 @@ from ..core import KVState, SPConfig, sp_attention
 from ..models import ParallelContext, init_dit
 from ..models.blocks import resolve_device
 from ..models.dit import COND_TOKENS, LATENT_CHANNELS, dit_forward_displaced
+from ..serving.graphs import CapturedStep
 from .mesh import make_hybrid_mesh, make_mesh
 
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen).to(device)
+
+
+def _program(fn, device: torch.device):
+    """Run ``fn`` as a served step runs: on CUDA its eager warm-up (not
+    recorded), then its capture (recorded) and a replay; on the CPU once,
+    eagerly."""
+    if device.type != "cuda":
+        return fn()
+    step = CapturedStep(fn, device, name="commcheck")
+    step()
+    return step()
 
 
 def run(device: torch.device, profile: str | None = None) -> int:
@@ -57,7 +72,7 @@ def run(device: torch.device, profile: str | None = None) -> int:
                   batch_axes=("data",))
     q, k, v = (_normal(gen, (2, 32, 2, 16), device) for _ in range(3))
     with comm.record("swift_torus") as tr:
-        sp_attention(q, k, v, mesh=mesh, cfg=sp)
+        _program(lambda: sp_attention(q, k, v, mesh=mesh, cfg=sp), device)
     # an empty trace must never pass: both the torus hops and the ring
     # rotations are expected on this (P_u 2, P_r 2) plan
     for want in ("torus", "ring"):
@@ -83,10 +98,11 @@ def run(device: torch.device, profile: str | None = None) -> int:
     shape = (cfg.n_layers, 1, COND_TOKENS + seq, cfg.n_kv_heads, hd)
     state = KVState(torch.zeros(shape, device=device),
                     torch.zeros(shape, device=device))
+    tt = torch.full((1,), 0.5, device=device)
     with comm.record("displaced_pipe") as tr:
-        dit_forward_displaced(params, cfg, ctx, latents=lat, cond=cond,
-                              timesteps=torch.full((1,), 0.5, device=device),
-                              kv_state=state, num_patches=2, pp=2)
+        _program(lambda: dit_forward_displaced(
+            params, cfg, ctx, latents=lat, cond=cond, timesteps=tt,
+            kv_state=state, num_patches=2, pp=2), device)
     if not any(e.stream == "pipe" for e in tr.events):
         print("commcheck FAIL: no pipe hand-off recorded in the displaced "
               "pipeline trace")
@@ -100,7 +116,8 @@ def run(device: torch.device, profile: str | None = None) -> int:
                         batch_axes=("data",), hier_a2a=True)
     hq, hk, hv = (_normal(gen, (2, 32, 4, 16), device) for _ in range(3))
     with comm.record("hier_a2a") as tr:
-        sp_attention(hq, hk, hv, mesh=mesh, cfg=hier_cfg)
+        _program(lambda: sp_attention(hq, hk, hv, mesh=mesh, cfg=hier_cfg),
+                 device)
     hier_events = [e for e in tr.events if e.stream.startswith("hier")]
     labels = {e.channel.rsplit(".", 1)[-1] for e in hier_events}
     if not {"intra1", "inter1"} <= labels:
@@ -126,7 +143,8 @@ def run(device: torch.device, profile: str | None = None) -> int:
     # hold, and the semaphore protocol is clean
     hier_pl = dataclasses.replace(hier_cfg, comm_backend="pallas")
     with comm.record("hier_a2a_pallas") as tr:
-        sp_attention(hq, hk, hv, mesh=mesh, cfg=hier_pl)
+        _program(lambda: sp_attention(hq, hk, hv, mesh=mesh, cfg=hier_pl),
+                 device)
     if not any(e.backend == "pallas" and e.stream.startswith("hier")
                for e in tr.events):
         print("commcheck FAIL: no pallas-backend hier puts recorded")
@@ -141,7 +159,7 @@ def run(device: torch.device, profile: str | None = None) -> int:
     # puts and the fused ring kernel --------------------------------------
     psp = dataclasses.replace(sp, comm_backend="pallas")
     with comm.record("swift_torus_pallas") as tr:
-        sp_attention(q, k, v, mesh=mesh, cfg=psp)
+        _program(lambda: sp_attention(q, k, v, mesh=mesh, cfg=psp), device)
     if not any(e.backend == "pallas" for e in tr.events):
         print("commcheck FAIL: no pallas-backend puts recorded in the "
               "swift_torus_pallas trace")
@@ -166,8 +184,10 @@ def run(device: torch.device, profile: str | None = None) -> int:
         tracker = JsonlTracker(profile)
         prof = comm.CommProfiler()
         with comm.profile(prof):
-            sp_attention(q, k, v, mesh=mesh, cfg=sp)
-            sp_attention(q, k, v, mesh=mesh, cfg=psp)
+            _program(lambda: sp_attention(q, k, v, mesh=mesh, cfg=sp),
+                     device)
+            _program(lambda: sp_attention(q, k, v, mesh=mesh, cfg=psp),
+                     device)
         n = comm.emit_leg_spans(prof, tracker)
         tracker.close()
         print(f"profile: wrote {n} spans to {tracker.path} (render with "

@@ -1,0 +1,199 @@
+"""Serving launcher of the port (counterpart of
+``src/repro/launch/serve.py``): a DiT sampling service or an AR decode
+service, on the card unless ``--device cpu`` asks for the CPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch flux-12b \
+        --requests 4 --seq 1024 --steps 4                   # degree 1
+    ... --arch flux-12b --mesh pod --seq 1024             (swift_torus SP)
+    ... --arch flux-12b --reduced --requests 6 --mixed --sla 30
+    ... --arch rwkv6-1.6b --requests 4                    (AR decode)
+    ... --device cpu --reduced ...                        (on the CPU)
+
+The flags are the reference's.  DiT requests go through the SLA-aware
+request scheduler: ``--mixed`` submits a mixed-resolution queue (seq,
+seq/2, 2*seq cycling) so the bucketer and the per-bucket plan cache are
+exercised; ``--sla`` attaches a deadline to every request.  ``--preempt``,
+``--recalibrate`` and ``--forecast`` engage the control loop's feedback
+paths; ``--metrics out.jsonl`` streams the engine's records and prints an
+aggregate table; ``--profile trace.jsonl`` adds the comm span profiler
+(render with ``python -m repro_torch.launch.trace_report``).
+
+Meshes are of virtual ranks on one device (launch/mesh.py): ``host`` is
+(data, model) from ``--data`` and ``--model``; ``pod`` is the paper's
+(pod 2, model 8), SP over both axes; ``multipod`` adds a data axis of 2,
+(pod 2, data 2, model 8).  SP above degree 1 runs through the put kernels
+(``comm_backend="pallas"``).  Each bucket's step is captured as a CUDA
+graph and replayed (serving/graphs.py); ``--eager`` runs the steps op by
+op instead, for diagnosis.  The weights are random, from seed 0, as the
+reference's are.  The AR branch serves rwkv6-1.6b, the port's only
+language model.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+import torch
+
+from ..configs import DIT_ARCHS, SSM_ARCHS, get_config, get_reduced
+from ..core import SPConfig
+from ..models import init_dit, init_lm
+from ..models.blocks import resolve_device
+from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
+                       JsonlTracker, SamplerConfig, Tracker)
+from ..serving.sched import (SCHEMA_VERSION, CalibrationConfig,
+                             ControlConfig, PreemptionPolicy)
+from .mesh import make_host_mesh, make_mesh
+
+LM_ARCHS = SSM_ARCHS  # rwkv6-1.6b
+
+
+def _mesh_and_sp(args, device: torch.device):
+    """The mesh of virtual ranks and the SP config ``--mesh`` names."""
+    if args.mesh == "host":
+        mesh = make_host_mesh(model=args.model, data=args.data,
+                              device=device)
+        sp_axes, machine = ("model",), None
+    elif args.mesh == "pod":
+        mesh = make_mesh((2, 8), ("pod", "model"), device)
+        sp_axes, machine = ("pod", "model"), "pod"
+    else:
+        mesh = make_mesh((2, 2, 8), ("pod", "data", "model"), device)
+        sp_axes, machine = ("pod", "model"), "pod"
+    degree = mesh.axes_size(sp_axes)
+    sp = SPConfig(strategy=args.strategy if degree > 1 else "full",
+                  sp_axes=sp_axes, batch_axes=("data",),
+                  machine_axis=machine,
+                  comm_backend="pallas" if degree > 1 else "xla",
+                  kernel_interpret=False)
+    return mesh, sp
+
+
+def _graphs_line(steps) -> str:
+    captured = [s for s in steps if s.graph is not None]
+    if not captured:
+        return "graphs: none captured (eager steps)"
+    return (f"graphs: {len(captured)} captured, capture "
+            f"{sum(s.capture_s for s in captured):.2f} s, instantiation "
+            f"{sum(s.instantiate_s for s in captured):.2f} s, "
+            f"{sum(s.replays for s in captured)} replays")
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--strategy", default="swift_torus")
+    ap.add_argument("--mesh", choices=["pod", "multipod", "host"],
+                    default="host")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=4, help="sampling steps (DiT)")
+    ap.add_argument("--mixed", action="store_true",
+                    help="mixed-resolution queue (exercises the bucketer)")
+    ap.add_argument("--sla", type=float, default=None,
+                    help="deadline (s) attached to every DiT request")
+    ap.add_argument("--preempt", action="store_true",
+                    help="step-level preemption for SLA-critical buckets")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="refit the comm model from measured step times "
+                         "in-flight")
+    ap.add_argument("--forecast", action="store_true",
+                    help="bound padded-batch deferral with the arrival "
+                         "forecaster (needs --data > 1)")
+    ap.add_argument("--metrics", default=None, metavar="OUT.JSONL",
+                    help="stream schema-versioned metrics records to this "
+                         "JSONL file and print an aggregate table")
+    ap.add_argument("--profile", default=None, metavar="TRACE.JSONL",
+                    help="--metrics plus the comm span profiler; render "
+                         "with python -m repro_torch.launch.trace_report. "
+                         "DiT only.")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="device of the virtual ranks (default: cuda)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step op by op (no CUDA graphs)")
+    args = ap.parse_args(argv)
+    if args.profile is not None and args.metrics is not None:
+        ap.error("--profile already streams metrics records; "
+                 "give one output path, not both")
+
+    if args.arch not in DIT_ARCHS + LM_ARCHS:
+        raise NotImplementedError(
+            f"{args.arch}: the port serves {DIT_ARCHS + LM_ARCHS}; the "
+            "rest of the model zoo is ROADMAP Queue 1 item 7")
+    device = resolve_device(args.device)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  sharding_overrides=())
+    if args.profile is not None and cfg.family != "dit":
+        ap.error("--profile instruments the DiT step loop; use a dit --arch")
+    capture = False if args.eager else None
+    gen = torch.Generator(device=device).manual_seed(0)
+    sink = args.profile if args.profile is not None else args.metrics
+    tracker = JsonlTracker(sink) if sink is not None else Tracker()
+
+    if cfg.family == "dit":
+        mesh, sp = _mesh_and_sp(args, device)
+        params = init_dit(cfg, gen, device)
+        control = ControlConfig(
+            preemption=PreemptionPolicy() if args.preempt else None,
+            calibration=CalibrationConfig() if args.recalibrate else None,
+            forecast=args.forecast)
+        srv = DiTServer(params, cfg, sp, mesh=mesh,
+                        sampler=SamplerConfig(num_steps=args.steps),
+                        control=control, tracker=tracker,
+                        profile=args.profile is not None, capture=capture)
+        lens = ([args.seq, args.seq // 2, args.seq * 2] if args.mixed
+                else [args.seq])
+        for i in range(args.requests):
+            srv.submit(DiTRequest(rid=i, seq_len=lens[i % len(lens)],
+                                  sla=args.sla))
+        for r in sorted(srv.serve(), key=lambda r: r.rid):
+            print(f"request {r.rid}: latents {tuple(r.latents.shape)} "
+                  f"latency {r.latency * 1e3:.1f} ms"
+                  + ("" if r.sla_met else "  SLA MISSED"))
+        tot = srv.scheduler.totals()
+        print(f"scheduler: {tot.batches} batches over "
+              f"{len(srv.plan_cache.plans)} bucket shapes "
+              f"({srv.plan_cache.traces} traces, {srv.plan_cache.hits} "
+              f"step-cache hits), {tot.padded_rows} padded rows, "
+              f"max wait {tot.max_wait * 1e3:.1f} ms")
+        print(_graphs_line(srv.captured_steps()))
+        if control.engaged:
+            cal = srv.calibrator
+            print(f"control: {srv.preemptions} preemptions "
+                  f"({srv.scheduler.preempted} requests requeued)"
+                  + (f", {cal.refits} refits / {cal.recalibrations} "
+                     f"recalibrations ({srv.plan_cache.invalidations} "
+                     f"plan-score invalidations)" if cal else ""))
+    else:
+        if args.mesh != "host" or args.model > 1 or args.data > 1:
+            ap.error("the AR decode tick runs on one rank: --mesh host "
+                     "without --model or --data")
+        params = init_lm(cfg, gen, device)
+        srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
+                       max_len=args.seq, tracker=tracker, device=device,
+                       capture=capture)
+        for i in range(args.requests):
+            srv.submit(ARRequest(rid=i, prompt=torch.arange(1, 4 + i),
+                                 max_new_tokens=8))
+        for rid, toks in sorted(srv.serve().items()):
+            print(f"request {rid}: -> {toks}")
+        print(_graphs_line([srv._step]))
+    if sink is not None:
+        tracker.close()
+        print(f"\nmetrics: wrote {tracker.path} (schema {SCHEMA_VERSION})")
+        print(tracker.format_summary())
+        if args.profile is not None:
+            print(f"profile: render with python -m "
+                  f"repro_torch.launch.trace_report {tracker.path} "
+                  f"--chrome {tracker.path}.chrome.json")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

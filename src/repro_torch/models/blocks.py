@@ -12,7 +12,7 @@ Conventions, kept from the reference so weights cross over unchanged:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -200,10 +200,32 @@ def _rope_angles(positions: torch.Tensor, rot_dim: int,
     table.  A device's own f32 pow and sin differ by an ulp or two, and at
     position p an ulp of a frequency moves the angle by p ulps: ~1e-4 rad
     at p ~ 1000, which peaked attention amplifies."""
-    freqs = torch.tensor([theta ** (-i / rot_dim) for i in range(0, rot_dim, 2)],
-                         dtype=torch.float32, device=positions.device)
+    freqs = device_constant(
+        ("rope", rot_dim, theta), positions.device,
+        lambda: torch.tensor([theta ** (-i / rot_dim)
+                              for i in range(0, rot_dim, 2)],
+                             dtype=torch.float32))
     ang = (positions[..., None].float() * freqs).double()
     return torch.sin(ang).float(), torch.cos(ang).float()
+
+
+_CONSTANTS: dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(key: tuple, device: torch.device | str | None,
+                    make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``make()`` (a host tensor) on ``device``, made and moved once per
+    (key, device).  A step captured as a CUDA graph cannot copy from the
+    host while it is captured; its eager warm-up fills this cache."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _CONSTANTS.get((key, device))
+    if t is None:
+        # outside inference mode: the table outlives the step that made it
+        with torch.inference_mode(False):
+            t = _CONSTANTS[(key, device)] = make().to(device)
+    return t
 
 
 def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -242,8 +264,10 @@ def sinusoidal_embedding(length: int, d: int,
                          device: torch.device | None = None) -> torch.Tensor:
     """Whisper-style sinusoidal positional table [length, d], f32."""
     half = d // 2
-    freqs = torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
-        half, dtype=torch.float32) / (half - 1)).to(device)
+    freqs = device_constant(
+        ("sinusoidal", half), device,
+        lambda: torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
+            half, dtype=torch.float32) / (half - 1)))
     ang = torch.arange(length, dtype=torch.float32, device=device)[:, None] \
         * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

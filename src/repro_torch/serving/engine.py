@@ -15,9 +15,11 @@ drift-triggered resync.
 ARServer — fixed-slot batched greedy decoding for the language models
 (the ported one is rwkv6-1.6b), with aged-priority slot admission.
 
-Each step runs eagerly, op by op (the reference compiles one step per
-bucket shape; capturing it is ROADMAP Queue 1 item 2), so the span
-profiler (``profile=True``) reads it put by put.
+Where the reference compiles one step per bucket shape (and its AR tick
+once), the port captures each as a CUDA graph and replays it
+(serving/graphs.py): on CUDA by default, eagerly with ``capture=False``
+and always on the CPU.  A captured step's first call runs eagerly (the
+warm-up), its second captures it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import dataclasses
 import math
 import time
 from collections import deque
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -38,6 +40,7 @@ from ..core.comm_model import NetworkModel
 from ..core.pipefusion import stage_layers
 from ..models import ParallelContext, get_model, resolve_device, torch_dtype
 from ..models.dit import COND_TOKENS, LATENT_CHANNELS
+from .graphs import CapturedStep, resolve_capture
 from .metrics import Tracker
 from .sampler import (
     SamplerConfig,
@@ -124,9 +127,15 @@ class DiTServer:
 
     ``profile=True`` runs every step under the comm span profiler
     (comm/profiler.py): each put and marked compute block is observed
-    with timing events, the step loop emits an ``engine.step`` span per
-    step (with the plan's predictions), and each admission's observations
-    are drained into the tracker as ``comm.*`` spans.
+    with timing events (in a captured step, event nodes of its graph),
+    the step loop emits an ``engine.step`` span per step (with the plan's
+    predictions), and each admission's observations are drained into the
+    tracker as ``comm.*`` spans.
+
+    ``capture`` (None: on CUDA) captures each bucket's step as a CUDA
+    graph and replays it (serving/graphs.py); the graphs of one server
+    share one memory pool and stay cached with their bucket, across a
+    park and its restart.  ``capture=False`` runs the steps eagerly.
     """
 
     # noise is drawn per REQUEST from a generator seeded by
@@ -147,7 +156,7 @@ class DiTServer:
                  tracker: Tracker | None = None,
                  profile: bool = False,
                  device: str | torch.device | None = None,
-                 mesh=None):
+                 mesh=None, capture: bool | None = None):
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is not None and device is not None and (
                 resolve_device(device).type != mesh.device.type):
@@ -163,6 +172,8 @@ class DiTServer:
         self.ctx = ParallelContext(sp, "prefill", self.device, mesh)
         self.sampler = sampler
         self.profiler = CommProfiler() if profile else None
+        self.capture = resolve_capture(capture, self.device)
+        self._pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.tracker = tracker if tracker is not None else Tracker()
         self.drift = drift if drift is not None else DriftPolicy()
         self.control = control if control is not None else ControlConfig()
@@ -229,32 +240,58 @@ class DiTServer:
             self.sampler, pipeline=dataclasses.replace(
                 self.sampler.pipeline, num_patches=choice.num_patches))
 
-    def _step_fn(self, batch: int, seq: int, choice: PlanChoice) -> Callable:
-        """The bucket's step function — for a pipelined sampler the pair
-        (warm, displaced) — memoized by the plan cache (one build per
-        bucket shape and patch count; eager PyTorch compiles nothing)."""
+    def _captured(self, fn: Callable, rows: int, seq: int,
+                  name: str) -> CapturedStep:
+        """``fn`` as a step of this server: captured into its pool unless
+        capture is off; each capture is a plan-cache span."""
+        return CapturedStep(
+            fn, self.device, capture=self.capture, pool=self._pool,
+            on_capture=lambda: self._capturing(rows, seq),
+            name=f"{name} rows={rows} seq={seq}")
+
+    @contextlib.contextmanager
+    def _capturing(self, rows: int, seq: int) -> Iterator[None]:
+        """Bracket the capture of one of a bucket's steps: a
+        ``plan_cache.capture`` span and count in the tracker, beside the
+        plan cache's ``plan_cache.trace`` builds (a step is captured on its
+        second call, after its build)."""
+        tags = {"rows": rows, "seq": seq}
+        self.tracker.count("plan_cache.capture", tags=tags)
+        with self.tracker.span("plan_cache.capture", tags=tags):
+            yield
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured so far (0 while the steps run eagerly)."""
+        return int(self.tracker.counter_total("plan_cache.capture"))
+
+    def _step_fn(self, batch: int, seq: int, choice: PlanChoice):
+        """The bucket's step — for a pipelined sampler a ``_HybridSteps``
+        of warm and displaced variants — memoized by the plan cache (one
+        build per bucket shape and patch count)."""
         sc = self._bucket_sampler(choice)
 
         def build():
-            dt = 1.0 / sc.num_steps
             if sc.pipelined:
-                def variant(warm: bool):
-                    def f(params, x, cond, t, state, out):
-                        return hybrid_sample_step(
-                            params, self.cfg, self.ctx, x, cond, t, dt, sc,
-                            state, warm=warm, out=out)
-                    return f
+                return _HybridSteps(self, batch, seq, sc)
+            dt = 1.0 / sc.num_steps
 
-                return variant(True), variant(False)
+            def f(x, cond, t):
+                return sample_step(self.params, self.cfg, self.ctx, x, cond,
+                                   t, dt, sc)
 
-            def f(params, x, cond, t):
-                return sample_step(params, self.cfg, self.ctx, x, cond, t,
-                                   dt, sc)
-
-            return f
+            return self._captured(f, batch, seq, "dit.step")
 
         return self.plan_cache.step_fn(batch, seq, build,
                                        variant=choice.num_patches)
+
+    def captured_steps(self) -> list[CapturedStep]:
+        """Every step built so far (captured or not), in build order."""
+        out = []
+        for step in self.plan_cache._steps.values():
+            out.extend(step.steps.values() if isinstance(step, _HybridSteps)
+                       else [step])
+        return out
 
     def _dp_degree(self) -> int:
         """Size of the mesh's data (batch) axes: batches are padded to a
@@ -377,15 +414,10 @@ class DiTServer:
                     else contextlib.nullcontext())
         with prof_ctx:
             if sc.pipelined:
-                warm_fn, displaced_fn = fn
                 pipe = sc.pipeline
                 thresholds = [r.drift_threshold for r in batch]
                 use_drift = self.drift.engaged(thresholds)
-                # the threaded state and a second buffer: each step writes
-                # the new state into the buffer the step before last filled,
-                # which no one needs any more, then the two swap roles
-                state = hybrid_state_shape(self.cfg, b, t, sc, self.device)
-                spare = spare_state(state)
+                fn.start()
                 last_drift: list[float] | None = None
                 for i in range(sc.num_steps):
                     if use_drift:
@@ -398,12 +430,10 @@ class DiTServer:
                                                tags={"seq": t})
                     else:
                         warm = pipe.warm_step(i)
-                    f = warm_fn if warm else displaced_fn
                     t0 = time.perf_counter()
-                    x, new, m = f(self.params, x, cond, 1.0 - i * dt, state,
-                                  spare)
-                    state, spare = new, state
-                    per = m["kv_drift_per_request"]
+                    x, per = fn(warm, i, x, cond, 1.0 - i * dt)
+                    # a captured step's output holds until the next replay
+                    per = per.clone()
                     drift_vals.append(per)
                     if use_drift:
                         # threshold-triggered resync reads the drift on the
@@ -412,11 +442,10 @@ class DiTServer:
                     if tick(i, t0, warm=warm):
                         parked = True
                         break
-                del state, spare
             else:
                 for i in range(sc.num_steps):
                     t0 = time.perf_counter()
-                    x = fn(self.params, x, cond, 1.0 - i * dt)
+                    x = fn(x, cond, 1.0 - i * dt)
                     if tick(i, t0):
                         parked = True
                         break
@@ -426,6 +455,8 @@ class DiTServer:
             emit_leg_spans(self.profiler, self.tracker)
         if parked:
             return []
+        # the latents outlive the next replay of this server's graphs
+        x = x.clone()
         sync(self.device)
         now = time.time()
         if self.calibrator is not None and step_times:
@@ -479,6 +510,43 @@ class DiTServer:
         return out
 
 
+class _HybridSteps:
+    """The pipelined steps of one bucket: warm and displaced, each for both
+    buffer parities, against two fixed KV-state buffers.  Step i reads the
+    state from buffer i % 2 and writes the new one into the other, so the
+    two swap roles with no copy (the counterpart of the reference's
+    donated state): four captured graphs per bucket, bound to the same
+    two buffers, which live as long as the bucket's steps do."""
+
+    def __init__(self, server: DiTServer, batch: int, seq: int,
+                 sc: SamplerConfig):
+        dt = 1.0 / sc.num_steps
+        state = hybrid_state_shape(server.cfg, batch, seq, sc, server.device)
+        self.bufs = (state, spare_state(state))
+        self.steps: dict[tuple[bool, int], CapturedStep] = {}
+        for warm in (True, False):
+            for parity in (0, 1):
+                def f(x, cond, t, warm=warm, parity=parity):
+                    x, _, m = hybrid_sample_step(
+                        server.params, server.cfg, server.ctx, x, cond, t,
+                        dt, sc, self.bufs[parity], warm=warm,
+                        out=self.bufs[1 - parity])
+                    return x, m["kv_drift_per_request"]
+
+                name = f"dit.{'warm' if warm else 'displaced'}{parity}"
+                self.steps[(warm, parity)] = server._captured(f, batch, seq,
+                                                              name)
+
+    def start(self) -> None:
+        """A fresh trajectory: step 0 reads a zero state."""
+        self.bufs[0].k.zero_()
+        self.bufs[0].v.zero_()
+
+    def __call__(self, warm: bool, i: int, x, cond, t):
+        """Step ``i``: (x, per-request kv drift)."""
+        return self.steps[(bool(warm), i % 2)](x, cond, t)
+
+
 # ---------------------------------------------------------------------------
 # AR decode serving (language models)
 # ---------------------------------------------------------------------------
@@ -514,15 +582,19 @@ class ARServer:
     As in the reference, a slot's caches are not reset when a new request
     takes it, and all slots share one ``cur_index`` per tick; the
     recurrent model reads no position, so only the first matters to it
-    (ROADMAP Queue 3, F4).  The step runs eagerly under
-    ``torch.inference_mode`` where the reference jits it.
+    (ROADMAP Queue 3, F4).  Where the reference jits the step, the tick
+    is captured as a CUDA graph on CUDA (``capture``, as in
+    ``DiTServer``): the slot tokens and ``cur_index`` go through static
+    device buffers, the caches through fixed ones, and ``nxt.tolist()``
+    reads the tokens after the replay.
     """
 
     def __init__(self, params, cfg: ModelConfig, sp: SPConfig,
                  batch_slots: int = 4, max_len: int = 256,
                  cache_dtype: torch.dtype = torch.float32,
                  aging_rate: float = 0.1, tracker: Tracker | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 capture: bool | None = None):
         self.device = resolve_device(device)
         w = params["embed"]
         if w.device.type != self.device.type:
@@ -543,12 +615,17 @@ class ARServer:
         # metrics sink (DESIGN.md §11): slot admission / completion
         # counters plus the queue-wait series, same schema as DiTServer
         self.tracker = tracker if tracker is not None else Tracker()
+        self.capture = resolve_capture(capture, self.device)
+        self._step = CapturedStep(
+            self._eager_step, self.device, capture=self.capture,
+            pool=torch.cuda.graph_pool_handle() if self.capture else None,
+            name="ar.tick")
 
-    def _step(self, params, caches, tokens, cur_index):
+    def _eager_step(self, caches, tokens, cur_index):
         with torch.inference_mode():
-            logits, caches = self.bundle.step(params, {"tokens": tokens},
-                                              caches, cur_index, self.cfg,
-                                              self.ctx)
+            logits, caches = self.bundle.step(self.params,
+                                              {"tokens": tokens}, caches,
+                                              cur_index, self.cfg, self.ctx)
             return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
     def submit(self, req: ARRequest) -> None:
@@ -596,7 +673,8 @@ class ARServer:
             else:
                 tokens.append(s.generated[-1] if s.generated else 0)
         tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)[:, None]
-        nxt, self.caches = self._step(self.params, self.caches, tok, pos)
+        cur = torch.full((), pos, dtype=torch.int32, device=self.device)
+        nxt, self.caches = self._step(self.caches, tok, cur)
         nxt = nxt.tolist()
         for i, s in enumerate(self.slots):
             if s.req is None:

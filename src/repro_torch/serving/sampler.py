@@ -27,6 +27,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.pipefusion import KVState, PipelineConfig, init_kv_state, kv_drift
 from ..models import ParallelContext, torch_dtype
+from ..models.blocks import device_constant
 from ..models.dit import (
     COND_TOKENS,
     LATENT_CHANNELS,
@@ -77,7 +78,8 @@ def _cfg_recombine(v_all: torch.Tensor, batch: int,
     Every recombination below runs in float32 for that reason."""
     k = len(weights)
     v_br = v_all.float().reshape(k, batch, *v_all.shape[1:])
-    w = torch.tensor(weights, dtype=torch.float32, device=v_all.device)
+    w = device_constant(("cfg_weights", tuple(weights)), v_all.device,
+                        lambda: torch.tensor(weights, dtype=torch.float32))
     return (w.reshape(k, *([1] * v_all.ndim)) * v_br).sum(dim=0)
 
 
@@ -109,13 +111,27 @@ def _ctx_for(ctx: ParallelContext, sc: SamplerConfig) -> ParallelContext:
     return ctx
 
 
+def _timesteps(t: float | torch.Tensor, b: int,
+               device: torch.device) -> torch.Tensor:
+    """[b] float32 timesteps from a Python ``t`` or a 0-d device tensor (a
+    captured step's static input: a float would be baked into the graph,
+    where the reference's jitted step traces ``t``).  Both give the same
+    bits."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=torch.float32).reshape(1).expand(
+            b).contiguous()
+    return torch.full((b,), t, dtype=torch.float32, device=device)
+
+
 def sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
-                x_t: torch.Tensor, cond: torch.Tensor, t: float,
-                dt: float, sc: SamplerConfig) -> torch.Tensor:
-    """One Euler step x_{t-dt} = x_t - dt * v(x_t, t)."""
+                x_t: torch.Tensor, cond: torch.Tensor,
+                t: float | torch.Tensor, dt: float,
+                sc: SamplerConfig) -> torch.Tensor:
+    """One Euler step x_{t-dt} = x_t - dt * v(x_t, t); ``t`` is a float or
+    a 0-d tensor."""
     ctx = _ctx_for(ctx, sc)
     b = x_t.shape[0]
-    tt = torch.full((b,), t, dtype=torch.float32, device=x_t.device)
+    tt = _timesteps(t, b, x_t.device)
     if sc.guided and sc.cfg_parallel:
         k = sc.cfg_degree
         lat_k, cond_k = _stack_cfg_branches(x_t, cond, k)
@@ -158,7 +174,8 @@ def hybrid_state_shape(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def hybrid_sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
-                       x_t: torch.Tensor, cond: torch.Tensor, t: float,
+                       x_t: torch.Tensor, cond: torch.Tensor,
+                       t: float | torch.Tensor,
                        dt: float, sc: SamplerConfig, state: KVState,
                        *, warm: bool, out: KVState | None = None
                        ) -> tuple[torch.Tensor, KVState, dict]:
@@ -180,7 +197,7 @@ def hybrid_sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
     ctx = _ctx_for(ctx, sc)
     pipe = sc.pipeline
     b = x_t.shape[0]
-    tt = torch.full((b,), t, dtype=torch.float32, device=x_t.device)
+    tt = _timesteps(t, b, x_t.device)
     if sc.guided and sc.cfg_parallel:
         lat_in, cond_in = _stack_cfg_branches(x_t, cond, sc.cfg_degree)
         tt_in = torch.cat([tt] * sc.cfg_degree)

@@ -78,6 +78,13 @@ def test_rwkv_modules_are_covered(name):
     assert f"repro_torch.{name}" in MODULES
 
 
+@pytest.mark.parametrize("name", ["serving.graphs", "launch.serve"])
+def test_capture_and_launcher_modules_are_covered(name):
+    """The captured steps and the serving launcher are among the modules
+    scanned and imported above."""
+    assert f"repro_torch.{name}" in MODULES
+
+
 def _roadmap_items() -> dict[int, dict[int, str]]:
     """{queue: {item number: item text}} of ROADMAP.md's numbered queues."""
     text = (SRC.parent / "ROADMAP.md").read_text()
