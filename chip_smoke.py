@@ -178,6 +178,39 @@ against eager.  layer-paper and numbers add one captured swift_torus layer
 commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
 flux-12b at degree 1 and on --mesh pod, and rwkv6-1.6b.
 
+Phases 24 to 27 (after serve-lm) and the numbers phase serve the dense and
+vision-language attention LMs:
+
+ 24. dense-block — one full-width float32 layer of each of qwen2-1.5b,
+                 stablelm-3b (partial rotary, LayerNorm, head dim 80, which
+                 K1 runs zero-padded to 128), starcoder2-7b (window 4096,
+                 GELU, GQA 9), chatglm3-6b (rope2d, GQA 16) and qwen2-vl-2b
+                 (M-RoPE) through K1 on the card against the CPU's plain
+                 path at L DENSE_BLOCK_L within LM_BLOCK_TOL; starcoder2 at
+                 L WINDOW_BLOCK_L against K1's plain version on the card
+                 (the CPU would take minutes) and against its unwindowed
+                 layer, which must differ; one K1 launch per layer.
+ 25. dense-prefill — qwen2-1.5b at full width and depth (28 layers, bf16),
+                 last-position logits of B 4 x L 4096: finite, K1 launched
+                 28 times, wall clock, device time and idle share (traced);
+                 then SP prefill on mesh (pod 2, data 2, model 2) (swift
+                 over (pod, model), the batch over data: P_u 2 x P_r 2) at
+                 full width, 4 layers, float32, against degree 1 within
+                 DENSE_SP_TOL, with the K1/K2/K4 launches of the plan.
+ 26. dense-decode — teacher-forced bundle.step (core/decode.py, the KV
+                 cache sharded on L) against bundle.apply (K1), float32:
+                 qwen2-1.5b at 4 layers over 256 positions at degree 1 and
+                 on mesh (pod 2, model 8); starcoder2-7b at 2 layers over
+                 the 64 positions past its window, with the unwindowed
+                 prefill as the control.
+ 27. serve-dense — ARServer on the bf16 qwen2-1.5b (bf16 KV caches), 4
+                 slots, 6 requests of 16 new tokens; captured tokens bitwise
+                 the capture=False twin's; tick wall clock both ways.
+The numbers phase adds K1 at the dense prefill shapes (qwen2's causal GQA,
+starcoder2's window, stablelm's head dim 80) beside the bound over the
+visible pairs, its plain version and SDPA; serve-cli adds qwen2-1.5b at
+degree 1 and on --mesh pod.
+
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
@@ -268,6 +301,19 @@ LM_PREFILL = ((4, 4096), (1, 1024))
 LM_REQUESTS = ((0, 16, 0.0), (1, 64, 0.0), (2, 32, 1.0), (3, 48, 0.0),
                (4, 24, 2.0), (5, 56, 0.0))
 LM_NEW_TOKENS = 16
+# the dense and vlm attention LMs (phases 24-27)
+DENSE_BLOCK_L = 1024  # dense-block, card vs CPU
+WINDOW_BLOCK_L = 4608  # starcoder2's layer: above its window of 4096
+DENSE_PREFILL = (4, 4096)  # dense-prefill (B, L), qwen2-1.5b at full depth
+# SP prefill on examples/generate_text.py's mesh: swift over (pod, model),
+# the batch over data; qwen2-1.5b's 12 / 2 heads plan P_u 2 x P_r 2
+DENSE_SP_MESH = ((2, 2, 2), ("pod", "data", "model"))
+DENSE_SP_LAYERS = 4
+DENSE_SP_BL = (2, 1024)
+DENSE_SP_TOL = 1e-4  # SP vs degree 1, fp32, relative to max|logits|
+DENSE_DECODE_LAYERS = 4
+DENSE_DECODE_POS = 256  # qwen2 decode positions (16 per rank on 16 ranks)
+WINDOW_DECODE_POS = 64  # starcoder2 positions decoded past its window
 
 
 def log(msg: str) -> None:
@@ -2081,14 +2127,19 @@ SERVE_CLI = (
                            "--requests", "1", "--seq", "256", "--steps",
                            "3"]),
     ("rwkv6-1.6b", ["--arch", "rwkv6-1.6b", "--requests", "4"]),
+    ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4"]),
+    ("qwen2-1.5b mesh pod", ["--arch", "qwen2-1.5b", "--mesh", "pod",
+                             "--requests", "4"]),
 )
 
 
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
     size with random weights: flux-12b at degree 1 and on the paper's mesh
-    (pod 2, model 8), and rwkv6-1.6b; each run prints its requests, the
-    DiT runs their scheduler line, and every run its captured graphs."""
+    (pod 2, model 8), rwkv6-1.6b, and qwen2-1.5b at degree 1 and with its
+    KV cache sharded over (pod 2, model 8); each run prints its requests,
+    the DiT runs their scheduler line, and every run its captured
+    graphs."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -2100,7 +2151,7 @@ def serve_cli_phase(card: str) -> None:
         lines = proc.stdout.splitlines()
         for line in lines:
             log(f"serve-cli {label}: {line}")
-        dit = "rwkv" not in label
+        dit = label.startswith("flux")
         ok = (proc.returncode == 0
               and any(x.startswith("request 0:") for x in lines)
               and any(x.startswith("graphs:") and " captured," in x
@@ -2693,33 +2744,40 @@ def lm_prefill(results: dict, card: str):
     return params, cfg
 
 
+def run_ar_server(params, cfg, capture, cache_dtype, seed: int):
+    """ARServer on the card with 4 slots and max_len 128, serving
+    LM_REQUESTS (prompts drawn from ``seed``) of LM_NEW_TOKENS each:
+    (server, results, wall seconds, each tick's seconds)."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.serving import ARRequest, ARServer, RecordingTracker
+
+    gen = torch.Generator().manual_seed(seed)
+    srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
+                   max_len=128, cache_dtype=cache_dtype,
+                   tracker=RecordingTracker(), device="cuda", capture=capture)
+    for rid, n, prio in LM_REQUESTS:
+        srv.submit(ARRequest(rid=rid, prompt=torch.randint(
+            0, cfg.vocab, (n,), generator=gen),
+            max_new_tokens=LM_NEW_TOKENS, priority=prio))
+    ticks = []  # each tick ends in a host read of its tokens
+    t0 = time.perf_counter()
+    while srv.queue or any(s.req for s in srv.slots):
+        t1 = time.perf_counter()
+        srv.tick()
+        ticks.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    return srv, dict(srv.results), time.perf_counter() - t0, ticks
+
+
 def serve_lm(results: dict, card: str, params, cfg) -> None:
     """ARServer on the bfloat16 model, its tick captured as a CUDA graph,
     then (phase 22, AR part) the same requests with capture=False: the
     same tokens, and each tick's wall clock captured against eager."""
     import torch
-    from repro_torch.core import SPConfig
-    from repro_torch.serving import ARRequest, ARServer, RecordingTracker
     wkv = wkv_module()
-
-    def run(capture):
-        gen = torch.Generator().manual_seed(13)
-        srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
-                       max_len=128, tracker=RecordingTracker(), device="cuda",
-                       capture=capture)
-        for rid, n, prio in LM_REQUESTS:
-            srv.submit(ARRequest(rid=rid, prompt=torch.randint(
-                0, cfg.vocab, (n,), generator=gen),
-                max_new_tokens=LM_NEW_TOKENS, priority=prio))
-        ticks = []  # each tick ends in a host read of its tokens
-        t0 = time.perf_counter()
-        while srv.queue or any(s.req for s in srv.slots):
-            t1 = time.perf_counter()
-            srv.tick()
-            ticks.append(time.perf_counter() - t1)
-        torch.cuda.synchronize()
-        return srv, dict(srv.results), time.perf_counter() - t0, ticks
-
+    run = lambda capture: run_ar_server(params, cfg, capture, torch.float32,
+                                        seed=13)
     before = wkv.launch_count()
     srv, out, wall, ticks = run(None)
     tr = srv.tracker
@@ -2864,6 +2922,591 @@ def lm_breakdown(card: str, params, cfg) -> None:
         + "; ".join(f"{e.key[:60]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.2f} ms" for e in top)
         + f" [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phases 24 to 27: the dense and vlm attention LMs
+# ---------------------------------------------------------------------------
+
+def perturb_dense(params, gen) -> None:
+    """Draw the tensors init_lm leaves constant (in place): every linear
+    bias and LayerNorm bias from N(0, 0.1^2), every norm scale from
+    1 + N(0, 0.1^2), so that QKV biases and norm affines take part."""
+    import torch
+
+    def walk(tree):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif name in ("b", "bias", "scale"):
+                noise = torch.randn(leaf.shape, generator=gen,
+                                    device=leaf.device) * 0.1
+                tree[name] = (noise + (name == "scale")).to(leaf.dtype)
+
+    walk({k: v for k, v in params.items() if k != "layers"})
+    for lp in params["layers"]:
+        walk(lp)
+
+
+def dense_positions(cfg, b: int, l: int, device):
+    """[B, L] positions, or qwen2-vl's [3, B, L] (t, h, w of a 32-wide
+    patch grid: the three components differ)."""
+    import torch
+    t = torch.arange(l, device=device)
+    if cfg.rope == "mrope":
+        return torch.stack([t, t // 32, t % 32])[:, None].expand(3, b, l)
+    return t[None].expand(b, l)
+
+
+def check_dense_blocks(results: dict) -> None:
+    """Phase 24, dense-block: one full-width float32 layer of each dense
+    and vlm config through K1 on the card against the same layer on the
+    CPU through the plain path (L DENSE_BLOCK_L), within LM_BLOCK_TOL of
+    max|out|; starcoder2-7b at L WINDOW_BLOCK_L, so that its window of 4096
+    masks keys, against the same layer on the card with K1's plain
+    version (float32, TF32 off: the CPU takes minutes there), and against
+    the unwindowed layer, which must differ.  K1 launches once per
+    layer (stablelm-3b's head dim 80 runs zero-padded to 128)."""
+    import torch
+    from repro_torch.configs import DENSE_ARCHS, get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ops
+    from repro_torch.models import ParallelContext, init_lm
+    from repro_torch.models import lm as lm_mod
+
+    dev = torch.device("cuda")
+    sp = SPConfig(strategy="full")
+    errs = {}
+    for arch in DENSE_ARCHS:
+        # one layer; the vocab is cut because the layer needs no embedding
+        cfg = dataclasses.replace(get_config(arch), n_layers=1,
+                                  dtype="float32", vocab=256)
+        gen = torch.Generator().manual_seed(21)
+        params = init_lm(cfg, gen, device="cpu")
+        perturb_dense(params, gen)
+        lp = params["layers"][0]
+        l = WINDOW_BLOCK_L if cfg.window else DENSE_BLOCK_L
+        x = torch.randn((1, l, cfg.d_model), generator=gen)
+        layer = lambda x, lp, device, cfg=cfg: lm_mod._attention_layer(
+            x, lp, cfg, ParallelContext(sp, device=torch.device(device)),
+            dense_positions(cfg, 1, l, device), cfg.window, None, None)[0]
+        lp_card, x_card = _cast(lp, device=dev), x.to(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            before = fm.launch_count()
+            out = layer(x_card, lp_card, dev)
+            torch.cuda.synchronize()
+            launches = fm.launch_count() - before
+            if cfg.window:
+                oracle, where = "card plain", dev
+                real = ops.flash_mqkv
+                ops.flash_mqkv = fm.flash_mqkv_plain
+                try:
+                    ref = layer(x_card, lp_card, dev)
+                finally:
+                    ops.flash_mqkv = real
+                wide = dataclasses.replace(cfg, window=None)
+                unwindowed = lm_mod._attention_layer(
+                    x_card, lp_card, wide, ParallelContext(sp, device=dev),
+                    dense_positions(cfg, 1, l, dev), None, None, None)[0]
+            else:
+                oracle, where = "CPU", "cpu"
+                ref = layer(x, lp, "cpu")
+        ref = ref.to(dev)
+        e = float((out - ref).abs().max()) / float(ref.abs().max())
+        errs[arch] = e
+        hd = cfg.resolved_head_dim
+        extra = ""
+        if cfg.window:
+            w_err = float((unwindowed - ref).abs().max()) / float(
+                ref.abs().max())
+            extra = (f"; the unwindowed layer differs by {w_err:.3e} (must "
+                     f"exceed {10 * LM_BLOCK_TOL})")
+            if not w_err > 10 * LM_BLOCK_TOL:
+                fail(f"dense-block {arch}: the window does not bite ({w_err})")
+        log(f"dense-block {arch} d={cfg.d_model} H={cfg.n_heads}/"
+            f"{cfg.n_kv_heads}x{hd} d_ff={cfg.d_ff} {cfg.act} {cfg.norm} "
+            f"rope={cfg.rope} pct={cfg.rope_pct} window={cfg.window} L={l} "
+            f"fp32: card vs {oracle} max|d|/max|ref| = {e:.3e} (tol "
+            f"{LM_BLOCK_TOL}), K1 launches {launches} (kernel head dim "
+            f"{fm.kernel_head_dim(hd)}), {time.perf_counter() - t0:.1f} s"
+            + extra)
+        if launches != 1 or not e <= LM_BLOCK_TOL:
+            fail(f"dense-block {arch}: err {e} launches {launches}")
+        del params, lp, lp_card, out, ref
+        torch.cuda.empty_cache()
+    results["dense_block_err"] = errs
+
+
+def _traced_forward(fwd, label: str, card: str) -> dict:
+    """One call of ``fwd`` (already warm) on the host clock, then one
+    traced by torch.profiler: wall ms, device busy ms, the idle share and
+    K1's device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0.0:
+        log(f"{label}: wall {wall:.1f} ms; the profiler saw no device time "
+            f"(device busy share not measured) [{card}]")
+        return dict(wall=wall, busy=None)
+    k1 = sum(e.self_device_time_total for e in kernels
+             if "flash_hopper_kernel" in e.key or "flash_f32_kernel" in e.key
+             ) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"{label}: wall {wall:.1f} ms; device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall:.3f}; K1 {k1:.2f} ms ({k1 / busy:.3f} of busy); "
+        "top kernels: " + "; ".join(
+            f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+            for e in top) + f" [{card}]")
+    return dict(wall=wall, busy=busy, k1=k1)
+
+
+def dense_prefill(results: dict, card: str):
+    """Phase 25, dense-prefill: qwen2-1.5b at full width and depth (28
+    layers, bf16, weights from seed 0, biases and norms perturbed),
+    last-position logits of B x L = DENSE_PREFILL, finite, K1 launched 28
+    times per forward; the wall clock, device time and idle share of one
+    forward.  Then SP prefill on DENSE_SP_MESH (swift over (pod, model),
+    kernel route) at full width, DENSE_SP_LAYERS layers, float32, against
+    degree 1 within DENSE_SP_TOL, with the K1/K2/K4 launches its plan
+    implies.  Returns the bf16 model (params, cfg)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, get_model, init_lm
+
+    cfg = get_config("qwen2-1.5b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen, device=dev)
+    perturb_dense(params, gen)
+    torch.cuda.synchronize()
+    log(f"dense-prefill: qwen2-1.5b {cfg.n_layers} layers d={cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads bf16, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    bundle = get_model(cfg)
+    ctx = ParallelContext(SPConfig(strategy="full"), "prefill", dev)
+    b, l = DENSE_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, l), generator=gen, device=dev)
+    fwd = lambda: bundle.apply(params, {"tokens": tokens}, cfg, ctx,
+                               last_only=True)
+    with torch.inference_mode():
+        fwd()  # warm-up (cuBLAS handles, library load)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = fwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        finite = bool(torch.isfinite(logits).all())
+        log(f"dense-prefill B={b} L={l}: logits {tuple(logits.shape)} "
+            f"finite={finite}, {wall * 1e3:.1f} ms, launches {counts} "
+            f"(expected K1 = {cfg.n_layers}) [{card}]")
+        if (tuple(logits.shape) != (b, 1, cfg.vocab) or not finite
+                or counts != {"flash_mqkv": cfg.n_layers, "ring_flash_step": 0,
+                              "remote_put": 0, "landing_copy": 0}):
+            fail(f"dense-prefill: logits {tuple(logits.shape)} finite "
+                 f"{finite} launches {counts}")
+        results["dense_prefill"] = dict(wall=wall, k1=counts["flash_mqkv"])
+        results["dense_trace"] = _traced_forward(
+            fwd, f"dense-prefill breakdown (qwen2-1.5b, bf16, B {b}, L {l}, "
+            "last_only)", card)
+        del logits
+
+    # SP prefill at full width, float32, against degree 1
+    cfg32 = dataclasses.replace(cfg, n_layers=DENSE_SP_LAYERS, dtype="float32")
+    p32 = _cast({k: v for k, v in params.items() if k != "layers"},
+                dtype=torch.float32)
+    p32["layers"] = _cast(params["layers"][:DENSE_SP_LAYERS],
+                          dtype=torch.float32)
+    b, l = DENSE_SP_BL
+    tokens = torch.randint(0, cfg.vocab, (b, l), generator=gen, device=dev)
+    shape, axes = DENSE_SP_MESH
+    sp = SPConfig(strategy="swift", sp_axes=("pod", "model"),
+                  batch_axes=("data",), machine_axis="pod",
+                  comm_backend="pallas", kernel_interpret=False)
+    mesh = make_mesh(shape, axes, device=dev)
+    lay = resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+    ranks = mesh.axes_size(("pod", "data", "model"))
+    want = {"flash_mqkv": ranks * DENSE_SP_LAYERS,
+            "ring_flash_step": ranks * (lay.p_ring - 1) * DENSE_SP_LAYERS,
+            "remote_put": 0,
+            "landing_copy": 4 * (lay.p_ulysses - 1) * DENSE_SP_LAYERS}
+    with torch.inference_mode():
+        one = bundle.apply(p32, {"tokens": tokens}, cfg32, ctx)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = bundle.apply(p32, {"tokens": tokens}, cfg32,
+                           ParallelContext(sp, "prefill", mesh=mesh))
+        torch.cuda.synchronize()
+        t_sp = time.perf_counter() - t0
+    counts = read_counts()
+    e = float((got - one).abs().max()) / float(one.abs().max())
+    log(f"dense-prefill SP: qwen2-1.5b {DENSE_SP_LAYERS} layers fp32 B={b} "
+        f"L={l} on mesh {dict(zip(axes, shape))}, swift over (pod, model), "
+        f"plan P_u {lay.p_ulysses} x P_r {lay.p_ring} (ulysses outer "
+        f"{lay.ulysses_outer}); logits vs degree 1 max|d|/max|ref| = {e:.3e} "
+        f"(tol {DENSE_SP_TOL}); launches {counts} (expected {want}); "
+        f"{t_sp:.2f} s eager [{card}]")
+    if not e <= DENSE_SP_TOL or counts != want:
+        fail(f"dense-prefill SP: err {e}, launches {counts} (want {want})")
+    results["dense_sp"] = dict(err=e, launches=counts)
+    del p32, one, got
+    torch.cuda.empty_cache()
+    return params, cfg
+
+
+def _teacher_forced(bundle, params, cfg, ctx, tokens, caches_len):
+    """Decode logits [B, L, V] of ``tokens`` step by step."""
+    import torch
+    caches = bundle.init_caches(cfg, tokens.shape[0], caches_len,
+                                torch.float32, ctx.device)
+    steps = []
+    for t in range(tokens.shape[1]):
+        logit, caches = bundle.step(params, {"tokens": tokens[:, t:t + 1]},
+                                    caches, t, cfg, ctx)
+        steps.append(logit)
+    return torch.stack(steps, dim=1)
+
+
+def dense_decode(results: dict, card: str, params, cfg) -> None:
+    """Phase 26, dense-decode: bundle.step (core/decode.py: the KV cache
+    sharded on L over the SP ranks, plain torch) against bundle.apply (K1)
+    on the same tokens, float32, TF32 off, within LM_TOL of max|logits|:
+    qwen2-1.5b at full width, DENSE_DECODE_LAYERS layers, over
+    DENSE_DECODE_POS positions at degree 1 and on mesh (pod 2, model 8);
+    starcoder2-7b at full width, 2 layers, its last WINDOW_DECODE_POS
+    positions past its window of 4096, where the unwindowed prefill must
+    differ."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, get_model, init_lm
+
+    dev = torch.device("cuda")
+    bundle = get_model(cfg)
+    pre = ParallelContext(SPConfig(strategy="full"), "prefill", dev)
+    cfg32 = dataclasses.replace(cfg, n_layers=DENSE_DECODE_LAYERS,
+                                dtype="float32")
+    p32 = _cast({k: v for k, v in params.items() if k != "layers"},
+                dtype=torch.float32)
+    p32["layers"] = _cast(params["layers"][:DENSE_DECODE_LAYERS],
+                          dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tokens = torch.randint(0, cfg.vocab, (2, DENSE_DECODE_POS), generator=gen,
+                           device=dev)
+    sp16 = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                    batch_axes=None, machine_axis="pod")
+    errs = {}
+    with torch.inference_mode():
+        full = bundle.apply(p32, {"tokens": tokens}, cfg32, pre)
+        for label, ctx in (
+                ("degree 1", ParallelContext(SPConfig(strategy="full"),
+                                             "decode", dev)),
+                ("mesh (pod 2, model 8)", ParallelContext(
+                    sp16, "decode", mesh=make_mesh((2, 8), ("pod", "model"),
+                                                   device=dev)))):
+            t0 = time.perf_counter()
+            dec = _teacher_forced(bundle, p32, cfg32, ctx, tokens,
+                                  DENSE_DECODE_POS)
+            torch.cuda.synchronize()
+            e = float((dec - full).abs().max()) / float(full.abs().max())
+            errs[label] = e
+            log(f"dense-decode qwen2-1.5b {DENSE_DECODE_LAYERS} layers fp32 "
+                f"B=2, {DENSE_DECODE_POS} positions, {label}: decode vs "
+                f"prefill (K1) max|d|/max|logits| = {e:.3e} (tol {LM_TOL}) at "
+                f"max|logit| {float(full.abs().max()):.2f}, "
+                f"{time.perf_counter() - t0:.1f} s eager [{card}]")
+            if not e <= LM_TOL:
+                fail(f"dense-decode qwen2 {label}: {e} > {LM_TOL}")
+        del full, dec, p32
+
+        sc = dataclasses.replace(get_config("starcoder2-7b"), n_layers=2,
+                                 dtype="float32")
+        sparams = init_lm(sc, gen, device=dev)
+        perturb_dense(sparams, gen)
+        sb = get_model(sc)
+        n = sc.window + WINDOW_DECODE_POS
+        tokens = torch.randint(0, sc.vocab, (1, n), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        dec = _teacher_forced(
+            sb, sparams, sc, ParallelContext(SPConfig(strategy="full"),
+                                             "decode", dev), tokens, n)
+        tail = slice(sc.window, n)
+        full = sb.apply(sparams, {"tokens": tokens}, sc, pre)[:, tail]
+        wide = sb.apply(sparams, {"tokens": tokens},
+                        dataclasses.replace(sc, window=None), pre)[:, tail]
+        torch.cuda.synchronize()
+        dec = dec[:, tail]
+        e = float((dec - full).abs().max()) / float(full.abs().max())
+        ctrl = float((dec - wide).abs().max()) / float(full.abs().max())
+        log(f"dense-decode starcoder2-7b 2 layers fp32, window {sc.window}: "
+            f"positions {sc.window}..{n - 1} decoded vs prefill (K1) "
+            f"max|d|/max|logits| = {e:.3e} (tol {LM_TOL}); against the "
+            f"unwindowed prefill {ctrl:.3e} (must exceed {10 * LM_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if not e <= LM_TOL or not ctrl > 10 * LM_TOL:
+            fail(f"dense-decode starcoder2: err {e}, control {ctrl}")
+        errs["starcoder2 window"] = e
+    results["dense_decode"] = errs
+    del sparams, dec, full, wide
+    torch.cuda.empty_cache()
+
+
+def serve_dense(results: dict, card: str, params, cfg) -> None:
+    """Phase 27, serve-dense: ARServer on the bf16 qwen2-1.5b (28 layers,
+    bf16 KV caches: the reference's cache update takes the model's dtype)
+    with 4 slots, the LM_REQUESTS, LM_NEW_TOKENS new tokens each; its tick
+    captured as a CUDA graph, then the same requests with capture=False:
+    the tokens bitwise equal, each tick's wall clock captured against
+    eager."""
+    import torch
+    run = lambda capture: run_ar_server(params, cfg, capture, torch.bfloat16,
+                                        seed=23)
+    srv, out, wall, ticks = run(None)
+    tr = srv.tracker
+    counts = {n: tr.counter_total(f"ar.{n}")
+              for n in ("submitted", "admitted", "ticks", "completed")}
+    lens = {rid: len(v) for rid, v in sorted(out.items())}
+    n = len(LM_REQUESTS)
+    ok = (sorted(out) == [r for r, *_ in LM_REQUESTS]
+          and all(v == LM_NEW_TOKENS for v in lens.values())
+          and all(0 <= t < cfg.vocab for v in out.values() for t in v)
+          and counts["submitted"] == counts["admitted"] == counts["completed"] == n)
+    step = srv._step
+    if not ok or step.graph is None:
+        fail(f"serve-dense: results {out}, counters {counts}, graph "
+             f"{step.graph}")
+    log(f"serve-dense: qwen2-1.5b {cfg.n_layers} layers bf16, {len(out)} "
+        f"requests, {counts['ticks']:.0f} ticks in {wall:.2f} s, tokens per "
+        f"request {lens}, counters {counts}; graph captured after "
+        f"{step.calls - step.replays} eager tick, capture {step.capture_s:.3f} s, "
+        f"instantiation {step.instantiate_s:.3f} s (host), {step.replays} "
+        f"replays [{card}]")
+    replayed = ticks[len(ticks) - step.replays + 1:]  # after the capture
+    del srv, step
+    _, eager, ewall, eticks = run(False)
+    same = eager == out
+    log(f"capture serve-dense: captured tokens equal the eager server's "
+        f"{same}; tick wall clock median {median(replayed) * 1e3:.2f} ms "
+        f"captured (replays) vs {median(eticks) * 1e3:.2f} ms eager; "
+        f"{wall:.2f} s vs {ewall:.2f} s in all [{card}]")
+    if not same:
+        fail("capture serve-dense: captured tokens differ from eager")
+    results["serve_dense"] = (median(replayed), median(eticks))
+
+
+# (label, B, Hq, Hkv, L, D, window): K1 on the dense LMs' prefill shapes
+DENSE_K1_SHAPES = (
+    ("qwen2-1.5b causal GQA", 4, 12, 2, 4096, 128, None),
+    ("starcoder2-7b window", 1, 36, 4, WINDOW_BLOCK_L, 128, 4096),
+    ("stablelm-3b D 80", 1, 32, 32, 4096, 80, None),
+)
+
+
+def visible_pairs(l: int, window: int | None) -> int:
+    """(query, key) pairs a causal mask, and a window, leave visible."""
+    if window is None or window >= l:
+        return l * (l + 1) // 2
+    return window * (window + 1) // 2 + (l - window) * window
+
+
+def dense_numbers(card: str) -> dict:
+    """K1 at the dense LMs' prefill shapes (causal, bf16): ms per call
+    beside the bound over the visible pairs (K1 skips no masked tile: it
+    computes the whole square), its plain version and SDPA (is_causal with
+    enable_gqa; a boolean mask for the window; head dim 80 unpadded)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_mqkv as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for label, b, hq, hkv, l, d, window in DENSE_K1_SHAPES:
+        mk = lambda h: torch.randn((b * h, l, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+        q, k, v = mk(hq), mk(hkv), mk(hkv)
+        pos = torch.arange(l, dtype=torch.int32, device="cuda")
+        kw = dict(group=hq // hkv, causal=True, window=window)
+        ms = cuda_ms(lambda: fm.flash_mqkv(q, k, v, pos, pos, **kw), reps=20)
+        # the same call unmasked: what the mask itself costs K1
+        open_ms = cuda_ms(lambda: fm.flash_mqkv(q, k, v, pos, pos,
+                                                group=hq // hkv), reps=20)
+        plain_ms = cuda_ms(lambda: fm.flash_mqkv_plain(q, k, v, pos, pos,
+                                                       **kw),
+                           reps=3, warmup=1)
+        q4, k4, v4 = (t.view(b, -1, l, d) for t in (q, k, v))
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=hq != hkv)
+        else:
+            i = torch.arange(l, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=hq != hkv)
+        lib_ms = cuda_ms(sdpa, reps=20)
+        got = fm.flash_mqkv(q, k, v, pos, pos, **kw)[0]
+        err = rel_err(got, sdpa().reshape(b * hq, l, d), floor=0.0)
+        plain_err = rel_err(got, fm.flash_mqkv_plain(q, k, v, pos, pos,
+                                                     **kw)[0], floor=0.0)
+        del got
+        pairs = visible_pairs(l, window)
+        flops = 4.0 * b * hq * pairs * d
+        nbytes = 2.0 * d * l * b * (2 * hq + 2 * hkv)  # q, k, v read, o written
+        t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           unmasked_ms=open_ms)
+        log(f"k1 time {label}: B={b} Hq={hq} Hkv={hkv} L={l} D={d} (kernel "
+            f"D {fm.kernel_head_dim(d)}) window={window} causal bf16: "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s over the "
+            f"{pairs / l ** 2:.3f} L^2 visible pairs, {100 * bound_ms / ms:.1f}"
+            f" % of the bound), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"unmasked K1 {open_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms (K1 / sdpa "
+            f"{ms / lib_ms:.2f}), max|d|/max|ref| of K1 vs sdpa {err:.2e}, "
+            f"vs plain {plain_err:.2e} [{card}]")
+        if not err <= TOL["bfloat16"]:
+            fail(f"k1 {label}: {err} from sdpa")
+        if not plain_err <= TOL["bfloat16"]:
+            fail(f"k1 {label}: {plain_err} from its plain version")
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    rows["k2"] = dense_k2_numbers(card, gen)
+    return rows
+
+
+def dense_k2_numbers(card: str, gen) -> dict:
+    """K2 at the first ring step of qwen2-1.5b's SP prefill, bf16, B 4 x L
+    4096 on DENSE_SP_MESH: each rank's batch slice of 2 holds the Ulysses
+    group's gathered 2048 positions (two discontiguous 1024-blocks) of 6 q
+    heads and 1 KV head; causal over those positions, unfinalized, the
+    chunk forwarded.  Held against its plain version (dense_k2_check),
+    then timed: ROTATE input sets in turn; SDPA on the same chunk with the
+    positions' boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.collectives import GroupLayout
+    from repro_torch.core.ulysses import group_positions
+    from repro_torch.kernels import ring_flash as rf
+
+    b, hq, hkv, ls, d = 2, 6, 1, 1024, 128
+    lay = GroupLayout(("pod", "model"), 2, 2, ulysses_outer=True)
+    pos = group_positions(lay, ls, 0, "cuda").to(torch.int32)
+    l = pos.numel()
+    mk = lambda h: torch.randn((b * h, l, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+    sets = [(mk(hq), mk(hkv), mk(hkv)) for _ in range(ROTATE)]
+    dst = [(torch.empty_like(k), torch.empty_like(v)) for _, k, v in sets]
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    arrive = torch.zeros_like(flag)
+    kw = dict(group=hq // hkv, causal=True, finalize=False)
+    dense_k2_check(*sets[0], pos, group_positions(lay, ls, 1, "cuda").to(
+        torch.int32), flag, arrive, kw)
+    ms = cuda_ms(rotating([
+        lambda q=q, k=k, v=v, kd=kd, vd=vd: rf.ring_flash_step(
+            q, k, v, pos, pos, k_dst=kd, v_dst=vd, flag=flag, arrive=arrive,
+            epoch=1, **kw)
+        for (q, k, v), (kd, vd) in zip(sets, dst)]), reps=50)
+    plain_ms = cuda_ms(rotating([
+        lambda q=q, k=k, v=v, kd=kd, vd=vd: rf.ring_flash_step_plain(
+            q, k, v, pos, pos, k_dst=kd, v_dst=vd, scale=d ** -0.5, **kw)
+        for (q, k, v), (kd, vd) in zip(sets, dst)]), reps=5, warmup=1)
+    mask = pos[None, :] <= pos[:, None]
+    lib_ms = cuda_ms(rotating([
+        lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q.view(b, hq, l, d), k.view(b, hkv, l, d), v.view(b, hkv, l, d),
+            attn_mask=mask, enable_gqa=True)
+        for q, k, v in sets]), reps=50)
+    pairs = int(mask.sum())
+    flops = 4.0 * b * hq * pairs * d
+    nbytes = (2 * b * (hq + 2 * hkv) * l * d  # q, k, v read once (bf16)
+              + 4 * b * hq * l * d + 8 * b * hq * l  # o' (f32), l, m
+              + 2 * 2 * b * hkv * l * d)  # the forwarded chunk written
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"k2 time qwen2-1.5b SP ring step (B 4 x L 4096 on (pod 2, data 2, "
+        f"model 2)): BH={b * hq} BHkv={b * hkv} Lq=Lk={l} D={d} causal over "
+        f"discontiguous positions ({pairs / l ** 2:.3f} of the pairs "
+        f"visible), bf16, {ROTATE} input sets in turn: {ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain_ms:.3f} "
+        f"ms, sdpa {lib_ms:.4f} ms [{card}]")
+    del sets, dst
+    torch.cuda.empty_cache()
+    return row
+
+
+def dense_k2_check(q, k, v, pos, pos_other, flag, arrive, kw) -> None:
+    """K2 against its plain version on qwen2-1.5b's SP ring chunks, per
+    output within FLUX_TOL, the forwarded chunk bitwise: the step the path
+    runs (the rank's own chunk), the other ring rank's chunk fresh (its
+    first 1024 query rows see no key there: (0, 0, -inf), the l == 0
+    guard) and merged into the own step's state (the -inf merge), and the
+    path's last ring step (K1 on the other chunk with that state)."""
+    import torch
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels import ring_flash as rf
+
+    scale = q.shape[-1] ** -0.5
+
+    def step(label, kp, state=None, state_ref=None, fused=True):
+        if fused:
+            kd, vd = torch.empty_like(k), torch.empty_like(v)
+            got, _ = rf.ring_flash_step(q, k, v, pos, kp, k_dst=kd, v_dst=vd,
+                                        flag=flag, arrive=arrive, epoch=1,
+                                        state=state, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(kd, k) and torch.equal(vd, v)):
+                fail(f"k2 qwen2 SP {label}: forwarded chunk differs")
+        else:
+            got = fm.flash_mqkv(q, k, v, pos, kp, state=state, **kw)
+        ref = fm.flash_mqkv_plain(q, k, v, pos, kp, state=state_ref,
+                                  scale=scale, **kw)
+        errs = {n: (rel_err(a, b, floor=0.0), norm_err(a, b))
+                for n, a, b in zip(("o'", "l", "m"), got, ref)}
+        log(f"k2 qwen2 SP {label} vs plain, max|d|/max|ref|, |d|/|ref|: "
+            + ", ".join(f"{n} {e[0]:.2e} {e[1]:.2e}" for n, e in errs.items()))
+        for n, (e_max, e_norm) in errs.items():
+            lim_max, lim_norm = FLUX_TOL[n]
+            if not (e_max <= lim_max and e_norm <= lim_norm):
+                fail(f"k2 qwen2 SP {label} {n}: max err {e_max} (limit "
+                     f"{lim_max}), norm err {e_norm} (limit {lim_norm})")
+        return got, ref
+
+    own, own_ref = step("own chunk (K2)", pos)
+    fresh, _ = step("other chunk, fresh (K2)", pos_other)
+    blind = pos < pos_other.min()  # query rows before every key
+    o, l, m = fresh
+    if not (bool(blind.any()) and bool((o[:, blind] == 0).all())
+            and bool((l[:, blind] == 0).all())
+            and bool(torch.isneginf(m[:, blind]).all())):
+        fail(f"k2 qwen2 SP: the {int(blind.sum())} rows with no visible key "
+             "are not (0, 0, -inf)")
+    step("other chunk into the own state (K2)", pos_other, own, own_ref)
+    step("last ring step (K1)", pos_other, own, own_ref, fused=False)
 
 
 def ptxas_report(text: str) -> dict:
@@ -3042,8 +3685,15 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_prefill")
     serve_lm(results, card, lm_params, lm_cfg)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_lm")
+    check_dense_blocks(results)
+    dn_params, dn_cfg = dense_prefill(results, card)
+    dense_decode(results, card, dn_params, dn_cfg)
+    serve_dense(results, card, dn_params, dn_cfg)
+    del dn_params
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_dense")
 
     k1 = k1_numbers(card)
+    dense_numbers(card)
     k2 = k2_numbers(card)
     puts = put_numbers(card)
     layer_breakdown(card)

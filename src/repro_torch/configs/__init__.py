@@ -1,6 +1,7 @@
 """Architecture configs of the port: the models it serves (the flux-12b and
-cogvideox-5b DiTs and the rwkv6-1.6b language model), and the input shapes
-(the paper's DiT workloads among them)."""
+cogvideox-5b DiTs, the rwkv6-1.6b language model and the dense and
+vision-language attention LMs), and the input shapes (the paper's DiT
+workloads among them)."""
 from __future__ import annotations
 
 import importlib
@@ -12,10 +13,18 @@ _MODULES = {
     "flux-12b": "flux_12b",
     "cogvideox-5b": "cogvideox_5b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "stablelm-3b": "stablelm_3b",
+    "starcoder2-7b": "starcoder2_7b",
+    "chatglm3-6b": "chatglm3_6b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
 }
 
 DIT_ARCHS = ("flux-12b", "cogvideox-5b")
 SSM_ARCHS = ("rwkv6-1.6b",)
+# attention LMs: the dense family and the vision-language backbone
+DENSE_ARCHS = ("qwen2-1.5b", "stablelm-3b", "starcoder2-7b", "chatglm3-6b",
+               "qwen2-vl-2b")
 ALL_ARCHS = tuple(_MODULES)
 
 
@@ -31,6 +40,7 @@ def get_reduced(arch_id: str) -> ModelConfig:
 
 __all__ = [
     "ALL_ARCHS",
+    "DENSE_ARCHS",
     "DIT_ARCHS",
     "DIT_SHAPES",
     "InputShape",

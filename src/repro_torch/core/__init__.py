@@ -5,6 +5,8 @@ Public API:
                                 strategies over a mesh of virtual ranks
   resolve_layout              — the (P_u x P_r) plan of a mesh
   reference_attention         — single-device oracle
+  decode_attention            — flash-decoding over a KV cache sharded on L
+                                over the SP ranks (core/decode.py)
   plan / SPPlan               — the paper's §4.2 topology planner (copy)
   plan_hybrid / HybridPlan    — (cfg, pp, P_u, P_r) hybrid planner (copy)
   PipelineConfig / KVState    — displaced patch pipelining (core/pipefusion.py:
@@ -12,6 +14,7 @@ Public API:
                                 through K1, kv_drift)
   comm_model, calibration     — analytical latency model and its fitter (copies)
 """
+from .decode import decode_attention
 from .pipefusion import (
     KVState,
     PipelineConfig,
@@ -50,6 +53,7 @@ __all__ = [
     "STRATEGIES",
     "attend_partial",
     "candidate_hybrid_plans",
+    "decode_attention",
     "displaced_attention",
     "empty_partial",
     "finalize",

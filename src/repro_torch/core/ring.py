@@ -29,7 +29,7 @@ from ..comm.profiler import mark_compute
 from ..comm.channel import RankList, dest_table
 from ..comm.kernel_backend import heap_for
 from ..kernels import ops as _ops
-from ..kernels.flash_mqkv import flash_mqkv
+from ..kernels.flash_mqkv import flash_mqkv, pad_head_dim
 from ..kernels.ring_flash import ring_flash_step
 from .collectives import GroupLayout
 from .softmax import (MaskSpec, Partial, attend_partial,
@@ -155,12 +155,16 @@ def _ring_attention_kernels(
     dev = q[0].device
     my_r = [layout.coords(p)[1] for p in ranks]
 
-    qf = [_ops.flatten_heads(x) for x in q]
+    # a head dim the kernels lack (80) circulates zero-padded to the next
+    # one (128); the scale stays the true head dim's
+    if scale is None:
+        scale = d ** -0.5
+    qf = [pad_head_dim(_ops.flatten_heads(x)) for x in q]
     qpp = [(q_pos[p] if q_pos is not None
             else torch.arange(lq, device=dev)).to(torch.int32).contiguous()
            for p in ranks]
-    kc = [_ops.flatten_heads(x) for x in k]
-    vc = [_ops.flatten_heads(x) for x in v]
+    kc = [pad_head_dim(_ops.flatten_heads(x)) for x in k]
+    vc = [pad_head_dim(_ops.flatten_heads(x)) for x in v]
 
     def kpos_for(p, owner):
         return (k_pos_fn(p, owner) if k_pos_fn is not None
@@ -214,7 +218,7 @@ def _ring_attention_kernels(
     out = []
     for p in ranks:
         o, l, m = state[p]
-        part = Partial(o=o.reshape(b, hq, lq, d).transpose(1, 2),
+        part = Partial(o=o[..., :d].reshape(b, hq, lq, d).transpose(1, 2),
                        l=l.reshape(b, hq, lq), m=m.reshape(b, hq, lq))
         out.append(part if accum is None else merge(accum[p], part))
     return out

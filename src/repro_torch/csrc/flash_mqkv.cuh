@@ -81,7 +81,8 @@
 //     launch order, so a head's K and V come from HBM once and from the L2
 //     for its other blocks.
 //   Not yet done: persistent blocks, and skipping KV tiles that a causal or
-//   window mask hides entirely.
+//   window mask hides entirely (ROADMAP Queue 2 item 1: a causal prefill
+//   computes the whole L x L square, about twice the visible work).
 // f32 inputs (flash_f32_kernel): both products in full f32 on the CUDA
 //   cores (4 threads per query row), so f32 results match a float32
 //   reference to summation order.  This is the parity path, not the fast

@@ -16,6 +16,14 @@ Dispatch is by the device of the tensors, nothing else:
   * CUDA tensors launch the kernel, or raise on anything it does not take;
   * any other device raises.
 
+The kernel is instantiated at the head dims ``HEAD_DIMS``.  A head dim
+between them (stablelm-3b's 80) runs at the next one up: the wrapper
+zero-pads q, k and v (and a carried o') to it, keeps the scale of the true
+head dim, and slices o back.  Zero columns add nothing to Q·Kᵀ and give
+zero output columns, so the result is the unpadded attention's; the cost
+is the padded head dim's work and three padding copies
+(``kernel_head_dim``, ``pad_head_dim``).
+
 There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
@@ -24,6 +32,7 @@ import ctypes
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .ref import flash_attention_ref
@@ -72,6 +81,26 @@ def smem_bytes(plan: TilePlan, d: int) -> int:
     return (1024 + 2 * d * (plan.bq + 2 * plan.stages * plan.bk)
             + 8 * (4 * plan.stages + 1) + 4 * plan.stages * plan.bk
             + 4 * plan.stages)
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs head dim ``d`` at: the smallest of
+    ``HEAD_DIMS`` that holds it."""
+    for hd in HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(f"flash_mqkv kernel takes head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., D] zero-padded to ``kernel_head_dim(D)`` for a launch;
+    CPU tensors (the plain versions take any D) and kernel head dims are
+    returned as they are."""
+    d = x.shape[-1]
+    if x.device.type == "cpu" or d in HEAD_DIMS:
+        return x
+    return F.pad(x, (0, kernel_head_dim(d) - d))
+
 
 # kernel launches since the last reset (the port's counterpart of the
 # reference's per-variant trace counter: eager PyTorch has no traces)
@@ -226,6 +255,14 @@ def flash_mqkv(
                                 state=state, finalize=finalize)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mqkv runs on cpu or cuda, not {q.device}")
+    if d not in HEAD_DIMS:  # run at the next instantiated head dim
+        q, k, v = (pad_head_dim(t) for t in (q, k, v))
+        if state is not None:
+            state = (pad_head_dim(state[0]), state[1], state[2])
+        o, l, m = _launch(q, k, v, q_pos, k_pos, group=group, scale=scale,
+                          causal=causal, window=window, state=state,
+                          finalize=finalize)
+        return o[..., :d].contiguous(), l, m
     return _launch(q, k, v, q_pos, k_pos, group=group, scale=scale,
                    causal=causal, window=window, state=state,
                    finalize=finalize)

@@ -7,6 +7,8 @@ service, on the card unless ``--device cpu`` asks for the CPU.
     ... --arch flux-12b --mesh pod --seq 1024             (swift_torus SP)
     ... --arch flux-12b --reduced --requests 6 --mixed --sla 30
     ... --arch rwkv6-1.6b --requests 4                    (AR decode)
+    ... --arch qwen2-1.5b --requests 4 [--mesh pod]       (AR decode, KV
+                                                           cache sharded)
     ... --device cpu --reduced ...                        (on the CPU)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
@@ -25,8 +27,12 @@ Meshes are of virtual ranks on one device (launch/mesh.py): ``host`` is
 (``comm_backend="pallas"``).  Each bucket's step is captured as a CUDA
 graph and replayed (serving/graphs.py); ``--eager`` runs the steps op by
 op instead, for diagnosis.  The weights are random, from seed 0, as the
-reference's are.  The AR branch serves rwkv6-1.6b, the port's only
-language model.
+reference's are.  The AR branch serves rwkv6-1.6b on one rank and the
+dense and vlm attention LMs (qwen2-1.5b, stablelm-3b, starcoder2-7b,
+chatglm3-6b, qwen2-vl-2b) on any mesh, the KV cache sharded on the sequence
+over the SP axes (``--seq`` is the cache length).  An attention model's
+caches take the model's dtype: the reference's launcher leaves ARServer's
+float32 default, which its cache update refuses for a bfloat16 model.
 """
 from __future__ import annotations
 
@@ -36,17 +42,18 @@ import sys
 
 import torch
 
-from ..configs import DIT_ARCHS, SSM_ARCHS, get_config, get_reduced
+from ..configs import (DENSE_ARCHS, DIT_ARCHS, SSM_ARCHS, get_config,
+                       get_reduced)
 from ..core import SPConfig
 from ..models import init_dit, init_lm
-from ..models.blocks import resolve_device
+from ..models.blocks import resolve_device, torch_dtype
 from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                        JsonlTracker, SamplerConfig, Tracker)
 from ..serving.sched import (SCHEMA_VERSION, CalibrationConfig,
                              ControlConfig, PreemptionPolicy)
 from .mesh import make_host_mesh, make_mesh
 
-LM_ARCHS = SSM_ARCHS  # rwkv6-1.6b
+LM_ARCHS = SSM_ARCHS + DENSE_ARCHS
 
 
 def _mesh_and_sp(args, device: torch.device):
@@ -171,13 +178,19 @@ def main(argv: list[str] | None = None) -> int:
                      f"recalibrations ({srv.plan_cache.invalidations} "
                      f"plan-score invalidations)" if cal else ""))
     else:
-        if args.mesh != "host" or args.model > 1 or args.data > 1:
-            ap.error("the AR decode tick runs on one rank: --mesh host "
-                     "without --model or --data")
+        if cfg.family == "ssm":
+            if args.mesh != "host" or args.model > 1 or args.data > 1:
+                ap.error("the rwkv6 decode tick runs on one rank: --mesh "
+                         "host without --model or --data")
+            mesh, sp, cache_dtype = None, SPConfig(strategy="full"), \
+                torch.float32
+        else:
+            mesh, sp = _mesh_and_sp(args, device)
+            cache_dtype = torch_dtype(cfg.dtype)
         params = init_lm(cfg, gen, device)
-        srv = ARServer(params, cfg, SPConfig(strategy="full"), batch_slots=4,
-                       max_len=args.seq, tracker=tracker, device=device,
-                       capture=capture)
+        srv = ARServer(params, cfg, sp, batch_slots=4, max_len=args.seq,
+                       cache_dtype=cache_dtype, tracker=tracker,
+                       device=device, capture=capture, mesh=mesh)
         for i in range(args.requests):
             srv.submit(ARRequest(rid=i, prompt=torch.arange(1, 4 + i),
                                  max_new_tokens=8))

@@ -7,7 +7,8 @@ Conventions, kept from the reference so weights cross over unchanged:
   * the layer stack is a Python list of per-layer dicts (the reference
     stacks them on a leading "layers" axis for ``lax.scan``).
   * attention dispatches to ``core.sp_attention`` over the context's mesh
-    of virtual ranks; at SP degree 1 that is the flash_mqkv kernel.
+    of virtual ranks (train/prefill; at SP degree 1 that is the flash_mqkv
+    kernel) or to ``core.decode_attention`` (decode).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import SPConfig, displaced_attention, sp_attention
+from ..core import (SPConfig, decode_attention, displaced_attention,
+                   sp_attention)
 
 Params = dict[str, Any]
 
@@ -191,6 +193,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
+def _rope_freqs(rot_dim: int, theta: float, device) -> torch.Tensor:
+    """The [rot_dim // 2] f32 rotary frequencies, taken in float64 on the
+    host and rounded once, so every device gets the same table."""
+    return device_constant(
+        ("rope", rot_dim, theta), device,
+        lambda: torch.tensor([theta ** (-i / rot_dim)
+                              for i in range(0, rot_dim, 2)],
+                             dtype=torch.float32))
+
+
 def _rope_angles(positions: torch.Tensor, rot_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [...] -> (sin, cos) of shape [..., rot_dim // 2], f32.
@@ -200,11 +212,7 @@ def _rope_angles(positions: torch.Tensor, rot_dim: int,
     table.  A device's own f32 pow and sin differ by an ulp or two, and at
     position p an ulp of a frequency moves the angle by p ulps: ~1e-4 rad
     at p ~ 1000, which peaked attention amplifies."""
-    freqs = device_constant(
-        ("rope", rot_dim, theta), positions.device,
-        lambda: torch.tensor([theta ** (-i / rot_dim)
-                              for i in range(0, rot_dim, 2)],
-                             dtype=torch.float32))
+    freqs = _rope_freqs(rot_dim, theta, positions.device)
     ang = (positions[..., None].float() * freqs).double()
     return torch.sin(ang).float(), torch.cos(ang).float()
 
@@ -235,22 +243,49 @@ def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tens
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def _mrope_angles(positions: torch.Tensor, rot_dim: int,
+                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (qwen2-vl §2.1): positions [3, B, L] of the (t, h, w)
+    components, each over one of three sections of the rotary half-dims
+    (sizes ~ equal thirds, the last takes the remainder) -> (sin, cos)
+    [B, L, rot_dim // 2], with _rope_angles' float64 table."""
+    freqs = _rope_freqs(rot_dim, theta, positions.device)
+    half = rot_dim // 2
+    s1, s2 = half // 3, 2 * (half // 3)
+    ang = torch.cat([positions[c][..., None].float() * freqs[lo:hi]
+                     for c, (lo, hi) in enumerate(((0, s1), (s1, s2),
+                                                   (s2, half)))], dim=-1)
+    ang = ang.double()
+    return torch.sin(ang).float(), torch.cos(ang).float()
+
+
 def apply_rope(
     q: torch.Tensor,  # [B, L, H, D]
     k: torch.Tensor,
-    positions: torch.Tensor,  # [B, L]
+    positions: torch.Tensor,  # [B, L] or [3, B, L] for mrope
     *,
     variant: str,
     theta: float,
     rope_pct: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotary embedding of q and k, every variant of the reference: "rope"
+    (partial with ``rope_pct``, stablelm), "rope2d" (chatglm: the first
+    D/2 dims, rotated with the NeoX half split as the reference's code
+    does, not in the interleaved pairs its config's comment names) and
+    "mrope" (qwen2-vl's three position components)."""
     if variant in ("none", "sinusoidal"):
         return q, k
-    if variant != "rope":
-        raise NotImplementedError(f"rope variant {variant!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 7)")
-    rot = int(q.shape[-1] * rope_pct) // 2 * 2
-    sin, cos = _rope_angles(positions, rot, theta)
+    d = q.shape[-1]
+    if variant == "rope2d":
+        rot = d // 2  # chatglm: rotary on half the head dim
+    else:
+        rot = int(d * rope_pct) // 2 * 2
+    if variant == "mrope":
+        sin, cos = _mrope_angles(positions, rot, theta)
+    elif variant in ("rope", "rope2d"):
+        sin, cos = _rope_angles(positions, rot, theta)
+    else:
+        raise ValueError(f"unknown rope variant {variant!r}")
     sin, cos = sin[:, :, None, :], cos[:, :, None, :]
 
     def rot_fn(x):
@@ -292,14 +327,25 @@ def attention(
     p: Params,
     cfg,
     ctx: ParallelContext,
-    positions: torch.Tensor,  # [B, L]
+    positions: torch.Tensor,  # [B, L] or [3, B, L] (mrope)
     *,
+    window: int | None = None,
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cur_index: torch.Tensor | int | None = None,
     causal: bool | None = None,
     extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     return_kv: bool = False,
 ):
     """Self-attention block: projections, RoPE, SP attention, output
-    projection.  Returns [B, L, d].
+    projection.  Returns [B, L, d]; in decode mode ``(out, (k_cache,
+    v_cache))``.
+
+    ``window`` — sliding-window size (keys in (q - window, q]); None is
+    global attention.
+
+    Decode (``ctx.decode``): the new token's K/V go into ``kv_cache`` at
+    ``cur_index`` and q attends the cache through ``core.decode_attention``
+    (the cache is sharded on L over the SP ranks and written in place).
 
     ``extra_kv`` — one-step-stale full-sequence KV of the *non-resident*
     rows for the displaced patch pipeline (K already post-RoPE): the
@@ -309,6 +355,9 @@ def attention(
 
     ``return_kv`` — also return this call's (post-RoPE K, V), as
     ``(out, (k, v))``, so the sampler can populate the stale-KV state.
+
+    The reference's ``xkv`` (whisper's cross-attention) comes with whisper
+    (ROADMAP Queue 1 item 7).
     """
     b_, l_, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -319,12 +368,20 @@ def attention(
     q, k = apply_rope(q, k, positions, variant=cfg.rope, theta=cfg.rope_theta,
                       rope_pct=cfg.rope_pct)
     if extra_kv is not None:
-        if causal or ctx.decode:
+        if causal or ctx.decode or window is not None:
             raise ValueError("displaced attention is DiT-only "
                              "(bidirectional, unwindowed prefill)")
         o = displaced_attention(q, k, v, extra_kv[0], extra_kv[1])
+    elif ctx.decode:
+        if kv_cache is None or cur_index is None:
+            raise ValueError("decode attention needs kv_cache and cur_index")
+        o, kc, vc = decode_attention(q, kv_cache[0], kv_cache[1], k, v,
+                                     cur_index, mesh=ctx.mesh, cfg=ctx.sp,
+                                     window=window)
+        return linear(o.reshape(b_, l_, hq * hd), p["wo"]), (kc, vc)
     else:
-        o = sp_attention(q, k, v, cfg=ctx.sp, mesh=ctx.mesh, causal=causal)
+        o = sp_attention(q, k, v, cfg=ctx.sp, mesh=ctx.mesh, causal=causal,
+                         window=window)
     out = linear(o.reshape(b_, l_, hq * hd), p["wo"])
     return (out, (k, v)) if return_kv else out
 
@@ -333,20 +390,20 @@ def attention(
 # MLPs
 # ---------------------------------------------------------------------------
 
-def _check_act(cfg) -> None:
-    if cfg.act != "gelu":
-        raise NotImplementedError(f"MLP activation {cfg.act!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 7)")
-
-
 def init_mlp(b: ParamBuilder, cfg) -> None:
-    _check_act(cfg)
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        init_linear(b, "mlp/wi_gate", d, ff)
     init_linear(b, "mlp/wi_up", d, ff)
     init_linear(b, "mlp/wo", ff, d,
                 scale=ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 
 def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
-    _check_act(cfg)
-    return linear(gelu(linear(x, p["wi_up"])), p["wo"])
+    if cfg.act == "swiglu":
+        h = F.silu(linear(x, p["wi_gate"])) * linear(x, p["wi_up"])
+    elif cfg.act == "geglu":
+        h = gelu(linear(x, p["wi_gate"])) * linear(x, p["wi_up"])
+    else:
+        h = gelu(linear(x, p["wi_up"]))
+    return linear(h, p["wo"])

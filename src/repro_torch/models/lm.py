@@ -1,26 +1,30 @@
-"""Decoder-only language model of the port: the attention-free RWKV6
-family (``family == "ssm"``, rwkv6-1.6b) of the reference's unified
-``models/lm.py``.
+"""Decoder-only language models of the port: the attention-free RWKV6
+family (``family == "ssm"``, rwkv6-1.6b) and the attention families
+``dense`` (qwen2-1.5b, stablelm-3b, starcoder2-7b, chatglm3-6b) and ``vlm``
+(qwen2-vl-2b's backbone) of the reference's unified ``models/lm.py``.
 
-Per layer (the reference's ssm branch of ``_layer``):
+Per layer (the reference's ``_layer``):
 
-  time mix    : token shift, data-dependent decay w = exp(-exp(w0 + lora)),
-                the WKV recurrence over the sequence, per-head group norm,
-                silu gate, output projection
-  channel mix : token shift, squared-relu MLP, sigmoid receptance gate
+  rwkv6  : time mix (token shift, data-dependent decay, the WKV recurrence,
+           group norm, silu gate) and channel mix (token shift, squared-relu
+           MLP, sigmoid gate)
+  dense  : norm -> attention (RoPE variant, GQA, causal, sliding window)
+           -> residual; norm -> MLP (swiglu / geglu / gelu) -> residual
 
-Prefill runs the WKV recurrence through ``_distributed_scan_rwkv``: at SP
-degree 1 that is the WKV kernel K5 (kernels/rwkv6_wkv.py), once per layer;
-over a mesh of virtual ranks, K5 on every rank's shard plus the two-pass
-distributed prefix scan of models/ssm.py.  Decode threads per-layer caches
-(shift_tm, shift_cm, wkv_state) through ``rwkv6_decode_step``, with no
-kernel.
+rwkv6 prefill runs the WKV recurrence through ``_distributed_scan_rwkv``:
+at SP degree 1 that is the WKV kernel K5 (kernels/rwkv6_wkv.py), once per
+layer; over a mesh of virtual ranks, K5 on every rank's shard plus the
+two-pass distributed prefix scan of models/ssm.py.  Attention prefill runs
+``core.sp_attention``: K1 at degree 1, the SP schedule (K1, K2 and the put
+kernels) over a mesh.  Decode threads per-layer caches: (shift_tm,
+shift_cm, wkv_state) through ``rwkv6_decode_step``, and the attention KV
+caches, sharded on L over the SP ranks, through ``core.decode_attention``
+(plain torch, as the reference's), written in place.
 
 The reference runs the layers in one ``lax.scan`` over stacked weights;
 here they are a Python loop over a list of per-layer dicts, and caches
-stay stacked on a leading layer axis, as the reference's.  The other
-families (dense, moe, hybrid, vlm) and whisper are not ported yet
-(ROADMAP Queue 1 item 7).
+stay stacked on a leading layer axis, as the reference's.  The moe and
+hybrid families and whisper are not ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -30,15 +34,20 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.decode import device_index
 from ..kernels.rwkv6_wkv import rwkv6_wkv_heads
 from . import ssm
 from .blocks import (
     ParallelContext,
     ParamBuilder,
     Params,
+    attention,
+    init_attention,
     init_linear,
+    init_mlp,
     init_norm,
     linear,
+    mlp,
     norm,
     params_from_numpy,
     resolve_device,
@@ -48,11 +57,15 @@ from .blocks import (
 LM_ITEM = "ROADMAP Queue 1 item 7"
 
 
+ATTENTION_FAMILIES = ("dense", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+    if cfg.family != "ssm" and cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}): only the rwkv6 (ssm) language "
-            f"model is ported; the other families wait for {LM_ITEM}")
+            f"{cfg.arch_id} ({cfg.family}): the port's language models are "
+            f"the rwkv6 (ssm), dense and vlm families; the {cfg.family} "
+            f"family waits for {LM_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -87,13 +100,26 @@ def _init_rwkv_layer(b: ParamBuilder, cfg: ModelConfig) -> Params:
     return b.params
 
 
+def _init_attention_layer(b: ParamBuilder, cfg: ModelConfig) -> Params:
+    """A dense / vlm layer (the reference's ``_init_layer`` without its moe
+    and hybrid branches)."""
+    b.params = {}
+    init_norm(b, "ln_attn", cfg.d_model, cfg.norm)
+    init_attention(b, cfg)
+    init_norm(b, "ln_mlp", cfg.d_model, cfg.norm)
+    init_mlp(b, cfg)
+    return b.params
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
             device: str | torch.device | None = None) -> Params:
     """Fresh LM parameters on ``device`` (CUDA by default), drawn from
     ``generator`` (one on that device; seeded with 0 when None), with the
     reference's shapes and distributions.  The decay base ``w0``, the bonus
     ``u``, every ``mu_*`` and ``wlora_b`` start at zero, as in the
-    reference: perturb them before comparing anything."""
+    reference: perturb them before comparing anything.  An attention
+    model's biases start at zero and its norms at one, as the
+    reference's."""
     _check_family(cfg)
     device = resolve_device(device)
     if generator is None:
@@ -104,7 +130,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
         init_linear(b, "lm_head", cfg.d_model, cfg.vocab)
     init_norm(b, "ln_f", cfg.d_model, cfg.norm)
     params = b.params
-    params["layers"] = [_init_rwkv_layer(b, cfg) for _ in range(cfg.n_layers)]
+    init_layer = (_init_rwkv_layer if cfg.family == "ssm"
+                  else _init_attention_layer)
+    params["layers"] = [init_layer(b, cfg) for _ in range(cfg.n_layers)]
     return params
 
 
@@ -121,21 +149,26 @@ def load_jax_lm_params(tree: Mapping[str, Any], cfg: ModelConfig,
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: str | torch.device | None = None) -> Params:
-    """Decode caches stacked over layers, as the reference's.  The token
-    shift caches take the dtype of the activations they store from the
-    first step on (the reference's scan outputs do the same); the WKV state
-    stays float32."""
+    """Decode caches stacked over layers, as the reference's.  rwkv6: the
+    token shift caches take the dtype of the activations they store from
+    the first step on (the reference's scan outputs do the same); the WKV
+    state stays float32.  Attention: the K and V caches [n_layers, batch,
+    max_len, Hkv, D], sharded on max_len over the SP ranks in decode; their
+    dtype must be the activations' (``core.decode_attention``)."""
     _check_family(cfg)
     device = resolve_device(device)
-    nl, h = cfg.n_layers, cfg.ssm.n_ssm_heads
+    nl = cfg.n_layers
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                device=device)
+    if cfg.family in ATTENTION_FAMILIES:
+        shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+    h = cfg.ssm.n_ssm_heads
     n = cfg.d_model // h
     return {
-        "shift_tm": torch.zeros((nl, batch, 1, cfg.d_model), dtype=dtype,
-                                device=device),
-        "shift_cm": torch.zeros((nl, batch, 1, cfg.d_model), dtype=dtype,
-                                device=device),
-        "wkv_state": torch.zeros((nl, batch, h, n, n), dtype=torch.float32,
-                                 device=device),
+        "shift_tm": zeros((nl, batch, 1, cfg.d_model)),
+        "shift_cm": zeros((nl, batch, 1, cfg.d_model)),
+        "wkv_state": zeros((nl, batch, h, n, n), torch.float32),
     }
 
 
@@ -260,36 +293,93 @@ def _layer(x, lp, cfg: ModelConfig, ctx: ParallelContext, cache):
     return x, new_cache
 
 
+def _attention_layer(x, lp, cfg: ModelConfig, ctx: ParallelContext,
+                     positions, window, cache, cur_index):
+    """One dense / vlm layer (the reference's attention branch of
+    ``_layer``).  Returns (x, new_cache)."""
+    h_ = norm(x, lp["ln_attn"], cfg.norm)
+    new_cache: dict[str, Any] = {}
+    if ctx.decode:
+        attn_out, (new_cache["k"], new_cache["v"]) = attention(
+            h_, lp["attn"], cfg, ctx, positions, window=window,
+            kv_cache=(cache["k"], cache["v"]), cur_index=cur_index)
+    else:
+        attn_out = attention(h_, lp["attn"], cfg, ctx, positions,
+                             window=window)
+    x = x + attn_out
+    x = x + mlp(norm(x, lp["ln_mlp"], cfg.norm), lp["mlp"], cfg)
+    return x, new_cache
+
+
+def _default_positions(cfg: ModelConfig, ctx: ParallelContext, b: int,
+                       l: int, cur_index, device) -> torch.Tensor:
+    """[B, L] token positions (decode: the one position ``cur_index``), or
+    [3, B, L] with the three M-RoPE components equal."""
+    if ctx.decode:
+        if cur_index is None:
+            raise ValueError("decode needs cur_index")
+        base = cur_index.expand(b, 1)
+    else:
+        base = torch.arange(l, device=device)[None].expand(b, l)
+    if cfg.rope == "mrope":
+        return base[None].expand(3, b, base.shape[1])
+    return base
+
+
 def lm_forward(
     params: Params,
     cfg: ModelConfig,
     ctx: ParallelContext,
     *,
-    tokens: torch.Tensor,  # [B, L] int
+    tokens: torch.Tensor | None = None,  # [B, L] int
+    inputs_embeds: torch.Tensor | None = None,  # [B, L, d] (vlm frontend)
+    positions: torch.Tensor | None = None,  # [B, L] or [3, B, L] (mrope)
     caches: Params | None = None,  # decode caches, stacked over layers
     cur_index: Any = None,
     last_only: bool = False,  # prefill: logits for the final position only
 ) -> tuple[torch.Tensor, torch.Tensor, Params | None]:
     """Returns (logits [B, L, V] (or [B, 1, V] if last_only), aux, caches).
 
-    ``cur_index`` (the decode position) is accepted for the reference's
-    signature; the recurrent state needs no position.  As the reference's
-    layer scan keeps its carry's dtype, every layer's output is cast back
-    to the embedding's dtype: a bfloat16 model decoding from float32
-    caches stays in bfloat16 between layers."""
+    ``cur_index`` is the decode position (an int or a 0-d device tensor):
+    attention writes the new K/V there; the recurrent state needs none.
+    ``inputs_embeds`` replaces the token embedding (qwen2-vl's stubbed
+    vision frontend hands in patch and text embeddings), ``positions`` the
+    default ``arange`` (qwen2-vl's [3, B, L] M-RoPE ids).  As the
+    reference's layer scan keeps its carry's dtype, every layer's output
+    is cast back to the input's dtype: a bfloat16 model decoding from
+    float32 rwkv6 caches stays in bfloat16 between layers.  Attention
+    caches are updated in place and returned."""
     _check_family(cfg)
-    x = params["embed"].to(torch_dtype(cfg.dtype))[tokens]
+    if inputs_embeds is not None:
+        x = inputs_embeds
+    else:
+        x = params["embed"].to(torch_dtype(cfg.dtype))[tokens]
+    attn = cfg.family in ATTENTION_FAMILIES
+    if attn and cur_index is not None:
+        cur_index = device_index(cur_index, x.device)
+    if attn and positions is None:
+        positions = _default_positions(cfg, ctx, x.shape[0], x.shape[1],
+                                       cur_index, x.device)
+    # every layer of the dense family shares cfg.window (starcoder2); the
+    # reference's per-layer rule for hymba comes with the hybrid family
+    window = cfg.window or None
     per_layer = []
     for i, lp in enumerate(params["layers"]):
         cache = ({name: c[i] for name, c in caches.items()}
                  if caches is not None else None)
-        y, new_cache = _layer(x, lp, cfg, ctx, cache)
+        if attn:
+            y, new_cache = _attention_layer(x, lp, cfg, ctx, positions,
+                                            window, cache, cur_index)
+        else:
+            y, new_cache = _layer(x, lp, cfg, ctx, cache)
         x = y.to(x.dtype)
         per_layer.append(new_cache)
     new_caches = None
     if caches is not None:
-        new_caches = {name: torch.stack([c[name] for c in per_layer])
-                      for name in caches}
+        # attention caches were written in place: the same tensors
+        new_caches = dict(caches) if attn else {
+            name: torch.stack([c[name] for c in per_layer])
+            for name in caches}
 
     if last_only:
         x = x[:, -1:]

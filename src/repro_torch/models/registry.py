@@ -6,8 +6,10 @@
     out, caches  = bundle.step(params, batch, caches, idx, cfg, ctx)  # decode
     caches       = bundle.init_caches(cfg, batch, max_len, dtype, device)
 
-Batches are plain dicts.  The reference's ``loss`` and ``input_specs``
-come with training (ROADMAP Queue 1 item 7); so does whisper.
+Batches are plain dicts: ``tokens``, and for the vlm family
+``inputs_embeds`` (prefill) and [3, B, L] M-RoPE ``positions``.  The
+reference's ``loss`` and ``input_specs`` come with training (ROADMAP
+Queue 1 item 7); so does whisper.
 """
 from __future__ import annotations
 
@@ -26,15 +28,23 @@ class ModelBundle:
 
 
 def _lm_apply(params, batch, cfg, ctx, last_only=False):
-    logits, _, _ = lm_mod.lm_forward(params, cfg, ctx, tokens=batch["tokens"],
-                                     last_only=last_only)
+    logits, _, _ = lm_mod.lm_forward(
+        params, cfg, ctx,
+        tokens=batch.get("tokens"),
+        inputs_embeds=batch.get("inputs_embeds"),
+        positions=batch.get("positions"),
+        last_only=last_only,
+    )
     return logits
 
 
 def _lm_step(params, batch, caches, cur_index, cfg, ctx):
     logits, _, new_caches = lm_mod.lm_forward(
-        params, cfg, ctx, tokens=batch["tokens"], caches=caches,
-        cur_index=cur_index)
+        params, cfg, ctx,
+        tokens=batch.get("tokens"),
+        positions=batch.get("positions"),
+        caches=caches, cur_index=cur_index,
+    )
     return logits[:, -1], new_caches
 
 

@@ -13,7 +13,9 @@ parallelism with padding rows, and the displaced patch pipeline with its
 drift-triggered resync.
 
 ARServer — fixed-slot batched greedy decoding for the language models
-(the ported one is rwkv6-1.6b), with aged-priority slot admission.
+(rwkv6-1.6b and the dense and vlm attention LMs, whose KV caches are
+sharded on the sequence over the mesh's SP ranks), with aged-priority slot
+admission.
 
 Where the reference compiles one step per bucket shape (and its AR tick
 once), the port captures each as a CUDA graph and replays it
@@ -570,7 +572,10 @@ class Slot:
 class ARServer:
     """Fixed-slot continuous batching over per-slot decode caches, on one
     device (CUDA unless the caller asks for another; ``params`` must
-    already live there).
+    already live there).  With a ``mesh`` of virtual ranks, an attention
+    model's KV caches are sharded on the sequence over ``sp.sp_axes``
+    (``core.decode_attention``; ``max_len`` must split evenly over them)
+    and the mesh's device is the server's.
 
     Prefill is teacher-forced decode of the prompt (one engine, one cache
     layout), as in the reference.  Freed slots are filled by effective
@@ -580,13 +585,18 @@ class ARServer:
     competitor.  Ties reduce to FIFO.
 
     As in the reference, a slot's caches are not reset when a new request
-    takes it, and all slots share one ``cur_index`` per tick; the
-    recurrent model reads no position, so only the first matters to it
-    (ROADMAP Queue 3, F4).  Where the reference jits the step, the tick
-    is captured as a CUDA graph on CUDA (``capture``, as in
-    ``DiTServer``): the slot tokens and ``cur_index`` go through static
-    device buffers, the caches through fixed ones, and ``nxt.tolist()``
-    reads the tokens after the replay.
+    takes it, and all slots share one ``cur_index`` per tick (ROADMAP
+    Queue 3, F4): the recurrent model reads no position, so only the
+    carried state matters to it; an attention model admitted late writes
+    its keys at the position of the slot that ticks first and attends the
+    previous occupant's keys below it.  An attention model's caches must
+    have the model's dtype (``cache_dtype``), as the reference's cache
+    update requires.  Where the reference jits the step, the tick is
+    captured as a CUDA graph on CUDA (``capture``, as in ``DiTServer``):
+    the slot tokens and ``cur_index`` go through static device buffers,
+    the caches through fixed ones (attention caches are written in place,
+    so they stay the graph's own buffers), and ``nxt.tolist()`` reads the
+    tokens after the replay.
     """
 
     def __init__(self, params, cfg: ModelConfig, sp: SPConfig,
@@ -594,15 +604,24 @@ class ARServer:
                  cache_dtype: torch.dtype = torch.float32,
                  aging_rate: float = 0.1, tracker: Tracker | None = None,
                  device: str | torch.device | None = None,
-                 capture: bool | None = None):
-        self.device = resolve_device(device)
+                 capture: bool | None = None, mesh=None):
+        if mesh is not None:
+            given = torch.device(device) if device is not None else None
+            if given is not None and (
+                    given.type != mesh.device.type or given.index not in (
+                        None, mesh.device.index)):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         w = params["embed"]
         if w.device.type != self.device.type:
             raise ValueError(f"params are on {w.device}, server on "
                              f"{self.device}")
         self.params = params
         self.cfg = cfg
-        self.ctx = ParallelContext(sp, "decode", self.device)
+        self.ctx = ParallelContext(sp, "decode", self.device, mesh=mesh)
         self.bundle = get_model(cfg)
         self.slots = [Slot() for _ in range(batch_slots)]
         self.max_len = max_len

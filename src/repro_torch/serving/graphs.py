@@ -46,6 +46,10 @@ The hazards a captured step meets, and what this module does about each:
   * *Launch counters count Python calls.*  A capture launches nothing, so
     the counts it added are taken back, kept as the step's launches per
     replay, and added at every replay.
+  * *Garbage collection.*  A collection during a capture that frees an
+    unreachable server destroys its graphs, which a capture forbids:
+    garbage is collected before a capture and collection is off during
+    it.
   * *Profiling.*  A profiled step's timing events are captured as
     external event-record nodes; after each replay the profiler reads
     them (one synchronisation) and files them as that replay's
@@ -62,6 +66,7 @@ replay that fails raises.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import time
 from typing import Any, Callable
@@ -145,10 +150,22 @@ class _CudaGraph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def capture(self, fn: Callable[[], Any]) -> tuple[Any, float, float]:
-        """(outputs, capture seconds, instantiation seconds)."""
+        """(outputs, capture seconds, instantiation seconds).
+
+        No garbage collection while capturing: a collection that frees an
+        unreachable server (servers are reference cycles) destroys its
+        graphs, which a capture forbids, and the capture fails.  The
+        garbage is collected just before instead, outside the timing."""
+        gc.collect()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, pool=self.pool):
-            out = fn()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                out = fn()
+        finally:
+            if enabled:
+                gc.enable()
         t1 = time.perf_counter()
         self.graph.instantiate()
         return out, t1 - t0, time.perf_counter() - t1

@@ -24,8 +24,11 @@ from repro_torch.serving import metrics as t_met
 from repro_torch.serving import sched as t_sched
 
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
+DENSE_CONFIGS = ["qwen2_1_5b", "stablelm_3b", "starcoder2_7b", "chatglm3_6b",
+                 "qwen2_vl_2b"]
 VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
             "configs/cogvideox_5b.py", "configs/shapes.py",
+            *(f"configs/{n}.py" for n in DENSE_CONFIGS),
             "core/calibration.py",
             "serving/metrics.py",
             *(f"serving/sched/{n}.py" for n in (
@@ -39,7 +42,8 @@ def test_copy_is_verbatim(rel):
             == (ROOT / "repro" / rel).read_text())
 
 
-@pytest.mark.parametrize("arch", ["flux-12b", "cogvideox-5b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["flux-12b", "cogvideox-5b", "rwkv6-1.6b",
+                                  *t_configs.DENSE_ARCHS])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_equals_reference(arch, which):
     """Every field of the port's config, full and reduced, equals the

@@ -78,6 +78,16 @@ def test_rwkv_modules_are_covered(name):
     assert f"repro_torch.{name}" in MODULES
 
 
+@pytest.mark.parametrize("name", [
+    *(f"configs.{n}" for n in ("qwen2_1_5b", "stablelm_3b", "starcoder2_7b",
+                               "chatglm3_6b", "qwen2_vl_2b")),
+    "core.decode"])
+def test_dense_lm_modules_are_covered(name):
+    """The attention LMs' configs and the decode attention are among the
+    modules scanned and imported with jax blocked above."""
+    assert f"repro_torch.{name}" in MODULES
+
+
 @pytest.mark.parametrize("name", ["serving.graphs", "launch.serve"])
 def test_capture_and_launcher_modules_are_covered(name):
     """The captured steps and the serving launcher are among the modules

@@ -59,13 +59,86 @@ def test_cuda_kernel_matches_plain(cuda, dtype, tol, d, causal, window, group):
 
 @pytest.mark.needs_cuda
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((2, 16, 48), device=cuda)
+    """A head dim above the largest instantiation (those between run
+    zero-padded: test_cuda_kernel_pads_other_head_dims) and a dtype other
+    than float32 and bfloat16."""
+    q = torch.zeros((2, 16, 160), device=cuda)
     pos = torch.arange(16, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         fm.flash_mqkv(q, q, q, pos, pos)
     q = torch.zeros((2, 16, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fm.flash_mqkv(q, q, q, pos, pos)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("state", [False, True])
+def test_cuda_kernel_pads_other_head_dims(cuda, dtype, tol, d, state):
+    """A head dim between the instantiations (stablelm-3b's 80) launches
+    once at the next one up, zero-padded, with the true head dim's scale:
+    (o, l, m) as the plain version's at d, a carried o' included."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    q, k, v = mk(6, 70, d), mk(2, 90, d), mk(2, 90, d)
+    qp = torch.arange(70, dtype=torch.int32, device=cuda) + 20
+    kp = torch.arange(90, dtype=torch.int32, device=cuda)
+    kw = dict(group=3, causal=True, window=40, finalize=not state)
+    if state:
+        kw["state"] = fm.flash_mqkv_plain(q, k, v, qp, kp, group=3,
+                                          scale=d ** -0.5, finalize=False)
+    before = fm.launch_count()
+    got = fm.flash_mqkv(q, k, v, qp, kp, **kw)
+    assert fm.launch_count() == before + 1
+    want = fm.flash_mqkv_plain(q, k, v, qp, kp, scale=d ** -0.5, **kw)
+    assert got[0].shape == (6, 70, d) and got[0].is_contiguous()
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("hq,hkv,window", [(12, 2, None), (36, 4, 300),
+                                           (32, 2, None)])
+def test_cuda_causal_gqa_matches_plain(cuda, hq, hkv, window):
+    """The dense LMs' prefill through flash_attention: causal GQA with the
+    groups of qwen2-1.5b (6), starcoder2-7b (9, window) and chatglm3-6b
+    (16), bf16, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(hq)
+    mk = lambda h: torch.randn((1, 700, h, 128), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+    q, k, v = mk(hq), mk(hkv), mk(hkv)
+    before = fm.launch_count()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert fm.launch_count() == before + 1
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                           window=window)
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.needs_cuda
+def test_cuda_swift_torus_head_dim_80_matches_cpu(cuda):
+    """SP at head dim 80 on mesh (pod 2, model 4) (8 / 4 heads: P_u 4 x
+    P_r 2): the ring path pads the chunks it circulates to 128 once, K1 and
+    K2 launch, causal masks on discontiguous chunks; the CPU's plain route
+    at D 80 is the oracle."""
+    gen = torch.Generator().manual_seed(80)
+    q, k, v = (torch.randn((2, 64, h, 80), generator=gen) for h in (8, 4, 4))
+    cfg = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                   batch_axes=None, comm_backend="pallas",
+                   kernel_interpret=False)
+    want = sp_attention(q, k, v, cfg=cfg,
+                        mesh=make_mesh((2, 4), ("pod", "model"), "cpu"),
+                        causal=True)
+    before = (fm.launch_count(), rf.launch_count())
+    got = sp_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg=cfg,
+                       mesh=make_mesh((2, 4), ("pod", "model"), cuda),
+                       causal=True)
+    assert fm.launch_count() > before[0] and rf.launch_count() > before[1]
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
 @pytest.mark.needs_cuda

@@ -57,7 +57,8 @@ def test_serve_pod_mesh_profiles_on_the_kernel_path(tmp_path, capsys):
 
 def test_serve_refuses_what_it_cannot_serve():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
+                    "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "flux-12b", "--metrics", "a", "--profile", "b",
                     "--device", "cpu"])
