@@ -58,10 +58,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  captured server prints one line per graph (capture and
                  instantiation host seconds, replays, launches per
                  replay).
-  9. serve-sp  — the same server, weights and requests under swift_torus on
-                 mesh (pod 2, model 8): finite, moved latents, K1/K2/K4
+  9. serve-sp  — the same server, requests and weights (the first
+                 SERVE_SP_LAYERS layers; PR 19 ran all 96) under
+                 swift_torus on mesh (pod 2, model 8): finite, moved latents, K1/K2/K4
                  launch counts as the schedule implies, and latents within
-                 SERVE_SP_TOL of the degree-1 latents.  Then the 1024-latent
+                 SERVE_SP_TOL of a degree-1 server's at the same depth.  Then the 1024-latent
                  request on mesh (model 16) (K3), and once more on (pod 2,
                  model 8) with one KV chunk of every attention dropped,
                  which must break SERVE_SP_TOL.
@@ -126,7 +127,8 @@ Phases 15 to 21 run after serve-sp (20 right after it):
                  cogvideox-5b at full width and depth (42 layers, bf16), one
                  request of 49,152 latent tokens, COGVIDEO_STEPS steps:
                  finite, moved latents, K1 launched 42 x forwards.
- 18. serve-hybrid — DiTServer on the same weights over mesh (cfg 2, pipe 2,
+ 18. serve-hybrid — DiTServer on the same weights (the first HYBRID_LAYERS
+                 layers; PR 17 ran all 42) over mesh (cfg 2, pipe 2,
                  data 1, model 4): swift_torus on the model axis (K1 and the
                  direct put K3), the CFG pair (guidance 4) on the cfg axis,
                  the displaced pipeline (pp 2, 4 patches) with its hand-offs
@@ -152,7 +154,7 @@ Phases 15 to 21 run after serve-sp (20 right after it):
                  device time and put time.
  20. profile   — run right after serve-sp, on its weights:
                  DiTServer(profile=True) on flux-12b at full width and
-                 depth on mesh (pod 2, model 8), one 1024-latent request,
+                 SERVE_SP_LAYERS layers on mesh (pod 2, model 8), one 1024-latent request,
                  PROFILE_STEPS steps (an eager warm-up, the capture and its
                  replay, a replay): latents bitwise those of profile=False,
                  the spans' JSONL passing ``python -m
@@ -211,6 +213,46 @@ starcoder2's window, stablelm's head dim 80) beside the bound over the
 visible pairs, its plain version and SDPA; serve-cli adds qwen2-1.5b at
 degree 1 and on --mesh pod.
 
+Phases 28 to 34 (after serve-dense) settle the bf16 parting of the
+launcher's SP decode and serve the hybrid and MoE LMs:
+
+ 28. decode-gap — the serve-cli qwen2-1.5b decode (the launcher's weights
+                 and requests) at degree 1 and on mesh (pod 2, model 8),
+                 token by token: where the runs' tokens part, the top-2
+                 logit gap, the runs' logit difference and bf16's spacing;
+                 in float32 the runs must agree, and every bf16 parting
+                 must be a near-tie within the runs' logit difference.
+ 29. hymba-block — one full-width float32 hymba-1.5b layer (attention and
+                 the SSD branch, mean-combined) through K1 on the card
+                 against the CPU's plain path at L HYMBA_BLOCK_L, as a
+                 global layer (window 1 << 30) and as a windowed one (2048),
+                 one K1 each, within LM_BLOCK_TOL; the two must differ.
+ 30. hymba-prefill — hymba-1.5b at full width and depth (32 layers, bf16),
+                 B 4 x L 4096, last_only: 32 K1 launches, wall clock,
+                 device time, idle share, top kernels, K1's share; then SP
+                 prefill on (pod 2, data 2, model 2) at 4 layers, float32,
+                 within FAMILY_SP_TOL of degree 1, with its launches.
+ 31. serve-hymba — ARServer on it (4 slots, bf16 caches): captured tokens
+                 bitwise the eager server's; tick wall clock both ways.
+ 32. moe-block — qwen2-moe-a2.7b's MoE layer at full width, float32,
+                 capacity 8.0: EP 1 and EP 4 on mesh (model 4) (the
+                 dispatch's three exchanges as 9 K3, or 9 K4, launches)
+                 within MOE_TOL of the dense function and of each other.
+ 33. moe-prefill — qwen2-moe-a2.7b at full width and depth (24 layers, 60
+                 routed + 4 shared experts, bf16), B 4 x L 4096, last_only:
+                 24 K1, wall clock, device time, idle share, top kernels,
+                 the shares of the expert products and of routing +
+                 dispatch + combine; SP prefill on (pod 2, data 2, model 2)
+                 at 2 layers, float32, capacity 8.0 (experts over model: 6
+                 K3) within FAMILY_SP_TOL of degree 1.
+ 34. serve-moe — ARServer on it: tokens bitwise, tick wall clock captured
+                 and eager against the weight-read floor.
+The numbers phase adds K1 at hymba's window and global shapes and at
+qwen2-moe's causal shape (beside SDPA, the bound over the visible pairs and
+its plain version) and K3/K4 on the EP dispatch put (beside one copy_);
+serve-cli adds hymba-1.5b and qwen2-moe-a2.7b at degree 1 and on --mesh
+pod.
+
 A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
@@ -248,6 +290,12 @@ FLUX_TOL = {"o": (1e-2, 5e-3), "o'": (5e-3, 5e-3), "l": (1e-5, 5e-6),
 BLOCK_TOL = 1e-4  # block, card vs CPU, relative to max|out|
 FLUX_SHAPES = ((24, 1280), (48, 1280), (24, 4352), (48, 4352))  # (BH, L)
 STEPS = 4  # sampler steps of the serve phases
+# serve-sp's and profile's depth of flux-12b's 96 layers (PR 19 ran them at
+# 96: ~30 s to capture and instantiate each SP graph).  serve-sp's negative
+# control (one KV chunk of every attention dropped) shrinks with depth: on
+# an H100 it read 6.0e-2 at 96 layers and 3.4e-2 at 32 against
+# SERVE_SP_TOL 0.03
+SERVE_SP_LAYERS = 48
 ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
 SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv")  # csrc/<name>.cu
 # serve-sp latents vs the degree-1 serve, as ||x_sp - x_1|| / ||x_1 - noise||
@@ -1097,11 +1145,31 @@ def serve(results: dict, card: str, params, cfg, conds) -> dict:
             "noise": noise}
 
 
-def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
+def degree1_latents(params, cfg, conds, requests=REQUESTS) -> dict:
+    """The captured degree-1 server's latents on ``requests``, with their
+    noise and step wall clocks: the oracle of a cut-depth SP run."""
+    from repro_torch.core import SPConfig
+    from repro_torch.serving import DiTRequest
+
+    out, _, _, _, srv = run_server(params, cfg, conds, requests,
+                                   SPConfig(strategy="full"))
+    return {"latents": {rid: r.latents for rid, r in out.items()},
+            "noise": {rid: srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1,
+                                      seq)[0] for rid, seq in requests},
+            "step_times": {dict(requests)[rid]: r.step_times
+                           for rid, r in out.items()}}
+
+
+def serve_sp(results: dict, card: str, params, cfg, conds) -> None:
+    """Phase 9 at SERVE_SP_LAYERS of flux-12b's 96 layers (``params`` and
+    ``cfg`` cut to that depth), against a degree-1 server of the same
+    depth."""
     import torch
     from repro_torch.core import torus
     from repro_torch.core.softmax import empty_partial
     from repro_torch.launch import make_mesh
+
+    deg1 = degree1_latents(params, cfg, conds)
 
     def mesh_of(name):
         shape, axes, sp_axes, put = SP_MESHES[name]
@@ -1133,7 +1201,8 @@ def serve_sp(results: dict, card: str, params, cfg, conds, deg1: dict) -> None:
         log(f"serve-sp rid={rid}: latents vs degree 1 ||d||/||x1-noise|| = "
             f"{errs[rid]:.3e} (tol {SERVE_SP_TOL}); step wall clock "
             f"{[round(t, 4) for t in r.step_times]} s vs degree 1 "
-            f"{[round(t, 4) for t in results['step_times'][seq]]} s [{card}]")
+            f"{[round(t, 4) for t in deg1['step_times'][seq]]} s at "
+            f"{cfg.n_layers} layers [{card}]")
         results.setdefault("sp_step_times", {})[seq] = r.step_times
     # every measurement of the phase is printed before any limit is checked
     checks = [(counts == want, f"serve-sp launches {counts} != {want}"),
@@ -1298,6 +1367,7 @@ COGVIDEO_STEPS = 2  # sampler steps of serve-cogvideox
 # displaced pipeline over two stages; STEPS steps
 HYBRID_MESH = (2, 2, 1, 4)
 HYBRID_LATENTS = 12_288
+HYBRID_LAYERS = 8  # serve-hybrid's depth of cogvideox-5b's 42 layers
 HYBRID_PIPE = dict(pp=2, num_patches=4)
 GUIDANCE = 4.0
 # displaced latents vs the all-warm run: the reference's bound, 0.05 of
@@ -2130,14 +2200,22 @@ SERVE_CLI = (
     ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4"]),
     ("qwen2-1.5b mesh pod", ["--arch", "qwen2-1.5b", "--mesh", "pod",
                              "--requests", "4"]),
+    ("hymba-1.5b degree 1", ["--arch", "hymba-1.5b", "--requests", "2"]),
+    ("hymba-1.5b mesh pod", ["--arch", "hymba-1.5b", "--mesh", "pod",
+                             "--requests", "2"]),
+    ("qwen2-moe-a2.7b degree 1", ["--arch", "qwen2-moe-a2.7b",
+                                  "--requests", "2"]),
+    ("qwen2-moe-a2.7b mesh pod", ["--arch", "qwen2-moe-a2.7b", "--mesh",
+                                  "pod", "--requests", "2"]),
 )
 
 
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
     size with random weights: flux-12b at degree 1 and on the paper's mesh
-    (pod 2, model 8), rwkv6-1.6b, and qwen2-1.5b at degree 1 and with its
-    KV cache sharded over (pod 2, model 8); each run prints its requests,
+    (pod 2, model 8), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
+    qwen2-moe-a2.7b at degree 1 and with the KV cache sharded over (pod 2,
+    model 8) (the experts over model 8); each run prints its requests,
     the DiT runs their scheduler line, and every run its captured
     graphs."""
     import os
@@ -3273,53 +3351,20 @@ def dense_decode(results: dict, card: str, params, cfg) -> None:
 
 
 def serve_dense(results: dict, card: str, params, cfg) -> None:
-    """Phase 27, serve-dense: ARServer on the bf16 qwen2-1.5b (28 layers,
-    bf16 KV caches: the reference's cache update takes the model's dtype)
-    with 4 slots, the LM_REQUESTS, LM_NEW_TOKENS new tokens each; its tick
-    captured as a CUDA graph, then the same requests with capture=False:
-    the tokens bitwise equal, each tick's wall clock captured against
-    eager."""
-    import torch
-    run = lambda capture: run_ar_server(params, cfg, capture, torch.bfloat16,
-                                        seed=23)
-    srv, out, wall, ticks = run(None)
-    tr = srv.tracker
-    counts = {n: tr.counter_total(f"ar.{n}")
-              for n in ("submitted", "admitted", "ticks", "completed")}
-    lens = {rid: len(v) for rid, v in sorted(out.items())}
-    n = len(LM_REQUESTS)
-    ok = (sorted(out) == [r for r, *_ in LM_REQUESTS]
-          and all(v == LM_NEW_TOKENS for v in lens.values())
-          and all(0 <= t < cfg.vocab for v in out.values() for t in v)
-          and counts["submitted"] == counts["admitted"] == counts["completed"] == n)
-    step = srv._step
-    if not ok or step.graph is None:
-        fail(f"serve-dense: results {out}, counters {counts}, graph "
-             f"{step.graph}")
-    log(f"serve-dense: qwen2-1.5b {cfg.n_layers} layers bf16, {len(out)} "
-        f"requests, {counts['ticks']:.0f} ticks in {wall:.2f} s, tokens per "
-        f"request {lens}, counters {counts}; graph captured after "
-        f"{step.calls - step.replays} eager tick, capture {step.capture_s:.3f} s, "
-        f"instantiation {step.instantiate_s:.3f} s (host), {step.replays} "
-        f"replays [{card}]")
-    replayed = ticks[len(ticks) - step.replays + 1:]  # after the capture
-    del srv, step
-    _, eager, ewall, eticks = run(False)
-    same = eager == out
-    log(f"capture serve-dense: captured tokens equal the eager server's "
-        f"{same}; tick wall clock median {median(replayed) * 1e3:.2f} ms "
-        f"captured (replays) vs {median(eticks) * 1e3:.2f} ms eager; "
-        f"{wall:.2f} s vs {ewall:.2f} s in all [{card}]")
-    if not same:
-        fail("capture serve-dense: captured tokens differ from eager")
-    results["serve_dense"] = (median(replayed), median(eticks))
+    """Phase 27, serve-dense: ARServer on the bf16 qwen2-1.5b (28 layers)
+    through serve_ar."""
+    serve_ar(results, card, params, cfg, "serve-dense", seed=23)
 
 
-# (label, B, Hq, Hkv, L, D, window): K1 on the dense LMs' prefill shapes
+# (label, B, Hq, Hkv, L, D, window): K1 on the attention LMs' prefill
+# shapes (hymba's global layers pass the reference's window 1 << 30)
 DENSE_K1_SHAPES = (
     ("qwen2-1.5b causal GQA", 4, 12, 2, 4096, 128, None),
     ("starcoder2-7b window", 1, 36, 4, WINDOW_BLOCK_L, 128, 4096),
     ("stablelm-3b D 80", 1, 32, 32, 4096, 80, None),
+    ("hymba-1.5b window", 4, 25, 5, 4096, 64, 2048),
+    ("hymba-1.5b global", 4, 25, 5, 4096, 64, 1 << 30),
+    ("qwen2-moe-a2.7b causal", 4, 16, 16, 4096, 128, None),
 )
 
 
@@ -3331,10 +3376,11 @@ def visible_pairs(l: int, window: int | None) -> int:
 
 
 def dense_numbers(card: str) -> dict:
-    """K1 at the dense LMs' prefill shapes (causal, bf16): ms per call
+    """K1 at the attention LMs' prefill shapes (causal, bf16): ms per call
     beside the bound over the visible pairs (K1 skips no masked tile: it
     computes the whole square), its plain version and SDPA (is_causal with
-    enable_gqa; a boolean mask for the window; head dim 80 unpadded)."""
+    enable_gqa where no window cuts the square; a boolean mask for a
+    window; head dim 80 unpadded)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_mqkv as fm
@@ -3355,7 +3401,7 @@ def dense_numbers(card: str) -> dict:
                                                        **kw),
                            reps=3, warmup=1)
         q4, k4, v4 = (t.view(b, -1, l, d) for t in (q, k, v))
-        if window is None:
+        if window is None or window >= l:
             sdpa = lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True, enable_gqa=hq != hkv)
         else:
@@ -3509,6 +3555,608 @@ def dense_k2_check(q, k, v, pos, pos_other, flag, arrive, kw) -> None:
     step("last ring step (K1)", pos_other, own, own_ref, fused=False)
 
 
+# ---------------------------------------------------------------------------
+# phases 28 to 34: decode-gap, and the hybrid (hymba-1.5b) and MoE
+# (qwen2-moe-a2.7b) LMs
+# ---------------------------------------------------------------------------
+
+HYMBA_BLOCK_L = 2560  # hymba-block: above hymba's window of 2048
+HYMBA_PREFILL = (4, 4096)  # hymba-prefill (B, L), 32 layers
+MOE_BLOCK_BL = (2, 1024)  # moe-block's tokens (B, L), float32
+MOE_EP = 4  # moe-block's EP degree: mesh (model 4)
+# moe_block vs the dense function and EP 4 vs EP 1, max|d| / max|ref|
+# (the reference's 2e-4 of tests/test_moe.py)
+MOE_TOL = 2e-4
+MOE_PREFILL = (4, 4096)  # moe-prefill (B, L), 24 layers
+# SP prefill of each family on examples/generate_text.py's mesh, float32,
+# at reduced depth, against degree 1 (moe at capacity 8.0: a shard's
+# capacity follows its token count, so only an undropped run is the same
+# function on every mesh)
+FAMILY_SP_LAYERS = {"hymba-1.5b": 4, "qwen2-moe-a2.7b": 2}
+FAMILY_SP_BL = (2, 1024)
+FAMILY_SP_TOL = 1e-5
+# the EP dispatch put of qwen2-moe's prefill at B 4 x L 4096 on (model 4):
+# each of 4 ranks puts one peer's chunk of cap_send = 4096 tokens x top-4
+# / 4 x 1.25 = 5120 rows of d 2048 (bf16) per stage
+EP_PUT = (MOE_EP, 5120, 2048)
+# the serve-cli decode runs' requests (launch/serve.py): prompts
+# arange(1, 4 + i), 8 new tokens, 4 slots, cache length 64
+CLI_PROMPTS = tuple(tuple(range(1, 4 + i)) for i in range(4))
+CLI_NEW, CLI_LEN = 8, 64
+BF16_ULP = 2.0 ** -8  # bf16's spacing relative to a value in [1, 2)
+
+
+def perturb_lm(params, gen) -> None:
+    """perturb_dense, and the SSD branch's constants: norm_scale from
+    1 + N(0, 0.1^2), a_log from N(0, 0.5^2) (decay rates around 1)."""
+    import torch
+    perturb_dense(params, gen)
+    for lp in params["layers"]:
+        ssd = lp.get("ssd")
+        if ssd is None:
+            continue
+        for name, mean, std in (("norm_scale", 1.0, 0.1), ("a_log", 0.0, 0.5)):
+            leaf = ssd[name]
+            ssd[name] = (torch.randn(leaf.shape, generator=gen,
+                                     device=leaf.device) * std
+                         + mean).to(leaf.dtype)
+
+
+def hymba_block(results: dict) -> None:
+    """Phase 29, hymba-block: one full-width float32 hymba-1.5b layer (d
+    1600, 25 x 64 heads over 5 KV heads, the SSD branch of 25 heads and
+    state 16, d_ff 5504), perturbed, at L HYMBA_BLOCK_L, through K1 on the
+    card against the same layer on the CPU through the plain path, within
+    LM_BLOCK_TOL of max|out|: as a global layer (window 1 << 30, the
+    reference's GLOBAL_WINDOW) and as a windowed layer (2048), one K1
+    launch each; the two layers' outputs must differ (the window bites)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.models import ParallelContext, init_lm
+    from repro_torch.models import lm as lm_mod
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=1,
+                              dtype="float32", vocab=256)
+    gen = torch.Generator().manual_seed(31)
+    params = init_lm(cfg, gen, device="cpu")
+    perturb_lm(params, gen)
+    lp = params["layers"][0]
+    l = HYMBA_BLOCK_L
+    x = torch.randn((1, l, cfg.d_model), generator=gen)
+    sp = SPConfig(strategy="full")
+    dev = torch.device("cuda")
+    lp_card, x_card = _cast(lp, device=dev), x.to(dev)
+
+    def layer(x, lp, device, window):
+        return lm_mod._attention_layer(
+            x, lp, cfg, ParallelContext(sp, device=torch.device(device)),
+            dense_positions(cfg, 1, l, device), window, None, None)[0]
+
+    errs, refs = {}, {}
+    for label, window in (("global", lm_mod.GLOBAL_WINDOW),
+                          ("windowed", cfg.window)):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            before = fm.launch_count()
+            out = layer(x_card, lp_card, dev, window)
+            torch.cuda.synchronize()
+            launches = fm.launch_count() - before
+            ref = layer(x, lp, "cpu", window)
+        e = float((out.cpu() - ref).abs().max()) / float(ref.abs().max())
+        errs[label], refs[label] = e, ref
+        log(f"hymba-block {label} (window {window}) d={cfg.d_model} "
+            f"H={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} SSD "
+            f"{cfg.ssm.n_ssm_heads} heads state {cfg.ssm.state_size} L={l} "
+            f"fp32: card vs CPU max|d|/max|ref| = {e:.3e} (tol "
+            f"{LM_BLOCK_TOL}), K1 launches {launches}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if launches != 1 or not e <= LM_BLOCK_TOL:
+            fail(f"hymba-block {label}: err {e} launches {launches}")
+    ctrl = float((refs["windowed"] - refs["global"]).abs().max()) / float(
+        refs["global"].abs().max())
+    log(f"hymba-block: the windowed layer differs from the global one by "
+        f"{ctrl:.3e} (must exceed {10 * LM_BLOCK_TOL})")
+    if not ctrl > 10 * LM_BLOCK_TOL:
+        fail(f"hymba-block: the window does not bite ({ctrl})")
+    results["hymba_block_err"] = errs
+
+
+def lm_prefill_run(results: dict, card: str, key: str, arch: str, bl):
+    """The full-width, full-depth bf16 model of ``arch`` (weights from seed
+    0, constants perturbed), last-position logits of B x L = ``bl``:
+    finite, K1 launched once per layer and no other kernel, wall clock,
+    then one traced forward.  Returns (params, cfg, fwd)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext, get_model, init_lm
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen, device=dev)
+    perturb_lm(params, gen)
+    torch.cuda.synchronize()
+    log(f"{key}: {arch} {cfg.n_layers} layers d={cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads bf16, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    bundle = get_model(cfg)
+    ctx = ParallelContext(SPConfig(strategy="full"), "prefill", dev)
+    b, l = bl
+    tokens = torch.randint(0, cfg.vocab, (b, l), generator=gen, device=dev)
+    fwd = lambda: bundle.apply(params, {"tokens": tokens}, cfg, ctx,
+                               last_only=True)
+    want = {"flash_mqkv": cfg.n_layers, "ring_flash_step": 0,
+            "remote_put": 0, "landing_copy": 0}
+    with torch.inference_mode():
+        fwd()  # warm-up (cuBLAS handles, library load)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = fwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        finite = bool(torch.isfinite(logits).all())
+        log(f"{key} B={b} L={l}: logits {tuple(logits.shape)} finite="
+            f"{finite}, {wall * 1e3:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches "
+            f"{counts} (expected {want}) [{card}]")
+        if (tuple(logits.shape) != (b, 1, cfg.vocab) or not finite
+                or counts != want):
+            fail(f"{key}: logits {tuple(logits.shape)} finite {finite} "
+                 f"launches {counts}")
+        del logits
+        trace = _traced_forward(fwd, f"{key} breakdown ({arch}, bf16, B {b},"
+                                f" L {l}, last_only)", card)
+    results[key] = dict(trace, launches=counts, timed_wall=wall * 1e3)
+    return params, cfg, fwd
+
+
+def hymba_prefill(results: dict, card: str):
+    """Phase 30, hymba-prefill: hymba-1.5b at full width and depth (32
+    layers: 3 global, 29 windowed), bf16, B x L = HYMBA_PREFILL,
+    last_only: 32 K1 launches per forward (the SSD scan is plain torch, as
+    in the reference), wall clock, device time, idle share, top kernels
+    and K1's share.  Returns (params, cfg)."""
+    params, cfg, _ = lm_prefill_run(results, card, "hymba-prefill",
+                                    "hymba-1.5b", HYMBA_PREFILL)
+    return params, cfg
+
+
+def family_sp_prefill(results: dict, card: str, params, cfg) -> None:
+    """Phases 30 and 33 (SP part): prefill on FAMILY_SP_MESH (swift over
+    (pod, model), the batch over data, the put kernels' route) at full
+    width, FAMILY_SP_LAYERS layers, float32, against degree 1 within
+    FAMILY_SP_TOL of max|logits|, with the launches the plan implies: K1
+    once per rank and layer, K2 P_r - 1 times, K4 for the attention's
+    all-to-alls (a two-axis route), and for the moe family K3 for the
+    expert exchange over model (a one-axis route: 3 exchanges of EP - 1
+    puts per layer)."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, get_model
+
+    dev = torch.device("cuda")
+    layers = FAMILY_SP_LAYERS[cfg.arch_id]
+    moe = cfg.family == "moe"
+    cfg32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+    if moe:
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    p32 = _cast({k: v for k, v in params.items() if k != "layers"},
+                dtype=torch.float32)
+    p32["layers"] = _cast(params["layers"][:layers], dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    b, l = FAMILY_SP_BL
+    tokens = torch.randint(0, cfg.vocab, (b, l), generator=gen, device=dev)
+    shape, axes = DENSE_SP_MESH
+    sp = SPConfig(strategy="swift", sp_axes=("pod", "model"),
+                  batch_axes=("data",), machine_axis="pod",
+                  comm_backend="pallas", kernel_interpret=False)
+    mesh = make_mesh(shape, axes, device=dev)
+    lay = resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+    ranks = mesh.size
+    ep = mesh.shape["model"] if moe else 1
+    want = {"flash_mqkv": ranks * layers,
+            "ring_flash_step": ranks * (lay.p_ring - 1) * layers,
+            "remote_put": 3 * (ep - 1) * layers,
+            "landing_copy": 4 * (lay.p_ulysses - 1) * layers}
+    bundle = get_model(cfg32)
+    with torch.inference_mode():
+        one = bundle.apply(p32, {"tokens": tokens}, cfg32,
+                           ParallelContext(SPConfig(strategy="full"),
+                                           "prefill", dev))
+        reset_counts()
+        t0 = time.perf_counter()
+        got = bundle.apply(p32, {"tokens": tokens}, cfg32,
+                           ParallelContext(sp, "prefill", mesh=mesh))
+        torch.cuda.synchronize()
+        t_sp = time.perf_counter() - t0
+    counts = read_counts()
+    e = float((got - one).abs().max()) / float(one.abs().max())
+    log(f"{cfg.arch_id} SP prefill: {layers} layers fp32 B={b} L={l} on mesh "
+        f"{dict(zip(axes, shape))}, swift over (pod, model) plans P_u "
+        f"{lay.p_ulysses} x P_r {lay.p_ring}"
+        + (f", experts over model (EP {ep}, capacity 8.0)" if moe else "")
+        + f"; logits vs degree 1 max|d|/max|ref| = {e:.3e} (tol "
+        f"{FAMILY_SP_TOL}); launches {counts} (expected {want}); "
+        f"{t_sp:.2f} s eager [{card}]")
+    if not e <= FAMILY_SP_TOL or counts != want:
+        fail(f"{cfg.arch_id} SP prefill: err {e}, launches {counts} "
+             f"(want {want})")
+    results.setdefault("family_sp", {})[cfg.arch_id] = dict(err=e,
+                                                            launches=counts)
+    del p32, one, got
+    torch.cuda.empty_cache()
+
+
+def dense_moe(x2d, p, cfg):
+    """All experts on all tokens (tests/test_moe.py's dense reference):
+    the router in float64, the expert products in x's dtype."""
+    import torch
+    import torch.nn.functional as F
+    m = cfg.moe
+    probs = torch.softmax(x2d.double() @ p["router"]["w"].double(), dim=-1)
+    wts, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    wts, ids = wts[:, :m.top_k], ids[:, :m.top_k]
+    wts = (wts / wts.sum(-1, keepdim=True)).to(x2d.dtype)
+    y = torch.zeros_like(x2d)
+    for e in range(m.n_experts):
+        h = F.silu(x2d @ p["wi_gate"][e]) * (x2d @ p["wi_up"][e])
+        w_e = (wts * (ids == e)).sum(-1, keepdim=True)
+        y = y + w_e * (h @ p["wo"][e])
+    return y
+
+
+def moe_block_phase(results: dict, card: str) -> None:
+    """Phase 32, moe-block: qwen2-moe-a2.7b's MoE layer at full width (d
+    2048, 60 experts of d_ff 1408, top 4), float32, TF32 off, at capacity
+    8.0 (nothing dropped), B x L = MOE_BLOCK_BL: at EP 1 and at EP MOE_EP on
+    mesh (model 4) of virtual ranks, where the three exchanges of the
+    dispatch run as puts over model (3 x (EP - 1) launches: K3 with
+    kernel_interpret False, K4 with True), each within MOE_TOL of the
+    dense function (every expert on every token) and EP 4 of EP 1."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, init_lm
+    from repro_torch.models import moe as moe_mod
+
+    base = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, n_layers=1, dtype="float32", vocab=256,
+                              moe=dataclasses.replace(base.moe,
+                                                      capacity_factor=8.0))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    p = init_lm(cfg, gen, device=dev, ep_degree=MOE_EP)["layers"][0]["moe"]
+    b, l = MOE_BLOCK_BL
+    x = torch.randn((b, l, cfg.d_model), generator=gen, device=dev)
+    mesh = make_mesh((MOE_EP,), ("model",), device=dev)
+    checks, outs = [], {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        y1, aux1 = moe_mod.moe_block(x, p, cfg, ParallelContext(
+            SPConfig(strategy="full"), "prefill", dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - t0
+        dense = dense_moe(x.reshape(-1, cfg.d_model), p, cfg).reshape(x.shape)
+        e1 = float((y1 - dense).abs().max()) / float(dense.abs().max())
+        log(f"moe-block EP 1: {b * l} tokens, d={cfg.d_model}, "
+            f"{cfg.moe.n_experts} experts of {cfg.moe.moe_d_ff}, top "
+            f"{cfg.moe.top_k}, fp32 capacity 8.0: vs the dense function "
+            f"max|d|/max|ref| = {e1:.3e} (tol {MOE_TOL}) at max|y| "
+            f"{float(dense.abs().max()):.3f}, aux {float(aux1):.4f}, "
+            f"{t1 * 1e3:.1f} ms eager [{card}]")
+        checks.append((e1 <= MOE_TOL, f"moe-block EP 1: {e1}"))
+        for interp, put in ((False, "remote_put"), (True, "landing_copy")):
+            sp = SPConfig(strategy="full", sp_axes=("model",),
+                          batch_axes=("data",), comm_backend="pallas",
+                          kernel_interpret=interp)
+            reset_counts()
+            t0 = time.perf_counter()
+            y4, aux4 = moe_mod.moe_block(x, p, cfg, ParallelContext(
+                sp, "prefill", mesh=mesh))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter() - t0
+            counts = read_counts()
+            want = {"flash_mqkv": 0, "ring_flash_step": 0, "remote_put": 0,
+                    "landing_copy": 0, put: 3 * (MOE_EP - 1)}
+            e4 = float((y4 - dense).abs().max()) / float(dense.abs().max())
+            e41 = float((y4 - y1).abs().max()) / float(y1.abs().max())
+            log(f"moe-block EP {MOE_EP} on mesh (model {MOE_EP}), "
+                f"kernel_interpret {interp}: vs the dense function "
+                f"{e4:.3e}, vs EP 1 {e41:.3e} (tol {MOE_TOL}), aux "
+                f"{float(aux4):.4f}, launches {counts} (expected {want}), "
+                f"{t4 * 1e3:.1f} ms eager [{card}]")
+            checks += [(e4 <= MOE_TOL and e41 <= MOE_TOL,
+                        f"moe-block EP {MOE_EP}: {e4}, {e41}"),
+                       (counts == want, f"moe-block EP {MOE_EP} launches "
+                                        f"{counts} != {want}")]
+            outs[put] = counts
+    results["moe_block"] = dict(err=e1, launches=outs)
+    del p, x, y1, y4, dense
+    torch.cuda.empty_cache()
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+
+
+def _moe_event_times(fwd) -> tuple[float, float]:
+    """One forward with CUDA events around every expert product call
+    (``_expert_ffn``) and every prefill MoE block: (ms in the expert
+    products, ms in the rest of the blocks: routing, dispatch, exchange
+    and combine)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    spans = {"ffn": [], "block": []}
+    real = {"ffn": moe_mod._expert_ffn, "block": moe_mod._moe_prefill}
+
+    def timed(key):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[key](*args, **kw)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return call
+
+    moe_mod._expert_ffn, moe_mod._moe_prefill = timed("ffn"), timed("block")
+    try:
+        with torch.inference_mode():
+            fwd()
+        torch.cuda.synchronize()
+    finally:
+        moe_mod._expert_ffn, moe_mod._moe_prefill = real["ffn"], real["block"]
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return ms["ffn"], ms["block"] - ms["ffn"]
+
+
+def moe_prefill(results: dict, card: str):
+    """Phase 33, moe-prefill: qwen2-moe-a2.7b at full width and depth (24
+    layers, 60 routed experts + 4 shared, bf16, ~14.3 B parameters),
+    B x L = MOE_PREFILL, last_only, at degree 1 (every expert on the
+    card): 24 K1 launches, no put; wall clock, device time, idle share,
+    top kernels, and the shares of the expert products and of the rest of
+    the MoE blocks (routing, dispatch, exchange, combine), from CUDA
+    events around them in one more forward.  Returns (params, cfg)."""
+    params, cfg, fwd = lm_prefill_run(results, card, "moe-prefill",
+                                      "qwen2-moe-a2.7b", MOE_PREFILL)
+    ffn, dispatch = _moe_event_times(fwd)
+    busy = results["moe-prefill"].get("busy")
+    share = (lambda t: f"{t / busy:.3f} of busy") if busy else (
+        lambda t: "share not measured")
+    log(f"moe-prefill: expert products {ffn:.2f} ms ({share(ffn)}), routing "
+        f"+ dispatch + combine {dispatch:.2f} ms ({share(dispatch)}) of one "
+        f"forward (CUDA events) [{card}]")
+    results["moe-prefill"].update(ffn=ffn, dispatch=dispatch)
+    return params, cfg
+
+
+def weight_read_floor_ms(params) -> float:
+    """The least time a decode tick takes on the card: every weight it
+    reads (all but the embedding table, of which it gathers a row per
+    slot) read once at the HBM rate."""
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    emb = params["embed"]
+    return (total - emb.numel() * emb.element_size()) / HBM_BPS * 1e3
+
+
+def serve_ar(results: dict, card: str, params, cfg, key: str, seed: int,
+             floor_ms: float | None = None) -> None:
+    """Phases 27, 31 and 34 (serve-dense, serve-hymba, serve-moe): ARServer
+    on a bf16 attention LM (bf16 KV caches: the reference's cache update
+    takes the model's dtype) with 4 slots, the LM_REQUESTS,
+    LM_NEW_TOKENS new tokens each; its tick captured as a CUDA graph, then
+    the same requests with capture=False: the tokens bitwise equal, each
+    tick's wall clock captured against eager (and against ``floor_ms``,
+    the weight-read floor, where given)."""
+    import torch
+    run = lambda capture: run_ar_server(params, cfg, capture, torch.bfloat16,
+                                        seed=seed)
+    srv, out, wall, ticks = run(None)
+    tr = srv.tracker
+    counts = {n: tr.counter_total(f"ar.{n}")
+              for n in ("submitted", "admitted", "ticks", "completed")}
+    lens = {rid: len(v) for rid, v in sorted(out.items())}
+    n = len(LM_REQUESTS)
+    ok = (sorted(out) == [r for r, *_ in LM_REQUESTS]
+          and all(v == LM_NEW_TOKENS for v in lens.values())
+          and all(0 <= t < cfg.vocab for v in out.values() for t in v)
+          and counts["submitted"] == counts["admitted"] == counts["completed"] == n)
+    step = srv._step
+    if not ok or step.graph is None:
+        fail(f"{key}: results {out}, counters {counts}, graph {step.graph}")
+    log(f"{key}: {cfg.arch_id} {cfg.n_layers} layers bf16, {len(out)} "
+        f"requests, {counts['ticks']:.0f} ticks in {wall:.2f} s, tokens per "
+        f"request {lens}, counters {counts}; graph captured after "
+        f"{step.calls - step.replays} eager tick, capture {step.capture_s:.3f} s, "
+        f"instantiation {step.instantiate_s:.3f} s (host), {step.replays} "
+        f"replays [{card}]")
+    replayed = ticks[len(ticks) - step.replays + 1:]  # after the capture
+    del srv, step
+    _, eager, ewall, eticks = run(False)
+    same = eager == out
+    floor = ("" if floor_ms is None else
+             f"; the weight-read floor {floor_ms:.2f} ms (captured tick "
+             f"{median(replayed) * 1e3 / floor_ms:.2f} x it)")
+    log(f"capture {key}: captured tokens equal the eager server's "
+        f"{same}; tick wall clock median {median(replayed) * 1e3:.2f} ms "
+        f"captured (replays) vs {median(eticks) * 1e3:.2f} ms eager; "
+        f"{wall:.2f} s vs {ewall:.2f} s in all{floor} [{card}]")
+    if not same:
+        fail(f"capture {key}: captured tokens differ from eager")
+    results[key] = (median(replayed), median(eticks))
+
+
+def _greedy_cli(params, cfg, ctx, cache_dtype):
+    """The serve-cli decode run (CLI_PROMPTS, 4 slots admitted together,
+    one shared position per tick, as ARServer runs them): per request its
+    greedy tokens and, per token, the top-2 logit gap and the logits."""
+    import torch
+    from repro_torch.models import get_model
+
+    bundle = get_model(cfg)
+    dev = ctx.device
+    caches = bundle.init_caches(cfg, len(CLI_PROMPTS), CLI_LEN, cache_dtype,
+                                dev)
+    toks = [[] for _ in CLI_PROMPTS]
+    gaps = [[] for _ in CLI_PROMPTS]
+    rows = [[] for _ in CLI_PROMPTS]
+    with torch.inference_mode():
+        for t in range(max(len(p) for p in CLI_PROMPTS) + CLI_NEW - 1):
+            feed = [p[t] if t < len(p) else (g[-1] if g else 0)
+                    for p, g in zip(CLI_PROMPTS, toks)]
+            tok = torch.tensor(feed, dtype=torch.int32, device=dev)[:, None]
+            logits, caches = bundle.step(params, {"tokens": tok}, caches, t,
+                                         cfg, ctx)
+            nxt = torch.argmax(logits, dim=-1).tolist()
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            for i, p in enumerate(CLI_PROMPTS):
+                if t >= len(p) - 1 and len(toks[i]) < CLI_NEW:
+                    toks[i].append(nxt[i])
+                    gaps[i].append(float(top[i, 0] - top[i, 1]))
+                    rows[i].append(logits[i].float().cpu())
+    return toks, gaps, rows
+
+
+def decode_gap(results: dict, card: str) -> None:
+    """Phase 28, decode-gap (ROADMAP Queue 3's unconfirmed fault): the
+    serve-cli qwen2-1.5b decode (the launcher's weights: seed 0, as
+    initialised; its 4 requests; bf16) at degree 1 and with the KV cache
+    over mesh (pod 2, model 8), token by token.  Where a request's tokens
+    part: the top-2 logit gap of each run there, the largest difference of
+    the two runs' logits there, and bf16's spacing at the top logit.  Then
+    the same decode with the model and caches in float32, where the two
+    runs' tokens must agree; in bf16 every parting must sit on a top-2 gap
+    no wider than the runs' logit difference (a near-tie flipped by
+    rounding)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, init_lm
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-1.5b")
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sp16 = SPConfig(strategy="swift_torus", sp_axes=("pod", "model"),
+                    batch_axes=("data",), machine_axis="pod",
+                    comm_backend="pallas", kernel_interpret=False)
+    ctxs = {"degree 1": ParallelContext(SPConfig(strategy="full"), "decode",
+                                        dev),
+            "mesh pod": ParallelContext(sp16, "decode", mesh=make_mesh(
+                (2, 8), ("pod", "model"), device=dev))}
+    out, flips = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else _cast(params, dtype=dtype)
+        c = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+        runs = {k: _greedy_cli(p, c, ctx, dtype) for k, ctx in ctxs.items()}
+        (t1, g1, r1), (tp, gp, rp) = runs["degree 1"], runs["mesh pod"]
+        parts = {}
+        for i in range(len(CLI_PROMPTS)):
+            log(f"decode-gap {c.dtype} request {i}: degree 1 {t1[i]}, mesh "
+                f"pod {tp[i]}")
+            j = next((j for j, (a, b) in enumerate(zip(t1[i], tp[i]))
+                      if a != b), None)
+            if j is None:
+                continue
+            top = float(r1[i][j].abs().max())
+            spacing = BF16_ULP * 2.0 ** math.floor(math.log2(top))
+            diff = float((r1[i][j] - rp[i][j]).abs().max())
+            log(f"decode-gap {c.dtype} request {i} parts at new token {j}: "
+                f"top-2 gap degree 1 {g1[i][j]:.4f}, mesh pod {gp[i][j]:.4f}; "
+                f"max|logits_1 - logits_pod| there {diff:.4f}; bf16 spacing "
+                f"at the top logit {top:.2f}: {spacing:.4f} [{card}]")
+            parts[i] = dict(token=j, gap1=g1[i][j], gap_pod=gp[i][j],
+                            diff=diff, spacing=spacing)
+            flips.append(max(g1[i][j], gp[i][j]) <= diff)
+        out[c.dtype] = dict(parts=parts, same=t1 == tp)
+        del p, runs
+        torch.cuda.empty_cache()
+    results["decode_gap"] = out
+    log(f"decode-gap: float32 tokens equal across the meshes "
+        f"{out['float32']['same']}; bf16 {out['bfloat16']['same']}, its "
+        f"partings on near-ties within the runs' logit difference "
+        f"{all(flips)}")
+    if not out["float32"]["same"] or not all(flips):
+        fail(f"decode-gap: float32 equal {out['float32']['same']}, bf16 "
+             f"partings {out['bfloat16']['parts']}")
+
+
+def ep_put_numbers(card: str) -> dict:
+    """K3 and K4 on the EP dispatch put (stage 1 of the exchange: rank r
+    puts its chunk for rank r + 1) at qwen2-moe's prefill shape EP_PUT,
+    bf16, beside the plain versions and one copy_ of the same bytes, each
+    timed call on one of n input sets that together touch four times the
+    L2.  Returns {name: row}."""
+    import torch
+    from repro_torch.comm import kernel_backend as kb
+
+    ranks, n_rows, d = EP_PUT
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    perm = [(r + 1) % ranks for r in range(ranks)]
+    signal, arrive = put_words(ranks)
+    nbytes = ranks * n_rows * d * 2
+    n_sets = max(ROTATE, -(-4 * L2_BYTES // (2 * nbytes)))
+    sets = []
+    for _ in range(n_sets):
+        src = [[torch.randn((n_rows, d), generator=gen, device="cuda")
+                .to(torch.bfloat16)] for _ in range(ranks)]
+        dst = [[torch.empty_like(t) for t in r] for r in src]
+        flat = torch.cat([r[0].reshape(-1) for r in src])
+        sets.append((src, dst, flat, torch.empty_like(flat)))
+    lib_ms = cuda_ms(rotating([lambda a=a, b=b: b.copy_(a)
+                               for _, _, a, b in sets]), reps=50)
+    bound_ms = 2 * nbytes / HBM_BPS * 1e3
+    put = (f"{ranks} ranks x [{n_rows}, {d}] bf16 ({nbytes / 2**20:.1f} MiB), "
+           f"{n_sets} sets in turn")
+    rows = {}
+    for name in ("remote_put", "landing_copy"):
+        if name == "remote_put":
+            fn = [lambda s=s_, d=d_: kb.remote_put(
+                s, d, perm, signal=signal, arrive=arrive, epoch=1)
+                for s_, d_, *_ in sets]
+            plain = [lambda s=s_, d=d_: kb.remote_put_plain(s, d, perm,
+                                                            signal, 1)
+                     for s_, d_, *_ in sets]
+        else:
+            fn = [lambda s=s_, d=d_: kb.landing_copy(
+                s, d, signal=signal, arrive=arrive, epoch=1)
+                for s_, d_, *_ in sets]
+            plain = [lambda s=s_, d=d_: kb.landing_copy_plain(s, d, signal, 1)
+                     for s_, d_, *_ in sets]
+        ms, host = time_call(rotating(fn), reps=50)
+        plain_ms = cuda_ms(rotating(plain), reps=20)
+        ok = all(torch.equal(dst[perm[r] if name == "remote_put" else r][0],
+                             src[r][0])
+                 for src, dst, *_ in sets[:1] for r in range(ranks))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by="bytes")
+        log(f"{name} time on the EP dispatch put, {put}: {ms:.4f} ms on the "
+            f"device ({bound_ms / ms:.3f} of the bound, {ms / lib_ms:.2f} x "
+            f"one copy_; {host:.4f} ms of host time per call), bound "
+            f"{bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms, one copy_ "
+            f"{lib_ms:.4f} ms; delivered bitwise {ok} [{card}]")
+        if not ok:
+            fail(f"{name} on the EP dispatch put: delivery differs")
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled entry: (registers, spill store bytes, spill load bytes,
     static shared-memory bytes)} from nvcc's -Xptxas -v output."""
@@ -3652,13 +4300,17 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     deg1 = serve(results, card, params, cfg, conds)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve")
-    serve_sp(results, card, params, cfg, conds, deg1)
+    # the SP server phases run at SERVE_SP_LAYERS of the 96 layers: a
+    # 96-layer SP graph costs ~30 s to capture and instantiate
+    sub = dict(params, layers=params["layers"][:SERVE_SP_LAYERS])
+    cfg_sp = dataclasses.replace(cfg, n_layers=SERVE_SP_LAYERS)
+    serve_sp(results, card, sub, cfg_sp, conds)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_sp")
     capture_dit(results, card, params, cfg, conds, deg1)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after capture_dit")
-    profile_phase(results, card, params, cfg, conds)
+    profile_phase(results, card, sub, cfg_sp, conds)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after profile_phase")
-    del params, deg1
+    del params, sub, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
     torch.cuda.empty_cache()
 
@@ -3668,7 +4320,11 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_paper")
     cv_params, cv_cfg = serve_cogvideox(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_cogvideox")
-    serve_hybrid(results, card, cv_params, cv_cfg)
+    # serve-hybrid at HYBRID_LAYERS of the 42 (its fp32 gate (a) serves
+    # three full requests)
+    serve_hybrid(results, card,
+                 dict(cv_params, layers=cv_params["layers"][:HYBRID_LAYERS]),
+                 dataclasses.replace(cv_cfg, n_layers=HYBRID_LAYERS))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_hybrid")
     del cv_params
     gc.collect()
@@ -3691,11 +4347,34 @@ def main() -> int:
     serve_dense(results, card, dn_params, dn_cfg)
     del dn_params
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_dense")
+    decode_gap(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after decode_gap")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hymba_block(results)
+    hy_params, hy_cfg = hymba_prefill(results, card)
+    family_sp_prefill(results, card, hy_params, hy_cfg)
+    serve_ar(results, card, hy_params, hy_cfg, "serve-hymba", seed=35)
+    del hy_params
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_hymba")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_block_phase(results, card)
+    moe_params, moe_cfg = moe_prefill(results, card)
+    family_sp_prefill(results, card, moe_params, moe_cfg)
+    serve_ar(results, card, moe_params, moe_cfg, "serve-moe", seed=36,
+             floor_ms=weight_read_floor_ms(moe_params))
+    del moe_params
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_moe")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     k1 = k1_numbers(card)
     dense_numbers(card)
     k2 = k2_numbers(card)
     puts = put_numbers(card)
+    ep_put_numbers(card)
     layer_breakdown(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_breakdown")
     k5 = k5_numbers(card, results)

@@ -1,7 +1,7 @@
 """Architecture configs of the port: the models it serves (the flux-12b and
-cogvideox-5b DiTs, the rwkv6-1.6b language model and the dense and
-vision-language attention LMs), and the input shapes (the paper's DiT
-workloads among them)."""
+cogvideox-5b DiTs, the rwkv6-1.6b language model, the dense and
+vision-language attention LMs, the hybrid hymba-1.5b and the MoE LMs),
+and the input shapes (the paper's DiT workloads among them)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +18,9 @@ _MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "chatglm3-6b": "chatglm3_6b",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "hymba-1.5b": "hymba_1_5b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "arctic-480b": "arctic_480b",
 }
 
 DIT_ARCHS = ("flux-12b", "cogvideox-5b")
@@ -25,6 +28,10 @@ SSM_ARCHS = ("rwkv6-1.6b",)
 # attention LMs: the dense family and the vision-language backbone
 DENSE_ARCHS = ("qwen2-1.5b", "stablelm-3b", "starcoder2-7b", "chatglm3-6b",
                "qwen2-vl-2b")
+# attention in parallel with an SSD branch per layer
+HYBRID_ARCHS = ("hymba-1.5b",)
+# routed experts: shared experts (qwen2-moe) or a dense residual (arctic)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "arctic-480b")
 ALL_ARCHS = tuple(_MODULES)
 
 
@@ -43,7 +50,9 @@ __all__ = [
     "DENSE_ARCHS",
     "DIT_ARCHS",
     "DIT_SHAPES",
+    "HYBRID_ARCHS",
     "InputShape",
+    "MOE_ARCHS",
     "ModelConfig",
     "SHAPES",
     "SSM_ARCHS",

@@ -9,6 +9,8 @@ service, on the card unless ``--device cpu`` asks for the CPU.
     ... --arch rwkv6-1.6b --requests 4                    (AR decode)
     ... --arch qwen2-1.5b --requests 4 [--mesh pod]       (AR decode, KV
                                                            cache sharded)
+    ... --arch hymba-1.5b | qwen2-moe-a2.7b [--mesh pod]  (hybrid / MoE;
+                                                           experts over model)
     ... --device cpu --reduced ...                        (on the CPU)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
@@ -28,11 +30,14 @@ Meshes are of virtual ranks on one device (launch/mesh.py): ``host`` is
 graph and replayed (serving/graphs.py); ``--eager`` runs the steps op by
 op instead, for diagnosis.  The weights are random, from seed 0, as the
 reference's are.  The AR branch serves rwkv6-1.6b on one rank and the
-dense and vlm attention LMs (qwen2-1.5b, stablelm-3b, starcoder2-7b,
-chatglm3-6b, qwen2-vl-2b) on any mesh, the KV cache sharded on the sequence
-over the SP axes (``--seq`` is the cache length).  An attention model's
-caches take the model's dtype: the reference's launcher leaves ARServer's
-float32 default, which its cache update refuses for a bfloat16 model.
+attention LMs on any mesh: the dense and vlm families (qwen2-1.5b,
+stablelm-3b, starcoder2-7b, chatglm3-6b, qwen2-vl-2b), hymba-1.5b and the
+MoE LMs (qwen2-moe-a2.7b, arctic-480b, whose experts split over the mesh's
+model axis, padded to a multiple of its size), the KV cache sharded on the
+sequence over the SP axes (``--seq`` is the cache length).  An attention
+model's caches take the model's dtype: the reference's launcher leaves
+ARServer's float32 default, which its cache update refuses for a bfloat16
+model.
 """
 from __future__ import annotations
 
@@ -42,10 +47,11 @@ import sys
 
 import torch
 
-from ..configs import (DENSE_ARCHS, DIT_ARCHS, SSM_ARCHS, get_config,
-                       get_reduced)
+from ..configs import (DENSE_ARCHS, DIT_ARCHS, HYBRID_ARCHS, MOE_ARCHS,
+                       SSM_ARCHS, get_config, get_reduced)
 from ..core import SPConfig
 from ..models import init_dit, init_lm
+from ..models.moe import ep_degree
 from ..models.blocks import resolve_device, torch_dtype
 from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                        JsonlTracker, SamplerConfig, Tracker)
@@ -53,7 +59,7 @@ from ..serving.sched import (SCHEMA_VERSION, CalibrationConfig,
                              ControlConfig, PreemptionPolicy)
 from .mesh import make_host_mesh, make_mesh
 
-LM_ARCHS = SSM_ARCHS + DENSE_ARCHS
+LM_ARCHS = SSM_ARCHS + DENSE_ARCHS + HYBRID_ARCHS + MOE_ARCHS
 
 
 def _mesh_and_sp(args, device: torch.device):
@@ -187,7 +193,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             mesh, sp = _mesh_and_sp(args, device)
             cache_dtype = torch_dtype(cfg.dtype)
-        params = init_lm(cfg, gen, device)
+        params = init_lm(cfg, gen, device, ep_degree=ep_degree(mesh))
         srv = ARServer(params, cfg, sp, batch_slots=4, max_len=args.seq,
                        cache_dtype=cache_dtype, tracker=tracker,
                        device=device, capture=capture, mesh=mesh)

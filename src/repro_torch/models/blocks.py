@@ -120,6 +120,9 @@ class ParallelContext:
     mode: str = "prefill"  # train | prefill | decode
     device: torch.device | str | None = None
     mesh: Any = None  # launch.mesh.Mesh | None
+    # decode-mode MoE: gather tokens over 'data' instead of all-gathering
+    # FSDP'd expert weights every step (the reference's beyond-paper knob)
+    ep_token_gather: bool = False
 
     def __post_init__(self):
         device = (self.mesh.device if self.mesh is not None
@@ -390,12 +393,17 @@ def attention(
 # MLPs
 # ---------------------------------------------------------------------------
 
-def init_mlp(b: ParamBuilder, cfg) -> None:
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(b: ParamBuilder, cfg, prefix: str = "mlp",
+             d_ff: int | None = None) -> None:
+    """The MLP's weights under ``prefix`` (the moe family's ``shared_mlp``
+    and ``dense_mlp`` too), of hidden size ``d_ff`` (``cfg.d_ff`` when
+    None)."""
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
     if cfg.act in ("swiglu", "geglu"):
-        init_linear(b, "mlp/wi_gate", d, ff)
-    init_linear(b, "mlp/wi_up", d, ff)
-    init_linear(b, "mlp/wo", ff, d,
+        init_linear(b, f"{prefix}/wi_gate", d, ff)
+    init_linear(b, f"{prefix}/wi_up", d, ff)
+    init_linear(b, f"{prefix}/wo", ff, d,
                 scale=ff ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 

@@ -6,10 +6,12 @@
     out, caches  = bundle.step(params, batch, caches, idx, cfg, ctx)  # decode
     caches       = bundle.init_caches(cfg, batch, max_len, dtype, device)
 
-Batches are plain dicts: ``tokens``, and for the vlm family
-``inputs_embeds`` (prefill) and [3, B, L] M-RoPE ``positions``.  The
-reference's ``loss`` and ``input_specs`` come with training (ROADMAP
-Queue 1 item 7); so does whisper.
+One bundle serves every LM family of the port (rwkv6, dense, vlm,
+hybrid, moe), as the reference's ``LM_BUNDLE`` does.  Batches are plain
+dicts: ``tokens``, and for the vlm family ``inputs_embeds`` (prefill) and
+[3, B, L] M-RoPE ``positions``.  The reference's ``loss`` and
+``input_specs`` come with training, whisper's bundle with the audio
+family (both ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

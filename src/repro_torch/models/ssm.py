@@ -1,6 +1,6 @@
-"""Linear-recurrence (SSM) substrate of the port: the RWKV6 half of the
-reference's ``models/ssm.py`` (chunked scan, decode step, and the
-distributed prefix scan over SP ranks).
+"""Linear-recurrence (SSM) substrate of the port, the counterpart of the
+reference's ``models/ssm.py``: the RWKV6 and SSD chunked scans and decode
+steps, and the distributed prefix scan over SP ranks.
 
 For a linear recurrence ``S_t = a_t ⊙ S_{t-1} + b_t`` the sequence is
 sharded over the SP ranks with a **two-pass distributed prefix scan**
@@ -15,8 +15,19 @@ sharded over the SP ranks with a **two-pass distributed prefix scan**
   pass 2 (local)   : outputs = outputs₀ + influence(S_in)
 
 The composition ((a₂,b₂)∘(a₁,b₁) = (a₂a₁, a₂b₁+b₂)) is associative, so the
-cross-rank pass is exact.  The SSD half (the hymba branch) is not ported
-yet (ROADMAP Queue 1 item 7).
+cross-rank pass is exact.
+
+Two chunk scans, as in the reference:
+  * rwkv6 (Finch): per-channel decay, state [N_k, N_v] per head (its
+    outputs come from the WKV kernel K5 in the model; ``rwkv6_chunk_scan``
+    is the reference's plain form);
+  * ssd (mamba2-style scalar decay per head), the hymba branch, in float32
+    and plain torch, as the reference computes it (no Pallas kernel).
+
+Batch axes of the mesh split the batch into slices that each run the
+scan over their own SP ranks: the rank lists then hold every rank of the
+batch and SP axes, slice-major (``collectives.SlicedLayout``), and one
+put moves the summaries of every slice.
 """
 from __future__ import annotations
 
@@ -26,7 +37,7 @@ import torch
 
 from ..comm import ring_shift
 from ..comm.channel import RankList
-from ..core.collectives import GroupLayout
+from ..core.collectives import GroupLayout, SlicedLayout
 from ..kernels.ref import WKV_EPS as EPS
 from ..kernels.ref import wkv_chunk
 
@@ -130,46 +141,140 @@ def rwkv6_decode_step(r, k, v, w, u, s):  # all [B, H, N]; s [B, H, N, N]
 
 
 # ---------------------------------------------------------------------------
+# SSD chunk scan (mamba2-style scalar-per-head decay) for hymba
+# ---------------------------------------------------------------------------
+
+def ssd_chunk_scan(
+    x: torch.Tensor,  # [B, L, H, P] (P = channels per head)
+    dt: torch.Tensor,  # [B, L, H] positive step sizes
+    bm: torch.Tensor,  # [B, L, H, N] input projection
+    cm: torch.Tensor,  # [B, L, H, N] output projection
+    a: torch.Tensor,  # [H] negative per-head decay rate
+    chunk: int = 64,
+) -> ScanResult:
+    """The SSD recurrence S_t = exp(dt_t a) S_{t-1} + (dt_t x_t) ⊗ B_t,
+    o_t = S_t C_t, in the reference's chunk form, in float32."""
+    b, l, h, p_ = x.shape
+    n = bm.shape[-1]
+    c = min(chunk, l)
+    if l % c:
+        raise ValueError(f"sequence length {l} is not a multiple of the "
+                         f"SSD chunk {c}")
+    nc = l // c
+    dtf, af = dt.float(), a.float()
+    loggam = dtf.reshape(b, nc, c, h) * af  # log decay per token, <= 0
+    t_ = torch.cumsum(loggam, dim=2)  # within-chunk cumulative
+    xs_ = (x.float() * dtf[..., None]).reshape(b, nc, c, h, p_)
+    bc = bm.float().reshape(b, nc, c, h, n)
+    cc = cm.float().reshape(b, nc, c, h, n)
+
+    # intra-chunk: L[t,s] = exp(T_t - T_s), s <= t.  Above the diagonal
+    # the exponent is positive and may overflow to inf: it is selected
+    # away (a 0/1 mask would turn inf into NaN)
+    lmat = torch.exp(t_[:, :, :, None] - t_[:, :, None, :]).permute(
+        0, 1, 4, 2, 3)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    lmat = torch.where(tri, lmat, torch.zeros((), device=x.device))
+    cb = torch.einsum("bgthn,bgshn->bghts", cc, bc)
+    out = torch.einsum("bghts,bgshp->bgthp", cb * lmat, xs_)
+
+    # cross-chunk state carry: S [b, h, p, n]
+    gam_c = torch.exp(t_[:, :, -1])  # [b, nc, h]
+    # chunk state contribution: sum_s exp(T_c - T_s) ⊙ (xs_s ⊗ B_s)
+    tail = torch.exp(t_[:, :, -1][:, :, None] - t_)  # [b, nc, c, h]
+    b_chunk = torch.einsum("bgshp,bgshn->bghpn", tail[..., None] * xs_, bc)
+    c_infl = torch.exp(t_)  # decay from chunk start to t (inclusive)
+    s = torch.zeros((b, h, p_, n), dtype=torch.float32, device=x.device)
+    o_corr = []
+    for g in range(nc):
+        o_corr.append(torch.einsum("bthn,bhpn->bthp",
+                                   c_infl[:, g, ..., None] * cc[:, g], s))
+        s = gam_c[:, g, :, None, None] * s + b_chunk[:, g]
+    out = out + torch.stack(o_corr, dim=1)
+
+    a_dev = torch.exp(loggam.sum(dim=(1, 2)))  # [b, h]
+    # influence: Γ_t (from the shard's start) ⊙ C_t · S_in
+    full_t = torch.cumsum(dtf * af, dim=1)
+    infl = torch.exp(full_t)[..., None] * cm.float()  # [b, l, h, n]
+    return ScanResult(out=out.reshape(b, l, h, p_), a_dev=a_dev, s_out=s,
+                      infl=infl)
+
+
+def ssd_apply_influence(out: torch.Tensor, infl: torch.Tensor,
+                        s_in: torch.Tensor) -> torch.Tensor:
+    return out + torch.einsum("blhn,bhpn->blhp", infl, s_in)
+
+
+def ssd_decode_step(x, dt, bm, cm, a, s):
+    """One SSD step: x [B, H, P], dt [B, H], bm / cm [B, H, N], s [B, H,
+    P, N] float32 -> (o [B, H, P], s), in float32 (JAX promotes the
+    reference's mixed operands the same way)."""
+    g = torch.exp(dt.float() * a.float())  # [B, H]
+    upd = torch.einsum("bhp,bhn->bhpn", x.float() * dt.float()[..., None],
+                       bm.float())
+    s = g[..., None, None] * s + upd
+    o = torch.einsum("bhpn,bhn->bhp", s, cm.float())
+    return o, s
+
+
+# ---------------------------------------------------------------------------
 # distributed exclusive prefix scan over SP ranks (log-depth shifts)
 # ---------------------------------------------------------------------------
 
-def shift_ranks(xs: tuple[RankList, ...], axes: tuple[str, ...], size: int,
-                d: int) -> tuple[RankList, ...]:
-    """Rank p receives rank p - d's tensors, for every rank list in ``xs``;
-    ranks below d receive None.  One put of a distance-d rotation over the
-    flat SP rank (``ring_shift`` on a 1 x size ring), whose wrapped-around
-    deliveries are dropped: a shift without wraparound."""
+def _layout(axes: tuple[str, ...], size: int, slices: int):
     layout = GroupLayout(tuple(axes), 1, size, ulysses_outer=True)
-    recv = ring_shift(layout, *xs, shift=d).wait()
+    return SlicedLayout(layout, slices) if slices > 1 else layout
+
+
+def shift_ranks(xs: tuple[RankList, ...], axes: tuple[str, ...], size: int,
+                d: int, slices: int = 1) -> tuple[RankList, ...]:
+    """Rank p of every batch slice receives rank p - d's tensors (of its
+    slice), for every rank list in ``xs``; ranks below d receive None.  One
+    put of a distance-d rotation over the flat SP rank (``ring_shift`` on a
+    1 x size ring, tiled over the slices), whose wrapped-around deliveries
+    are dropped: a shift without wraparound."""
+    recv = ring_shift(_layout(axes, size, slices), *xs, shift=d).wait()
     recv = (recv,) if len(xs) == 1 else recv
-    return tuple([None] * d + list(r[d:]) for r in recv)
+    return tuple([None if p % size < d else t for p, t in enumerate(r)]
+                 for r in recv)
 
 
-def _exclusive_scan(a_dev: RankList, b_dev: RankList, axes, size: int
-                    ) -> RankList:
+def _bc(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``a`` with trailing unit dims up to ``like``'s rank (the reference's
+    ``bc``): rwkv6's decay [b, h, n] against its state [b, h, n, n], the
+    SSD's [b, h] against [b, h, p, n]."""
+    return a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
+
+
+def _exclusive_scan(a_dev: RankList, b_dev: RankList, axes, size: int,
+                    slices: int = 1) -> RankList:
     """Exclusive prefix 'composition' scan of per-rank (A, B) recurrence
-    summaries across the flattened SP axes.  Identity = (1, 0).
+    summaries across the flattened SP axes, in each batch slice.  Identity
+    = (1, 0).
 
     Hillis-Steele inclusive scan (log₂ size rounds of shifts by d), then a
     shift by one rank; ranks below d keep their value in a round, as they
     compose with the identity."""
     a = [t.float() for t in a_dev]
     b = [t.float() for t in b_dev]
+    ranks = range(len(a))
     d = 1
     while d < size:
-        a_r, b_r = shift_ranks((a, b), axes, size, d)
-        a, b = ([a[p] if p < d else a[p] * a_r[p] for p in range(size)],
-                [b[p] if p < d else a[p][..., None] * b_r[p] + b[p]
-                 for p in range(size)])
+        a_r, b_r = shift_ranks((a, b), axes, size, d, slices)
+        a, b = ([a[p] if p % size < d else a[p] * a_r[p] for p in ranks],
+                [b[p] if p % size < d else _bc(a[p], b[p]) * b_r[p] + b[p]
+                 for p in ranks])
         d *= 2
     # shift inclusive -> exclusive: take b of rank - 1; rank 0 = identity
-    (b_prev,) = shift_ranks((b,), axes, size, 1)
-    return [torch.zeros_like(b[0])] + b_prev[1:]
+    (b_prev,) = shift_ranks((b,), axes, size, 1, slices)
+    return [torch.zeros_like(b[p]) if t is None else t
+            for p, t in enumerate(b_prev)]
 
 
 def distributed_state_in(a_dev: RankList, s_out: RankList, axes,
-                         size: int) -> RankList:
-    """S_in for each SP rank given per-rank (total decay, zero-init state)."""
+                         size: int, slices: int = 1) -> RankList:
+    """S_in for each SP rank (of each batch slice) given per-rank (total
+    decay, zero-init state)."""
     if size == 1:
-        return [torch.zeros_like(s_out[0])]
-    return _exclusive_scan(a_dev, s_out, axes, size)
+        return [torch.zeros_like(s) for s in s_out]
+    return _exclusive_scan(a_dev, s_out, axes, size, slices)

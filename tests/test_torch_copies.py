@@ -26,9 +26,11 @@ from repro_torch.serving import sched as t_sched
 ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 DENSE_CONFIGS = ["qwen2_1_5b", "stablelm_3b", "starcoder2_7b", "chatglm3_6b",
                  "qwen2_vl_2b"]
+HYBRID_MOE_CONFIGS = ["hymba_1_5b", "qwen2_moe_a2_7b", "arctic_480b"]
 VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
             "configs/cogvideox_5b.py", "configs/shapes.py",
             *(f"configs/{n}.py" for n in DENSE_CONFIGS),
+            *(f"configs/{n}.py" for n in HYBRID_MOE_CONFIGS),
             "core/calibration.py",
             "serving/metrics.py",
             *(f"serving/sched/{n}.py" for n in (
@@ -43,7 +45,9 @@ def test_copy_is_verbatim(rel):
 
 
 @pytest.mark.parametrize("arch", ["flux-12b", "cogvideox-5b", "rwkv6-1.6b",
-                                  *t_configs.DENSE_ARCHS])
+                                  *t_configs.DENSE_ARCHS,
+                                  *t_configs.HYBRID_ARCHS,
+                                  *t_configs.MOE_ARCHS])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_equals_reference(arch, which):
     """Every field of the port's config, full and reduced, equals the
@@ -52,6 +56,33 @@ def test_config_equals_reference(arch, which):
     mine = dataclasses.asdict(getattr(t_configs, which)(arch))
     ref = dataclasses.asdict(getattr(j_configs, which)(arch))
     assert mine == ref
+
+
+@pytest.mark.parametrize("mode", ["serve", "train"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b",
+                                  "hymba-1.5b", "flux-12b"])
+def test_sharding_rules_equal_reference(arch, mode):
+    """models/sharding.py's rule tables and ``rules_for`` (which moe_block
+    reads to pick the token-gather decode) equal the reference's, with
+    and without extra rules."""
+    from repro.models import sharding as j_sh
+    from repro_torch.models import sharding as t_sh
+
+    assert t_sh.BASE_RULES == j_sh.BASE_RULES
+    assert t_sh.TRAIN_EXTRAS == j_sh.TRAIN_EXTRAS
+    for extra in (None, {"layers": ("pipe",)}):
+        assert t_sh.rules_for(t_configs.get_config(arch), mode, extra) == \
+            j_sh.rules_for(j_configs.get_config(arch), mode, extra)
+
+
+def test_sharding_rules_are_a_copy():
+    """The rules part of models/sharding.py is the reference's text."""
+    start = "# logical axis -> tuple of mesh axes"
+    mine = _between((ROOT / "repro_torch/models/sharding.py").read_text(),
+                    start, None)
+    ref = _between((ROOT / "repro/models/sharding.py").read_text(), start,
+                   "\n\n\ndef _spec_of")
+    assert mine.rstrip() == ref.rstrip()
 
 
 def test_dit_archs_and_shapes_equal_reference():

@@ -216,6 +216,41 @@ def test_captured_ar_tick_gives_the_eager_tokens(cuda):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("arch,mesh", [("hymba-1.5b", None),
+                                       ("qwen2-moe-a2.7b", None),
+                                       ("qwen2-moe-a2.7b", "model2"),
+                                       ("arctic-480b", None)])
+def test_captured_hybrid_and_moe_ticks_give_the_eager_tokens(cuda, arch,
+                                                             mesh):
+    """The hybrid tick (windowed decode attention, the SSD state written
+    in place) and the MoE tick (routing, sorts, dispatch into capacity
+    buffers, expert products; with the experts over (model 2) too),
+    captured, give the tokens of the same server with capture=False."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16",
+                              sharding_overrides=())
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = init_lm(cfg, gen, cuda, ep_degree=2)
+    sp, m = SPConfig(strategy="full"), None
+    if mesh is not None:
+        sp = SPConfig(strategy="full", sp_axes=("model",),
+                      batch_axes=("data",))
+        m = make_mesh((2,), ("model",), device=cuda)
+
+    def serve(capture):
+        srv = ARServer(params, cfg, sp, batch_slots=2, max_len=32,
+                       cache_dtype=torch.bfloat16, capture=capture, mesh=m)
+        for rid in range(3):
+            srv.submit(ARRequest(rid=rid, prompt=torch.arange(1, 4 + rid),
+                                 max_new_tokens=6))
+        return srv.serve(), srv
+
+    want, _ = serve(False)
+    got, srv = serve(True)
+    assert got == want
+    assert srv._step.replays > 0 and srv._step.graph is not None
+
+
+@pytest.mark.needs_cuda
 def test_profiled_captured_step_times_its_replays(cuda, dit):
     """A profiled captured server: latents bitwise those of the unprofiled
     one, the captured step's events filed once per replay."""

@@ -88,6 +88,16 @@ def test_dense_lm_modules_are_covered(name):
     assert f"repro_torch.{name}" in MODULES
 
 
+@pytest.mark.parametrize("name", [
+    "configs.hymba_1_5b", "configs.qwen2_moe_a2_7b", "configs.arctic_480b",
+    "models.moe", "models.sharding"])
+def test_hybrid_and_moe_modules_are_covered(name):
+    """The hybrid and MoE LMs' configs, the MoE layer and the sharding
+    rules are among the modules scanned and imported with jax blocked
+    above."""
+    assert f"repro_torch.{name}" in MODULES
+
+
 @pytest.mark.parametrize("name", ["serving.graphs", "launch.serve"])
 def test_capture_and_launcher_modules_are_covered(name):
     """The captured steps and the serving launcher are among the modules

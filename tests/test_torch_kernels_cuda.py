@@ -119,6 +119,25 @@ def test_cuda_causal_gqa_matches_plain(cuda, hq, hkv, window):
 
 
 @pytest.mark.needs_cuda
+@pytest.mark.parametrize("window", [48, 1 << 30])
+def test_cuda_hymba_attention_matches_plain(cuda, window):
+    """hymba-1.5b's prefill through flash_attention: head dim 64, GQA 5
+    (25 query over 5 KV heads), causal, under a window shorter than L and
+    under the reference's GLOBAL_WINDOW 1 << 30 (its global layers), bf16,
+    against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(window % 97)
+    mk = lambda h: torch.randn((2, 300, h, 64), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+    q, k, v = mk(25), mk(5), mk(5)
+    before = fm.launch_count()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert fm.launch_count() == before + 1
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                           window=window)
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.needs_cuda
 def test_cuda_swift_torus_head_dim_80_matches_cpu(cuda):
     """SP at head dim 80 on mesh (pod 2, model 4) (8 / 4 heads: P_u 4 x
     P_r 2): the ring path pads the chunks it circulates to 128 once, K1 and

@@ -399,10 +399,12 @@ def test_bf16_decode_from_f32_caches(lm):
             assert caches["wkv_state"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "audio"])
+@pytest.mark.parametrize("family", ["audio", "dit"])
 def test_other_families_raise(lm, family):
-    """The families still to port (the dense and vlm ones are served:
-    tests/test_torch_dense.py) raise, naming the ROADMAP item."""
+    """The families the LM does not serve (whisper's audio family is still
+    to port; the DiT has its own model) raise, naming the ROADMAP item.
+    The dense, vlm, hybrid and moe families are served
+    (tests/test_torch_dense.py, test_torch_hymba.py, test_torch_moe.py)."""
     cfg = dataclasses.replace(lm["cfg"], family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_lm(cfg, device="cpu")
@@ -532,12 +534,23 @@ def test_sp_prefill_matches_degree_1(lm, shape, axes):
     assert float((sp - one).abs().max()) <= 1e-4 * float(one.abs().max())
 
 
-def test_sp_prefill_batch_axis_not_ported(lm):
-    ctx = ParallelContext(SPConfig(strategy="full"),
-                          mesh=make_mesh((2, 2), ("data", "model"),
-                                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_forward(lm["tparams"], lm["cfg"], ctx, tokens=T(lm["tokens"]))
+@pytest.mark.parametrize("shape,axes", [((2, 2), ("data", "model")),
+                                        ((2, 2, 2), ("pod", "data",
+                                                     "model"))])
+def test_sp_prefill_over_batch_axis_matches_degree_1(lm, shape, axes):
+    """A batch axis of size 2 beside the SP axes: each batch slice runs
+    the token shift and the distributed scan over its own SP ranks (one
+    put covers both slices); logits within 1e-4 of max|logits| of
+    degree 1, as the test above."""
+    cfg, tokens = lm["cfg"], T(lm["tokens"])
+    sp_axes = tuple(a for a in axes if a != "data")
+    with torch.inference_mode():
+        one = lm_forward(lm["tparams"], cfg, ParallelContext(SP1, device=CPU),
+                         tokens=tokens)[0]
+        ctx = ParallelContext(SPConfig(strategy="full", sp_axes=sp_axes),
+                              mesh=make_mesh(shape, axes, device="cpu"))
+        sp = lm_forward(lm["tparams"], cfg, ctx, tokens=tokens)[0]
+    assert float((sp - one).abs().max()) <= 1e-4 * float(one.abs().max())
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(lm):

@@ -44,6 +44,20 @@ def test_serve_rwkv6_decode(capsys):
     assert all(len(t.split(",")) == 8 for _, t in toks)
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen2-moe-a2.7b",
+                                  "arctic-480b"])
+@pytest.mark.parametrize("mesh", ["host", "pod"])
+def test_serve_hybrid_and_moe_decode(capsys, arch, mesh):
+    """The hybrid and MoE LMs serve through the AR branch, on one rank and
+    on --mesh pod (KV caches over 16 ranks, experts over model 8)."""
+    assert serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--mesh", mesh, "--seq", "32", "--requests", "3"]) == 0
+    out = capsys.readouterr().out
+    toks = re.findall(r"^request (\d+): -> \[([\d, ]+)\]$", out, re.M)
+    assert [int(r) for r, _ in toks] == [0, 1, 2]
+    assert all(len(t.split(",")) == 8 for _, t in toks)
+
+
 def test_serve_pod_mesh_profiles_on_the_kernel_path(tmp_path, capsys):
     path = tmp_path / "p.jsonl"
     assert serve.main(["--arch", "flux-12b", "--reduced", "--device", "cpu",
@@ -57,7 +71,7 @@ def test_serve_pod_mesh_profiles_on_the_kernel_path(tmp_path, capsys):
 
 def test_serve_refuses_what_it_cannot_serve():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
+        serve.main(["--arch", "whisper-tiny", "--reduced", "--device",
                     "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "flux-12b", "--metrics", "a", "--profile", "b",
