@@ -178,7 +178,8 @@ tokens (end of serve-lm).  It prints each step's wall clock captured
 against eager.  layer-paper and numbers add one captured swift_torus layer
 (wall clock, device time, idle share).  Phase 23, serve-cli (after
 commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
-flux-12b at degree 1 and on --mesh pod, and rwkv6-1.6b.
+flux-12b at degree 1 and on --mesh pod (24 of its 96 layers), and
+rwkv6-1.6b.
 
 Phases 24 to 27 (after serve-lm) and the numbers phase serve the dense and
 vision-language attention LMs:
@@ -247,7 +248,38 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  K3) within FAMILY_SP_TOL of degree 1.
  34. serve-moe — ARServer on it: tokens bitwise, tick wall clock captured
                  and eager against the weight-read floor.
-The numbers phase adds K1 at hymba's window and global shapes and at
+ 35. train-layer — one full-width float32 qwen2-1.5b layer plus the loss
+                 (tied embedding cut to 4096 rows), B 1 x L 1024, remat
+                 "full": every parameter's gradient on the card (K1 twice,
+                 K1b once) against the CPU's within TRAIN_TOL of its
+                 max|grad|, and the gradient gate (none missing, none all
+                 zero: what a kernel output without an autograd graph
+                 breaks).
+ 36. train     — python -m repro_torch.launch.train --arch qwen2-1.5b
+                 --steps 5 --seq 1024 --batch 4 in a subprocess, full width
+                 and depth, bf16: every loss finite, 56 K1 and 28 K1b
+                 launches per step, parameters moved from the seed's init,
+                 the checkpoint loads and saves back bit for bit; median
+                 step time, tokens/s and peak memory.
+ 36b. train-breakdown — one such step in process, traced: wall, device
+                 busy and idle share, the device ms of K1b, the GEMMs, K1
+                 and the rest; AdamW alone timed with CUDA events.
+ 37. train-curve — Trainer on the reduced qwen2-1.5b (float32) at the CPU
+                 test's config on the card: the loss falls by more than 0.2
+                 in 40 steps.
+ 38. whisper   — whisper-tiny at full width, B 4, 1536 frames, decoder L
+                 448: float32 logits card vs CPU within TRAIN_TOL,
+                 teacher-forced decode with caches against the prefill,
+                 one bf16 train step with the gradient gate.
+K1b (flash_mqkv_bwd, the gradient of K1) is checked right after K5: the
+k1b phase holds it against its plain version at the train path's shapes
+(qwen2 causal GQA, whisper's cross-attention, flux, stablelm's padded
+head dim 80, starcoder2's window, padding with a fully masked row) in
+float32 and bf16, bitwise on repeat, with a negative control (the mask
+off) that must break the gate.
+The numbers phase adds K1b at the qwen2 training and whisper cross-
+attention shapes (beside its bound, its plain version and SDPA's
+backward), and K1 at hymba's window and global shapes and at
 qwen2-moe's causal shape (beside SDPA, the bound over the visible pairs and
 its plain version) and K3/K4 on the EP dispatch put (beside one copy_);
 serve-cli adds hymba-1.5b and qwen2-moe-a2.7b at degree 1 and on --mesh
@@ -257,7 +289,8 @@ A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
 (model 16), the route that takes the direct put, and K5's, which come
-from the lm-prefill run.  The line before the
+from the lm-prefill run, and K1b's, which the train phase's launcher
+counts from 0 in its own process and prints.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -269,6 +302,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -295,9 +329,10 @@ STEPS = 4  # sampler steps of the serve phases
 # control (one KV chunk of every attention dropped) shrinks with depth: on
 # an H100 it read 6.0e-2 at 96 layers and 3.4e-2 at 32 against
 # SERVE_SP_TOL 0.03
-SERVE_SP_LAYERS = 48
+SERVE_SP_LAYERS = 32
 ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
-SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv")  # csrc/<name>.cu
+SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv",
+           "flash_mqkv_bwd")  # csrc/<name>.cu
 # serve-sp latents vs the degree-1 serve, as ||x_sp - x_1|| / ||x_1 - noise||
 # (the error relative to what the model moved the latents), bfloat16
 # (2.8x the largest value seen, 1.085e-2, on an H100 80GB HBM3 at 700 W;
@@ -2193,9 +2228,11 @@ def commcheck_phase(card: str) -> None:
 SERVE_CLI = (
     ("flux-12b degree 1", ["--arch", "flux-12b", "--requests", "2",
                            "--seq", "1024", "--steps", "3"]),
+    # 24 of the 96 layers: a 96-layer SP graph alone takes ~50 s to
+    # capture and instantiate
     ("flux-12b mesh pod", ["--arch", "flux-12b", "--mesh", "pod",
                            "--requests", "1", "--seq", "256", "--steps",
-                           "3"]),
+                           "3", "--layers", "24"]),
     ("rwkv6-1.6b", ["--arch", "rwkv6-1.6b", "--requests", "4"]),
     ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4"]),
     ("qwen2-1.5b mesh pod", ["--arch", "qwen2-1.5b", "--mesh", "pod",
@@ -2213,7 +2250,7 @@ SERVE_CLI = (
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
     size with random weights: flux-12b at degree 1 and on the paper's mesh
-    (pod 2, model 8), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
+    (pod 2, model 8) at 24 of its 96 layers (``--layers``), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
     qwen2-moe-a2.7b at degree 1 and with the KV cache sharded over (pod 2,
     model 8) (the experts over model 8); each run prints its requests,
     the DiT runs their scheduler line, and every run its captured
@@ -3006,24 +3043,20 @@ def lm_breakdown(card: str, params, cfg) -> None:
 # phases 24 to 27: the dense and vlm attention LMs
 # ---------------------------------------------------------------------------
 
-def perturb_dense(params, gen) -> None:
-    """Draw the tensors init_lm leaves constant (in place): every linear
-    bias and LayerNorm bias from N(0, 0.1^2), every norm scale from
-    1 + N(0, 0.1^2), so that QKV biases and norm affines take part."""
+def perturb_dense(tree, gen) -> None:
+    """Draw the tensors init_lm and init_whisper leave constant (in place,
+    over a tree of dicts and lists): every linear bias and LayerNorm bias
+    from N(0, 0.1^2), every norm scale from 1 + N(0, 0.1^2), so that QKV
+    biases and norm affines take part."""
     import torch
-
-    def walk(tree):
-        for name, leaf in tree.items():
-            if isinstance(leaf, dict):
-                walk(leaf)
-            elif name in ("b", "bias", "scale"):
-                noise = torch.randn(leaf.shape, generator=gen,
-                                    device=leaf.device) * 0.1
-                tree[name] = (noise + (name == "scale")).to(leaf.dtype)
-
-    walk({k: v for k, v in params.items() if k != "layers"})
-    for lp in params["layers"]:
-        walk(lp)
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for name, leaf in list(items):
+        if isinstance(leaf, (dict, list)):
+            perturb_dense(leaf, gen)
+        elif name in ("b", "bias", "scale"):
+            noise = torch.randn(leaf.shape, generator=gen,
+                                device=leaf.device) * 0.1
+            tree[name] = (noise + (name == "scale")).to(leaf.dtype)
 
 
 def dense_positions(cfg, b: int, l: int, device):
@@ -4157,6 +4190,503 @@ def ep_put_numbers(card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: K1b, a full-width layer's gradients, the launcher, whisper
+# ---------------------------------------------------------------------------
+
+# (label, BH, BHkv, Lq, Lk, D, causal, window, padded keys, a fully masked
+# row): the shapes the train path gives K1b, and its edges
+K1B_CASES = (
+    ("qwen2-train", 48, 8, 1024, 1024, 128, True, None, 0, False),
+    ("whisper-cross", 24, 24, 448, 1536, 64, False, None, 0, False),
+    ("flux", 24, 24, 4352, 4352, 128, False, None, 0, False),
+    ("stablelm-d80", 32, 32, 1024, 1024, 80, True, None, 0, False),
+    ("starcoder2-window", 36, 4, 4608, 4608, 128, True, 4096, 0, False),
+    ("pad-masked-row", 8, 2, 200, 300, 64, True, None, 17, True),
+)
+TRAIN_TOL = 1e-4  # train-layer and whisper, card vs CPU, of max|ref|
+TRAIN_LAYER_L = 1024  # train-layer's tokens (B 1)
+TRAIN_LAYER_VOCAB = 4096  # its tied embedding, cut: the layer is full width
+TRAIN_BL = (4, 1024)  # train: the launcher's --batch and --seq
+TRAIN_STEPS = 5
+CURVE_STEPS = 40  # train-curve: tests/test_torch_train.py's config
+WHISPER_BL = (4, 448)  # whisper: batch, decoder tokens (encoder_seq 1536)
+# (B, Hq, Hkv) of the numbers phase's K1b shapes, for SDPA's [B, H, L, D]
+K1B_SDPA = {"qwen2-train": (4, 12, 2), "whisper-cross": (4, 6, 6)}
+
+
+def k1b_inputs(gen, case, dtype):
+    """K1b's inputs for ``case``: q, k, v and dO, and the (o, l, m) of K1's
+    forward on them."""
+    import torch
+    from repro_torch.kernels import flash_mqkv as fm
+    _, bh, bhkv, lq, lk, d, causal, window, pad, dead = case
+    q, k, v = k1_inputs(gen, bh, bhkv, lq, lk, d, dtype)
+    q_pos = torch.arange(lk - lq, lk, dtype=torch.int32, device="cuda")
+    k_pos = torch.arange(lk, dtype=torch.int32, device="cuda")
+    if pad:
+        k_pos[-pad:] = -1
+    if dead:  # row 0 sees only keys at positions <= 0, and those are padding
+        k_pos[:4] = -1
+        q_pos[0] = 0
+    kw = dict(group=bh // bhkv, scale=d ** -0.5, causal=causal, window=window)
+    with torch.no_grad():
+        o, l, m = fm.flash_mqkv(q, k, v, q_pos, k_pos, **kw)
+    do = torch.randn((bh, lq, d), generator=gen, device="cuda").to(dtype)
+    return (q, k, v, o, do, m, l, q_pos, k_pos), kw
+
+
+def check_k1b(results: dict) -> None:
+    """Phase k1b: K1b against its plain version (the explicit FA2 backward,
+    kernels/ref.py) on the same card tensors at K1B_CASES, float32 (TF32
+    off) within TOL["float32"] and bfloat16 within TOL["bfloat16"] of each
+    gradient's max|ref|; two runs bitwise equal; the fully masked rows'
+    gradients zero.  Negative control: the kernel with the causal mask off
+    must break the float32 gate at the qwen2 training shape."""
+    import torch
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels.ref import flash_mqkv_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+    for case in K1B_CASES:
+        label, bh, bhkv, lq, lk, d = case[:6]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            args, kw = k1b_inputs(gen, case, dtype)
+            got = fm.flash_mqkv_bwd(*args, **kw)
+            again = fm.flash_mqkv_bwd(*args, **kw)
+            want = flash_mqkv_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            dead_ok = True
+            if case[-1]:
+                dead = args[6] == 0
+                dead_ok = bool(dead.any()) and bool((got[0][dead] == 0).all())
+            log(f"k1b {label} BH={bh}/{bhkv} Lq={lq} Lk={lk} D={d} "
+                f"causal={kw['causal']} window={kw['window']} {name}: max "
+                f"over dq, dk, dv of max|d|/max|ref| {err:.3e} (tol "
+                f"{TOL[name]}), repeat bitwise {bitwise}, finite {finite}"
+                + (f", masked rows zero {dead_ok}" if case[-1] else ""))
+            if not (err <= TOL[name] and bitwise and finite and dead_ok):
+                fail(f"k1b {label} {name}: err {err} bitwise {bitwise} "
+                     f"finite {finite} masked rows {dead_ok}")
+            if name == "bfloat16":
+                errs[label] = err
+            del args, got, again, want
+            torch.cuda.empty_cache()
+    args, kw = k1b_inputs(gen, K1B_CASES[0], torch.float32)
+    got = fm.flash_mqkv_bwd(*args, **dict(kw, causal=False))
+    want = flash_mqkv_bwd_plain(*args, **kw)
+    err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+    log(f"k1b negative control: the kernel without the causal mask against "
+        f"the masked plain backward: {err:.3e} (must exceed "
+        f"{TOL['float32']})")
+    if not err > TOL["float32"]:
+        fail(f"k1b negative control passed the gate ({err})")
+    results["k1b_err"] = errs
+
+
+def _grads(bundle, params, batch, cfg, device, remat="full"):
+    """(loss, [(name, gradient or None)]) of ``bundle.loss`` in train mode
+    on ``device``, every parameter a leaf that requires grad."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext
+    from repro_torch.train.optimizer import tree_leaves
+
+    p = _cast(params, device=device)
+    leaves = tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    ctx = ParallelContext(SPConfig(strategy="full"), "train", device,
+                          remat=remat)
+    b = {k: v.to(device) for k, v in batch.items()}
+    loss, _ = bundle.loss(p, b, cfg, ctx)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return p, loss.detach(), list(grads)
+
+
+def gradient_gate(label: str, grads) -> None:
+    """Every parameter has a gradient, not None and not all zero: what a
+    kernel output without an autograd graph would break."""
+    import torch
+    missing = sum(g is None for g in grads)
+    zero = sum(g is not None and not bool(torch.any(g != 0)) for g in grads)
+    log(f"{label}: {len(grads)} parameters, {missing} without a gradient, "
+        f"{zero} with an all-zero gradient")
+    if missing or zero:
+        fail(f"{label}: {missing} gradients missing, {zero} all zero")
+
+
+def train_layer(results: dict) -> None:
+    """Phase train-layer: one full-width float32 qwen2-1.5b layer plus the
+    loss (tied embedding cut to TRAIN_LAYER_VOCAB rows, B 1 x L
+    TRAIN_LAYER_L, remat "full"): every parameter's gradient on the card
+    (K1, then K1b) against the CPU's (the plain versions), within
+    TRAIN_TOL of that tensor's max|grad|; the gradient gate; K1 launched
+    twice (the forward and its recomputation) and K1b once."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.models import get_model, init_lm
+    from repro_torch.train import SyntheticStream
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=1,
+                              dtype="float32", vocab=TRAIN_LAYER_VOCAB)
+    gen = torch.Generator().manual_seed(31)
+    params = init_lm(cfg, gen, device="cpu")
+    perturb_dense(params, gen)
+    batch = SyntheticStream(cfg, InputShape("t", TRAIN_LAYER_L, 1,
+                                            "training"), seed=31).batch(
+        0, "cpu")
+    bundle = get_model(cfg)
+    t0 = time.perf_counter()
+    fm.reset_launch_count()
+    fm.reset_bwd_launch_count()
+    _, loss, grads = _grads(bundle, params, batch, cfg, torch.device("cuda"))
+    torch.cuda.synchronize()
+    k1, k1b = fm.launch_count(), fm.bwd_launch_count()
+    gradient_gate("train-layer card", grads)
+    _, loss_cpu, want = _grads(bundle, params, batch, cfg,
+                               torch.device("cpu"))
+    worst = max(rel_err(g.cpu(), w, floor=0.0) for g, w in zip(grads, want))
+    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    log(f"train-layer qwen2-1.5b 1 layer d={cfg.d_model} fp32 L="
+        f"{TRAIN_LAYER_L}: loss {float(loss):.6f} (CPU {float(loss_cpu):.6f},"
+        f" rel {loss_err:.2e}), worst gradient max|d|/max|ref| {worst:.3e} "
+        f"over {len(grads)} tensors (tol {TRAIN_TOL}), K1 launches {k1}, "
+        f"K1b launches {k1b}, {time.perf_counter() - t0:.1f} s")
+    if not (worst <= TRAIN_TOL and loss_err <= TRAIN_TOL and k1 == 2
+            and k1b == 1):
+        fail(f"train-layer: worst {worst} loss {loss_err} K1 {k1} K1b {k1b}")
+    results["train_layer_err"] = worst
+
+
+def train_launcher(results: dict, card: str) -> None:
+    """Phase train: ``python -m repro_torch.launch.train --arch qwen2-1.5b
+    --steps 5 --seq 1024 --batch 4`` in a subprocess, at full width and
+    depth in bf16 (remat "full"), every step logged: every loss finite;
+    56 K1 and 28 K1b launches per step (28 layers, each forward run again
+    in the backward); the checkpoint loads into the model's tree, holds
+    parameters that moved from the seed-0 init, and saves back to the same
+    arrays bit for bit."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import tree_leaves
+
+    b, l = TRAIN_BL
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(pathlib.Path(tmp) / "ck")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen2-1.5b", "--steps", str(TRAIN_STEPS), "--seq", str(l),
+               "--batch", str(b), "--ckpt", ck, "--log-every", "1"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            fail(f"train: the launcher exited {proc.returncode}")
+        losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)",
+                                               proc.stdout)]
+        summary = re.search(r"median step ([\d.]+) ms .* ([\d.]+) tokens/s, "
+                            r"peak memory ([\d.]+) GiB", proc.stdout)
+        kern = re.search(r"flash_mqkv ([\d.]+) and flash_mqkv_bwd ([\d.]+) "
+                         r"launches per step", proc.stdout)
+        if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
+                or summary is None or kern is None):
+            fail(f"train: losses {losses}, summary {summary}, kernels {kern}")
+        k1, k1b = float(kern.group(1)), float(kern.group(2))
+        cfg = get_config("qwen2-1.5b")
+        init = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+        back = checkpoint.load(ck, {"params": init, "step": 0})
+        moved = sum(not torch.equal(a, c) for a, c in
+                    zip(tree_leaves(init), tree_leaves(back["params"])))
+        checkpoint.save(ck + "2", back)
+        first, second = np.load(ck + ".npz"), np.load(ck + "2.npz")
+        same = (sorted(first.files) == sorted(second.files) and all(
+            np.array_equal(first[f], second[f]) for f in first.files))
+        n = len(tree_leaves(init))
+        del init, back
+    torch.cuda.empty_cache()
+    log(f"train qwen2-1.5b {cfg.n_layers} layers bf16 B={b} L={l}: losses "
+        f"{[round(x, 4) for x in losses]}, median step {summary.group(1)} "
+        f"ms, {summary.group(2)} tokens/s, peak {summary.group(3)} GiB, K1 "
+        f"{k1:g} and K1b {k1b:g} launches per step, {moved} of {n} "
+        f"parameter tensors moved, checkpoint round trip bitwise {same}, "
+        f"subprocess {wall:.1f} s [{card}]")
+    if k1 != 2 * cfg.n_layers or k1b != cfg.n_layers or not moved or not same:
+        fail(f"train: K1 {k1} K1b {k1b} moved {moved} round trip {same}")
+    results["train_k1b_launches"] = round(k1b * TRAIN_STEPS)
+
+
+def train_breakdown(card: str) -> None:
+    """Phase train-breakdown: one qwen2-1.5b training step as the train
+    phase runs it (full width and depth, bf16, B 4 x L 1024, remat
+    "full"), in process after two warm steps, traced by torch.profiler:
+    wall ms, device busy ms and the idle share, and the device ms of K1,
+    K1b (its delta, dK/dV and dQ launches), the GEMMs and the rest; then
+    AdamW alone on the step's gradients (CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig
+    from repro_torch.models import ParallelContext, get_model
+    from repro_torch.train import (AdamWConfig, SyntheticStream, adamw_update,
+                                   init_adamw, make_train_step)
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    b, l = TRAIN_BL
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-1.5b")
+    bundle = get_model(cfg)
+    params = bundle.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS)
+    opt = init_adamw(params)
+    sp = SPConfig(strategy="full")
+    step = make_train_step(cfg, None, sp, opt_cfg, device=dev)
+    batch = SyntheticStream(cfg, InputShape("t", l, b, "training")).batch(
+        0, dev)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    ms = lambda names: sum(e.self_device_time_total for e in kernels
+                           if any(n in e.key for n in names)) / 1e3
+    busy = ms(("",))
+    if busy == 0.0:
+        log(f"train-breakdown: wall {wall:.1f} ms; the profiler saw no "
+            f"device time (shares not measured) [{card}]")
+    else:
+        k1 = ms(("flash_hopper_kernel", "flash_f32_kernel"))
+        k1b = ms(("delta_kernel", "dkdv_kernel", "dq_kernel"))
+        gemm = ms(("gemm", "Gemm", "nvjet", "cutlass", "xmma"))
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        log(f"train-breakdown qwen2-1.5b bf16 B={b} L={l}: step wall "
+            f"{wall:.1f} ms; device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall:.3f}; K1b {k1b:.2f} ms ({k1b / busy:.3f}), "
+            f"GEMMs {gemm:.2f} ms ({gemm / busy:.3f}), K1 {k1:.2f} ms "
+            f"({k1 / busy:.3f}), the rest {busy - k1b - gemm - k1:.2f} ms; "
+            "top kernels: " + "; ".join(
+                f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f}"
+                f" ms" for e in top) + f" [{card}]")
+    # AdamW alone, on gradients of the step's shapes
+    loss, _ = bundle.loss(params, batch, cfg, ParallelContext(
+        sp, "train", dev))
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
+    grads = tree_map(lambda _: next(grads), params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    adamw_update(opt_cfg, grads, opt, params)
+    end.record()
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"train-breakdown AdamW over {n / 1e9:.3f} B parameters (bf16, "
+        f"float32 moments): {start.elapsed_time(end):.2f} ms [{card}]")
+    del params, opt, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_curve(results: dict, card: str) -> None:
+    """Phase train-curve: Trainer on the reduced qwen2-1.5b (float32) at
+    the CPU test's config on the card: CURVE_STEPS steps, lr 3e-3, warmup
+    5; the last loss below the first by more than 0.2."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.train import AdamWConfig, Trainer
+
+    cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), dtype="float32",
+                              sharding_overrides=())
+    tr = Trainer(cfg, None, SPConfig(strategy="full"),
+                 InputShape("tiny_train", 64, 4, "training"),
+                 opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60),
+                 device="cuda")
+    fm.reset_launch_count()
+    fm.reset_bwd_launch_count()
+    t0 = time.perf_counter()
+    _, history = tr.run(CURVE_STEPS, log_every=10)
+    wall = time.perf_counter() - t0
+    first, last = history[0]["loss"], history[-1]["loss"]
+    k1, k1b = fm.launch_count(), fm.bwd_launch_count()
+    log(f"train-curve qwen2-1.5b reduced fp32: loss {first:.4f} -> "
+        f"{last:.4f} in {CURVE_STEPS} steps (must fall by > 0.2), K1 {k1}, "
+        f"K1b {k1b} launches, median step "
+        f"{1e3 * median(tr.step_seconds[1:]):.2f} ms, {wall:.1f} s [{card}]")
+    if not (math.isfinite(last) and last < first - 0.2
+            and k1b == CURVE_STEPS * cfg.n_layers):
+        fail(f"train-curve: {first} -> {last}, K1b {k1b}")
+
+
+def whisper_phase(results: dict, card: str) -> None:
+    """Phase whisper: whisper-tiny at full width (encoder_seq 1536, d 384,
+    4 + 4 layers), B 4 x decoder L 448, perturbed biases and norms:
+    (a) float32 logits on the card (K1 in the encoder, the decoder's self-
+    and cross-attention) against the CPU's within TRAIN_TOL of max|logits|;
+    (b) teacher-forced decode on the card through bundle.step with caches
+    against the card's prefill, within TRAIN_TOL; (c) one bf16 train step
+    on the card: the gradient gate, a finite loss, 12 K1b launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.models import ParallelContext, get_model, init_whisper
+    from repro_torch.models import whisper as wh
+    from repro_torch.train import AdamWConfig, adamw_update, init_adamw
+    from repro_torch.train.optimizer import tree_map
+
+    b, l = WHISPER_BL
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+    bundle = get_model(cfg)
+    gen = torch.Generator().manual_seed(41)
+    params = init_whisper(cfg, gen, device="cpu")
+    perturb_dense(params, gen)
+    batch = {"frames": torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen) * 0.5,
+             "tokens": torch.randint(0, cfg.vocab, (b, l), generator=gen)}
+    sp = SPConfig(strategy="full")
+    t0 = time.perf_counter()
+    pc = _cast(params, device=dev)
+    bc = {k: v.to(dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        fm.reset_launch_count()
+        card_logits = bundle.apply(pc, bc, cfg, ParallelContext(sp, device=dev))
+        torch.cuda.synchronize()
+        k1 = fm.launch_count()
+        cpu_logits = bundle.apply(params, batch, cfg,
+                                  ParallelContext(sp, device="cpu"))
+        err = rel_err(card_logits.cpu(), cpu_logits, floor=0.0)
+        del cpu_logits
+        memory = wh.encode(pc, bc["frames"], cfg, ParallelContext(sp,
+                                                                  device=dev))
+        ctx = ParallelContext(sp, "decode", dev)
+        caches = wh.init_whisper_caches(cfg, b, l, torch.float32, dev)
+        steps = []
+        t1 = time.perf_counter()
+        for t in range(l):
+            logit, caches = bundle.step(pc, {"tokens": bc["tokens"][:, t:t + 1],
+                                             "encoder_out": memory},
+                                        caches, t, cfg, ctx)
+            steps.append(logit)
+        dec_err = rel_err(torch.stack(steps, 1), card_logits, floor=0.0)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+    log(f"whisper-tiny d={cfg.d_model} {cfg.encoder_layers}+{cfg.n_layers} "
+        f"layers fp32 B={b} frames={cfg.encoder_seq} L={l}: card vs CPU "
+        f"max|d|/max|ref| {err:.3e} (tol {TRAIN_TOL}), K1 launches {k1}; "
+        f"teacher-forced decode ({l} steps, {dec_s:.1f} s) vs prefill "
+        f"{dec_err:.3e} (tol {TRAIN_TOL}) [{card}]")
+    if not (err <= TRAIN_TOL and dec_err <= TRAIN_TOL
+            and k1 == cfg.encoder_layers + 2 * cfg.n_layers):
+        fail(f"whisper: card vs CPU {err}, decode {dec_err}, K1 {k1}")
+    del pc, memory, caches, steps, card_logits
+    # (c) a bf16 train step at the same shape
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    batch16 = dict(frames=bc["frames"].to(torch.bfloat16), tokens=bc["tokens"],
+                   labels=torch.roll(bc["tokens"], -1, dims=1))
+    params16 = _cast(params, device=dev, dtype=torch.bfloat16)
+    fm.reset_bwd_launch_count()
+    p, loss, grads = _grads(bundle, params16, batch16, cfg16, dev)
+    torch.cuda.synchronize()
+    k1b = fm.bwd_launch_count()
+    gradient_gate("whisper train step", grads)
+    it = iter(grads)
+    opt = AdamWConfig()
+    _, state, metrics = adamw_update(opt, tree_map(lambda _: next(it), p),
+                                     init_adamw(p, opt), p)
+    gnorm = float(metrics["grad_norm"])
+    log(f"whisper train step bf16: loss {float(loss):.4f}, grad norm "
+        f"{gnorm:.4f}, K1b launches {k1b}, {time.perf_counter() - t0:.1f} s "
+        f"in the phase [{card}]")
+    if not (math.isfinite(float(loss)) and math.isfinite(gnorm)
+            and k1b == cfg.encoder_layers + 2 * cfg.n_layers):
+        fail(f"whisper train step: loss {float(loss)} gnorm {gnorm} K1b {k1b}")
+    del p, grads, state, params16
+    torch.cuda.empty_cache()
+
+
+def k1b_numbers(card: str) -> dict:
+    """K1b (bf16) at the qwen2 training shape and the whisper cross-
+    attention shape: ms per call beside its bound (5 products of 2·D
+    operations per visible pair at the bf16 peak, against reading q, k, v,
+    o, dO, m, l and writing dq, dk, dv once at the HBM rate), its plain
+    version and SDPA's backward (the gradient of one SDPA forward, the
+    forward excluded)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.kernels.ref import flash_mqkv_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for case in K1B_CASES[:2]:
+        label, bh, bhkv, lq, lk, d, causal, window = case[:8]
+        args, kw = k1b_inputs(gen, case, torch.bfloat16)
+        q, k, v, o, do, m, l, q_pos, k_pos = args
+        ms = cuda_ms(lambda: fm.flash_mqkv_bwd(*args, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: flash_mqkv_bwd_plain(*args, **kw),
+                           reps=3, warmup=1)
+        b, hq, hkv = K1B_SDPA[label]
+        leaf = lambda t, h: t.view(b, h, -1, d).detach().requires_grad_()
+        q4, k4, v4 = leaf(q, hq), leaf(k, hkv), leaf(v, hkv)
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                             enable_gqa=hq != hkv)
+        do4 = do.view(b, hq, lq, d)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), do4, retain_graph=True), reps=20)
+        vis = (k_pos[None, :] >= 0).expand(lq, lk)
+        if causal:
+            vis = vis & (q_pos[:, None] >= k_pos[None, :])
+        pairs = float(vis.sum()) * bh
+        flops = 5 * 2.0 * d * pairs
+        nbytes = 2.0 * d * (4 * bh * lq + 4 * bhkv * lk) + 8.0 * bh * lq
+        t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BPS
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        log(f"k1b time {label}: BH={bh}/{bhkv} Lq={lq} Lk={lk} D={d} "
+            f"causal={causal} bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s over {pairs / bh / (lq * lk):.3f} of the pairs, "
+            f"{100 * bound_ms / ms:.1f} % of the bound), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, sdpa "
+            f"backward {lib_ms:.4f} ms (K1b / sdpa {ms / lib_ms:.2f}) [{card}]")
+        del args, q4, k4, v4, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled entry: (registers, spill store bytes, spill load bytes,
     static shared-memory bytes)} from nvcc's -Xptxas -v output."""
@@ -4233,6 +4763,18 @@ def build_all() -> None:
                 "SM)")
             if st or ld:
                 fail(f"one_sided {kernel.group(0)} spills registers")
+    for entry, (regs, st, ld, _) in ptxas_report(
+            reps["flash_mqkv_bwd"]["log"]).items():
+        m = re.search(r"(delta_kernel|dkdv_kernel|dq_kernel)I(\w+?)(?:Li(\d+)E)?E",
+                      entry)
+        if m is None:
+            continue
+        dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+        d = f", D={m.group(3)}" if m.group(3) else ""
+        log(f"ptxas flash_mqkv_bwd {m.group(1)}<{dtype}{d}>: {regs} registers, "
+            f"{st} + {ld} bytes spilled (stores + loads)")
+        if st or ld:
+            fail(f"flash_mqkv_bwd {m.group(1)}<{dtype}{d}> spills registers")
     wkv = wkv_module()
     for entry, (regs, st, ld, _) in ptxas_report(
             reps["rwkv6_wkv"]["log"]).items():
@@ -4278,6 +4820,7 @@ def main() -> int:
     check_k2(results)
     check_put_kernels(results)
     check_k5(results)
+    check_k1b(results)
     check_sp_block(check_block())
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after check_sp_block")
     torch.cuda.empty_cache()
@@ -4370,6 +4913,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    train_layer(results)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_layer")
+    train_launcher(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_launcher")
+    train_breakdown(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_breakdown")
+    train_curve(results, card)
+    whisper_phase(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after whisper_phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     k1 = k1_numbers(card)
     dense_numbers(card)
     k2 = k2_numbers(card)
@@ -4377,6 +4932,7 @@ def main() -> int:
     ep_put_numbers(card)
     layer_breakdown(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_breakdown")
+    k1b = k1b_numbers(card)
     k5 = k5_numbers(card, results)
     lm_breakdown(card, lm_params, lm_cfg)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_breakdown")
@@ -4403,6 +4959,12 @@ def main() -> int:
         kernel_row("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
                    "src/repro/kernels/rwkv6_wkv.py:81", results["lm_launches"],
                    results["k5_err"][LM_PREFILL[0]], k5),
+        # K1b replaces no Pallas kernel: the reference differentiates plain
+        # attention with XLA
+        kernel_row("flash_mqkv_bwd", "src/repro_torch/csrc/flash_mqkv_bwd.cu",
+                   "src/repro/core/softmax.py:199",
+                   results["train_k1b_launches"],
+                   results["k1b_err"]["qwen2-train"], k1b["qwen2-train"]),
     ]
     for row in kernels:
         if row["launches"] <= 0:

@@ -1,7 +1,7 @@
 """Architecture configs of the port: the models it serves (the flux-12b and
 cogvideox-5b DiTs, the rwkv6-1.6b language model, the dense and
-vision-language attention LMs, the hybrid hymba-1.5b and the MoE LMs),
-and the input shapes (the paper's DiT workloads among them)."""
+vision-language attention LMs, the hybrid hymba-1.5b, the MoE LMs and
+the whisper-tiny encoder-decoder), and the input shapes (the paper's DiT workloads among them)."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +21,7 @@ _MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "arctic-480b": "arctic_480b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 DIT_ARCHS = ("flux-12b", "cogvideox-5b")
@@ -32,6 +33,8 @@ DENSE_ARCHS = ("qwen2-1.5b", "stablelm-3b", "starcoder2-7b", "chatglm3-6b",
 HYBRID_ARCHS = ("hymba-1.5b",)
 # routed experts: shared experts (qwen2-moe) or a dense residual (arctic)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "arctic-480b")
+# encoder-decoder with cross-attention (the audio family)
+AUDIO_ARCHS = ("whisper-tiny",)
 ALL_ARCHS = tuple(_MODULES)
 
 
@@ -47,6 +50,7 @@ def get_reduced(arch_id: str) -> ModelConfig:
 
 __all__ = [
     "ALL_ARCHS",
+    "AUDIO_ARCHS",
     "DENSE_ARCHS",
     "DIT_ARCHS",
     "DIT_SHAPES",

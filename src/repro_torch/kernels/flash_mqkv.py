@@ -24,7 +24,16 @@ zero output columns, so the result is the unpadded attention's; the cost
 is the padded head dim's work and three padding copies
 (``kernel_head_dim``, ``pad_head_dim``).
 
-There is no fallback from the kernel to the plain version.
+Gradients.  A finalized, stateless call whose q, k or v requires grad
+(with grad enabled) runs through ``FlashMQKV``, a
+``torch.autograd.Function``: its forward is the call above and saves
+(o, l, m); its backward is K1b (``flash_mqkv_bwd``, the hand-written
+kernel of ``csrc/flash_mqkv_bwd.cu``) on CUDA tensors and its plain
+version ``flash_mqkv_bwd_plain`` (kernels/ref.py) on CPU tensors.  A call
+with a carried state or without ``finalize`` (the SP ring's partial
+calls) raises when it would need a gradient: SP training is not ported.
+
+There is no fallback from a kernel to its plain version.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, flash_mqkv_bwd_plain
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -115,6 +124,22 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+# K1b calls (each one delta, one dK/dV and one dQ launch) since the last
+# reset
+_bwd_launches = 0
+
+
+def bwd_launch_count() -> int:
+    """CUDA launches of K1b made by ``flash_mqkv_bwd`` since the last
+    reset (one per backward call)."""
+    return _bwd_launches
+
+
+def reset_bwd_launch_count() -> None:
+    global _bwd_launches
+    _bwd_launches = 0
 
 
 def flash_mqkv_plain(q, k, v, q_pos, k_pos, *, group=1, scale=None,
@@ -227,7 +252,7 @@ def _bound_library() -> ctypes.CDLL:
     return lib
 
 
-def flash_mqkv(
+def _forward(
     q: torch.Tensor,  # [BH, Lq, D]
     k: torch.Tensor,  # [BHkv, Lk, D]
     v: torch.Tensor,
@@ -241,14 +266,9 @@ def flash_mqkv(
     state: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
     finalize: bool = True,
 ):
-    """Returns (o, l, m); o normalized iff ``finalize`` (then in q's dtype,
-    else float32).  Any Lq and Lk: the kernel masks ragged edges itself."""
-    bh, lq, d = q.shape
-    bhkv, lk, _ = k.shape
-    if bh != bhkv * group:
-        raise ValueError(f"BH {bh} != BHkv {bhkv} * group {group}")
-    if scale is None:
-        scale = d ** -0.5
+    """The forward without autograd: the plain version on the CPU, K1 on
+    CUDA (at the padded head dim where ``d`` is not one of HEAD_DIMS)."""
+    d = q.shape[-1]
     if q.device.type == "cpu":
         return flash_mqkv_plain(q, k, v, q_pos, k_pos, group=group,
                                 scale=scale, causal=causal, window=window,
@@ -266,3 +286,146 @@ def flash_mqkv(
     return _launch(q, k, v, q_pos, k_pos, group=group, scale=scale,
                    causal=causal, window=window, state=state,
                    finalize=finalize)
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashMQKV(torch.autograd.Function):
+    """K1's finalized, stateless call with K1b as its gradient.  Forward:
+    ``_forward`` (K1 on CUDA, the plain version on the CPU), saving
+    (o, l, m) so the backward needs no second forward.  Backward:
+    ``flash_mqkv_bwd``.  l and m are outputs without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, group, scale, causal, window):
+        o, l, m = _forward(q, k, v, q_pos, k_pos, group=group, scale=scale,
+                           causal=causal, window=window, state=None,
+                           finalize=True)
+        ctx.save_for_backward(q, k, v, o, l, m, q_pos, k_pos)
+        ctx.kw = dict(group=group, scale=scale, causal=causal, window=window)
+        ctx.mark_non_differentiable(l, m)
+        return o, l, m
+
+    @staticmethod
+    def backward(ctx, do, _dl, _dm):
+        q, k, v, o, l, m, q_pos, k_pos = ctx.saved_tensors
+        dq, dk, dv = flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos,
+                                    **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_mqkv(
+    q: torch.Tensor,  # [BH, Lq, D]
+    k: torch.Tensor,  # [BHkv, Lk, D]
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # [Lq] int32
+    k_pos: torch.Tensor,  # [Lk] int32, -1 = padding
+    *,
+    group: int = 1,  # GQA: q heads per kv head (BH = BHkv * group)
+    scale: float | None = None,
+    causal: bool = False,
+    window: int | None = None,
+    state: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    finalize: bool = True,
+):
+    """Returns (o, l, m); o normalized iff ``finalize`` (then in q's dtype,
+    else float32).  Any Lq and Lk: the kernel masks ragged edges itself.
+    Differentiable in q, k and v when finalized without a carried state
+    (``FlashMQKV``); such a call with a state or without ``finalize``
+    raises while a gradient is wanted."""
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    if bh != bhkv * group:
+        raise ValueError(f"BH {bh} != BHkv {bhkv} * group {group}")
+    if scale is None:
+        scale = d ** -0.5
+    if _wants_grad(q, k, v):
+        if state is not None or not finalize:
+            raise NotImplementedError(
+                "flash_mqkv has a gradient only for a finalized call "
+                "without a carried state: SP training (the backward of the "
+                "ring schedule) is ROADMAP Queue 1 item 7")
+        return FlashMQKV.apply(q, k, v, q_pos, k_pos, group, scale, causal,
+                               window)
+    return _forward(q, k, v, q_pos, k_pos, group=group, scale=scale,
+                    causal=causal, window=window, state=state,
+                    finalize=finalize)
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _bound_bwd_library() -> ctypes.CDLL:
+    lib = _build.load("flash_mqkv_bwd")
+    if lib.flash_mqkv_bwd.argtypes is None:
+        lib.flash_mqkv_bwd.argtypes = _BWD_ARGTYPES
+        lib.flash_mqkv_bwd.restype = ctypes.c_int
+        lib.flash_mqkv_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_mqkv_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
+                   scale=None, causal=False, window=None):
+    """(dq, dk, dv) of the finalized, stateless ``flash_mqkv`` from its
+    saved (o, l, m) and the gradient ``do`` of o: K1b on CUDA tensors, the
+    plain version (kernels/ref.py) on CPU tensors.  A head dim that is not
+    one of HEAD_DIMS runs zero-padded (q, k, v, o and do), and the
+    gradients are sliced back: zero columns add nothing to the scores."""
+    global _bwd_launches
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    if scale is None:
+        scale = d ** -0.5
+    if q.device.type == "cpu":
+        return flash_mqkv_bwd_plain(q, k, v, o, do, m, l, q_pos, k_pos,
+                                    group=group, scale=scale, causal=causal,
+                                    window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mqkv_bwd runs on cpu or cuda, not {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_mqkv_bwd kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if bh != bhkv * group:
+        raise ValueError(f"BH {bh} != BHkv {bhkv} * group {group}")
+    if window is not None and not 0 <= window <= _INT32_MAX:
+        raise ValueError(f"window {window} out of int32 range")
+    kd = kernel_head_dim(d)
+    q, k, v, o, do = (pad_head_dim(t.contiguous()) for t in (q, k, v, o, do))
+    dev = q.device
+    for name, t, shape in (("q", q, (bh, lq, kd)), ("k", k, (bhkv, lk, kd)),
+                           ("v", v, (bhkv, lk, kd)), ("o", o, (bh, lq, kd)),
+                           ("do", do, (bh, lq, kd))):
+        check_tensor(name, t, shape, q.dtype, dev)
+    check_tensor("m", m, (bh, lq), torch.float32, dev)
+    check_tensor("l", l, (bh, lq), torch.float32, dev)
+    check_tensor("q_pos", q_pos, (lq,), torch.int32, dev)
+    check_tensor("k_pos", k_pos, (lk,), torch.int32, dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if bh and lq:
+        delta = torch.empty((bh, lq), dtype=torch.float32, device=dev)
+        lib = _bound_bwd_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_mqkv_bwd(
+                ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(m), ptr(l),
+                ptr(q_pos), ptr(k_pos), ptr(delta), ptr(dq), ptr(dk), ptr(dv),
+                bh, lq, lk, kd, group, _DTYPE_CODE[q.dtype], float(scale),
+                int(causal), int(window is not None),
+                0 if window is None else int(window), ctypes.c_void_p(stream))
+        if err != 0:
+            msg = lib.flash_mqkv_bwd_error_string(err).decode()
+            raise RuntimeError(f"flash_mqkv_bwd kernel launch failed: {msg} "
+                               f"({err})")
+        _bwd_launches += 1
+    else:  # nothing to differentiate
+        for t in (dq, dk, dv):
+            t.zero_()
+    if kd != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv

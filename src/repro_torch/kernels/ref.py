@@ -7,6 +7,10 @@ online-softmax state, and optional finalization.  It materialises the
 whole [BH, Lq, Lk] score matrix; the CUDA kernel computes the same
 function tile by tile.
 
+``flash_mqkv_bwd_plain`` is the plain version of K1b, K1's gradient: the
+explicit FlashAttention-2 backward formula on the forward's saved
+(o, l, m), which the CUDA kernel computes tile by tile.
+
 ``rwkv6_wkv_ref`` is the plain version of K5 (the RWKV6 WKV scan): the
 chunked matmul form of the reference's Pallas kernel, chunk by chunk with
 the [N, N] state carried in float32.
@@ -64,6 +68,61 @@ def flash_attention_ref(
     # l == 0 only for rows with no visible key: their o is 0, kept as 0
     return (o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
             ).to(q.dtype)
+
+
+def flash_mqkv_bwd_plain(
+    q: torch.Tensor,  # [BH, Lq, D]
+    k: torch.Tensor,  # [BHkv, Lk, D]
+    v: torch.Tensor,
+    o: torch.Tensor,  # [BH, Lq, D] the finalized forward output
+    do: torch.Tensor,  # [BH, Lq, D] the gradient of o
+    m: torch.Tensor,  # [BH, Lq] f32 row maxima of the scaled scores
+    l: torch.Tensor,  # [BH, Lq] f32 row sums of exp(s - m)
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    *,
+    group: int = 1,
+    scale: float | None = None,
+    causal: bool = False,
+    window: int | None = None,
+):
+    """(dq, dk, dv) of the finalized, stateless flash_mqkv, from the
+    forward's saved (o, l, m):
+
+        Δ  = rowsum(dO ∘ o)
+        P  = exp(S·scale − m) / l   (0 where masked and on rows with l == 0)
+        dV = Pᵀ dO,   dS = P ∘ (dO Vᵀ − Δ)
+        dQ = dS K·scale,   dK = dSᵀ Q·scale
+
+    with dK and dV summed over the ``group`` q heads that read a KV head.
+    A row with no visible key (l == 0, m = −inf) gives zero gradients.
+    Float32 arithmetic; the results take q's, k's and v's dtypes."""
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    if scale is None:
+        scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    delta = (dof * o.float()).sum(dim=-1)  # [BH, Lq]
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    ok = (k_pos >= 0)[None, :]
+    if causal:
+        ok = ok & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    live = l > 0.0
+    safe_m = torch.where(live, m, torch.zeros_like(m))
+    safe_l = torch.where(live, l, torch.ones_like(l))
+    p = torch.exp(s - safe_m[..., None]) / safe_l[..., None]
+    p = torch.where(ok[None] & live[..., None], p, torch.zeros_like(p))
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dk = dk.reshape(bhkv, group, lk, d).sum(dim=1)
+    dv = dv.reshape(bhkv, group, lk, d).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # decays are clipped to [WKV_EPS, 1], as in the reference kernel

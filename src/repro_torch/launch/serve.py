@@ -28,7 +28,8 @@ Meshes are of virtual ranks on one device (launch/mesh.py): ``host`` is
 (pod 2, data 2, model 8).  SP above degree 1 runs through the put kernels
 (``comm_backend="pallas"``).  Each bucket's step is captured as a CUDA
 graph and replayed (serving/graphs.py); ``--eager`` runs the steps op by
-op instead, for diagnosis.  The weights are random, from seed 0, as the
+op instead, for diagnosis.  ``--layers N`` serves the first N layers of
+the config (a depth cut at the published widths).  The weights are random, from seed 0, as the
 reference's are.  The AR branch serves rwkv6-1.6b on one rank and the
 attention LMs on any mesh: the dense and vlm families (qwen2-1.5b,
 stablelm-3b, starcoder2-7b, chatglm3-6b, qwen2-vl-2b), hymba-1.5b and the
@@ -128,6 +129,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="device of the virtual ranks (default: cuda)")
     ap.add_argument("--eager", action="store_true",
                     help="run every step op by op (no CUDA graphs)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers (depth cut; widths "
+                         "stay the config's)")
     args = ap.parse_args(argv)
     if args.profile is not None and args.metrics is not None:
         ap.error("--profile already streams metrics records; "
@@ -142,6 +146,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32",
                                   sharding_overrides=())
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.profile is not None and cfg.family != "dit":
         ap.error("--profile instruments the DiT step loop; use a dit --arch")
     capture = False if args.eager else None

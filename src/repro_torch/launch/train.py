@@ -1,0 +1,97 @@
+"""Training launcher of the port (the counterpart of
+``src/repro/launch/train.py``), on the card unless ``--device cpu`` asks
+for the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --steps 5 --seq 1024 --batch 4 [--ckpt out/ck]
+    ... --arch qwen2-1.5b --reduced --device cpu          (on the CPU)
+
+The flags are the reference's, plus ``--device``, ``--remat`` (the
+activation-checkpoint policy: full, dots or none) and ``--log-every``
+(the reference logs every 10th step).  ``--reduced`` trains
+the reduced config in float32, as the reference's.  The port trains at SP
+degree 1 on one device: ``--model`` or ``--data`` above 1 and the
+``pod``/``multipod`` meshes are refused, as are the families whose
+kernels have no backward yet (train/trainer.py: ROADMAP Queue 1 item 7).
+It prints the reference's line per logged step, then one line with the
+median step time (host clock, the device synchronised at each step's
+end), tokens per second and the peak device memory, and on CUDA one line
+with the launches per step of the attention kernel K1 and of its gradient
+K1b.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import sys
+
+import torch
+
+from ..configs import get_config, get_reduced
+from ..configs.shapes import SHAPES, InputShape
+from ..core import SPConfig
+from ..kernels import flash_mqkv as fm
+from ..models.blocks import REMAT_POLICIES
+from ..train import AdamWConfig, Trainer
+from ..train.trainer import TRAIN_ITEM
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default=None, help="assigned shape name")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--strategy", default="swift_torus")
+    ap.add_argument("--mesh", choices=["pod", "multipod", "host"],
+                    default="host")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--remat", choices=REMAT_POLICIES, default="full")
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    if args.mesh != "host" or args.model > 1 or args.data > 1:
+        raise NotImplementedError(
+            "the port trains at SP degree 1 on one device: training over a "
+            "mesh of virtual ranks needs the backward of the SP schedule "
+            f"and of the puts ({TRAIN_ITEM})")
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(cfg, dtype="float32", sharding_overrides=())
+    shape = (SHAPES[args.shape] if args.shape
+             else InputShape("cli", args.seq, args.batch, "training"))
+    sp = SPConfig(strategy="full", sp_axes=("model",), batch_axes=("data",))
+    tr = Trainer(cfg, None, sp, shape,
+                 opt_cfg=AdamWConfig(total_steps=args.steps),
+                 ckpt_path=args.ckpt, device=args.device, remat=args.remat)
+    cuda = torch.cuda.is_available() and args.device in (None, "cuda")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_count()
+    fm.reset_bwd_launch_count()
+    tr.run(args.steps, log_every=args.log_every)
+    # the first step builds the kernels: the median of the rest
+    times = tr.step_seconds[1:] or tr.step_seconds
+    step_s = statistics.median(times)
+    tokens = shape.global_batch * shape.seq_len
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda
+            else "not measured (cpu)")
+    print(f"train: {cfg.arch_id} {tr.device}, median step {step_s * 1e3:.1f} "
+          f"ms over {len(times)} steps (first step {tr.step_seconds[0]:.2f} "
+          f"s), {tokens / step_s:.0f} tokens/s, peak memory {peak}")
+    if cuda:
+        print(f"kernels: flash_mqkv {fm.launch_count() / args.steps:g} and "
+              f"flash_mqkv_bwd {fm.bwd_launch_count() / args.steps:g} "
+              f"launches per step")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,11 +13,13 @@ Conventions, kept from the reference so weights cross over unchanged:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core import (SPConfig, decode_attention, displaced_attention,
                    sp_attention)
@@ -83,9 +85,10 @@ def params_from_numpy(tree: Mapping[str, Any], cfg,
                       device: str | torch.device | None = None) -> Params:
     """A reference parameter tree, converted to numpy by the caller, as this
     package's params: the per-layer leaves the reference stacks on a
-    leading [n_layers] axis are split into one dict per layer; the
-    [d_in, d_out] layout is kept, so nothing is transposed.  Leaves are
-    cast to ``cfg.dtype`` on ``device``."""
+    leading layer axis (``layers``; whisper's ``enc_layers`` and
+    ``dec_layers``) are split into one dict per layer; the [d_in, d_out]
+    layout is kept, so nothing is transposed.  Leaves are cast to
+    ``cfg.dtype`` on ``device``."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
@@ -98,10 +101,11 @@ def params_from_numpy(tree: Mapping[str, Any], cfg,
             return {k: convert(v, index) for k, v in node.items()}
         return leaf(node if index is None else np.asarray(node)[index])
 
-    params = {k: convert(v) for k, v in tree.items() if k != "layers"}
-    params["layers"] = [convert(tree["layers"], i)
-                        for i in range(cfg.n_layers)]
-    return params
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.encoder_layers,
+              "dec_layers": cfg.n_layers}
+    return {k: ([convert(v, i) for i in range(stacks[k])] if k in stacks
+                else convert(v))
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +127,16 @@ class ParallelContext:
     # decode-mode MoE: gather tokens over 'data' instead of all-gathering
     # FSDP'd expert weights every step (the reference's beyond-paper knob)
     ep_token_gather: bool = False
+    # activation checkpointing of each layer in train mode: full —
+    # recompute everything (least memory); dots — save the outputs of the
+    # matrix products without batch dims (the reference's
+    # dots_with_no_batch_dims_saveable); none — save all residuals
+    remat: str = "full"
 
     def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {self.remat!r} is not one of "
+                             f"{REMAT_POLICIES}")
         device = (self.mesh.device if self.mesh is not None
                   else resolve_device(self.device))
         object.__setattr__(self, "device", device)
@@ -139,6 +151,35 @@ class ParallelContext:
         if self.mesh is None:
             return 1
         return self.mesh.axes_size(self.sp.sp_axes)
+
+    def remat_wrap(self, body: Callable) -> Callable:
+        """``body`` (one layer) under this context's checkpoint policy in
+        train mode, else ``body`` itself.  "full" runs it under
+        ``torch.utils.checkpoint`` (non-reentrant): only its inputs are
+        kept, and the backward runs it again; "dots" keeps the outputs of
+        its 2-D matrix products (aten mm/addmm: the projections, not the
+        batched products of plain attention) and recomputes the rest."""
+        if self.mode != "train" or self.remat == "none":
+            return body
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                _save_dots)
+        return functools.partial(torch.utils.checkpoint.checkpoint, body,
+                                 use_reentrant=False, **kw)
+
+
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of remat "dots": save the outputs of
+    matrix products without batch dims, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 # ---------------------------------------------------------------------------
@@ -298,30 +339,38 @@ def apply_rope(
     return rot_fn(q), rot_fn(k)
 
 
+def sinusoidal_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows ``positions`` (integers, any shape) of the Whisper-style
+    sinusoidal table: [..., d] f32, each row f32(position) * freqs as the
+    reference's full table computes it, so one row needs no table."""
+    half = d // 2
+    freqs = device_constant(
+        ("sinusoidal", half), positions.device,
+        lambda: torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
+            half, dtype=torch.float32) / (half - 1)))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def sinusoidal_embedding(length: int, d: int,
                          device: torch.device | None = None) -> torch.Tensor:
     """Whisper-style sinusoidal positional table [length, d], f32."""
-    half = d // 2
-    freqs = device_constant(
-        ("sinusoidal", half), device,
-        lambda: torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
-            half, dtype=torch.float32) / (half - 1)))
-    ang = torch.arange(length, dtype=torch.float32, device=device)[:, None] \
-        * freqs[None, :]
-    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return sinusoidal_rows(torch.arange(length, device=device), d)
 
 
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
 
-def init_attention(b: ParamBuilder, cfg) -> None:
+def init_attention(b: ParamBuilder, cfg, prefix: str = "attn") -> None:
+    """The attention's projections under ``prefix`` (whisper's decoder:
+    ``self_attn`` and ``cross_attn``)."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    init_linear(b, "attn/wq", d, hq * hd, bias=cfg.qkv_bias)
-    init_linear(b, "attn/wk", d, hkv * hd, bias=cfg.qkv_bias)
-    init_linear(b, "attn/wv", d, hkv * hd, bias=cfg.qkv_bias)
-    init_linear(b, "attn/wo", hq * hd, d,
+    init_linear(b, f"{prefix}/wq", d, hq * hd, bias=cfg.qkv_bias)
+    init_linear(b, f"{prefix}/wk", d, hkv * hd, bias=cfg.qkv_bias)
+    init_linear(b, f"{prefix}/wv", d, hkv * hd, bias=cfg.qkv_bias)
+    init_linear(b, f"{prefix}/wo", hq * hd, d,
                 scale=(hq * hd) ** -0.5 / (2 * cfg.n_layers) ** 0.5)
 
 
@@ -335,11 +384,12 @@ def attention(
     window: int | None = None,
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cur_index: torch.Tensor | int | None = None,
+    xkv: torch.Tensor | None = None,  # cross-attention source (whisper)
     causal: bool | None = None,
     extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     return_kv: bool = False,
 ):
-    """Self-attention block: projections, RoPE, SP attention, output
+    """Attention block: projections, RoPE, SP attention, output
     projection.  Returns [B, L, d]; in decode mode ``(out, (k_cache,
     v_cache))``.
 
@@ -359,22 +409,32 @@ def attention(
     ``return_kv`` — also return this call's (post-RoPE K, V), as
     ``(out, (k, v))``, so the sampler can populate the stale-KV state.
 
-    The reference's ``xkv`` (whisper's cross-attention) comes with whisper
-    (ROADMAP Queue 1 item 7).
+    ``xkv`` [B, T, d] — cross-attention (whisper's decoder): K and V are
+    projected from ``xkv``, nothing is rotated, and in decode mode the one
+    query attends the whole source unsharded (strategy "full", as the
+    reference's ``_xattn_cfg``), returning ``(out, kv_cache)``.
     """
     b_, l_, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     causal = cfg.causal if causal is None else causal
+    src = x if xkv is None else xkv
     q = linear(x, p["wq"]).reshape(b_, l_, hq, hd)
-    k = linear(x, p["wk"]).reshape(b_, l_, hkv, hd)
-    v = linear(x, p["wv"]).reshape(b_, l_, hkv, hd)
-    q, k = apply_rope(q, k, positions, variant=cfg.rope, theta=cfg.rope_theta,
-                      rope_pct=cfg.rope_pct)
+    k = linear(src, p["wk"]).reshape(b_, src.shape[1], hkv, hd)
+    v = linear(src, p["wv"]).reshape(b_, src.shape[1], hkv, hd)
+    if xkv is None:  # no rope on cross-attention
+        q, k = apply_rope(q, k, positions, variant=cfg.rope,
+                          theta=cfg.rope_theta, rope_pct=cfg.rope_pct)
     if extra_kv is not None:
-        if causal or ctx.decode or window is not None:
+        if causal or ctx.decode or window is not None or xkv is not None:
             raise ValueError("displaced attention is DiT-only "
-                             "(bidirectional, unwindowed prefill)")
+                             "(bidirectional, unwindowed self-attention "
+                             "prefill)")
         o = displaced_attention(q, k, v, extra_kv[0], extra_kv[1])
+    elif ctx.decode and xkv is not None:
+        o = sp_attention(q, k, v, cfg=dataclasses.replace(ctx.sp,
+                                                          strategy="full"),
+                         mesh=ctx.mesh, causal=False, window=None)
+        return linear(o.reshape(b_, l_, hq * hd), p["wo"]), kv_cache
     elif ctx.decode:
         if kv_cache is None or cur_index is None:
             raise ValueError("decode attention needs kv_cache and cur_index")

@@ -183,9 +183,10 @@ def dit_forward(
         state = kv_out if kv_out is not None else KVState(
             *(torch.empty(shape, dtype=x.dtype, device=x.device)
               for _ in range(2)))
+    block = ctx.remat_wrap(dit_block)  # train mode: per-layer checkpoints
     for i, lp in enumerate(params["layers"]):
         if state is None:
-            x = dit_block(lp, cfg, ctx, x, t_emb, positions)
+            x = block(lp, cfg, ctx, x, t_emb, positions)
             continue
         x, (k, v) = dit_block(lp, cfg, ctx, x, t_emb, positions,
                               return_kv=True)

@@ -33,8 +33,11 @@ in place.
 
 The reference runs the layers in one ``lax.scan`` over stacked weights;
 here they are a Python loop over a list of per-layer dicts, and caches
-stay stacked on a leading layer axis, as the reference's.  Whisper is not
-ported yet (ROADMAP Queue 1 item 7).
+stay stacked on a leading layer axis, as the reference's.  In train mode
+each attention layer runs under ``ctx.remat_wrap`` (activation
+checkpointing), as the reference's scan body does; training is ported for
+the dense and vlm families (train/trainer.py refuses the others).  Whisper is
+models/whisper.py.
 """
 from __future__ import annotations
 
@@ -65,7 +68,6 @@ from .blocks import (
     torch_dtype,
 )
 
-LM_ITEM = "ROADMAP Queue 1 item 7"
 
 GLOBAL_WINDOW = 1 << 30  # "window" value meaning full/global attention
 
@@ -77,7 +79,7 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family}): the port's language models are "
             f"the rwkv6 (ssm), dense, vlm, hybrid and moe families; the "
-            f"{cfg.family} family waits for {LM_ITEM}")
+            f"{cfg.family} family is models/whisper.py or models/dit.py")
 
 
 # ---------------------------------------------------------------------------
@@ -509,12 +511,13 @@ def lm_forward(
     windows = _per_layer_windows(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []
+    attention_layer = ctx.remat_wrap(_attention_layer)
     for i, lp in enumerate(params["layers"]):
         cache = ({name: c[i] for name, c in caches.items()}
                  if caches is not None else None)
         if attn:
-            y, a, state = _attention_layer(x, lp, cfg, ctx, positions,
-                                           windows[i], cache, cur_index)
+            y, a, state = attention_layer(x, lp, cfg, ctx, positions,
+                                          windows[i], cache, cur_index)
             if a is not None:
                 aux = aux + a
             if state is not None:  # hymba's SSD state, written in place

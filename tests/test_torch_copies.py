@@ -27,10 +27,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 DENSE_CONFIGS = ["qwen2_1_5b", "stablelm_3b", "starcoder2_7b", "chatglm3_6b",
                  "qwen2_vl_2b"]
 HYBRID_MOE_CONFIGS = ["hymba_1_5b", "qwen2_moe_a2_7b", "arctic_480b"]
+AUDIO_CONFIGS = ["whisper_tiny"]
 VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
             "configs/cogvideox_5b.py", "configs/shapes.py",
             *(f"configs/{n}.py" for n in DENSE_CONFIGS),
             *(f"configs/{n}.py" for n in HYBRID_MOE_CONFIGS),
+            *(f"configs/{n}.py" for n in AUDIO_CONFIGS),
             "core/calibration.py",
             "serving/metrics.py",
             *(f"serving/sched/{n}.py" for n in (
@@ -47,7 +49,8 @@ def test_copy_is_verbatim(rel):
 @pytest.mark.parametrize("arch", ["flux-12b", "cogvideox-5b", "rwkv6-1.6b",
                                   *t_configs.DENSE_ARCHS,
                                   *t_configs.HYBRID_ARCHS,
-                                  *t_configs.MOE_ARCHS])
+                                  *t_configs.MOE_ARCHS,
+                                  *t_configs.AUDIO_ARCHS])
 @pytest.mark.parametrize("which", ["get_config", "get_reduced"])
 def test_config_equals_reference(arch, which):
     """Every field of the port's config, full and reduced, equals the

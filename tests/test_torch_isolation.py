@@ -140,3 +140,13 @@ def test_roadmap_pointers_name_open_items():
         assert got is not None, f"{where}: no Queue {queue} item {item}"
         assert not got.startswith("*Done"), (
             f"{where}: Queue {queue} item {item} is done: {got}")
+
+
+@pytest.mark.parametrize("name", [
+    "configs.whisper_tiny", "models.whisper", "models.registry",
+    "train", "train.optimizer", "train.data", "train.checkpoint",
+    "train.trainer", "launch.train", "kernels.flash_mqkv"])
+def test_training_modules_are_covered(name):
+    """The training path's and whisper's modules are among those scanned
+    and imported (with jax blocked) above."""
+    assert f"repro_torch.{name}" in MODULES

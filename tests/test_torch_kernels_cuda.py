@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1 (flash_mqkv), K2 (ring_flash_step), K3 (remote_put), K4
-(landing_copy) and K5 (rwkv6_wkv), and the SP schedule that runs them.
+card: K1 (flash_mqkv), its gradient K1b (flash_mqkv_bwd), K2
+(ring_flash_step), K3 (remote_put), K4 (landing_copy) and K5 (rwkv6_wkv),
+and the SP schedule that runs them.
 
 Every test here is marked ``needs_cuda`` and skips without a GPU.  The
 file imports neither jax nor the reference package, so it also runs on a
@@ -20,7 +21,7 @@ from repro_torch.core import SPConfig, sp_attention
 from repro_torch.kernels import flash_attention, flash_attention_segments
 from repro_torch.kernels import flash_mqkv as fm
 from repro_torch.kernels import ring_flash as rf
-from repro_torch.kernels.ref import rwkv6_wkv_ref
+from repro_torch.kernels.ref import flash_mqkv_bwd_plain, rwkv6_wkv_ref
 from repro_torch.launch import make_mesh
 
 # the module (kernels/__init__.py exports its function under the same name)
@@ -703,3 +704,96 @@ def test_cuda_wkv_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         wkv.rwkv6_wkv(*(z(2, 64, 16, dt=torch.float16) for _ in range(4)),
                       z(2, 16))
+
+
+# K1b (flash_mqkv_bwd): (bh, hkv, lq, lk, d, causal, window, padded keys,
+# a fully masked row)
+K1B_CASES = {
+    "causal-gqa": (8, 2, 96, 96, 128, True, None, 0, False),
+    "window": (4, 4, 130, 130, 64, True, 33, 0, False),
+    "cross": (6, 6, 45, 150, 64, False, None, 0, False),
+    "pad-dead-row": (4, 2, 40, 72, 32, True, None, 9, True),
+    "head-dim-80": (6, 2, 70, 70, 80, True, None, 0, False),
+    "d16": (2, 1, 33, 17, 16, False, None, 3, False),
+}
+
+
+def _k1b_inputs(cuda, dtype, case, seed=0):
+    bh, hkv, lq, lk, d, causal, window, pad, dead = case
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    q, k, v = mk(bh, lq, d), mk(hkv, lk, d), mk(hkv, lk, d)
+    q_pos = torch.arange(lk - lq, lk, dtype=torch.int32, device=cuda)
+    k_pos = torch.arange(lk, dtype=torch.int32, device=cuda)
+    if pad:
+        k_pos[-pad:] = -1
+    if dead:  # row 0 sees only keys at positions <= 0, and those are padding
+        k_pos[:4] = -1
+        q_pos[0] = 0
+    kw = dict(group=bh // hkv, scale=d ** -0.5, causal=causal, window=window)
+    o, l, m = fm.flash_mqkv(q, k, v, q_pos, k_pos, **kw)
+    do = mk(bh, lq, d)
+    return (q, k, v, o, do, m, l, q_pos, k_pos), kw
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(K1B_CASES))
+def test_cuda_k1b_matches_plain(cuda, dtype, tol, case):
+    args, kw = _k1b_inputs(cuda, dtype, K1B_CASES[case])
+    before = fm.bwd_launch_count()
+    got = fm.flash_mqkv_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert fm.bwd_launch_count() == before + 1
+    want = flash_mqkv_bwd_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(torch.isfinite(g).all())
+        scale = max(1e-6, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+    if K1B_CASES[case][-1]:  # the fully masked rows get zero gradients
+        dead = args[6] == 0
+        assert bool((got[0][dead] == 0).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k1b_is_deterministic(cuda, dtype):
+    """No atomics: two runs give bitwise-equal gradients."""
+    args, kw = _k1b_inputs(cuda, dtype, K1B_CASES["causal-gqa"])
+    a = fm.flash_mqkv_bwd(*args, **kw)
+    b = fm.flash_mqkv_bwd(*args, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.needs_cuda
+def test_cuda_k1b_mask_off_breaks_the_gate(cuda):
+    """Negative control: the kernel without the causal mask is far from
+    the plain backward with it."""
+    args, kw = _k1b_inputs(cuda, torch.float32, K1B_CASES["causal-gqa"])
+    got = fm.flash_mqkv_bwd(*args, **dict(kw, causal=False))
+    want = flash_mqkv_bwd_plain(*args, **kw)
+    err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    assert err > 1e-2
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_flash_attention_gradient_matches_cpu(cuda, dtype, tol):
+    """ops.flash_attention under autograd: K1 forward and K1b backward on
+    the card against the plain path's gradients on the CPU."""
+    gen = torch.Generator().manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=gen)
+    q, k, v, do = mk(2, 100, 6, 80), mk(2, 100, 2, 80), mk(2, 100, 2, 80), \
+        mk(2, 100, 6, 80)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev, dtype).detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*ins, causal=True, window=40)
+        out.backward(do.to(dev, dtype))
+        grads[str(dev)] = [t.grad.float().cpu() for t in ins]
+    for g, w in zip(grads[str(cuda)], grads["cpu"]):
+        assert float((g - w).abs().max() / w.abs().max()) <= tol

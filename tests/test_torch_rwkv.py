@@ -401,14 +401,14 @@ def test_bf16_decode_from_f32_caches(lm):
 
 @pytest.mark.parametrize("family", ["audio", "dit"])
 def test_other_families_raise(lm, family):
-    """The families the LM does not serve (whisper's audio family is still
-    to port; the DiT has its own model) raise, naming the ROADMAP item.
+    """The families the LM does not serve (the audio family is whisper's
+    model, the DiT has its own) raise, naming the module that serves them.
     The dense, vlm, hybrid and moe families are served
     (tests/test_torch_dense.py, test_torch_hymba.py, test_torch_moe.py)."""
     cfg = dataclasses.replace(lm["cfg"], family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="models/whisper.py"):
         init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="models/whisper.py"):
         lm_forward(lm["tparams"], cfg, ParallelContext(SP1, device=CPU),
                    tokens=T(lm["tokens"]))
 

@@ -79,3 +79,19 @@ def test_serve_refuses_what_it_cannot_serve():
     with pytest.raises(SystemExit):
         serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--device", "cpu",
                     "--mesh", "pod"])
+
+
+def test_serve_layers_cuts_depth(capsys, monkeypatch):
+    """--layers N serves the config's first N layers at its widths."""
+    seen = []
+    real = serve.init_lm
+
+    def spy(cfg, *args, **kw):
+        seen.append((cfg.n_layers, cfg.d_model))
+        return real(cfg, *args, **kw)
+
+    monkeypatch.setattr(serve, "init_lm", spy)
+    assert serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
+                       "cpu", "--requests", "2", "--layers", "1"]) == 0
+    assert seen == [(1, 128)]
+    assert "request 1: ->" in capsys.readouterr().out
