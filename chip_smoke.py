@@ -12,10 +12,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  ptxas's report, with one line per instantiation of K1/K2's
                  bf16 Hopper body (registers, spills, dynamic shared
                  memory), one per put kernel K3/K4 (registers, spills,
-                 static and dynamic shared memory, tile plan) and one per
+                 static and dynamic shared memory, tile plan), one per
                  instantiation of the WKV kernel K5 (registers, spills,
-                 shared memory at the model's dtypes); a spill in any of
-                 them fails the phase.
+                 shared memory at the model's dtypes) and one per entry
+                 of K1b (its bf16 Hopper body's delta_bf16, bounds,
+                 dkdv_hopper, reduce_dkdv and dq_hopper kernels with the
+                 dynamic shared memory they launch with, and the f32
+                 delta, dkdv and dq kernels); a spill in any of them
+                 fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -275,8 +279,11 @@ K1b (flash_mqkv_bwd, the gradient of K1) is checked right after K5: the
 k1b phase holds it against its plain version at the train path's shapes
 (qwen2 causal GQA, whisper's cross-attention, flux, stablelm's padded
 head dim 80, starcoder2's window, padding with a fully masked row) in
-float32 and bf16, bitwise on repeat, with a negative control (the mask
-off) that must break the gate.
+float32 (the CUDA-core parity body) and bf16 (the Hopper body: wgmma
+products from TMA tiles, under kernels/flash_mqkv.py's bwd_tile_plan,
+printed per case), bitwise on repeat, with two negative controls (the
+mask off at the qwen2 shape) that must break the float32 and the bf16
+gates.
 The numbers phase adds K1b at the qwen2 training and whisper cross-
 attention shapes (beside its bound, its plain version and SDPA's
 backward), and K1 at hymba's window and global shapes and at
@@ -4213,6 +4220,10 @@ CURVE_STEPS = 40  # train-curve: tests/test_torch_train.py's config
 WHISPER_BL = (4, 448)  # whisper: batch, decoder tokens (encoder_seq 1536)
 # (B, Hq, Hkv) of the numbers phase's K1b shapes, for SDPA's [B, H, L, D]
 K1B_SDPA = {"qwen2-train": (4, 12, 2), "whisper-cross": (4, 6, 6)}
+# the device kernels of a bf16 K1b call (csrc/flash_mqkv_bwd.cu) as the
+# profiler names them
+K1B_KERNELS = ("::delta_bf16_kernel<", "::bounds_kernel(", "::dkdv_hopper_kernel<",
+               "::reduce_dkdv_kernel(", "::dq_hopper_kernel<")
 
 
 def k1b_inputs(gen, case, dtype):
@@ -4241,8 +4252,9 @@ def check_k1b(results: dict) -> None:
     kernels/ref.py) on the same card tensors at K1B_CASES, float32 (TF32
     off) within TOL["float32"] and bfloat16 within TOL["bfloat16"] of each
     gradient's max|ref|; two runs bitwise equal; the fully masked rows'
-    gradients zero.  Negative control: the kernel with the causal mask off
-    must break the float32 gate at the qwen2 training shape."""
+    gradients zero.  Negative controls: the kernel with the causal mask
+    off must break the float32 and the bfloat16 gates at the qwen2
+    training shape."""
     import torch
     from repro_torch.kernels import flash_mqkv as fm
     from repro_torch.kernels.ref import flash_mqkv_bwd_plain
@@ -4265,9 +4277,14 @@ def check_k1b(results: dict) -> None:
             if case[-1]:
                 dead = args[6] == 0
                 dead_ok = bool(dead.any()) and bool((got[0][dead] == 0).all())
+            plan = ""
+            if name == "bfloat16":
+                p = fm.bwd_tile_plan(bh, bh // bhkv, lq, lk, d, kw["causal"])
+                plan = (f" (plan: {p.kv_wg} dK/dV warpgroups, {p.splits} "
+                        f"shares, paired {p.pair})")
             log(f"k1b {label} BH={bh}/{bhkv} Lq={lq} Lk={lk} D={d} "
-                f"causal={kw['causal']} window={kw['window']} {name}: max "
-                f"over dq, dk, dv of max|d|/max|ref| {err:.3e} (tol "
+                f"causal={kw['causal']} window={kw['window']} {name}{plan}: "
+                f"max over dq, dk, dv of max|d|/max|ref| {err:.3e} (tol "
                 f"{TOL[name]}), repeat bitwise {bitwise}, finite {finite}"
                 + (f", masked rows zero {dead_ok}" if case[-1] else ""))
             if not (err <= TOL[name] and bitwise and finite and dead_ok):
@@ -4277,15 +4294,18 @@ def check_k1b(results: dict) -> None:
                 errs[label] = err
             del args, got, again, want
             torch.cuda.empty_cache()
-    args, kw = k1b_inputs(gen, K1B_CASES[0], torch.float32)
-    got = fm.flash_mqkv_bwd(*args, **dict(kw, causal=False))
-    want = flash_mqkv_bwd_plain(*args, **kw)
-    err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
-    log(f"k1b negative control: the kernel without the causal mask against "
-        f"the masked plain backward: {err:.3e} (must exceed "
-        f"{TOL['float32']})")
-    if not err > TOL["float32"]:
-        fail(f"k1b negative control passed the gate ({err})")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        args, kw = k1b_inputs(gen, K1B_CASES[0], dtype)
+        got = fm.flash_mqkv_bwd(*args, **dict(kw, causal=False))
+        want = flash_mqkv_bwd_plain(*args, **kw)
+        err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+        log(f"k1b negative control {name}: the kernel without the causal "
+            f"mask against the masked plain backward: {err:.3e} (must "
+            f"exceed {TOL[name]})")
+        if not err > TOL[name]:
+            fail(f"k1b negative control {name} passed the gate ({err})")
+        del args, got, want
     results["k1b_err"] = errs
 
 
@@ -4439,7 +4459,7 @@ def train_breakdown(card: str) -> None:
     phase runs it (full width and depth, bf16, B 4 x L 1024, remat
     "full"), in process after two warm steps, traced by torch.profiler:
     wall ms, device busy ms and the idle share, and the device ms of K1,
-    K1b (its delta, dK/dV and dQ launches), the GEMMs and the rest; then
+    K1b (every launch of its bf16 body), the GEMMs and the rest; then
     AdamW alone on the step's gradients (CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4486,7 +4506,7 @@ def train_breakdown(card: str) -> None:
             f"device time (shares not measured) [{card}]")
     else:
         k1 = ms(("flash_hopper_kernel", "flash_f32_kernel"))
-        k1b = ms(("delta_kernel", "dkdv_kernel", "dq_kernel"))
+        k1b = ms(K1B_KERNELS)
         gemm = ms(("gemm", "Gemm", "nvjet", "cutlass", "xmma"))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         log(f"train-breakdown qwen2-1.5b bf16 B={b} L={l}: step wall "
@@ -4763,18 +4783,38 @@ def build_all() -> None:
                 "SM)")
             if st or ld:
                 fail(f"one_sided {kernel.group(0)} spills registers")
-    for entry, (regs, st, ld, _) in ptxas_report(
-            reps["flash_mqkv_bwd"]["log"]).items():
-        m = re.search(r"(delta_kernel|dkdv_kernel|dq_kernel)I(\w+?)(?:Li(\d+)E)?E",
-                      entry)
-        if m is None:
-            continue
-        dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
-        d = f", D={m.group(3)}" if m.group(3) else ""
-        log(f"ptxas flash_mqkv_bwd {m.group(1)}<{dtype}{d}>: {regs} registers, "
-            f"{st} + {ld} bytes spilled (stores + loads)")
+    bwd = fm._bound_bwd_library()
+    bwd_rep = ptxas_report(reps["flash_mqkv_bwd"]["log"])
+    for entry, (regs, st, ld, _) in bwd_rep.items():
+        # the bf16 Hopper body: <D, warpgroups> (dK/dV, dQ), <D> (delta),
+        # or none; the f32 parity body: <float[, D]>
+        m = (re.search(r"\d(dkdv_hopper_kernel|dq_hopper_kernel)ILi(\d+)ELi(\d+)E",
+                       entry)
+             or re.search(r"\d(delta_bf16_kernel)ILi(\d+)E()", entry)
+             or re.search(r"\d(bounds_kernel|reduce_dkdv_kernel)E()()", entry))
+        if m is not None:
+            kernel, d, wg = m.groups()
+            smem = (bwd.flash_mqkv_bwd_smem_bytes(
+                int(kernel == "dq_hopper_kernel"), int(d)) if wg else 0)
+            args = ", ".join(f"{k}={v}" for k, v in (("D", d), ("WG", wg)) if v)
+            label = f"{kernel}<{args}>" if args else kernel
+            extra = f", {smem} bytes of dynamic shared memory (bf16 body)"
+        else:
+            m = re.search(r"\d(delta_kernel|dkdv_kernel|dq_kernel)If(?:Li(\d+)E)?E",
+                          entry)
+            if m is None:
+                continue
+            label = (f"{m.group(1)}<f32"
+                     + (f", D={m.group(2)}>" if m.group(2) else ">"))
+            extra = " (f32 body)"
+        log(f"ptxas flash_mqkv_bwd {label}: {regs} registers, {st} + {ld} "
+            f"bytes spilled (stores + loads){extra}")
         if st or ld:
-            fail(f"flash_mqkv_bwd {m.group(1)}<{dtype}{d}> spills registers")
+            fail(f"flash_mqkv_bwd {label} spills registers")
+    for kernel in ("delta_bf16_kernel", "bounds_kernel", "dkdv_hopper_kernel",
+                   "reduce_dkdv_kernel", "dq_hopper_kernel"):
+        if not any(kernel in entry for entry in bwd_rep):
+            fail(f"flash_mqkv_bwd: no ptxas report of {kernel}")
     wkv = wkv_module()
     for entry, (regs, st, ld, _) in ptxas_report(
             reps["rwkv6_wkv"]["log"]).items():

@@ -28,10 +28,14 @@ Gradients.  A finalized, stateless call whose q, k or v requires grad
 (with grad enabled) runs through ``FlashMQKV``, a
 ``torch.autograd.Function``: its forward is the call above and saves
 (o, l, m); its backward is K1b (``flash_mqkv_bwd``, the hand-written
-kernel of ``csrc/flash_mqkv_bwd.cu``) on CUDA tensors and its plain
-version ``flash_mqkv_bwd_plain`` (kernels/ref.py) on CPU tensors.  A call
-with a carried state or without ``finalize`` (the SP ring's partial
-calls) raises when it would need a gradient: SP training is not ported.
+kernels of ``csrc/flash_mqkv_bwd.cu``) on CUDA tensors and its plain
+version ``flash_mqkv_bwd_plain`` (kernels/ref.py) on CPU tensors.  K1b's
+bf16 body is built for Hopper from K1's parts (TMA tiles, ``wgmma``
+products, a dK/dV kernel and a dQ kernel that each write every output
+element from one block) under the tile plan ``bwd_tile_plan``; its f32
+body is the CUDA-core parity path.  A call with a carried state or
+without ``finalize`` (the SP ring's partial calls) raises when it would
+need a gradient: SP training is not ported.
 
 There is no fallback from a kernel to its plain version.
 """
@@ -90,6 +94,72 @@ def smem_bytes(plan: TilePlan, d: int) -> int:
     return (1024 + 2 * d * (plan.bq + 2 * plan.stages * plan.bk)
             + 8 * (4 * plan.stages + 1) + 4 * plan.stages * plan.bk
             + 4 * plan.stages)
+
+
+# rows of a tile of K1b's bf16 body (csrc/flash_mqkv_bwd.cu: TILE): a
+# streamed Q/dO tile of the dK/dV kernel, a K/V tile of the dQ kernel, a
+# consumer warpgroup's keys or rows (a dQ block has one warpgroup), and a
+# tile of the positions' bounds.  Both kernels keep STAGES tiles in flight.
+BWD_TILE = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTilePlan:
+    """Tiles of K1b's bf16 body: ``kv_wg`` consumer warpgroups of 64 keys
+    a dK/dV block; a GQA group's q heads split over ``splits`` dK/dV
+    blocks (partial sums added in order by a second pass); ``pair``: a
+    dK/dV block takes key tiles j and n-1-j."""
+    kv_wg: int
+    splits: int
+    pair: bool
+
+    @property
+    def bk(self) -> int:
+        """Keys of a dK/dV block."""
+        return BWD_TILE * self.kv_wg
+
+
+def bwd_tile_plan(bh: int, group: int, lq: int, lk: int, d: int,
+                  causal: bool = False) -> BwdTilePlan:
+    """K1b's bf16 tiles for q [bh, lq, d] against lk keys of bh / group KV
+    heads.  A dK/dV block has two consumer warpgroups at head dim 128 (its
+    dK and dV take 128 registers a thread: one block an SM), else one (two
+    blocks an SM).  Under a causal mask key tile j sees the q tiles from j
+    on, so a block takes tiles j and n-1-j and every block does the same
+    work.  Where the blocks would leave SMs idle, the group's q heads are
+    split over more blocks: the split count (a divisor of the group) that
+    minimises waves of blocks / splits, the fewest on a tie.  Lq does not
+    change the choice."""
+    kv_wg = 2 if kernel_head_dim(d) == 128 else 1
+    nkt = -(-lk // (BWD_TILE * kv_wg))
+    pair = bool(causal) and nkt > 1
+    cols = -(-nkt // 2) if pair else nkt
+    slots = SMS * (1 if kv_wg == 2 else 2)
+    bhkv = bh // group
+    best, best_waves = 1, -(-cols * bhkv // slots)
+    for s in range(2, group + 1):
+        if group % s:
+            continue
+        waves = -(-cols * bhkv * s // slots)
+        if waves * best < best_waves * s:  # waves / s < best_waves / best
+            best, best_waves = s, waves
+    return BwdTilePlan(kv_wg=kv_wg, splits=best, pair=pair)
+
+
+def bwd_smem_bytes(plan: BwdTilePlan, d: int) -> tuple[int, int]:
+    """Dynamic shared memory of K1b's bf16 (dK/dV, dQ) kernels under
+    ``plan`` at head dim ``d`` (``KvTiles::SMEM`` and ``QTiles::SMEM`` in
+    csrc/flash_mqkv_bwd.cu): 1024 bytes to align the tiles to the swizzle's
+    period; dK/dV: the K and V tiles, a Q and a dO tile per stage, full
+    and empty mbarriers per stage and for K/V, and per stage each row's
+    -m·log2(e), 1/l, Δ and position; dQ: the Q and dO tiles, a K and a V
+    tile per stage, full and empty mbarriers per stage and one for Q/dO,
+    and the k positions per stage."""
+    t, s = BWD_TILE, STAGES
+    kv = 1024 + 2 * d * (2 * plan.bk + 2 * s * t) + 8 * (2 * s + 2) + 16 * s * t
+    q = 1024 + 2 * d * (2 * t + 2 * s * t) + 8 * (2 * s + 1) + 4 * s * t
+    return kv, q
+
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernel runs head dim ``d`` at: the smallest of
@@ -355,26 +425,33 @@ def flash_mqkv(
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
 
 
 def _bound_bwd_library() -> ctypes.CDLL:
     lib = _build.load("flash_mqkv_bwd")
     if lib.flash_mqkv_bwd.argtypes is None:
+        i = ctypes.c_int
         lib.flash_mqkv_bwd.argtypes = _BWD_ARGTYPES
-        lib.flash_mqkv_bwd.restype = ctypes.c_int
-        lib.flash_mqkv_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_mqkv_bwd.restype = i
+        lib.flash_mqkv_bwd_error_string.argtypes = [i]
         lib.flash_mqkv_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_mqkv_bwd_smem_bytes.argtypes = [i, i]
+        lib.flash_mqkv_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
                    scale=None, causal=False, window=None):
     """(dq, dk, dv) of the finalized, stateless ``flash_mqkv`` from its
-    saved (o, l, m) and the gradient ``do`` of o: K1b on CUDA tensors, the
-    plain version (kernels/ref.py) on CPU tensors.  A head dim that is not
-    one of HEAD_DIMS runs zero-padded (q, k, v, o and do), and the
-    gradients are sliced back: zero columns add nothing to the scores."""
+    saved (o, l, m) and the gradient ``do`` of o: K1b on CUDA tensors (the
+    Hopper body in bf16 under ``bwd_tile_plan``, the CUDA-core parity body
+    in f32), the plain version (kernels/ref.py) on CPU tensors.  A head dim
+    that is not one of HEAD_DIMS runs zero-padded (q, k, v, o and do), and
+    the gradients are sliced back: zero columns add nothing to the
+    scores."""
     global _bwd_launches
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
@@ -396,10 +473,13 @@ def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
     kd = kernel_head_dim(d)
     q, k, v, o, do = (pad_head_dim(t.contiguous()) for t in (q, k, v, o, do))
     dev = q.device
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 body loads q, k, v and dO through TMA and o in 16-byte words
+    align = 16 if bf16 else 4
     for name, t, shape in (("q", q, (bh, lq, kd)), ("k", k, (bhkv, lk, kd)),
                            ("v", v, (bhkv, lk, kd)), ("o", o, (bh, lq, kd)),
                            ("do", do, (bh, lq, kd))):
-        check_tensor(name, t, shape, q.dtype, dev)
+        check_tensor(name, t, shape, q.dtype, dev, align)
     check_tensor("m", m, (bh, lq), torch.float32, dev)
     check_tensor("l", l, (bh, lq), torch.float32, dev)
     check_tensor("q_pos", q_pos, (lq,), torch.int32, dev)
@@ -409,6 +489,15 @@ def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
     dv = torch.empty_like(v)
     if bh and lq:
         delta = torch.empty((bh, lq), dtype=torch.float32, device=dev)
+        plan = bwd_tile_plan(bh, group, lq, lk, kd, causal)
+        null = ctypes.c_void_p(None)
+        tiles = partial = None
+        if bf16:  # the positions' bounds per 64-row tile; the shares' sums
+            n_tiles = -(-lq // BWD_TILE) + -(-lk // BWD_TILE)
+            tiles = torch.empty((n_tiles, 4), dtype=torch.int32, device=dev)
+            if plan.splits > 1:
+                partial = torch.empty((2, plan.splits, bhkv, lk, kd),
+                                      dtype=torch.float32, device=dev)
         lib = _bound_bwd_library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -417,7 +506,10 @@ def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
                 ptr(q_pos), ptr(k_pos), ptr(delta), ptr(dq), ptr(dk), ptr(dv),
                 bh, lq, lk, kd, group, _DTYPE_CODE[q.dtype], float(scale),
                 int(causal), int(window is not None),
-                0 if window is None else int(window), ctypes.c_void_p(stream))
+                0 if window is None else int(window),
+                null if tiles is None else ptr(tiles),
+                null if partial is None else ptr(partial), plan.kv_wg,
+                plan.splits, int(plan.pair), ctypes.c_void_p(stream))
         if err != 0:
             msg = lib.flash_mqkv_bwd_error_string(err).decode()
             raise RuntimeError(f"flash_mqkv_bwd kernel launch failed: {msg} "

@@ -5,8 +5,13 @@ The same numpy inputs go through the reference's Pallas kernel in
 interpret mode and through the port's entry points, which on CPU tensors
 run the kernel's plain PyTorch version.  Cases and tolerances are those of
 tests/test_kernels.py.  The CUDA kernel itself is held to the plain version
-on the card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
+on the card by tests/test_torch_kernels_cuda.py and chip_smoke.py.  The
+tile plans of K1's and K1b's bf16 bodies, which run only on the card, are
+checked here on the host, with K1b's bf16 roundings emulated on its plain
+formula.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ from repro.kernels.ring_flash import ring_flash_step as j_ring_step
 from repro_torch.kernels import flash_attention, flash_attention_segments
 from repro_torch.kernels import flash_mqkv as fm
 from repro_torch.kernels import ring_flash as rf
+from repro_torch.kernels.ref import flash_mqkv_bwd_plain
 
 TOL = 2e-5
 
@@ -281,3 +287,181 @@ def test_smem_bytes_counts_every_buffer():
     assert fm.smem_bytes(plan, 128) == 1024 + tiles + 8 * 9 + 4 * 2 * 128 + 8
     # two 64-row blocks fit on one SM at D 128: the BQ 64 plan's occupancy
     assert 2 * fm.smem_bytes(fm.TilePlan(64, 64, 2), 128) <= 228 * 1024
+
+
+# ---------------------------------------------------------------------------
+# K1b's bf16 tile plan (csrc/flash_mqkv_bwd.cu runs it only on the card)
+# ---------------------------------------------------------------------------
+
+# (BH, group, Lq, Lk, causal): the training shapes (qwen2-1.5b, whisper's
+# cross-attention, flux, stablelm, starcoder2's window), GQA edges and
+# ragged or single rows
+BWD_PLAN_SHAPES = [(48, 6, 1024, 1024, True), (24, 1, 448, 1536, False),
+                   (24, 1, 4352, 4352, False), (32, 1, 1024, 1024, True),
+                   (36, 9, 4608, 4608, True), (8, 4, 200, 300, True),
+                   (12, 12, 130, 333, True), (1, 1, 1, 1, False),
+                   (64, 64, 65, 4096, True), (96, 1, 100, 7, False)]
+
+
+def _dkdv_blocks(plan, bh, group, lk):
+    """The dK/dV kernel's blocks as dkdv_hopper_kernel indexes them: grid
+    (key-tile columns, KV heads, shares); a block takes key tile x and,
+    paired, n - 1 - x, for the q heads of its share of the group."""
+    nkt = -(-lk // plan.bk)
+    cols = -(-nkt // 2) if plan.pair else nkt
+    share = group // plan.splits
+    blocks = []
+    for z in range(plan.splits):
+        for kvh in range(bh // group):
+            for x in range(cols):
+                tiles = (x,) if not plan.pair or nkt - 1 - x == x else (
+                    x, nkt - 1 - x)
+                h0 = kvh * group + z * share
+                blocks.append((kvh, tiles, range(h0, h0 + share)))
+    return blocks
+
+
+def _visible_q_tiles(plan, key_tile, lq, lk, causal):
+    """q tiles of 64 rows that a causal mask leaves visible to a dK/dV key
+    tile, with positions q_pos = arange(lk - lq, lk), k_pos = arange(lk)
+    (the kernel's maybe_visible on the tiles' position bounds)."""
+    k_lo = key_tile * plan.bk
+    n = 0
+    for qt in range(-(-lq // fm.BWD_TILE)):
+        q_hi = lk - lq + min(lq, (qt + 1) * fm.BWD_TILE) - 1
+        n += (not causal) or q_hi >= k_lo
+    return n
+
+
+@pytest.mark.parametrize("bh,group,lq,lk,causal", BWD_PLAN_SHAPES)
+def test_bwd_tile_plan_fits_shared_memory(bh, group, lq, lk, causal):
+    """At every head dim the kernel takes, both kernels' tiles fit in the
+    shared memory of a block, and of an SM at the blocks per SM their
+    register split assumes (one with two warpgroups, else two)."""
+    for d in fm.HEAD_DIMS:
+        plan = fm.bwd_tile_plan(bh, group, lq, lk, d, causal)
+        kv, q = fm.bwd_smem_bytes(plan, d)
+        assert 0 < kv <= fm.SMEM_LIMIT and 0 < q <= fm.SMEM_LIMIT
+        assert {1: 2, 2: 1}[plan.kv_wg] * kv <= 228 * 1024
+        assert 2 * q <= 228 * 1024  # a dQ block: one warpgroup
+        assert plan.kv_wg == (2 if d == 128 else 1)
+        assert group % plan.splits == 0
+
+
+@pytest.mark.parametrize("bh,group,lq,lk,causal", BWD_PLAN_SHAPES)
+def test_bwd_tile_plan_covers_every_key_and_row(bh, group, lq, lk, causal):
+    """Every (KV head, key tile, q head of its group) belongs to exactly
+    one dK/dV block, and the dQ grid covers every row of every head."""
+    for d in fm.HEAD_DIMS:
+        plan = fm.bwd_tile_plan(bh, group, lq, lk, d, causal)
+        seen = [(kvh, t, h) for kvh, tiles, heads in
+                _dkdv_blocks(plan, bh, group, lk)
+                for t in tiles for h in heads]
+        nkt = -(-lk // plan.bk)
+        want = [(kvh, t, kvh * group + g) for kvh in range(bh // group)
+                for t in range(nkt) for g in range(group)]
+        assert sorted(seen) == sorted(want)
+        nqb = -(-lq // fm.BWD_TILE)  # dQ blocks of 64 rows a head
+        assert nqb * fm.BWD_TILE >= lq > (nqb - 1) * fm.BWD_TILE
+
+
+def test_bwd_tile_plan_balances_causal_work_at_qwen2():
+    """At qwen2-1.5b's training shape (BH 48, 8 KV heads, L 1024, D 128,
+    causal) key tile j sees 16 - 2j q tiles: pairing j with 7 - j gives
+    every dK/dV block the same 18 steps per q head, and splitting the
+    group in 3 fills the SMs in one wave (96 blocks of 36 steps), where
+    unpaired, unsplit blocks would range from 2 to 16 steps on 64 SMs."""
+    bh, group, l = 48, 6, 1024
+    plan = fm.bwd_tile_plan(bh, group, l, l, 128, causal=True)
+    assert (plan.kv_wg, plan.splits, plan.pair) == (2, 3, True)
+    blocks = _dkdv_blocks(plan, bh, group, l)
+    work = [len(heads) * sum(_visible_q_tiles(plan, t, l, l, True)
+                             for t in tiles) for _, tiles, heads in blocks]
+    assert len(blocks) == 96 <= fm.SMS
+    assert min(work) == max(work) == 36
+    unpaired = dataclasses.replace(plan, pair=False, splits=1)
+    steps = [_visible_q_tiles(unpaired, t, l, l, True) for t in range(8)]
+    assert steps == [16 - 2 * j for j in range(8)]
+
+
+def test_bwd_smem_bytes_counts_every_buffer():
+    """The formulas of KvTiles::SMEM and QTiles::SMEM at D 128 (dK/dV:
+    two warpgroups) and D 64 (one)."""
+    plan = fm.bwd_tile_plan(48, 6, 1024, 1024, 128, True)
+    kv = 1024 + 2 * 128 * (2 * 128 + 2 * 2 * 64) + 8 * 6 + 16 * 2 * 64
+    q = 1024 + 2 * 128 * (2 * 64 + 2 * 2 * 64) + 8 * 5 + 4 * 2 * 64
+    assert fm.bwd_smem_bytes(plan, 128) == (kv, q) == (134_192, 99_880)
+    plan = fm.bwd_tile_plan(24, 1, 448, 1536, 64)
+    assert fm.bwd_smem_bytes(plan, 64) == (52_272, 50_728)
+
+
+# small versions of the card's K1B cases (tests/test_torch_kernels_cuda.py):
+# (bh, hkv, lq, lk, d, causal, window, padded keys, a fully masked row)
+K1B_SMALL = {
+    "causal-gqa": (8, 2, 96, 96, 128, True, None, 0, False),
+    "window": (4, 4, 130, 130, 64, True, 33, 0, False),
+    "cross": (6, 6, 45, 150, 64, False, None, 0, False),
+    "pad-dead-row": (4, 2, 40, 72, 32, True, None, 9, True),
+    "head-dim-80": (6, 2, 70, 70, 80, True, None, 0, False),
+    "d16": (2, 1, 33, 17, 16, False, None, 3, False),
+}
+
+
+def _bwd_bf16_rounded(q, k, v, o, do, m, l, q_pos, k_pos, *, group, scale,
+                      causal, window):
+    """kernels/ref.py's flash_mqkv_bwd_plain with P and dS rounded to bf16
+    before the second products (dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K), as
+    K1b's bf16 body packs them into the A operands of its wgmma."""
+    r = lambda t: t.to(torch.bfloat16).float()
+    kf = k.repeat_interleave(group, dim=0)
+    vf = v.repeat_interleave(group, dim=0)
+    delta = (do * o).sum(dim=-1)
+    s = torch.einsum("bqd,bkd->bqk", q, kf) * scale
+    ok = (k_pos >= 0)[None, :]
+    if causal:
+        ok = ok & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    live = l > 0.0
+    p = torch.exp(s - torch.where(live, m, 0.0)[..., None]) / torch.where(
+        live, l, 1.0)[..., None]
+    p = torch.where(ok[None] & live[..., None], p, 0.0)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, vf) - delta[..., None])
+    p, ds = r(p), r(ds)
+    dv = torch.einsum("bqk,bqd->bkd", p, do)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q) * scale
+    bhkv, lk, d = k.shape
+    return (dq, dk.reshape(bhkv, group, lk, d).sum(dim=1),
+            dv.reshape(bhkv, group, lk, d).sum(dim=1))
+
+
+@pytest.mark.parametrize("case", list(K1B_SMALL))
+def test_bwd_bf16_rounding_stays_within_the_gate(case):
+    """Rounding P and dS to bf16 before the second products (the bf16
+    body's only roundings besides its bf16 inputs and outputs) keeps every
+    gradient within 2e-2 of max|ref| of the f32 plain backward on the same
+    bf16-valued inputs: the card's gate leaves room for the design."""
+    bh, hkv, lq, lk, d, causal, window, pad, dead = K1B_SMALL[case]
+    rng = np.random.default_rng(23)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16).float()
+    q, k, v, do = mk(bh, lq, d), mk(hkv, lk, d), mk(hkv, lk, d), mk(bh, lq, d)
+    q_pos = torch.arange(lk - lq, lk, dtype=torch.int32)
+    k_pos = torch.arange(lk, dtype=torch.int32)
+    if pad:
+        k_pos[-pad:] = -1
+    if dead:  # row 0 sees only keys at positions <= 0, and those are padding
+        k_pos[:4] = -1
+        q_pos[0] = 0
+    kw = dict(group=bh // hkv, scale=d ** -0.5, causal=causal, window=window)
+    o, l, m = fm.flash_mqkv_plain(q, k, v, q_pos, k_pos, **kw)
+    want = flash_mqkv_bwd_plain(q, k, v, o, do, m, l, q_pos, k_pos, **kw)
+    got = _bwd_bf16_rounded(q, k, v, o, do, m, l, q_pos, k_pos, **kw)
+    errs = []
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+    assert 0 < max(errs) <= 2e-2, errs
+    if dead:
+        assert bool((got[0][l == 0] == 0).all())

@@ -715,6 +715,12 @@ K1B_CASES = {
     "pad-dead-row": (4, 2, 40, 72, 32, True, None, 9, True),
     "head-dim-80": (6, 2, 70, 70, 80, True, None, 0, False),
     "d16": (2, 1, 33, 17, 16, False, None, 3, False),
+    # ragged against the bf16 body's 64-row tiles at every head dim, with
+    # paired key tiles and the GQA group split over blocks
+    "ragged-d128": (12, 2, 200, 333, 128, True, None, 5, False),
+    "ragged-d64": (12, 4, 65, 129, 64, True, 40, 0, False),
+    "ragged-d32": (8, 8, 127, 191, 32, True, None, 0, False),
+    "ragged-d16": (6, 3, 63, 257, 16, False, 100, 0, False),
 }
 
 
@@ -766,6 +772,43 @@ def test_cuda_k1b_is_deterministic(cuda, dtype):
     b = fm.flash_mqkv_bwd(*args, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ["causal-gqa", "window", "ragged-d128"])
+def test_cuda_k1b_bf16_is_deterministic(cuda, case):
+    """The bf16 body (D 128 and D 64; paired and split) writes every
+    output element from one block and sums in a fixed order: bitwise on
+    repeat."""
+    args, kw = _k1b_inputs(cuda, torch.bfloat16, K1B_CASES[case])
+    a = fm.flash_mqkv_bwd(*args, **kw)
+    b = fm.flash_mqkv_bwd(*args, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.needs_cuda
+def test_cuda_k1b_bf16_mask_off_breaks_the_gate(cuda):
+    """Negative control of the bf16 body: without the causal mask it is
+    far over the bf16 gate (2e-2) from the plain backward with it."""
+    args, kw = _k1b_inputs(cuda, torch.bfloat16, K1B_CASES["causal-gqa"])
+    got = fm.flash_mqkv_bwd(*args, **dict(kw, causal=False))
+    want = flash_mqkv_bwd_plain(*args, **kw)
+    err = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+              for g, w in zip(got, want))
+    assert err > 2e-2
+
+
+@pytest.mark.needs_cuda
+def test_cuda_k1b_smem_bytes_match_the_plan(cuda):
+    """bwd_smem_bytes equals the dynamic shared memory the bf16 kernels
+    launch with (flash_mqkv_bwd_smem_bytes), at every head dim."""
+    lib = fm._bound_bwd_library()
+    for d in fm.HEAD_DIMS:
+        plan = fm.bwd_tile_plan(48, 6, 1024, 1024, d, True)
+        got = (lib.flash_mqkv_bwd_smem_bytes(0, d),
+               lib.flash_mqkv_bwd_smem_bytes(1, d))
+        assert got == fm.bwd_smem_bytes(plan, d)
 
 
 @pytest.mark.needs_cuda
