@@ -18,8 +18,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  of K1b (its bf16 Hopper body's delta_bf16, bounds,
                  dkdv_hopper, reduce_dkdv and dq_hopper kernels with the
                  dynamic shared memory they launch with, and the f32
-                 delta, dkdv and dq kernels); a spill in any of them
-                 fails the phase.
+                 delta, dkdv and dq kernels) and one per instantiation of
+                 K5b (the WKV gradient, with its dynamic shared memory)
+                 and its du sum; a spill in any of them fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -252,13 +253,15 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  K3) within FAMILY_SP_TOL of degree 1.
  34. serve-moe — ARServer on it: tokens bitwise, tick wall clock captured
                  and eager against the weight-read floor.
- 35. train-layer — one full-width float32 qwen2-1.5b layer plus the loss
-                 (tied embedding cut to 4096 rows), B 1 x L 1024, remat
-                 "full": every parameter's gradient on the card (K1 twice,
-                 K1b once) against the CPU's within TRAIN_TOL of its
-                 max|grad|, and the gradient gate (none missing, none all
-                 zero: what a kernel output without an autograd graph
-                 breaks).
+ 35. train-layer — one full-width float32 layer plus the loss (embeddings
+                 cut to 4096 rows), B 1 x L 1024, remat "full", of each of
+                 qwen2-1.5b, rwkv6-1.6b, hymba-1.5b and qwen2-moe-a2.7b:
+                 every parameter's gradient on the card (K1 twice and K1b
+                 once, or K5 twice and K5b once) against the CPU's
+                 (rwkv6: the card's without K5/K5b, see train_layer)
+                 within TRAIN_TOL of its max|grad|, and the gradient gate
+                 (none missing, none all zero: what a kernel output
+                 without an autograd graph breaks).
  36. train     — python -m repro_torch.launch.train --arch qwen2-1.5b
                  --steps 5 --seq 1024 --batch 4 in a subprocess, full width
                  and depth, bf16: every loss finite, 56 K1 and 28 K1b
@@ -275,10 +278,30 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  448: float32 logits card vs CPU within TRAIN_TOL,
                  teacher-forced decode with caches against the prefill,
                  one bf16 train step with the gradient gate.
+ 39. train-rwkv6, train-hymba — the launcher as in phase 36 on
+                 rwkv6-1.6b (24 layers: 48 K5 and 24 K5b launches per
+                 step) and hymba-1.5b (32 layers: 64 K1 and 32 K1b), full
+                 width and depth, bf16, B 4 x L 1024, 5 steps from the
+                 seed's fresh init: finite losses, step time, tokens/s,
+                 peak memory.
+ 40. train-moe — Trainer in process on qwen2-moe-a2.7b at full width and
+                 4 of its 24 layers (all 24 with their float32 moments
+                 need more than one card holds), bf16, B 4 x L 1024, 5
+                 steps: finite losses, 8 K1 and 4 K1b launches per step
+                 (EP 1: no put kernel), step time, tokens/s, peak memory
+                 above what earlier phases left allocated.
+K5b (rwkv6_wkv_bwd, the gradient of K5) is checked right after K1b: the
+k5b phase holds it against its plain version at rwkv6-1.6b's training
+shape (B 4 x L 1024, H 32, N 64) and at L 32 (below the chunk), in
+float32 and with the model's bf16 r, k, v, u, bitwise on repeat, with a
+negative control (the state's gradient dropped between chunks) that
+must break the float32 gate; the numbers phase times it there beside
+its bound and its plain version.
 K1b (flash_mqkv_bwd, the gradient of K1) is checked right after K5: the
 k1b phase holds it against its plain version at the train path's shapes
 (qwen2 causal GQA, whisper's cross-attention, flux, stablelm's padded
-head dim 80, starcoder2's window, padding with a fully masked row) in
+head dim 80, starcoder2's window, padding with a fully masked row,
+train-hymba's GQA group of 5 under its window and train-moe's MHA) in
 float32 (the CUDA-core parity body) and bf16 (the Hopper body: wgmma
 products from TMA tiles, under kernels/flash_mqkv.py's bwd_tile_plan,
 printed per case), bitwise on repeat, with two negative controls (the
@@ -296,14 +319,16 @@ A kernel's "launches" in the kernels line come from the serve-sp run on
 mesh (pod 2, model 8) — the counts are set to 0 just before it and read
 just after — except K3's, which come from the same kind of run on mesh
 (model 16), the route that takes the direct put, and K5's, which come
-from the lm-prefill run, and K1b's, which the train phase's launcher
-counts from 0 in its own process and prints.  The line before the
+from the lm-prefill run, and K1b's and K5b's, which the train and
+train-rwkv6 phases' launchers count from 0 in their own processes and
+print.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -339,7 +364,7 @@ STEPS = 4  # sampler steps of the serve phases
 SERVE_SP_LAYERS = 32
 ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
 SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv",
-           "flash_mqkv_bwd")  # csrc/<name>.cu
+           "flash_mqkv_bwd", "rwkv6_wkv_bwd")  # csrc/<name>.cu
 # serve-sp latents vs the degree-1 serve, as ||x_sp - x_1|| / ||x_1 - noise||
 # (the error relative to what the model moved the latents), bfloat16
 # (2.8x the largest value seen, 1.085e-2, on an H100 80GB HBM3 at 700 W;
@@ -4210,8 +4235,11 @@ K1B_CASES = (
     ("stablelm-d80", 32, 32, 1024, 1024, 80, True, None, 0, False),
     ("starcoder2-window", 36, 4, 4608, 4608, 128, True, 4096, 0, False),
     ("pad-masked-row", 8, 2, 200, 300, 64, True, None, 17, True),
+    # train-hymba's (GQA group 5, window 2048) and train-moe's (group 1)
+    ("hymba-train", 100, 20, 1024, 1024, 64, True, 2048, 0, False),
+    ("qwen2moe-train", 64, 64, 1024, 1024, 128, True, None, 0, False),
 )
-TRAIN_TOL = 1e-4  # train-layer and whisper, card vs CPU, of max|ref|
+TRAIN_TOL = 1e-4  # train-layer and whisper, card vs twin, of max|ref|
 TRAIN_LAYER_L = 1024  # train-layer's tokens (B 1)
 TRAIN_LAYER_VOCAB = 4096  # its tied embedding, cut: the layer is full width
 TRAIN_BL = (4, 1024)  # train: the launcher's --batch and --seq
@@ -4224,6 +4252,137 @@ K1B_SDPA = {"qwen2-train": (4, 12, 2), "whisper-cross": (4, 6, 6)}
 # profiler names them
 K1B_KERNELS = ("::delta_bf16_kernel<", "::bounds_kernel(", "::dkdv_hopper_kernel<",
                "::reduce_dkdv_kernel(", "::dq_hopper_kernel<")
+
+
+# K5b (rwkv6_wkv_bwd, the gradient of K5): (label, B, L, H, N) at chunk 64,
+# rwkv6-1.6b's training shape and one shorter than the chunk
+K5B_CASES = (("rwkv6-train", 4, 1024, 32, 64), ("short-L", 2, 32, 32, 64))
+K5B_SETS = 2  # input sets of a timed K5b call (~134 MB each at the train shape)
+# train-rwkv6 / train-hymba: the launcher at full width and depth; per arch
+# its (K1, K1b, K5, K5b) launches per step (remat "full": every layer's
+# forward runs again in the backward)
+TRAIN_FAMILIES = {"rwkv6-1.6b": (0, 0, 48, 24), "hymba-1.5b": (64, 32, 0, 0)}
+TRAIN_MOE_LAYERS = 4  # train-moe: qwen2-moe-a2.7b at 4 of its 24 layers
+# train-layer: one full-width float32 layer of each, its weights and tokens
+# from TRAIN_LAYER_SEED, and its (K1, K1b, K5, K5b) launches (the forward,
+# its recomputation and one backward)
+TRAIN_LAYER_SEED = 31
+TRAIN_LAYER_ARCHS = {"qwen2-1.5b": (2, 1, 0, 0), "rwkv6-1.6b": (0, 0, 2, 1),
+                     "hymba-1.5b": (2, 1, 0, 0),
+                     "qwen2-moe-a2.7b": (2, 1, 0, 0)}
+
+
+def k5b_inputs(gen, b, l, h, n, dtype):
+    """K5b's inputs at [B, L, H, N]: r, k, v and u in ``dtype`` (bf16 as
+    the model's, or float32), w float32 from RWKV6's range, dO float32
+    (K5's output dtype)."""
+    import torch
+    mk = lambda: torch.randn((b, l, h, n), generator=gen, device="cuda")
+    r, k, v = (mk().to(dtype) for _ in range(3))
+    w = rwkv_decays(gen, (b, l, h, n), "cuda")
+    u = (torch.randn((h, n), generator=gen, device="cuda") * 0.5).to(dtype)
+    return r, k, v, w, u, mk()
+
+
+def check_k5b(results: dict) -> None:
+    """Phase k5b: K5b against its plain version (kernels/ref.py's explicit
+    chunked backward) on the same card tensors at K5B_CASES, float32 (TF32
+    off) within TOL["float32"] and with the model's bf16 r, k, v, u within
+    TOL["bfloat16"] of each gradient's max|ref|; two runs bitwise equal;
+    every gradient finite.  Negative control: the kernel with dS dropped
+    between chunks must break the float32 gate at the training shape."""
+    import torch
+    wkv = wkv_module()
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = {}
+    for label, b, l, h, n in K5B_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            args = k5b_inputs(gen, b, l, h, n, dtype)
+            got = wkv.rwkv6_wkv_heads_bwd(*args)
+            again = wkv.rwkv6_wkv_heads_bwd(*args)
+            want = wkv.rwkv6_wkv_heads_bwd_plain(*args)
+            torch.cuda.synchronize()
+            err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+            bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            log(f"k5b {label} B={b} L={l} H={h} N={n} chunk 64 {name}: max "
+                f"over dr, dk, dv, dw, du of max|d|/max|ref| {err:.3e} (tol "
+                f"{TOL[name]}), repeat bitwise {bitwise}, finite {finite}")
+            if not (err <= TOL[name] and bitwise and finite):
+                fail(f"k5b {label} {name}: err {err} bitwise {bitwise} "
+                     f"finite {finite}")
+            if name == "bfloat16":
+                errs[label] = err
+            del args, got, again, want
+    args = k5b_inputs(gen, *K5B_CASES[0][1:], torch.float32)
+    got = wkv.rwkv6_wkv_heads_bwd(*args, carry=False)
+    want = wkv.rwkv6_wkv_heads_bwd_plain(*args)
+    err = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+    log(f"k5b negative control float32: the kernel with dS dropped between "
+        f"chunks against the plain backward: {err:.3e} (must exceed "
+        f"{TOL['float32']})")
+    if not err > TOL["float32"]:
+        fail(f"k5b negative control passed the gate ({err})")
+    del args, got, want
+    torch.cuda.empty_cache()
+    results["k5b_err"] = errs
+
+
+def k5b_work(b, l, h, n, c, itemsizes):
+    """(FLOPs, bytes) of one K5b call on [B, L, H, N] at chunk c: per chunk
+    and row, five strictly lower products of c(c-1)/2 x N terms (A, dA, Aᵀ
+    dO, dA k_sc, dAᵀ r_sc), five of c x N x N (the forward sweep's state
+    increment, (k_sc a) dS, dO S_inᵀ, v dSᵀ, r_scᵀ dO), the decays of S
+    and dS and da's row sum (3 x 2 N²) and ~30 operations an element for
+    the decays, the row sums, the log-decay scan and the epilogue.  Bytes:
+    r, k, v, w, dO read once and dr, dk, dv, dw written once in their
+    types (``itemsizes``: r, k, v, w, dO), u read and du written."""
+    per_chunk = (5 * c * (c - 1) * n + 5 * 2 * c * n * n + 6 * n * n
+                 + 30 * c * n)
+    flops = float(per_chunk) * (l // c) * b * h
+    nbytes = (float(b * l * h * n) * (2 * sum(itemsizes[:4]) + itemsizes[4])
+              + 2 * h * n * itemsizes[0])
+    return flops, nbytes
+
+
+def k5b_numbers(card: str) -> dict:
+    """K5b at rwkv6-1.6b's training shape (B 4 x L 1024, H 32, N 64, chunk
+    64; r, k, v, u bf16, w and dO float32), each timed call on one of
+    K5B_SETS input sets, beside its bound (the larger of the bytes at the
+    HBM rate and the operations at the TF32 tensor-core rate, as K5's) and
+    its plain version; no PyTorch call computes the WKV scan's gradient."""
+    import torch
+    wkv = wkv_module()
+
+    label, b, l, h, n = K5B_CASES[0]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sets = [k5b_inputs(gen, b, l, h, n, torch.bfloat16)
+            for _ in range(K5B_SETS)]
+    ms = cuda_ms(rotating([lambda a=a: wkv.rwkv6_wkv_heads_bwd(*a)
+                           for a in sets]), reps=20)
+    plain_ms = cuda_ms(rotating([lambda a=a: wkv.rwkv6_wkv_heads_bwd_plain(*a)
+                                 for a in sets]), reps=3, warmup=1)
+    flops, nbytes = k5b_work(b, l, h, n, 64, (2, 2, 2, 4, 4))
+    t_f32, t_tf32, t_bytes = (flops / PEAK_F32, flops / PEAK_TF32,
+                              nbytes / HBM_BPS)
+    bound = max(t_tf32, t_bytes)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound * 1e3,
+               bound_by="operations" if t_tf32 >= t_bytes else "bytes")
+    log(f"k5b time {label} B={b} L={l} H={h} N={n} chunk 64 (bf16 r/k/v/u, "
+        f"f32 w and dO), {len(sets)} input sets in turn: {ms:.4f} ms on the "
+        f"device ({flops / ms / 1e9:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s); bound {bound * 1e3:.4f} ms "
+        f"({row['bound_by']}), {bound / (ms * 1e-3):.3f} of it reached; "
+        f"terms: {flops / 1e9:.2f} GFLOP -> {t_f32 * 1e3:.4f} ms at 67 "
+        f"TFLOP/s on the CUDA cores, {t_tf32 * 1e3:.4f} ms at 495 TFLOP/s "
+        f"TF32, {nbytes / 1e6:.0f} MB -> {t_bytes * 1e3:.4f} ms at 3.35 TB/s; "
+        f"plain {plain_ms:.3f} ms; no PyTorch call computes it [{card}]")
+    del sets
+    torch.cuda.empty_cache()
+    return row
 
 
 def k1b_inputs(gen, case, dtype):
@@ -4342,48 +4501,141 @@ def gradient_gate(label: str, grads) -> None:
 
 
 def train_layer(results: dict) -> None:
-    """Phase train-layer: one full-width float32 qwen2-1.5b layer plus the
-    loss (tied embedding cut to TRAIN_LAYER_VOCAB rows, B 1 x L
-    TRAIN_LAYER_L, remat "full"): every parameter's gradient on the card
-    (K1, then K1b) against the CPU's (the plain versions), within
-    TRAIN_TOL of that tensor's max|grad|; the gradient gate; K1 launched
-    twice (the forward and its recomputation) and K1b once."""
+    """Phase train-layer: for each of TRAIN_LAYER_ARCHS, one full-width
+    float32 layer plus the loss (embeddings cut to TRAIN_LAYER_VOCAB rows,
+    B 1 x L TRAIN_LAYER_L, remat "full"; the constant leaves drawn, the
+    rwkv6 decays from RWKV6's range, all from TRAIN_LAYER_SEED): every
+    parameter's gradient on the card (K1 or K5, then K1b or K5b) within
+    TRAIN_TOL of that tensor's max|grad| of its twin without the kernels;
+    the gradient gate; the kernels launched as TRAIN_LAYER_ARCHS says (the
+    forward and its recomputation, one backward).
+
+    The twin is the CPU's run (the plain versions), except for rwkv6:
+    there it is the same layer on the card with the WKV scan through K5's
+    plain version and autograd (``plain_wkv``), and the CPU's run is
+    printed beside it.  The rwkv6 layer's group norm (eps 1e-5) is
+    ill-conditioned at t = 0, where the WKV output is the bonus term
+    (r·u·k) v alone: where a head's r·u·k cancels to ~0 the norm divides
+    float32 rounding by ~sqrt(eps), and the card's plain run and the CPU's
+    then differ by ~1e-3 of some gradients' max (seed 31 does this) with
+    no kernel between them.  The card's two runs share every operation but
+    the kernels, so only the kernels' error is held to TRAIN_TOL."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.kernels import flash_mqkv as fm
     from repro_torch.models import get_model, init_lm
     from repro_torch.train import SyntheticStream
+    wkv = wkv_module()
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=1,
-                              dtype="float32", vocab=TRAIN_LAYER_VOCAB)
-    gen = torch.Generator().manual_seed(31)
-    params = init_lm(cfg, gen, device="cpu")
-    perturb_dense(params, gen)
-    batch = SyntheticStream(cfg, InputShape("t", TRAIN_LAYER_L, 1,
-                                            "training"), seed=31).batch(
-        0, "cpu")
-    bundle = get_model(cfg)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    worst_all = 0.0
+    for arch, expected in TRAIN_LAYER_ARCHS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=1,
+                                  dtype="float32", vocab=TRAIN_LAYER_VOCAB)
+        gen = torch.Generator().manual_seed(TRAIN_LAYER_SEED)
+        params = init_lm(cfg, gen, device="cpu")
+        if cfg.family == "ssm":
+            perturb_rwkv(params, gen)
+        perturb_lm(params, gen)
+        batch = SyntheticStream(cfg, InputShape("t", TRAIN_LAYER_L, 1,
+                                                "training"),
+                                seed=TRAIN_LAYER_SEED).batch(0, "cpu")
+        bundle = get_model(cfg)
+        t0 = time.perf_counter()
+        for mod in (fm, wkv):
+            mod.reset_launch_count()
+            mod.reset_bwd_launch_count()
+        _, loss, grads = _grads(bundle, params, batch, cfg, cuda)
+        torch.cuda.synchronize()
+        counts = (fm.launch_count(), fm.bwd_launch_count(),
+                  wkv.launch_count(), wkv.bwd_launch_count())
+        gradient_gate(f"train-layer {arch} card", grads)
+        _, loss_cpu, on_cpu = _grads(bundle, params, batch, cfg, cpu)
+        vs_cpu = max(rel_err(g.cpu(), w, floor=0.0)
+                     for g, w in zip(grads, on_cpu))
+        if cfg.family == "ssm":
+            with plain_wkv():
+                _, loss_ref, want = _grads(bundle, params, batch, cfg, cuda)
+            plain_vs_cpu = max(rel_err(g.cpu(), w, floor=0.0)
+                               for g, w in zip(want, on_cpu))
+            twin = "the card without K5/K5b"
+            log(f"train-layer {arch} against the CPU (not the gate: the t = "
+                f"0 group norm's rounding): with K5/K5b {vs_cpu:.3e}, the "
+                f"card's plain WKV {plain_vs_cpu:.3e}")
+        else:
+            loss_ref, want, twin = loss_cpu, on_cpu, "the CPU"
+        worst = max(rel_err(g, w.to(g.device), floor=0.0)
+                    for g, w in zip(grads, want))
+        loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+        log(f"train-layer {arch} 1 layer d={cfg.d_model} fp32 L="
+            f"{TRAIN_LAYER_L}: loss {float(loss):.6f} ({twin} "
+            f"{float(loss_ref):.6f}, rel {loss_err:.2e}), worst gradient "
+            f"max|d|/max|ref| against {twin} {worst:.3e} over {len(grads)} "
+            f"tensors (tol {TRAIN_TOL}), launches K1 {counts[0]}, K1b "
+            f"{counts[1]}, K5 {counts[2]}, K5b {counts[3]}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (worst <= TRAIN_TOL and loss_err <= TRAIN_TOL
+                and counts == expected):
+            fail(f"train-layer {arch}: worst {worst} loss {loss_err} "
+                 f"launches {counts} (expected {expected})")
+        worst_all = max(worst_all, worst)
+        del params, grads, want, on_cpu
+    results["train_layer_err"] = worst_all
+
+
+@contextlib.contextmanager
+def plain_wkv():
+    """The rwkv6 layers' WKV scan through K5's plain version
+    (``rwkv6_wkv_heads_plain``, differentiated by autograd) on any device,
+    in place of ``rwkv6_wkv_heads`` (K5 forward, K5b backward): the card's
+    twin of a layer without its kernels.  Degree 1 only."""
+    from repro_torch.models import lm
+    wkv = wkv_module()
+    real = lm.rwkv6_wkv_heads
+    lm.rwkv6_wkv_heads = wkv.rwkv6_wkv_heads_plain
+    try:
+        yield
+    finally:
+        lm.rwkv6_wkv_heads = real
+
+
+def run_launcher(arch: str, extra: list) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch> --steps
+    TRAIN_STEPS --seq L --batch B --log-every 1 <extra>`` of TRAIN_BL in a
+    subprocess on the card: its losses, median step ms, tokens/s, peak GiB,
+    (K1, K1b, K5, K5b) launches per step and wall seconds.  Fails unless
+    it exits 0 and prints every line."""
+    import re
+    b, l = TRAIN_BL
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--steps", str(TRAIN_STEPS), "--seq", str(l), "--batch", str(b),
+           "--log-every", "1", *extra]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    fm.reset_launch_count()
-    fm.reset_bwd_launch_count()
-    _, loss, grads = _grads(bundle, params, batch, cfg, torch.device("cuda"))
-    torch.cuda.synchronize()
-    k1, k1b = fm.launch_count(), fm.bwd_launch_count()
-    gradient_gate("train-layer card", grads)
-    _, loss_cpu, want = _grads(bundle, params, batch, cfg,
-                               torch.device("cpu"))
-    worst = max(rel_err(g.cpu(), w, floor=0.0) for g, w in zip(grads, want))
-    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
-    log(f"train-layer qwen2-1.5b 1 layer d={cfg.d_model} fp32 L="
-        f"{TRAIN_LAYER_L}: loss {float(loss):.6f} (CPU {float(loss_cpu):.6f},"
-        f" rel {loss_err:.2e}), worst gradient max|d|/max|ref| {worst:.3e} "
-        f"over {len(grads)} tensors (tol {TRAIN_TOL}), K1 launches {k1}, "
-        f"K1b launches {k1b}, {time.perf_counter() - t0:.1f} s")
-    if not (worst <= TRAIN_TOL and loss_err <= TRAIN_TOL and k1 == 2
-            and k1b == 1):
-        fail(f"train-layer: worst {worst} loss {loss_err} K1 {k1} K1b {k1b}")
-    results["train_layer_err"] = worst
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        fail(f"train {arch}: the launcher exited {proc.returncode}")
+    losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)",
+                                           proc.stdout)]
+    summary = re.search(r"median step ([\d.]+) ms .* ([\d.]+) tokens/s, "
+                        r"peak memory ([\d.]+) GiB", proc.stdout)
+    kern = re.search(r"flash_mqkv ([\d.]+) and flash_mqkv_bwd ([\d.]+), "
+                     r"rwkv6_wkv ([\d.]+) and rwkv6_wkv_bwd ([\d.]+) "
+                     r"launches per step", proc.stdout)
+    if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or summary is None or kern is None):
+        fail(f"train {arch}: losses {losses}, summary {summary}, kernels "
+             f"{kern}")
+    return dict(losses=losses, step_ms=float(summary.group(1)),
+                tokens_s=float(summary.group(2)),
+                peak_gib=float(summary.group(3)),
+                counts=tuple(float(x) for x in kern.groups()), wall=wall)
 
 
 def train_launcher(results: dict, card: str) -> None:
@@ -4394,7 +4646,6 @@ def train_launcher(results: dict, card: str) -> None:
     in the backward); the checkpoint loads into the model's tree, holds
     parameters that moved from the seed-0 init, and saves back to the same
     arrays bit for bit."""
-    import re
     import tempfile
 
     import numpy as np
@@ -4407,29 +4658,8 @@ def train_launcher(results: dict, card: str) -> None:
     b, l = TRAIN_BL
     with tempfile.TemporaryDirectory() as tmp:
         ck = str(pathlib.Path(tmp) / "ck")
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "qwen2-1.5b", "--steps", str(TRAIN_STEPS), "--seq", str(l),
-               "--batch", str(b), "--ckpt", ck, "--log-every", "1"]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=900)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            log(f"  {line}")
-        if proc.returncode != 0:
-            log(proc.stderr[-4000:])
-            fail(f"train: the launcher exited {proc.returncode}")
-        losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)",
-                                               proc.stdout)]
-        summary = re.search(r"median step ([\d.]+) ms .* ([\d.]+) tokens/s, "
-                            r"peak memory ([\d.]+) GiB", proc.stdout)
-        kern = re.search(r"flash_mqkv ([\d.]+) and flash_mqkv_bwd ([\d.]+) "
-                         r"launches per step", proc.stdout)
-        if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
-                or summary is None or kern is None):
-            fail(f"train: losses {losses}, summary {summary}, kernels {kern}")
-        k1, k1b = float(kern.group(1)), float(kern.group(2))
+        run = run_launcher("qwen2-1.5b", ["--ckpt", ck])
+        k1, k1b, k5, k5b = run["counts"]
         cfg = get_config("qwen2-1.5b")
         init = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
                        device="cuda")
@@ -4444,23 +4674,111 @@ def train_launcher(results: dict, card: str) -> None:
         del init, back
     torch.cuda.empty_cache()
     log(f"train qwen2-1.5b {cfg.n_layers} layers bf16 B={b} L={l}: losses "
-        f"{[round(x, 4) for x in losses]}, median step {summary.group(1)} "
-        f"ms, {summary.group(2)} tokens/s, peak {summary.group(3)} GiB, K1 "
-        f"{k1:g} and K1b {k1b:g} launches per step, {moved} of {n} "
-        f"parameter tensors moved, checkpoint round trip bitwise {same}, "
-        f"subprocess {wall:.1f} s [{card}]")
-    if k1 != 2 * cfg.n_layers or k1b != cfg.n_layers or not moved or not same:
-        fail(f"train: K1 {k1} K1b {k1b} moved {moved} round trip {same}")
+        f"{[round(x, 4) for x in run['losses']]}, median step "
+        f"{run['step_ms']} ms, {run['tokens_s']:.0f} tokens/s, peak "
+        f"{run['peak_gib']} GiB, K1 {k1:g} and K1b {k1b:g} launches per "
+        f"step, {moved} of {n} parameter tensors moved, checkpoint round "
+        f"trip bitwise {same}, subprocess {run['wall']:.1f} s [{card}]")
+    if (k1 != 2 * cfg.n_layers or k1b != cfg.n_layers or k5 or k5b
+            or not moved or not same):
+        fail(f"train: launches {run['counts']} moved {moved} round trip "
+             f"{same}")
     results["train_k1b_launches"] = round(k1b * TRAIN_STEPS)
 
 
-def train_breakdown(card: str) -> None:
-    """Phase train-breakdown: one qwen2-1.5b training step as the train
-    phase runs it (full width and depth, bf16, B 4 x L 1024, remat
-    "full"), in process after two warm steps, traced by torch.profiler:
-    wall ms, device busy ms and the idle share, and the device ms of K1,
-    K1b (every launch of its bf16 body), the GEMMs and the rest; then
-    AdamW alone on the step's gradients (CUDA events)."""
+def train_family(results: dict, card: str, arch: str) -> None:
+    """Phases train-rwkv6 and train-hymba: ``python -m
+    repro_torch.launch.train --arch <arch> --steps 5 --seq 1024 --batch 4``
+    in a subprocess, at full width and depth in bf16 (remat "full"), from
+    the seed's fresh init: every loss finite, the (K1, K1b, K5, K5b)
+    launches per step of TRAIN_FAMILIES; median step time, tokens/s and
+    peak memory."""
+    from repro_torch.configs import get_config
+
+    b, l = TRAIN_BL
+    cfg = get_config(arch)
+    run = run_launcher(arch, [])
+    log(f"train-{arch.split('-')[0]} {arch} {cfg.n_layers} layers d="
+        f"{cfg.d_model} bf16 B={b} L={l}: losses "
+        f"{[round(x, 4) for x in run['losses']]}, median step "
+        f"{run['step_ms']} ms, {run['tokens_s']:.0f} tokens/s, peak "
+        f"{run['peak_gib']} GiB, launches per step K1 {run['counts'][0]:g}, "
+        f"K1b {run['counts'][1]:g}, K5 {run['counts'][2]:g}, K5b "
+        f"{run['counts'][3]:g}, subprocess {run['wall']:.1f} s [{card}]")
+    if run["counts"] != TRAIN_FAMILIES[arch]:
+        fail(f"train {arch}: launches per step {run['counts']}, expected "
+             f"{TRAIN_FAMILIES[arch]}")
+    if arch == "rwkv6-1.6b":
+        results["train_k5b_launches"] = round(run["counts"][3] * TRAIN_STEPS)
+
+
+def train_moe(card: str) -> None:
+    """Phase train-moe: ``Trainer`` (make_train_step, AdamW in place) on
+    qwen2-moe-a2.7b at full width (60 routed experts top 4 + 4 shared, d
+    2048, untied embeddings) and TRAIN_MOE_LAYERS of its 24 layers (all 24
+    need ~14.3 B parameters x 12 B of parameters, gradients and float32
+    moments: no one card holds them), bf16, B 4 x L 1024, TRAIN_STEPS
+    steps in process: every loss finite, K1 twice and K1b once per layer
+    per step (at EP 1 the expert exchange is the identity: no put kernel);
+    median step time, tokens/s, peak memory above what was allocated at
+    the phase's start (the phase runs in process, after the others)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.optimizer import tree_leaves
+
+    b, l = TRAIN_BL
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              n_layers=TRAIN_MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, None, SPConfig(strategy="full", sp_axes=("model",),
+                                     batch_axes=("data",)),
+                 InputShape("cli", l, b, "training"),
+                 opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS), device="cuda")
+    fm.reset_launch_count()
+    fm.reset_bwd_launch_count()
+    t0 = time.perf_counter()
+    params, history = tr.run(TRAIN_STEPS, log_every=1)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in history]
+    step_s = statistics.median(tr.step_seconds[1:])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    k1, k1b = fm.launch_count() / TRAIN_STEPS, fm.bwd_launch_count() / TRAIN_STEPS
+    log(f"train-moe qwen2-moe-a2.7b {cfg.n_layers} of 24 layers d="
+        f"{cfg.d_model} bf16, {n_params / 1e9:.3f} B params, B={b} L={l}: "
+        f"losses {[round(x, 4) for x in losses]}, median step "
+        f"{step_s * 1e3:.1f} ms, {b * l / step_s:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB of its own (over the {base / 2**30:.2f} GiB that "
+        f"earlier phases held at its start), launches per step K1 {k1:g}, "
+        f"K1b {k1b:g}, "
+        f"{wall:.1f} s with the init [{card}]")
+    if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or k1 != 2 * cfg.n_layers or k1b != cfg.n_layers):
+        fail(f"train-moe: losses {losses} K1 {k1} K1b {k1b}")
+    del params, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_breakdown(card: str, arch: str = "qwen2-1.5b",
+                    n_layers: int | None = None) -> None:
+    """Phase train-breakdown: one training step of ``arch`` (qwen2-1.5b in
+    the phase; scripts/train_trace.py passes the others) as the train
+    phases run it (full width, all layers or ``n_layers``, bf16, B 4 x L
+    1024, remat "full"), in process after two warm steps, traced by
+    torch.profiler: wall ms, device busy ms and the idle share, and the
+    device ms of K1, K1b (every launch of its bf16 body), K5, K5b, the
+    GEMMs and the rest, and the top kernels; then AdamW alone on the
+    step's gradients (CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -4473,7 +4791,9 @@ def train_breakdown(card: str) -> None:
 
     b, l = TRAIN_BL
     dev = torch.device("cuda")
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     bundle = get_model(cfg)
     params = bundle.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     for t in tree_leaves(params):
@@ -4501,19 +4821,23 @@ def train_breakdown(card: str) -> None:
     ms = lambda names: sum(e.self_device_time_total for e in kernels
                            if any(n in e.key for n in names)) / 1e3
     busy = ms(("",))
+    label = f"{arch} ({cfg.n_layers} layers)"
     if busy == 0.0:
-        log(f"train-breakdown: wall {wall:.1f} ms; the profiler saw no "
-            f"device time (shares not measured) [{card}]")
+        log(f"train-breakdown {label}: wall {wall:.1f} ms; the profiler saw "
+            f"no device time (shares not measured) [{card}]")
     else:
         k1 = ms(("flash_hopper_kernel", "flash_f32_kernel"))
         k1b = ms(K1B_KERNELS)
+        k5, k5b = ms(("wkv_kernel<",)), ms(("wkv_bwd_kernel<", "du_kernel"))
         gemm = ms(("gemm", "Gemm", "nvjet", "cutlass", "xmma"))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        log(f"train-breakdown qwen2-1.5b bf16 B={b} L={l}: step wall "
+        parts = (("K1b", k1b), ("K5b", k5b), ("GEMMs", gemm), ("K1", k1),
+                 ("K5", k5))
+        log(f"train-breakdown {label} bf16 B={b} L={l}: step wall "
             f"{wall:.1f} ms; device busy {busy:.2f} ms, idle share "
-            f"{1 - busy / wall:.3f}; K1b {k1b:.2f} ms ({k1b / busy:.3f}), "
-            f"GEMMs {gemm:.2f} ms ({gemm / busy:.3f}), K1 {k1:.2f} ms "
-            f"({k1 / busy:.3f}), the rest {busy - k1b - gemm - k1:.2f} ms; "
+            f"{1 - busy / wall:.3f}; " + ", ".join(
+                f"{name} {t:.2f} ms ({t / busy:.3f})" for name, t in parts)
+            + f", the rest {busy - sum(t for _, t in parts):.2f} ms; "
             "top kernels: " + "; ".join(
                 f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f}"
                 f" ms" for e in top) + f" [{card}]")
@@ -4829,6 +5153,21 @@ def build_all() -> None:
             f"dtypes ({plan['stages']} TMA stages)")
         if st or ld:
             fail(f"rwkv6_wkv wkv_kernel<{c}, {n}, {tv}> spills registers")
+    bwd = wkv._bound_bwd_library()
+    k5b_rep = ptxas_report(reps["rwkv6_wkv_bwd"]["log"])
+    for entry, (regs, st, ld, _) in k5b_rep.items():
+        m = re.search(r"wkv_bwd_kernelILi(\d+)ELi(\d+)E", entry)
+        label = (f"wkv_bwd_kernel<C={m.group(1)}, N={m.group(2)}>" if m
+                 else "du_kernel")
+        smem = bwd.rwkv6_wkv_bwd_smem(int(m.group(1)), int(m.group(2))) if m \
+            else 0
+        log(f"ptxas rwkv6_wkv_bwd {label}: {regs} registers, {st} + {ld} "
+            f"bytes spilled (stores + loads), {smem} bytes of dynamic shared "
+            f"memory")
+        if st or ld:
+            fail(f"rwkv6_wkv_bwd {label} spills registers")
+    if not any("wkv_bwd_kernel" in entry for entry in k5b_rep):
+        fail("rwkv6_wkv_bwd: no ptxas report of wkv_bwd_kernel")
 
 
 def kernel_row(name, source, replaces, launches, err, row) -> dict:
@@ -4861,6 +5200,7 @@ def main() -> int:
     check_put_kernels(results)
     check_k5(results)
     check_k1b(results)
+    check_k5b(results)
     check_sp_block(check_block())
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after check_sp_block")
     torch.cuda.empty_cache()
@@ -4964,6 +5304,12 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after whisper_phase")
     gc.collect()
     torch.cuda.empty_cache()
+    for arch in TRAIN_FAMILIES:
+        train_family(results, card, arch)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s after train "
+            f"{arch}")
+    train_moe(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_moe")
 
     k1 = k1_numbers(card)
     dense_numbers(card)
@@ -4973,6 +5319,7 @@ def main() -> int:
     layer_breakdown(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after layer_breakdown")
     k1b = k1b_numbers(card)
+    k5b = k5b_numbers(card)
     k5 = k5_numbers(card, results)
     lm_breakdown(card, lm_params, lm_cfg)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_breakdown")
@@ -5005,6 +5352,12 @@ def main() -> int:
                    "src/repro/core/softmax.py:199",
                    results["train_k1b_launches"],
                    results["k1b_err"]["qwen2-train"], k1b["qwen2-train"]),
+        # K5b replaces no Pallas kernel either: the reference differentiates
+        # its plain chunked scan with XLA
+        kernel_row("rwkv6_wkv_bwd", "src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
+                   "src/repro/models/ssm.py:50",
+                   results["train_k5b_launches"],
+                   results["k5b_err"]["rwkv6-train"], k5b),
     ]
     for row in kernels:
         if row["launches"] <= 0:

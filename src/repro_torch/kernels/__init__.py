@@ -8,7 +8,8 @@ body plus the put of the KV chunk to the next ring rank.  The put kernels
 K3 and K4 belong to the comm layer (comm/kernel_backend.py).  K5
 (``rwkv6_wkv``, csrc/rwkv6_wkv.cu) is the chunked RWKV6 WKV scan;
 ``rwkv6_wkv_heads`` is its entry point in the model's [B, L, H, N]
-layout.  Importing this package builds nothing: a CUDA library is
+layout, differentiable through K5b (csrc/rwkv6_wkv_bwd.cu), as
+``flash_mqkv`` is through K1b (csrc/flash_mqkv_bwd.cu).  Importing this package builds nothing: a CUDA library is
 compiled on the first launch on a CUDA tensor.
 """
 from .ops import flash_attention, flash_attention_segments

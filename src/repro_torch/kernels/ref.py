@@ -14,6 +14,10 @@ explicit FlashAttention-2 backward formula on the forward's saved
 ``rwkv6_wkv_ref`` is the plain version of K5 (the RWKV6 WKV scan): the
 chunked matmul form of the reference's Pallas kernel, chunk by chunk with
 the [N, N] state carried in float32.
+
+``rwkv6_wkv_bwd_plain`` is the plain version of K5b, K5's gradient: the
+explicit backward of that chunk form, the chunks' entry states from a
+forward sweep, the state's gradient carried back chunk by chunk.
 """
 from __future__ import annotations
 
@@ -185,3 +189,91 @@ def rwkv6_wkv_ref(
         s = a_c[:, g, :, None] * s + torch.einsum("bsn,bsm->bnm",
                                                   k_tail[:, g], vf[:, g])
     return torch.stack(outs, dim=1).reshape(bh, l, n)
+
+
+def rwkv6_wkv_bwd_plain(
+    r: torch.Tensor,  # [BH, L, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1]
+    u: torch.Tensor,  # [U, N]: row bh reads u[bh % U]
+    do: torch.Tensor,  # [BH, L, N] the gradient of o
+    *,
+    chunk: int = WKV_CHUNK,
+):
+    """(dr, dk, dv, dw, du) of ``rwkv6_wkv_ref`` (with row bh reading u[bh
+    % U], U dividing BH) given the gradient ``do`` of its output.  Per
+    chunk, with r_sc = r·D₋, k_sc = k/D, a = D at the chunk's end, A =
+    tril(r_sc k_scᵀ, −1), S_in the chunk's entry state and dS the gradient
+    of its exit state (0 after the last chunk):
+
+        dv    = Aᵀ dO + diag(r·u·k) dO + (k_sc ⊙ a) dS
+        dr_sc = tril(dO vᵀ, −1) k_sc + dO S_inᵀ
+        dk_sc = tril(dO vᵀ, −1)ᵀ r_sc + a ⊙ (v dSᵀ)
+        da    = rowsum(S_in ⊙ dS) + colsum(k_sc ⊙ v dSᵀ)
+        dS   ← r_scᵀ dO + diag(a) dS          (to the previous chunk)
+
+    then r = r_sc / D₋ and k = k_sc · D, the bonus terms (dO_t·v_t) u k and
+    (dO_t·v_t) u r, and the log-decay terms summed back in the chunk:
+    d log w_s = Σ_{t>s} dr_sc·r_sc − Σ_{t≥s} dk_sc·k_sc + da·a.  du sums
+    r ⊙ k (dO_t·v_t) over time and over the rows that read it, in row
+    order.  The clip's rule is torch.clamp's: dw = d log w / w where 1e-6
+    ≤ w ≤ 1, both ends included (at w == 1 exactly jnp.clip would pass
+    half), and 0 outside.  Float32 arithmetic; the results take the
+    inputs' dtypes."""
+    bh, l, n = r.shape
+    rows = u.shape[0]
+    if bh % rows:
+        raise ValueError(f"u has {rows} rows, which do not divide BH {bh}")
+    c = wkv_chunk(l, chunk)
+    nc = l // c
+    f = lambda t: t.float().reshape(bh, nc, c, n)
+    rf, kf, vf, wf, dof = f(r), f(k), f(v), f(w), f(do)
+    wc = torch.clamp(wf, WKV_EPS, 1.0)
+    logw = torch.log(wc)
+    log_d = torch.cumsum(logw, dim=2)
+    d = torch.exp(log_d)
+    d_m1 = torch.exp(log_d - logw)
+    r_sc = rf * d_m1
+    k_sc = kf / d
+    a_c = d[:, :, -1]  # [bh, nc, n]
+    ur = u.float().repeat(bh // rows, 1)  # [bh, n]
+    # the chunks' entry states, as the forward carries them
+    s = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    s_in = []
+    for g in range(nc):
+        s_in.append(s)
+        s = a_c[:, g, :, None] * s + torch.einsum(
+            "bsn,bsm->bnm", k_sc[:, g] * a_c[:, g, None, :], vf[:, g])
+    below = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                       diagonal=-1)
+    grads = [torch.empty_like(rf) for _ in range(4)]
+    du = torch.zeros((bh, n), dtype=torch.float32, device=r.device)
+    ds = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    for g in reversed(range(nc)):
+        rs, ks, vg, dog, a = r_sc[:, g], k_sc[:, g], vf[:, g], dof[:, g], a_c[:, g]
+        att = torch.einsum("btn,bsn->bts", rs, ks).masked_fill(~below, 0.0)
+        dov = torch.einsum("btm,bsm->bts", dog, vg)
+        datt = dov.masked_fill(~below, 0.0)
+        bd = torch.diagonal(dov, dim1=1, dim2=2)  # [bh, c]: dO_t · v_t
+        bonus = (rf[:, g] * ur[:, None] * kf[:, g]).sum(dim=-1)
+        x = torch.einsum("bsm,bnm->bsn", vg, ds)  # v dSᵀ
+        grads[2][:, g] = (torch.einsum("bts,btm->bsm", att, dog)
+                          + bonus[..., None] * dog
+                          + torch.einsum("bsn,bnm->bsm", ks * a[:, None], ds))
+        drs = (torch.einsum("bts,bsn->btn", datt, ks)
+               + torch.einsum("btm,bnm->btn", dog, s_in[g]))
+        dks = torch.einsum("bts,btn->bsn", datt, rs) + a[:, None] * x
+        da = (s_in[g] * ds).sum(dim=-1) + (ks * x).sum(dim=1)
+        ds = a[..., None] * ds + torch.einsum("btn,btm->bnm", rs, dog)
+        p, q = drs * rs, dks * ks
+        rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, (1,)), 1), (1,))
+        dlogw = rev(p) - p - rev(q) + (da * a)[:, None]
+        grads[0][:, g] = drs * d_m1[:, g] + ur[:, None] * kf[:, g] * bd[..., None]
+        grads[1][:, g] = dks / d[:, g] + ur[:, None] * rf[:, g] * bd[..., None]
+        inside = (wf[:, g] >= WKV_EPS) & (wf[:, g] <= 1.0)
+        grads[3][:, g] = torch.where(inside, dlogw / wc[:, g], 0.0)
+        du += (rf[:, g] * kf[:, g] * bd[..., None]).sum(dim=1)
+    du = du.reshape(bh // rows, rows, n).sum(dim=0)
+    return (*(gr.reshape(bh, l, n).to(t.dtype)
+              for gr, t in zip(grads, (r, k, v, w))), du.to(u.dtype))

@@ -24,6 +24,14 @@ kernel to the plain version.  The kernel loads r, k, v and w with TMA, so
 each needs a 16-byte aligned base and byte strides that are multiples of
 16 (the model's projections are); a view that is not raises ValueError,
 and the kernel never copies one quietly.
+
+The gradient is K5b (``csrc/rwkv6_wkv_bwd.cu``, ``rwkv6_wkv_heads_bwd``;
+its plain version is kernels/ref.py:rwkv6_wkv_bwd_plain): ``WKV`` is the
+autograd Function of ``rwkv6_wkv_heads``, whose forward is K5 and whose
+backward is K5b on CUDA (the plain versions on the CPU).
+``rwkv6_wkv_heads`` goes through it only while a gradient is wanted: a
+forward without grad (prefill, the captured decode tick) launches K5
+directly.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import WKV_CHUNK, rwkv6_wkv_ref, wkv_chunk
+from .ref import WKV_CHUNK, rwkv6_wkv_bwd_plain, rwkv6_wkv_ref, wkv_chunk
 
 SIZES = (8, 16, 32, 64)  # head sizes N and chunks c the kernel takes
 SPLITS = (1, 2, 4)  # blocks of value columns per row the kernel takes
@@ -40,6 +48,7 @@ MIN_SPLIT_COLUMNS = 16  # value columns of a block when a row is split
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 _launches = 0
+_bwd_launches = 0
 
 
 def launch_count() -> int:
@@ -50,6 +59,17 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def bwd_launch_count() -> int:
+    """Calls that launched K5b (its kernel and the ordered sum of du) since
+    the last reset."""
+    return _bwd_launches
+
+
+def reset_bwd_launch_count() -> None:
+    global _bwd_launches
+    _bwd_launches = 0
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -200,6 +220,29 @@ def rwkv6_wkv(
     return o[:, :, 0]
 
 
+def _heads_forward(r, k, v, w, u, chunk):
+    if _dispatch(r) == "cpu":
+        return rwkv6_wkv_heads_plain(r, k, v, w, u, chunk=chunk)
+    return _launch(r, k, v, w, u, chunk=chunk)
+
+
+class WKV(torch.autograd.Function):
+    """``rwkv6_wkv_heads`` with K5b as its gradient.  Forward: K5 on CUDA,
+    the plain version on the CPU, saving only the inputs (the backward
+    recomputes the chunks' states).  Backward: ``rwkv6_wkv_heads_bwd``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return _heads_forward(r, k, v, w, u, chunk)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = rwkv6_wkv_heads_bwd(*ctx.saved_tensors, do, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def rwkv6_wkv_heads(
     r: torch.Tensor,  # [B, L, H, N]
     k: torch.Tensor,
@@ -210,10 +253,110 @@ def rwkv6_wkv_heads(
     chunk: int = WKV_CHUNK,
 ) -> torch.Tensor:
     """``rwkv6_wkv`` in the model's layout: returns o [B, L, H, N]
-    (float32), which equals ``rwkv6_chunk_scan(r, k, v, w, u).out``."""
+    (float32), which equals ``rwkv6_chunk_scan(r, k, v, w, u).out``.
+    Differentiable in every input (``WKV``) while a gradient is wanted."""
     if tuple(u.shape) != (r.shape[2], r.shape[3]):
         raise ValueError(f"u has shape {tuple(u.shape)}, expected "
                          f"{(r.shape[2], r.shape[3])}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u)):
+        return WKV.apply(r, k, v, w, u, chunk)
+    return _heads_forward(r, k, v, w, u, chunk)
+
+
+def rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, *, chunk: int = WKV_CHUNK):
+    """``rwkv6_wkv_heads_bwd`` in plain PyTorch: (dr, dk, dv, dw) [B, L, H,
+    N] and du [H, N] (summed over the batch), in the inputs' dtypes."""
+    b, l, h, n = r.shape
+    grads = rwkv6_wkv_bwd_plain(*(_flat(t) for t in (r, k, v, w)), u,
+                                _flat(do), chunk=chunk)
+    unflat = lambda g: g.reshape(b, h, l, n).permute(0, 2, 1, 3)
+    return (*(unflat(g) for g in grads[:4]), grads[4])
+
+
+def _bound_bwd_library() -> ctypes.CDLL:
+    lib = _build.load("rwkv6_wkv_bwd")
+    if lib.rwkv6_wkv_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rwkv6_wkv_bwd.argtypes = [p] * 13 + [i] * 8 + [p, p]
+        lib.rwkv6_wkv_bwd.restype = i
+        lib.rwkv6_wkv_bwd_smem.argtypes = [i, i]
+        lib.rwkv6_wkv_bwd_smem.restype = i
+        lib.rwkv6_wkv_bwd_error_string.argtypes = [i]
+        lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rwkv6_wkv_heads_bwd(
+    r: torch.Tensor,  # [B, L, H, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,  # [U, N]: row b * H + h reads u[(b * H + h) % U]
+    do: torch.Tensor,  # [B, L, H, N] the gradient of o
+    *,
+    chunk: int = WKV_CHUNK,
+    carry: bool = True,
+):
+    """(dr, dk, dv, dw, du) of ``rwkv6_wkv_heads`` given the gradient
+    ``do`` of its output: K5b on CUDA tensors, the plain version on CPU
+    tensors.  dr, dk, dv, dw are [B, L, H, N] in r's, k's, v's and w's
+    dtypes; du [U, N] in u's, summed over the rows that read each row of u
+    (U = H: over the batch) in row order, so a repeat is bitwise equal.
+    Any of r, k, v, w, do and u may be float32 or bfloat16; the kernel
+    reads the inputs through their strides (channels contiguous) and
+    needs the chunk min(chunk, L) and N in SIZES.  ``carry=False`` makes
+    the kernel drop the state's gradient between chunks, a wrong result
+    that negative controls use; the plain version has no such switch."""
+    global _bwd_launches
+    b, l, h, n = r.shape
     if _dispatch(r) == "cpu":
-        return rwkv6_wkv_heads_plain(r, k, v, w, u, chunk=chunk)
-    return _launch(r, k, v, w, u, chunk=chunk)
+        if not carry:
+            raise ValueError("the plain backward always carries dS")
+        return rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, chunk=chunk)
+    dev = r.device
+    if n not in SIZES:
+        raise ValueError(f"rwkv6_wkv_bwd kernel takes head sizes {SIZES}, "
+                         f"got {n}")
+    c = wkv_chunk(l, chunk)
+    if c not in SIZES:
+        raise ValueError(f"rwkv6_wkv_bwd kernel takes chunks {SIZES}, got "
+                         f"min(chunk, L) = {c}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("do", do)):
+        _check(name, t, (b, l, h, n), dev)
+    if u.dim() != 2 or u.shape[0] < 1 or (b * h) % u.shape[0]:
+        raise ValueError(f"u must be [rows, {n}] with rows dividing "
+                         f"{b * h}, got {tuple(u.shape)}")
+    _check("u", u, (u.shape[0], n), dev)
+    u = u.contiguous()
+    grads = [torch.empty((b, l, h, n), dtype=t.dtype, device=dev)
+             for t in (r, k, v, w)]
+    du = torch.empty_like(u)
+    if b * h == 0:
+        for t in (*grads, du):
+            t.zero_()
+        return (*grads, du)
+    states = torch.empty((b * h, l // c, n, n), dtype=torch.float32,
+                         device=dev)
+    du_rows = torch.empty((b * h, n), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(*(
+        s for t in (r, k, v, w, do)
+        for s in (t.stride(0), t.stride(2), t.stride(1))))
+    bf16 = sum(_BF16[t.dtype] << i for i, t in enumerate((r, k, v, w, do, u)))
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _bound_bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rwkv6_wkv_bwd(p(r), p(k), p(v), p(w), p(do), p(u),
+                                *(p(g) for g in grads), p(du), p(states),
+                                p(du_rows), b * h, h, l, n, c, u.shape[0],
+                                bf16, int(carry), strides,
+                                ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.rwkv6_wkv_bwd_error_string(err).decode()
+        raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: {msg} "
+                           f"({err})")
+    _bwd_launches += 1
+    return (*grads, du)

@@ -9,15 +9,15 @@ for the CPU:
 The flags are the reference's, plus ``--device``, ``--remat`` (the
 activation-checkpoint policy: full, dots or none) and ``--log-every``
 (the reference logs every 10th step).  ``--reduced`` trains
-the reduced config in float32, as the reference's.  The port trains at SP
-degree 1 on one device: ``--model`` or ``--data`` above 1 and the
-``pod``/``multipod`` meshes are refused, as are the families whose
-kernels have no backward yet (train/trainer.py: ROADMAP Queue 1 item 7).
-It prints the reference's line per logged step, then one line with the
-median step time (host clock, the device synchronised at each step's
-end), tokens per second and the peak device memory, and on CUDA one line
-with the launches per step of the attention kernel K1 and of its gradient
-K1b.
+the reduced config in float32, as the reference's.  Every family
+trains (the LMs: dense, vlm, rwkv6, hybrid, moe; whisper; the DiTs), at
+SP degree 1 on one device: ``--model`` or ``--data`` above 1 and the
+``pod``/``multipod`` meshes are refused (train/trainer.py: ROADMAP Queue
+1 item 7).  It prints the reference's line per logged step, then one
+line with the median step time (host clock, the device synchronised at
+each step's end), tokens per second and the peak device memory, and on
+CUDA one line with the launches per step of the attention kernel K1 and
+of its gradient K1b, and of the WKV kernel K5 and of its gradient K5b.
 """
 from __future__ import annotations
 
@@ -32,6 +32,10 @@ from ..configs import get_config, get_reduced
 from ..configs.shapes import SHAPES, InputShape
 from ..core import SPConfig
 from ..kernels import flash_mqkv as fm
+from ..kernels.rwkv6_wkv import (bwd_launch_count as k5b_count,
+                                 launch_count as k5_count,
+                                 reset_bwd_launch_count as reset_k5b,
+                                 reset_launch_count as reset_k5)
 from ..models.blocks import REMAT_POLICIES
 from ..train import AdamWConfig, Trainer
 from ..train.trainer import TRAIN_ITEM
@@ -76,6 +80,8 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.reset_peak_memory_stats()
     fm.reset_launch_count()
     fm.reset_bwd_launch_count()
+    reset_k5()
+    reset_k5b()
     tr.run(args.steps, log_every=args.log_every)
     # the first step builds the kernels: the median of the rest
     times = tr.step_seconds[1:] or tr.step_seconds
@@ -87,9 +93,11 @@ def main(argv: list[str] | None = None) -> int:
           f"ms over {len(times)} steps (first step {tr.step_seconds[0]:.2f} "
           f"s), {tokens / step_s:.0f} tokens/s, peak memory {peak}")
     if cuda:
-        print(f"kernels: flash_mqkv {fm.launch_count() / args.steps:g} and "
-              f"flash_mqkv_bwd {fm.bwd_launch_count() / args.steps:g} "
-              f"launches per step")
+        per = lambda n: f"{n / args.steps:g}"
+        print(f"kernels: flash_mqkv {per(fm.launch_count())} and "
+              f"flash_mqkv_bwd {per(fm.bwd_launch_count())}, rwkv6_wkv "
+              f"{per(k5_count())} and rwkv6_wkv_bwd "
+              f"{per(k5b_count())} launches per step")
     return 0
 
 

@@ -34,10 +34,10 @@ in place.
 The reference runs the layers in one ``lax.scan`` over stacked weights;
 here they are a Python loop over a list of per-layer dicts, and caches
 stay stacked on a leading layer axis, as the reference's.  In train mode
-each attention layer runs under ``ctx.remat_wrap`` (activation
-checkpointing), as the reference's scan body does; training is ported for
-the dense and vlm families (train/trainer.py refuses the others).  Whisper is
-models/whisper.py.
+each layer runs under ``ctx.remat_wrap`` (activation checkpointing), as
+the reference's scan body does; every family trains at SP degree 1 (the
+WKV scan's gradient is K5b, attention's K1b; train/trainer.py refuses a
+mesh).  Whisper is models/whisper.py.
 """
 from __future__ import annotations
 
@@ -512,6 +512,7 @@ def lm_forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []
     attention_layer = ctx.remat_wrap(_attention_layer)
+    rwkv_layer = ctx.remat_wrap(_layer)
     for i, lp in enumerate(params["layers"]):
         cache = ({name: c[i] for name, c in caches.items()}
                  if caches is not None else None)
@@ -523,7 +524,7 @@ def lm_forward(
             if state is not None:  # hymba's SSD state, written in place
                 caches["ssd_state"][i].copy_(state)
         else:
-            y, new_cache = _layer(x, lp, cfg, ctx, cache)
+            y, new_cache = rwkv_layer(x, lp, cfg, ctx, cache)
             per_layer.append(new_cache)
         x = y.to(x.dtype)
     new_caches = None

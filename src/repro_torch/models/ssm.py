@@ -169,12 +169,14 @@ def ssd_chunk_scan(
     cc = cm.float().reshape(b, nc, c, h, n)
 
     # intra-chunk: L[t,s] = exp(T_t - T_s), s <= t.  Above the diagonal
-    # the exponent is positive and may overflow to inf: it is selected
-    # away (a 0/1 mask would turn inf into NaN)
-    lmat = torch.exp(t_[:, :, :, None] - t_[:, :, None, :]).permute(
-        0, 1, 4, 2, 3)
+    # the exponent is positive and overflows to inf once a chunk's summed
+    # log-decay passes ~88: it is masked to -inf before the exp, so the
+    # gradient there is 0, not 0 * inf = NaN as the reference's `where`
+    # after the exp gives (ROADMAP F6: repaired here, not mirrored)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
-    lmat = torch.where(tri, lmat, torch.zeros((), device=x.device))
+    seg = (t_[:, :, :, None] - t_[:, :, None, :]).masked_fill(
+        ~tri[:, :, None], float("-inf"))
+    lmat = torch.exp(seg).permute(0, 1, 4, 2, 3)
     cb = torch.einsum("bgthn,bgshn->bghts", cc, bc)
     out = torch.einsum("bghts,bgshp->bgthp", cb * lmat, xs_)
 

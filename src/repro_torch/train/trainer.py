@@ -6,13 +6,14 @@ under the context's activation checkpointing), ``torch.autograd.grad``
 over the parameters, then ``adamw_update`` in place.  ``Trainer`` drives
 steps, metrics and checkpointing.
 
-The port trains at SP degree 1 on one device, the families whose every
-kernel has a gradient: dense, vlm, audio (whisper) and dit.  The rwkv6
-(ssm) family needs a backward of the WKV kernel K5, the hybrid and moe
-families a backward of the SP and expert-parallel exchanges (K3/K4), and
-training over a mesh of virtual ranks the backward of the SP schedule: all
-ROADMAP Queue 1 item 7.  They are refused, not run: on CUDA their kernels'
-outputs carry no gradient.
+The port trains every family at SP degree 1 on one device: dense, vlm,
+audio (whisper), dit, the rwkv6 family (ssm: the WKV scan's gradient is
+K5b), hybrid (hymba: attention through K1/K1b, the SSD scan in plain
+torch) and moe (at EP 1 the expert exchange is the identity, so no put
+kernel lies on the path).  Training over a mesh of virtual ranks needs the
+backward of the SP schedule and of the expert-parallel exchanges (K2,
+K3/K4): ROADMAP Queue 1 item 7.  It is refused, not run: on CUDA those
+kernels' outputs carry no gradient.
 
 The reference's ``batch_shardings`` (batch over the data axes, sequence
 over the SP axes) has no counterpart: at SP degree 1 the whole batch lives
@@ -34,18 +35,12 @@ from .data import SyntheticStream
 from .optimizer import (AdamWConfig, AdamWState, adamw_update, init_adamw,
                         tree_leaves, tree_map)
 
-TRAINABLE_FAMILIES = ("dense", "vlm", "audio", "dit")
 TRAIN_ITEM = "ROADMAP Queue 1 item 7"
 
 
-def check_trainable(cfg: ModelConfig, mesh=None) -> None:
+def check_trainable(mesh=None) -> None:
     """Raise NotImplementedError for what the port cannot train yet: a
-    family outside TRAINABLE_FAMILIES, or a mesh of more than one rank."""
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}): the port trains the "
-            f"{', '.join(TRAINABLE_FAMILIES)} families; the {cfg.family} "
-            f"family needs the backward of its kernels ({TRAIN_ITEM})")
+    mesh of more than one rank."""
     if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
             f"training over a mesh of {mesh.size} virtual ranks needs the "
@@ -58,7 +53,7 @@ def make_train_step(cfg: ModelConfig, mesh, sp: SPConfig,
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     params and moments updated in place.  ``mesh`` is None (or a mesh of
     one rank); ``device`` defaults to CUDA."""
-    check_trainable(cfg, mesh)
+    check_trainable(mesh)
     bundle = get_model(cfg)
     ctx = ParallelContext(sp, "train", device=device, mesh=mesh, remat=remat)
 
@@ -89,7 +84,7 @@ class Trainer:
     remat: str = "full"
 
     def setup(self):
-        check_trainable(self.cfg, self.mesh)
+        check_trainable(self.mesh)
         self.device = resolve_device(self.device)
         bundle = get_model(self.cfg)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)

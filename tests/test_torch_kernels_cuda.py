@@ -721,6 +721,8 @@ K1B_CASES = {
     "ragged-d64": (12, 4, 65, 129, 64, True, 40, 0, False),
     "ragged-d32": (8, 8, 127, 191, 32, True, None, 0, False),
     "ragged-d16": (6, 3, 63, 257, 16, False, 100, 0, False),
+    # hymba's GQA group of 5 under a window, the group split over 5 blocks
+    "gqa5-window": (10, 2, 130, 130, 64, True, 70, 0, False),
 }
 
 
@@ -775,7 +777,8 @@ def test_cuda_k1b_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.needs_cuda
-@pytest.mark.parametrize("case", ["causal-gqa", "window", "ragged-d128"])
+@pytest.mark.parametrize("case", ["causal-gqa", "window", "ragged-d128",
+                                  "gqa5-window"])
 def test_cuda_k1b_bf16_is_deterministic(cuda, case):
     """The bf16 body (D 128 and D 64; paired and split) writes every
     output element from one block and sums in a fixed order: bitwise on
@@ -840,3 +843,89 @@ def test_cuda_flash_attention_gradient_matches_cpu(cuda, dtype, tol):
         grads[str(dev)] = [t.grad.float().cpu() for t in ins]
     for g, w in zip(grads[str(cuda)], grads["cpu"]):
         assert float((g - w).abs().max() / w.abs().max()) <= tol
+
+
+# K5b (rwkv6_wkv_bwd, the gradient of K5): (B, L, H, N, chunk) — rwkv6-1.6b's
+# training shape, a sequence shorter than the chunk, smaller heads and chunks
+K5B_CASES = {
+    "rwkv6-train": (4, 1024, 32, 64, 64),
+    "short-L": (2, 32, 32, 64, 64),
+    "n16-c16": (2, 96, 4, 16, 16),
+    "n8-c8": (3, 40, 2, 8, 8),
+}
+K5B_DTYPES = {"f32": ((F32,) * 5, 1e-4), "model": (WKV_DTYPES["model"], 2e-2)}
+
+
+def _k5b_inputs(gen, case, dtypes):
+    """[B, L, H, N] inputs with decays from RWKV6's range (exp(-exp(w0)),
+    w0 ~ U[-6, -1]: ~[0.69, 0.998], ROADMAP F3), u [H, N] and a float32
+    dO, on the card."""
+    b, l, h, n, _ = case
+    mk = lambda: torch.randn((b, l, h, n), generator=gen)
+    r, k, v = mk(), mk(), mk()
+    w = torch.exp(-torch.exp(torch.rand((b, l, h, n), generator=gen) * 5 - 6))
+    u = torch.randn((h, n), generator=gen) * 0.5
+    ins = [t.to(dt).cuda() for t, dt in zip((r, k, v, w, u), dtypes)]
+    return ins, mk().cuda()
+
+
+def _k5b_err(got, want) -> float:
+    return max(float((g.float() - x.float()).abs().max()
+                     / x.float().abs().max()) for g, x in zip(got, want))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtypes", list(K5B_DTYPES))
+@pytest.mark.parametrize("case", list(K5B_CASES))
+def test_cuda_k5b_matches_plain(cuda, dtypes, case):
+    """K5b against its plain version on the same card tensors, within 1e-4
+    (float32) or 2e-2 (the model's bf16 r/k/v/u, f32 w) of each
+    gradient's max|ref|; the gradients in their inputs' dtypes; a repeat
+    bitwise equal (du is summed over the batch in row order, no atomics)."""
+    kinds, tol = K5B_DTYPES[dtypes]
+    chunk = K5B_CASES[case][-1]
+    (r, k, v, w, u), do = _k5b_inputs(torch.Generator().manual_seed(5),
+                                      K5B_CASES[case], kinds)
+    before = wkv.bwd_launch_count()
+    got = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, chunk=chunk)
+    again = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, chunk=chunk)
+    assert wkv.bwd_launch_count() == before + 2
+    want = wkv.rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, chunk=chunk)
+    torch.cuda.synchronize()
+    assert [g.dtype for g in got] == [t.dtype for t in (r, k, v, w, u)]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _k5b_err(got, want) <= tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.needs_cuda
+def test_cuda_k5b_without_the_carried_state_gradient_breaks_the_gate(cuda):
+    """Negative control: dS dropped between chunks is far from the plain
+    backward at the training shape."""
+    case = K5B_CASES["rwkv6-train"]
+    (r, k, v, w, u), do = _k5b_inputs(torch.Generator().manual_seed(6), case,
+                                      (F32,) * 5)
+    got = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, carry=False)
+    want = wkv.rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do)
+    assert _k5b_err(got, want) > 1e-2
+
+
+@pytest.mark.needs_cuda
+def test_cuda_wkv_function_gradient_matches_cpu(cuda):
+    """rwkv6_wkv_heads under autograd on the card (K5 forward, K5b
+    backward, one launch each) against the plain path's gradients on the
+    CPU, float32."""
+    case = (2, 128, 4, 64, 64)
+    ins, do = _k5b_inputs(torch.Generator().manual_seed(7), case, (F32,) * 5)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).detach().requires_grad_() for t in ins]
+        k5, k5b = wkv.launch_count(), wkv.bwd_launch_count()
+        out = wkv.rwkv6_wkv_heads(*leaves)
+        out.backward(do.to(dev))
+        if dev == cuda:
+            assert (wkv.launch_count(), wkv.bwd_launch_count()) == (k5 + 1,
+                                                                    k5b + 1)
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for g, x in zip(grads[str(cuda)], grads["cpu"]):
+        assert float((g - x).abs().max() / x.abs().max()) <= 1e-4
