@@ -18,9 +18,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  of K1b (its bf16 Hopper body's delta_bf16, bounds,
                  dkdv_hopper, reduce_dkdv and dq_hopper kernels with the
                  dynamic shared memory they launch with, and the f32
-                 delta, dkdv and dq kernels) and one per instantiation of
-                 K5b (the WKV gradient, with its dynamic shared memory)
-                 and its du sum; a spill in any of them fails the phase.
+                 delta, dkdv and dq kernels) and one per entry of K5b (the
+                 WKV gradient: its states' launch wkv_bwd_chain per value
+                 split, its chunk gradients wkv_bwd_chunk, with the
+                 dynamic shared memory each launches with, and its du sum
+                 wkv_bwd_du); a spill in any of them, or an entry missing
+                 from the report, fails the phase.
   3. k1        — the flash_mqkv kernel (K1) against its plain PyTorch
                  version on the same card tensors: the CPU test shapes in
                  float32 and bfloat16 (GQA, padding, causal/window, carried
@@ -4258,6 +4261,10 @@ K1B_KERNELS = ("::delta_bf16_kernel<", "::bounds_kernel(", "::dkdv_hopper_kernel
 # rwkv6-1.6b's training shape and one shorter than the chunk
 K5B_CASES = (("rwkv6-train", 4, 1024, 32, 64), ("short-L", 2, 32, 32, 64))
 K5B_SETS = 2  # input sets of a timed K5b call (~134 MB each at the train shape)
+# K5b's time at the training shape in its first design (one block of 256
+# threads per row, float32 products on the CUDA cores), on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md): the figure the numbers phase prints beside
+K5B_ONE_BLOCK_A_ROW_MS = 1.2861
 # train-rwkv6 / train-hymba: the launcher at full width and depth; per arch
 # its (K1, K1b, K5, K5b) launches per step (remat "full": every layer's
 # forward runs again in the backward)
@@ -4352,7 +4359,8 @@ def k5b_numbers(card: str) -> dict:
     64; r, k, v, u bf16, w and dO float32), each timed call on one of
     K5B_SETS input sets, beside its bound (the larger of the bytes at the
     HBM rate and the operations at the TF32 tensor-core rate, as K5's) and
-    its plain version; no PyTorch call computes the WKV scan's gradient."""
+    its plain version; no PyTorch call computes the WKV scan's gradient.
+    Its three launches one by one: scripts/wkv_bwd_ab.py."""
     import torch
     wkv = wkv_module()
 
@@ -4379,7 +4387,9 @@ def k5b_numbers(card: str) -> dict:
         f"terms: {flops / 1e9:.2f} GFLOP -> {t_f32 * 1e3:.4f} ms at 67 "
         f"TFLOP/s on the CUDA cores, {t_tf32 * 1e3:.4f} ms at 495 TFLOP/s "
         f"TF32, {nbytes / 1e6:.0f} MB -> {t_bytes * 1e3:.4f} ms at 3.35 TB/s; "
-        f"plain {plain_ms:.3f} ms; no PyTorch call computes it [{card}]")
+        f"plain {plain_ms:.3f} ms; no PyTorch call computes it; "
+        f"{K5B_ONE_BLOCK_A_ROW_MS} ms in the one-block-a-row design "
+        f"({K5B_ONE_BLOCK_A_ROW_MS / ms:.2f}x) [{card}]")
     del sets
     torch.cuda.empty_cache()
     return row
@@ -4828,7 +4838,8 @@ def train_breakdown(card: str, arch: str = "qwen2-1.5b",
     else:
         k1 = ms(("flash_hopper_kernel", "flash_f32_kernel"))
         k1b = ms(K1B_KERNELS)
-        k5, k5b = ms(("wkv_kernel<",)), ms(("wkv_bwd_kernel<", "du_kernel"))
+        # K5b's three entries wkv_bwd_chain<, wkv_bwd_chunk<, wkv_bwd_du
+        k5, k5b = ms(("wkv_kernel<",)), ms(("wkv_bwd_",))
         gemm = ms(("gemm", "Gemm", "nvjet", "cutlass", "xmma"))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         parts = (("K1b", k1b), ("K5b", k5b), ("GEMMs", gemm), ("K1", k1),
@@ -5155,19 +5166,30 @@ def build_all() -> None:
             fail(f"rwkv6_wkv wkv_kernel<{c}, {n}, {tv}> spills registers")
     bwd = wkv._bound_bwd_library()
     k5b_rep = ptxas_report(reps["rwkv6_wkv_bwd"]["log"])
+    seen = set()
     for entry, (regs, st, ld, _) in k5b_rep.items():
-        m = re.search(r"wkv_bwd_kernelILi(\d+)ELi(\d+)E", entry)
-        label = (f"wkv_bwd_kernel<C={m.group(1)}, N={m.group(2)}>" if m
-                 else "du_kernel")
-        smem = bwd.rwkv6_wkv_bwd_smem(int(m.group(1)), int(m.group(2))) if m \
-            else 0
+        m = re.search(r"(wkv_bwd_chain|wkv_bwd_chunk|wkv_bwd_du)"
+                      r"(?:ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?)?", entry)
+        if m is None:
+            continue
+        kernel, c, n, tv = m.groups()
+        seen.add(kernel)
+        if kernel == "wkv_bwd_du":
+            label, smem = kernel, 0
+        elif kernel == "wkv_bwd_chain":
+            label = f"{kernel}<C={c}, N={n}, TV={tv}>"
+            smem = bwd.rwkv6_wkv_bwd_smem(0, int(c), int(n), int(n) // int(tv))
+        else:
+            label = f"{kernel}<C={c}, N={n}>"
+            smem = bwd.rwkv6_wkv_bwd_smem(1, int(c), int(n), 1)
         log(f"ptxas rwkv6_wkv_bwd {label}: {regs} registers, {st} + {ld} "
             f"bytes spilled (stores + loads), {smem} bytes of dynamic shared "
             f"memory")
         if st or ld:
             fail(f"rwkv6_wkv_bwd {label} spills registers")
-    if not any("wkv_bwd_kernel" in entry for entry in k5b_rep):
-        fail("rwkv6_wkv_bwd: no ptxas report of wkv_bwd_kernel")
+    for kernel in ("wkv_bwd_chain", "wkv_bwd_chunk", "wkv_bwd_du"):
+        if kernel not in seen:
+            fail(f"rwkv6_wkv_bwd: no ptxas report of {kernel}")
 
 
 def kernel_row(name, source, replaces, launches, err, row) -> dict:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the WKV kernel K5 (csrc/rwkv6_wkv.cu) spends its clocks, phase by
-phase, on one NVIDIA GPU.
+"""Where the WKV kernel K5 (csrc/rwkv6_wkv.cu), or with ``--bwd`` its
+gradient K5b (csrc/rwkv6_wkv_bwd.cu), spends its clocks, phase by phase, on
+one NVIDIA GPU.
 
-    python3 scripts/wkv_phases.py
+    python3 scripts/wkv_phases.py [--bwd]
 
 Builds the kernel with its phase probes compiled in (-DK5_PROBES: lane 0
 of every warp adds clock64() deltas per phase of the chunk loop into a
@@ -12,6 +13,12 @@ point at the rwkv6-1.6b prefill shapes B 4 x L 4096 and B 1 x L 1024 (H
 role, the mean SM clocks per block and chunk in each phase, beside the
 probed and the plain build's time per call.  The probes cost time
 themselves: read the phases as shares, not as the plain build's clocks.
+
+``--bwd`` builds K5b with -DK5B_PROBES and runs it at rwkv6-1.6b's
+training shape (B 4 x L 1024, H 32, N 64, chunk 64; r, k, v, u bfloat16,
+w and dO float32): per warp, the mean SM clocks per block and chunk of its
+states' launch and per block of its chunk gradients', each phase ending at
+a barrier (the phases are named in the source beside K5B_PROBES).
 """
 from __future__ import annotations
 
@@ -30,21 +37,73 @@ import chip_smoke as cs  # noqa: E402  (the timing helpers)
 SHAPES = ((4, 4096), (1, 1024))  # (B, L)
 PHASES = ("wait for the stage", "decays + operands", "operands barrier",
           "products", "S barrier + stores")
+BWD_PHASES = (("store", "commit + fetch", "decays", "increment"),
+              ("loads", "row sums", "decays", "S_in load", "products",
+               "S_in.dS rows + wait", "dr_sc/dk_sc/log w", "scans",
+               "dr/dk/dw"))
 
 
-def build_probed() -> pathlib.Path:
+def build_probed(name: str = "rwkv6_wkv",
+                 flag: str = "-DK5_PROBES") -> pathlib.Path:
     from repro_torch.kernels import _build
     out = _build.BUILD_DIR / "wkv_phases"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "librwkv6_wkv_probes.so"
+    lib = out / f"lib{name}_probes.so"
     proc = subprocess.run(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-DK5_PROBES", "-o", str(lib),
-         str(_build.CSRC / "rwkv6_wkv.cu")], stdout=subprocess.PIPE,
+        [_build.nvcc(), *_build.NVCC_FLAGS, flag, "-o", str(lib),
+         str(_build.CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed for rwkv6_wkv.cu -DK5_PROBES:\n"
-                         f"{proc.stdout}")
+        raise SystemExit(f"nvcc failed for {name}.cu {flag}:\n{proc.stdout}")
     return lib
+
+
+def bwd_phases(card: str) -> int:
+    """K5b's phases at the training shape (see the module's docstring)."""
+    import torch
+    from repro_torch.kernels import _build
+    wkv = importlib.import_module("repro_torch.kernels.rwkv6_wkv")
+    plain = wkv._bound_bwd_library()
+    probed = ctypes.CDLL(str(build_probed("rwkv6_wkv_bwd", "-DK5B_PROBES")))
+    probed.rwkv6_wkv_bwd_probes.argtypes = [ctypes.c_void_p]
+    label, b, l, h, n = cs.K5B_CASES[0]
+    c, warps, probes = 64, 8, 9
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    args = cs.k5b_inputs(gen, b, l, h, n, torch.bfloat16)
+    times = {}
+    for name, lib in (("plain build", plain), ("probed build", probed)):
+        _build._loaded["rwkv6_wkv_bwd"] = lib
+        wkv._bound_bwd_library()  # binds the argument types
+        times[name] = cs.cuda_ms(lambda: wkv.rwkv6_wkv_heads_bwd(*args),
+                                 reps=20)
+    sums = (ctypes.c_ulonglong * (2 * warps * probes))()
+    probed.rwkv6_wkv_bwd_probes(ctypes.addressof(sums))  # reset
+    reps = 5
+    _build._loaded["rwkv6_wkv_bwd"] = probed
+    for _ in range(reps):
+        wkv.rwkv6_wkv_heads_bwd(*args)
+    torch.cuda.synchronize()
+    probed.rwkv6_wkv_bwd_probes(ctypes.addressof(sums))
+    _build._loaded["rwkv6_wkv_bwd"] = plain
+    plan = wkv.k5b_plan(b, h, l, n, c,
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    nc = l // c
+    cs.log(f"K5b phases {label} B={b} L={l} H={h} N={n} chunk {c} (bf16 "
+           f"r/k/v/u; split {plan['split']}): plain build "
+           f"{times['plain build']:.4f} ms, probed "
+           f"{times['probed build']:.4f} ms per call [{card}]")
+    for kernel, (what, per, nw) in enumerate((
+            ("states: mean SM clocks per block and chunk",
+             reps * b * h * plan["split"] * 2 * (nc - 1), 8),
+            ("chunk gradients: mean SM clocks per block",
+             reps * b * h * nc, 6))):
+        cs.log(f"  {what}:")
+        for w in range(nw):
+            row = [sums[(kernel * warps + w) * probes + p] / per
+                   for p in range(len(BWD_PHASES[kernel]))]
+            cs.log(f"    warp {w} total {sum(row):9.0f}: " + ", ".join(
+                f"{nm} {v:.0f}" for nm, v in zip(BWD_PHASES[kernel], row)))
+    return 0
 
 
 def main() -> int:
@@ -55,6 +114,8 @@ def main() -> int:
     wkv = importlib.import_module("repro_torch.kernels.rwkv6_wkv")
     card = cs.card_line()
     cs.log(card)
+    if "--bwd" in sys.argv[1:]:
+        return bwd_phases(card)
     consts = cs.source_constants("rwkv6_wkv")
     warps, owarps, probes = consts["WARPS"], consts["OWARPS"], consts["PROBES"]
     plain = wkv._bound_library()

@@ -191,36 +191,11 @@ def rwkv6_wkv_ref(
     return torch.stack(outs, dim=1).reshape(bh, l, n)
 
 
-def rwkv6_wkv_bwd_plain(
-    r: torch.Tensor,  # [BH, L, N]
-    k: torch.Tensor,
-    v: torch.Tensor,
-    w: torch.Tensor,  # decay in (0, 1]
-    u: torch.Tensor,  # [U, N]: row bh reads u[bh % U]
-    do: torch.Tensor,  # [BH, L, N] the gradient of o
-    *,
-    chunk: int = WKV_CHUNK,
-):
-    """(dr, dk, dv, dw, du) of ``rwkv6_wkv_ref`` (with row bh reading u[bh
-    % U], U dividing BH) given the gradient ``do`` of its output.  Per
-    chunk, with r_sc = r·D₋, k_sc = k/D, a = D at the chunk's end, A =
-    tril(r_sc k_scᵀ, −1), S_in the chunk's entry state and dS the gradient
-    of its exit state (0 after the last chunk):
-
-        dv    = Aᵀ dO + diag(r·u·k) dO + (k_sc ⊙ a) dS
-        dr_sc = tril(dO vᵀ, −1) k_sc + dO S_inᵀ
-        dk_sc = tril(dO vᵀ, −1)ᵀ r_sc + a ⊙ (v dSᵀ)
-        da    = rowsum(S_in ⊙ dS) + colsum(k_sc ⊙ v dSᵀ)
-        dS   ← r_scᵀ dO + diag(a) dS          (to the previous chunk)
-
-    then r = r_sc / D₋ and k = k_sc · D, the bonus terms (dO_t·v_t) u k and
-    (dO_t·v_t) u r, and the log-decay terms summed back in the chunk:
-    d log w_s = Σ_{t>s} dr_sc·r_sc − Σ_{t≥s} dk_sc·k_sc + da·a.  du sums
-    r ⊙ k (dO_t·v_t) over time and over the rows that read it, in row
-    order.  The clip's rule is torch.clamp's: dw = d log w / w where 1e-6
-    ≤ w ≤ 1, both ends included (at w == 1 exactly jnp.clip would pass
-    half), and 0 outside.  Float32 arithmetic; the results take the
-    inputs' dtypes."""
+def wkv_bwd_operands(r, k, v, w, u, do, *, chunk: int = WKV_CHUNK) -> dict:
+    """What every pass of the WKV backward reads: the inputs in float32
+    chunk form [BH, nc, c, N], the clipped decays, log w, D, D₋, r_sc =
+    r·D₋, k_sc = k/D, a = D at each chunk's end [BH, nc, N], and u per row
+    [BH, N] (row bh reads u[bh % U])."""
     bh, l, n = r.shape
     rows = u.shape[0]
     if bh % rows:
@@ -234,46 +209,119 @@ def rwkv6_wkv_bwd_plain(
     log_d = torch.cumsum(logw, dim=2)
     d = torch.exp(log_d)
     d_m1 = torch.exp(log_d - logw)
-    r_sc = rf * d_m1
-    k_sc = kf / d
-    a_c = d[:, :, -1]  # [bh, nc, n]
-    ur = u.float().repeat(bh // rows, 1)  # [bh, n]
-    # the chunks' entry states, as the forward carries them
-    s = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    return {"rf": rf, "kf": kf, "vf": vf, "wf": wf, "dof": dof, "wc": wc,
+            "d": d, "d_m1": d_m1, "r_sc": rf * d_m1, "k_sc": kf / d,
+            "a_c": d[:, :, -1], "ur": u.float().repeat(bh // rows, 1),
+            "c": c, "nc": nc}
+
+
+def wkv_bwd_entry_states(ops: dict) -> list:
+    """Pass 1: every chunk's entry state S_in[g] [BH, N, N], as the forward
+    carries it (S_{g+1} = a_g ⊙ S_g + (k_sc ⊙ a)_gᵀ v_g from S_0 = 0)."""
+    k_sc, a_c, vf = ops["k_sc"], ops["a_c"], ops["vf"]
+    bh, _, _, n = k_sc.shape
+    s = torch.zeros((bh, n, n), dtype=torch.float32, device=k_sc.device)
     s_in = []
-    for g in range(nc):
+    for g in range(ops["nc"]):
         s_in.append(s)
         s = a_c[:, g, :, None] * s + torch.einsum(
             "bsn,bsm->bnm", k_sc[:, g] * a_c[:, g, None, :], vf[:, g])
-    below = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
-                       diagonal=-1)
-    grads = [torch.empty_like(rf) for _ in range(4)]
-    du = torch.zeros((bh, n), dtype=torch.float32, device=r.device)
-    ds = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    return s_in
+
+
+def wkv_bwd_exit_grads(ops: dict) -> list:
+    """Pass 2: the gradient dS[g] [BH, N, N] of every chunk's exit state,
+    carried back from 0 after the last chunk (dS_{g−1} = a_g ⊙ dS_g +
+    r_sc,gᵀ dO_g)."""
+    r_sc, a_c, dof = ops["r_sc"], ops["a_c"], ops["dof"]
+    bh, nc, _, n = r_sc.shape
+    ds = torch.zeros((bh, n, n), dtype=torch.float32, device=r_sc.device)
+    out = [None] * nc
     for g in reversed(range(nc)):
-        rs, ks, vg, dog, a = r_sc[:, g], k_sc[:, g], vf[:, g], dof[:, g], a_c[:, g]
-        att = torch.einsum("btn,bsn->bts", rs, ks).masked_fill(~below, 0.0)
-        dov = torch.einsum("btm,bsm->bts", dog, vg)
-        datt = dov.masked_fill(~below, 0.0)
-        bd = torch.diagonal(dov, dim1=1, dim2=2)  # [bh, c]: dO_t · v_t
-        bonus = (rf[:, g] * ur[:, None] * kf[:, g]).sum(dim=-1)
-        x = torch.einsum("bsm,bnm->bsn", vg, ds)  # v dSᵀ
-        grads[2][:, g] = (torch.einsum("bts,btm->bsm", att, dog)
-                          + bonus[..., None] * dog
-                          + torch.einsum("bsn,bnm->bsm", ks * a[:, None], ds))
-        drs = (torch.einsum("bts,bsn->btn", datt, ks)
-               + torch.einsum("btm,bnm->btn", dog, s_in[g]))
-        dks = torch.einsum("bts,btn->bsn", datt, rs) + a[:, None] * x
-        da = (s_in[g] * ds).sum(dim=-1) + (ks * x).sum(dim=1)
-        ds = a[..., None] * ds + torch.einsum("btn,btm->bnm", rs, dog)
-        p, q = drs * rs, dks * ks
-        rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, (1,)), 1), (1,))
-        dlogw = rev(p) - p - rev(q) + (da * a)[:, None]
-        grads[0][:, g] = drs * d_m1[:, g] + ur[:, None] * kf[:, g] * bd[..., None]
-        grads[1][:, g] = dks / d[:, g] + ur[:, None] * rf[:, g] * bd[..., None]
-        inside = (wf[:, g] >= WKV_EPS) & (wf[:, g] <= 1.0)
-        grads[3][:, g] = torch.where(inside, dlogw / wc[:, g], 0.0)
-        du += (rf[:, g] * kf[:, g] * bd[..., None]).sum(dim=1)
+        out[g] = ds
+        ds = a_c[:, g][..., None] * ds + torch.einsum("btn,btm->bnm",
+                                                      r_sc[:, g], dof[:, g])
+    return out
+
+
+def wkv_bwd_chunk(ops: dict, g: int, s_in: torch.Tensor, ds: torch.Tensor):
+    """Pass 3: chunk g's gradients given its entry state ``s_in`` and the
+    gradient ``ds`` of its exit state: (dr, dk, dv, dw) [BH, c, N] float32
+    and du's partial Σ_t r ⊙ k (dO_t·v_t) [BH, N].  A chunk reads nothing
+    of the others."""
+    c = ops["c"]
+    below = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                  device=s_in.device), diagonal=-1)
+    rs, ks = ops["r_sc"][:, g], ops["k_sc"][:, g]
+    vg, dog, a = ops["vf"][:, g], ops["dof"][:, g], ops["a_c"][:, g]
+    rf, kf, wf, ur = ops["rf"][:, g], ops["kf"][:, g], ops["wf"][:, g], ops["ur"]
+    att = torch.einsum("btn,bsn->bts", rs, ks).masked_fill(~below, 0.0)
+    dov = torch.einsum("btm,bsm->bts", dog, vg)
+    datt = dov.masked_fill(~below, 0.0)
+    bd = torch.diagonal(dov, dim1=1, dim2=2)  # [bh, c]: dO_t · v_t
+    bonus = (rf * ur[:, None] * kf).sum(dim=-1)
+    x = torch.einsum("bsm,bnm->bsn", vg, ds)  # v dSᵀ
+    dv = (torch.einsum("bts,btm->bsm", att, dog) + bonus[..., None] * dog
+          + torch.einsum("bsn,bnm->bsm", ks * a[:, None], ds))
+    drs = (torch.einsum("bts,bsn->btn", datt, ks)
+           + torch.einsum("btm,bnm->btn", dog, s_in))
+    dks = torch.einsum("bts,btn->bsn", datt, rs) + a[:, None] * x
+    da = (s_in * ds).sum(dim=-1) + (ks * x).sum(dim=1)
+    p, q = drs * rs, dks * ks
+    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, (1,)), 1), (1,))
+    dlogw = rev(p) - p - rev(q) + (da * a)[:, None]
+    dr = drs * ops["d_m1"][:, g] + ur[:, None] * kf * bd[..., None]
+    dk = dks / ops["d"][:, g] + ur[:, None] * rf * bd[..., None]
+    inside = (wf >= WKV_EPS) & (wf <= 1.0)
+    dw = torch.where(inside, dlogw / ops["wc"][:, g], 0.0)
+    du = (rf * kf * bd[..., None]).sum(dim=1)
+    return dr, dk, dv, dw, du
+
+
+def rwkv6_wkv_bwd_plain(
+    r: torch.Tensor,  # [BH, L, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1]
+    u: torch.Tensor,  # [U, N]: row bh reads u[bh % U]
+    do: torch.Tensor,  # [BH, L, N] the gradient of o
+    *,
+    chunk: int = WKV_CHUNK,
+):
+    """(dr, dk, dv, dw, du) of ``rwkv6_wkv_ref`` (with row bh reading u[bh
+    % U], U dividing BH) given the gradient ``do`` of its output, in the
+    three passes K5b runs: the entry states (``wkv_bwd_entry_states``), the
+    exit-state gradients (``wkv_bwd_exit_grads``), then each chunk's
+    gradients given both (``wkv_bwd_chunk``).  Per chunk, with r_sc = r·D₋,
+    k_sc = k/D, a = D at the chunk's end, A = tril(r_sc k_scᵀ, −1), S_in
+    the chunk's entry state and dS the gradient of its exit state (0 after
+    the last chunk):
+
+        dv    = Aᵀ dO + diag(r·u·k) dO + (k_sc ⊙ a) dS
+        dr_sc = tril(dO vᵀ, −1) k_sc + dO S_inᵀ
+        dk_sc = tril(dO vᵀ, −1)ᵀ r_sc + a ⊙ (v dSᵀ)
+        da    = rowsum(S_in ⊙ dS) + colsum(k_sc ⊙ v dSᵀ)
+        dS   ← r_scᵀ dO + diag(a) dS          (to the previous chunk)
+
+    then r = r_sc / D₋ and k = k_sc · D, the bonus terms (dO_t·v_t) u k and
+    (dO_t·v_t) u r, and the log-decay terms summed back in the chunk:
+    d log w_s = Σ_{t>s} dr_sc·r_sc − Σ_{t≥s} dk_sc·k_sc + da·a.  du sums
+    r ⊙ k (dO_t·v_t) over the chunks (last first) and over the rows that
+    read it, in row order.  The clip's rule is torch.clamp's: dw = d log w
+    / w where 1e-6 ≤ w ≤ 1, both ends included (at w == 1 exactly jnp.clip
+    would pass half), and 0 outside.  Float32 arithmetic; the results take
+    the inputs' dtypes."""
+    bh, l, n = r.shape
+    ops = wkv_bwd_operands(r, k, v, w, u, do, chunk=chunk)
+    s_in, ds = wkv_bwd_entry_states(ops), wkv_bwd_exit_grads(ops)
+    grads = [torch.empty_like(ops["rf"]) for _ in range(4)]
+    du = torch.zeros((bh, n), dtype=torch.float32, device=r.device)
+    for g in reversed(range(ops["nc"])):
+        *parts, du_g = wkv_bwd_chunk(ops, g, s_in[g], ds[g])
+        for gr, part in zip(grads, parts):
+            gr[:, g] = part
+        du += du_g
+    rows = u.shape[0]
     du = du.reshape(bh // rows, rows, n).sum(dim=0)
     return (*(gr.reshape(bh, l, n).to(t.dtype)
               for gr, t in zip(grads, (r, k, v, w))), du.to(u.dtype))

@@ -62,8 +62,8 @@ def reset_launch_count() -> None:
 
 
 def bwd_launch_count() -> int:
-    """Calls that launched K5b (its kernel and the ordered sum of du) since
-    the last reset."""
+    """Calls that launched K5b since the last reset; each call is three
+    launches (the states, the chunk gradients, the ordered sum of du)."""
     return _bwd_launches
 
 
@@ -99,15 +99,21 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
         raise ValueError(f"{name} must be contiguous along its last axis")
 
 
-def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """TMA's terms for a [B, L, H, N] input: a 16-byte aligned base, and
-    byte strides of the batch, time and head axes (those of extent > 1)
-    that are multiples of 16."""
+def _aligned(t: torch.Tensor) -> bool:
+    """TMA's terms for a [B, L, H, N] input, which K5b's 16-byte loads
+    share: a 16-byte aligned base, and byte strides of the batch, time and
+    head axes (those of extent > 1) that are multiples of 16."""
     es = t.element_size()
-    if t.data_ptr() % 16 or any(t.stride(d) * es % 16
-                                for d in range(3) if t.shape[d] > 1):
+    return not (t.data_ptr() % 16 or any(t.stride(d) * es % 16
+                                         for d in range(3) if t.shape[d] > 1))
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    if not _aligned(t):
+        es = t.element_size()
         raise ValueError(
-            f"rwkv6_wkv kernel loads {name} with TMA, which needs a 16-byte "
+            f"rwkv6_wkv kernels load {name} with TMA or 16-byte loads, which "
+            f"need a 16-byte "
             f"aligned base and strides of 16-byte multiples; got "
             f"{name}.data_ptr() % 16 = {t.data_ptr() % 16}, byte strides "
             f"{tuple(s * es for s in t.stride())} (pass .contiguous())")
@@ -274,13 +280,89 @@ def rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, *, chunk: int = WKV_CHUNK):
     return (*(unflat(g) for g in grads[:4]), grads[4])
 
 
+# K5b's launches (csrc/rwkv6_wkv_bwd.cu): threads of a block of the states'
+# launch and of the chunk gradients', and the card's shared memory per SM
+# and per block (H100: 228 KiB an SM, of which 1 KiB is reserved per block)
+K5B_CHAIN_THREADS = 256
+K5B_CHUNK_THREADS = 192
+K5B_DU_THREADS = 256
+SM_SMEM = 233472
+SM_THREADS = 2048
+BLOCK_RESERVED_SMEM = 1024
+SMEM_LIMIT = 232448
+
+
+def k5b_split(bh: int, n: int, sms: int) -> int:
+    """Blocks over which K5b's states launch splits a row's N value
+    columns: the largest of SPLITS that keeps N / split >= MIN_SPLIT_COLUMNS
+    and the BH x 2 chains x split blocks within two per SM of ``sms``."""
+    split = 1
+    while (2 * split in SPLITS and n // (2 * split) >= MIN_SPLIT_COLUMNS
+           and bh * 2 * (2 * split) <= 2 * sms):
+        split *= 2
+    return split
+
+
+def k5b_smem(kernel: str, chunk: int, n: int, split: int = 1) -> int:
+    """Dynamic shared memory of one block of K5b's ``kernel`` ("chain", the
+    states; "chunk", the chunk gradients) at (chunk, N, split), as
+    ChainPlan / ChunkPlan lay it out in csrc/rwkv6_wkv_bwd.cu (float32
+    tiles padded to a row stride of max(N, 16) + 4; the chain's stage holds
+    the next chunk's k or r, w, and v or dO at up to 4 bytes an element)."""
+    cp, np_ = max(chunk, 16), max(n, 16)
+    ld = np_ + 4
+    if kernel == "chain":  # the tiles, then a stage of the next chunk's
+        tv = n // split
+        tiles = 4 * (2 * cp * ld + cp * (tv + 4) + np_)
+        return -(-tiles // 16) * 16 + 4 * chunk * (2 * n + tv)
+    if kernel == "chunk":
+        mp, mt = max(cp, np_), cp // 16
+        return 4 * (6 * mp * ld + 2 * np_ + 2 * cp + np_ + mt * np_)
+    raise ValueError(f"K5b has no kernel {kernel!r}")
+
+
+def _blocks_per_sm(smem: int, threads: int) -> int:
+    return min(SM_SMEM // (smem + BLOCK_RESERVED_SMEM), SM_THREADS // threads)
+
+
+def k5b_plan(b: int, h: int, l: int, n: int, chunk: int, sms: int,
+             u_rows: int | None = None) -> dict:
+    """K5b's launches for [B, L, H, N] inputs at ``chunk`` on a card of
+    ``sms`` SMs: each launch's grid, threads and dynamic shared memory (and
+    blocks an SM holds by shared memory and threads; the kernels' launch
+    bounds hold registers to that), the states' value split, and the
+    float32 scratch the wrapper allocates (S_in and dS [BH, nc, N, N], the
+    du partials [BH, nc, N])."""
+    c = wkv_chunk(l, chunk)
+    if n not in SIZES or c not in SIZES:
+        raise ValueError(f"rwkv6_wkv_bwd kernel takes head sizes and chunks "
+                         f"{SIZES}, got N {n}, min(chunk, L) = {c}")
+    bh, nc = b * h, l // c
+    u_rows = h if u_rows is None else u_rows
+    split = k5b_split(bh, n, sms)
+    chain = k5b_smem("chain", c, n, split)
+    chunks = k5b_smem("chunk", c, n)
+    return {
+        "chunk": c, "split": split,
+        "chain": {"grid": (bh, split, 2), "threads": K5B_CHAIN_THREADS,
+                  "smem": chain,
+                  "per_sm": _blocks_per_sm(chain, K5B_CHAIN_THREADS)},
+        "chunks": {"grid": (bh * nc,), "threads": K5B_CHUNK_THREADS,
+                   "smem": chunks,
+                   "per_sm": _blocks_per_sm(chunks, K5B_CHUNK_THREADS)},
+        "du": {"grid": (-(-u_rows * n // K5B_DU_THREADS),),
+               "threads": K5B_DU_THREADS, "smem": 0},
+        "scratch_bytes": 4 * bh * nc * n * (2 * n + 1),
+    }
+
+
 def _bound_bwd_library() -> ctypes.CDLL:
     lib = _build.load("rwkv6_wkv_bwd")
     if lib.rwkv6_wkv_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv6_wkv_bwd.argtypes = [p] * 13 + [i] * 8 + [p, p]
+        lib.rwkv6_wkv_bwd.argtypes = [p] * 14 + [i] * 9 + [p, p]
         lib.rwkv6_wkv_bwd.restype = i
-        lib.rwkv6_wkv_bwd_smem.argtypes = [i, i]
+        lib.rwkv6_wkv_bwd_smem.argtypes = [i] * 4
         lib.rwkv6_wkv_bwd_smem.restype = i
         lib.rwkv6_wkv_bwd_error_string.argtypes = [i]
         lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
@@ -302,12 +384,17 @@ def rwkv6_wkv_heads_bwd(
     ``do`` of its output: K5b on CUDA tensors, the plain version on CPU
     tensors.  dr, dk, dv, dw are [B, L, H, N] in r's, k's, v's and w's
     dtypes; du [U, N] in u's, summed over the rows that read each row of u
-    (U = H: over the batch) in row order, so a repeat is bitwise equal.
+    (U = H: over the batch) in a fixed order, so a repeat is bitwise equal.
     Any of r, k, v, w, do and u may be float32 or bfloat16; the kernel
-    reads the inputs through their strides (channels contiguous) and
-    needs the chunk min(chunk, L) and N in SIZES.  ``carry=False`` makes
-    the kernel drop the state's gradient between chunks, a wrong result
-    that negative controls use; the plain version has no such switch."""
+    reads the inputs through their strides (channels contiguous) with
+    16-byte loads, so r, k, v and w need what K5's TMA needs (see
+    _check_aligned; a view that is not raises ValueError, do is made
+    contiguous), and the chunk min(chunk, L) and N in SIZES.  A call is
+    three launches from ``k5b_plan``: the states (S_in and dS per chunk,
+    into float32 scratch), the chunk gradients, the ordered sum of du; it
+    counts once in ``bwd_launch_count``.  ``carry=False`` makes the kernel
+    drop the state's gradient between chunks, a wrong result that negative
+    controls use; the plain version has no such switch."""
     global _bwd_launches
     b, l, h, n = r.shape
     if _dispatch(r) == "cpu":
@@ -322,10 +409,12 @@ def rwkv6_wkv_heads_bwd(
     if c not in SIZES:
         raise ValueError(f"rwkv6_wkv_bwd kernel takes chunks {SIZES}, got "
                          f"min(chunk, L) = {c}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("do", do)):
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _check(name, t, (b, l, h, n), dev)
+        _check_aligned(name, t)
+    if do.stride(-1) != 1 or not _aligned(do):
+        do = do.contiguous()
+    _check("do", do, (b, l, h, n), dev)
     if u.dim() != 2 or u.shape[0] < 1 or (b * h) % u.shape[0]:
         raise ValueError(f"u must be [rows, {n}] with rows dividing "
                          f"{b * h}, got {tuple(u.shape)}")
@@ -338,9 +427,13 @@ def rwkv6_wkv_heads_bwd(
         for t in (*grads, du):
             t.zero_()
         return (*grads, du)
-    states = torch.empty((b * h, l // c, n, n), dtype=torch.float32,
-                         device=dev)
-    du_rows = torch.empty((b * h, n), dtype=torch.float32, device=dev)
+    plan = k5b_plan(b, h, l, n, chunk,
+                    torch.cuda.get_device_properties(dev).multi_processor_count,
+                    u.shape[0])
+    states, dstates = (torch.empty((b * h, l // c, n, n), dtype=torch.float32,
+                                   device=dev) for _ in range(2))
+    du_parts = torch.empty((b * h, l // c, n), dtype=torch.float32,
+                           device=dev)
     strides = (ctypes.c_longlong * 15)(*(
         s for t in (r, k, v, w, do)
         for s in (t.stride(0), t.stride(2), t.stride(1))))
@@ -351,9 +444,9 @@ def rwkv6_wkv_heads_bwd(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rwkv6_wkv_bwd(p(r), p(k), p(v), p(w), p(do), p(u),
                                 *(p(g) for g in grads), p(du), p(states),
-                                p(du_rows), b * h, h, l, n, c, u.shape[0],
-                                bf16, int(carry), strides,
-                                ctypes.c_void_p(stream))
+                                p(dstates), p(du_parts), b * h, h, l, n, c,
+                                u.shape[0], bf16, int(carry), plan["split"],
+                                strides, ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.rwkv6_wkv_bwd_error_string(err).decode()
         raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: {msg} "

@@ -852,6 +852,7 @@ K5B_CASES = {
     "short-L": (2, 32, 32, 64, 64),
     "n16-c16": (2, 96, 4, 16, 16),
     "n8-c8": (3, 40, 2, 8, 8),
+    "value-split": (1, 1024, 4, 64, 64),
 }
 K5B_DTYPES = {"f32": ((F32,) * 5, 1e-4), "model": (WKV_DTYPES["model"], 2e-2)}
 
@@ -908,6 +909,62 @@ def test_cuda_k5b_without_the_carried_state_gradient_breaks_the_gate(cuda):
     got = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, carry=False)
     want = wkv.rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do)
     assert _k5b_err(got, want) > 1e-2
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtypes", list(K5B_DTYPES))
+def test_cuda_k5b_per_row_bonus(cuda, dtypes):
+    """u with one row per (batch, head) row (u_rows = BH): each row's du
+    stays its own, within the tolerance of the plain version."""
+    kinds, tol = K5B_DTYPES[dtypes]
+    b, l, h, n, chunk = 2, 256, 4, 64, 64
+    (r, k, v, w, _), do = _k5b_inputs(torch.Generator().manual_seed(8),
+                                      (b, l, h, n, chunk), kinds)
+    u = (torch.randn((b * h, n), generator=torch.Generator().manual_seed(9))
+         * 0.5).to(kinds[4]).cuda()
+    got = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, chunk=chunk)
+    want = wkv.rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, chunk=chunk)
+    assert got[4].shape == (b * h, n)
+    assert _k5b_err(got, want) <= tol
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtypes", list(K5B_DTYPES))
+def test_cuda_k5b_reads_strided_views(cuda, dtypes):
+    """r, k, v, w as views of one wider [B, L, H, 5N] tensor, as the
+    model's projections may be: the kernel reads them through their
+    strides, as the plain version reads the same views."""
+    kinds, tol = K5B_DTYPES[dtypes]
+    b, l, h, n, chunk = 2, 192, 4, 32, 64
+    gen = torch.Generator().manual_seed(10)
+    wide = torch.randn((b, l, h, 5 * n), generator=gen)
+    decay = torch.exp(-torch.exp(torch.rand((b, l, h, 5 * n), generator=gen)
+                                 * 5 - 6))
+    wide = wide.to(kinds[0]).cuda()  # r, k, v share a dtype in both sets
+    r, k, v = (wide[..., i * n:(i + 1) * n] for i in (0, 2, 4))
+    w = decay.to(kinds[3]).cuda()[..., n:2 * n]
+    u = (torch.randn((h, n), generator=gen) * 0.5).to(kinds[4]).cuda()
+    do = torch.randn((b, l, h, n), generator=gen).cuda()
+    assert not r.is_contiguous() and not w.is_contiguous()
+    got = wkv.rwkv6_wkv_heads_bwd(r, k, v, w, u, do, chunk=chunk)
+    want = wkv.rwkv6_wkv_heads_bwd_plain(r, k, v, w, u, do, chunk=chunk)
+    assert _k5b_err(got, want) <= tol
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("chunk", wkv.SIZES)
+@pytest.mark.parametrize("n", wkv.SIZES)
+def test_cuda_k5b_smem_bytes_match_the_plan(cuda, chunk, n):
+    """k5b_plan's shared memory is what the library launches with."""
+    lib = wkv._bound_bwd_library()
+    for split in wkv.SPLITS:
+        if split > 1 and n // split < wkv.MIN_SPLIT_COLUMNS:
+            assert lib.rwkv6_wkv_bwd_smem(0, chunk, n, split) == 0
+            continue
+        assert lib.rwkv6_wkv_bwd_smem(0, chunk, n, split) == \
+            wkv.k5b_smem("chain", chunk, n, split)
+    assert lib.rwkv6_wkv_bwd_smem(1, chunk, n, 1) == \
+        wkv.k5b_smem("chunk", chunk, n)
 
 
 @pytest.mark.needs_cuda
