@@ -162,7 +162,7 @@ Phases 15 to 21 run after serve-sp (20 right after it):
                  device time and put time.
  20. profile   — run right after serve-sp, on its weights:
                  DiTServer(profile=True) on flux-12b at full width and
-                 SERVE_SP_LAYERS layers on mesh (pod 2, model 8), one 1024-latent request,
+                 PROFILE_LAYERS layers on mesh (pod 2, model 8), one 1024-latent request,
                  PROFILE_STEPS steps (an eager warm-up, the capture and its
                  replay, a replay): latents bitwise those of profile=False,
                  the spans' JSONL passing ``python -m
@@ -186,7 +186,7 @@ tokens (end of serve-lm).  It prints each step's wall clock captured
 against eager.  layer-paper and numbers add one captured swift_torus layer
 (wall clock, device time, idle share).  Phase 23, serve-cli (after
 commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
-flux-12b at degree 1 and on --mesh pod (24 of its 96 layers), and
+flux-12b at degree 1 and on --mesh pod (16 of its 96 layers), and
 rwkv6-1.6b.
 
 Phases 24 to 27 (after serve-lm) and the numbers phase serve the dense and
@@ -293,6 +293,21 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  steps: finite losses, 8 K1 and 4 K1b launches per step
                  (EP 1: no put kernel), step time, tokens/s, peak memory
                  above what earlier phases left allocated.
+ 41. train-sp  — training over the virtual mesh (pod 2, model 2), SP over
+                 both axes, swift_torus (P_u 2 x P_r 2), comm_backend
+                 "pallas": the backward of the SP schedule
+                 (core/sp_grad.py: K1b per KV chunk, K4 for every
+                 transfer).  One fp32 qwen2-1.5b layer plus the loss: its
+                 gradients within 1e-4 of degree 1 on the card, the
+                 gradient gate, the launches the schedule implies, a
+                 negative control (one ring step's dK/dV dropped) that
+                 must break the gate, K1b's zeros on a fully hidden chunk;
+                 then qwen2-1.5b at full width and depth in bf16, B 4 x L
+                 1024, Trainer in process: the gradient gate, one warm-up
+                 and 3 timed steps, finite losses, step 0 within 2e-2 of
+                 the degree-1 loss, K1/K2/K1b/K3/K4 launches per step as
+                 the schedule implies; step time, tokens/s and peak memory
+                 beside the train phase's.
 K5b (rwkv6_wkv_bwd, the gradient of K5) is checked right after K1b: the
 k5b phase holds it against its plain version at rwkv6-1.6b's training
 shape (B 4 x L 1024, H 32, N 64) and at L 32 (below the chunk), in
@@ -324,7 +339,8 @@ just after — except K3's, which come from the same kind of run on mesh
 (model 16), the route that takes the direct put, and K5's, which come
 from the lm-prefill run, and K1b's and K5b's, which the train and
 train-rwkv6 phases' launchers count from 0 in their own processes and
-print.  The line before the
+print.  K1b's, K3's and K4's add the launches of train-sp's timed steps
+(counted from 0 after its warm-up step).  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -1905,6 +1921,9 @@ CAPTURE_LAYERS = 8  # depth of the capture phase's swift_torus oracle
 HYBRID_CAPTURE_LAYERS = 2  # depth of its fp32 hybrid oracle (cogvideox-5b)
 PROFILE_LATENTS = 1024  # the profile phase's one request
 PROFILE_STEPS = 3  # an eager warm-up, a capture + replay, a replay
+# the profile phase's depth of flux-12b's 96 layers (its checks do not
+# depend on depth; at SERVE_SP_LAYERS it took ~41 s)
+PROFILE_LAYERS = 16
 
 
 def _layer_times(fn, label: str, card: str) -> dict:
@@ -2148,7 +2167,7 @@ def fp8_landing_copy(wire, scale, gen, results: dict, card: str):
 
 def profile_phase(results: dict, card: str, params, cfg, conds) -> None:
     """Phase 20: DiTServer(profile=True) on flux-12b at full width and
-    depth, mesh (pod 2, model 8), swift_torus, one PROFILE_LATENTS-latent
+    PROFILE_LAYERS layers, mesh (pod 2, model 8), swift_torus, one PROFILE_LATENTS-latent
     request, PROFILE_STEPS steps: latents bitwise those of profile=False,
     the spans' JSONL passes ``launch.trace_report --check``, the overlap
     table's rows of the torus hops, the ring shifts and the Push-O puts,
@@ -2263,11 +2282,11 @@ def commcheck_phase(card: str) -> None:
 SERVE_CLI = (
     ("flux-12b degree 1", ["--arch", "flux-12b", "--requests", "2",
                            "--seq", "1024", "--steps", "3"]),
-    # 24 of the 96 layers: a 96-layer SP graph alone takes ~50 s to
+    # 16 of the 96 layers: a 96-layer SP graph alone takes ~50 s to
     # capture and instantiate
     ("flux-12b mesh pod", ["--arch", "flux-12b", "--mesh", "pod",
                            "--requests", "1", "--seq", "256", "--steps",
-                           "3", "--layers", "24"]),
+                           "3", "--layers", "16"]),
     ("rwkv6-1.6b", ["--arch", "rwkv6-1.6b", "--requests", "4"]),
     ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4"]),
     ("qwen2-1.5b mesh pod", ["--arch", "qwen2-1.5b", "--mesh", "pod",
@@ -2285,7 +2304,7 @@ SERVE_CLI = (
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
     size with random weights: flux-12b at degree 1 and on the paper's mesh
-    (pod 2, model 8) at 24 of its 96 layers (``--layers``), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
+    (pod 2, model 8) at 16 of its 96 layers (``--layers``), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
     qwen2-moe-a2.7b at degree 1 and with the KV cache sharded over (pod 2,
     model 8) (the experts over model 8); each run prints its requests,
     the DiT runs their scheduler line, and every run its captured
@@ -4230,17 +4249,27 @@ def ep_put_numbers(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # (label, BH, BHkv, Lq, Lk, D, causal, window, padded keys, a fully masked
-# row): the shapes the train path gives K1b, and its edges
+# row, chunk): the shapes the train path gives K1b, and its edges.  chunk
+# None: the rows' keys are the call's keys; else (offset, keys): the rows
+# see positions [0, keys), (o, m, l) come from all of them, and the call
+# gets the Lk keys from ``offset``, as a ring step of the SP backward does
 K1B_CASES = (
-    ("qwen2-train", 48, 8, 1024, 1024, 128, True, None, 0, False),
-    ("whisper-cross", 24, 24, 448, 1536, 64, False, None, 0, False),
-    ("flux", 24, 24, 4352, 4352, 128, False, None, 0, False),
-    ("stablelm-d80", 32, 32, 1024, 1024, 80, True, None, 0, False),
-    ("starcoder2-window", 36, 4, 4608, 4608, 128, True, 4096, 0, False),
-    ("pad-masked-row", 8, 2, 200, 300, 64, True, None, 17, True),
+    ("qwen2-train", 48, 8, 1024, 1024, 128, True, None, 0, False, None),
+    ("whisper-cross", 24, 24, 448, 1536, 64, False, None, 0, False, None),
+    ("flux", 24, 24, 4352, 4352, 128, False, None, 0, False, None),
+    ("stablelm-d80", 32, 32, 1024, 1024, 80, True, None, 0, False, None),
+    ("starcoder2-window", 36, 4, 4608, 4608, 128, True, 4096, 0, False,
+     None),
+    ("pad-masked-row", 8, 2, 200, 300, 64, True, None, 17, True, None),
     # train-hymba's (GQA group 5, window 2048) and train-moe's (group 1)
-    ("hymba-train", 100, 20, 1024, 1024, 64, True, 2048, 0, False),
-    ("qwen2moe-train", 64, 64, 1024, 1024, 128, True, None, 0, False),
+    ("hymba-train", 100, 20, 1024, 1024, 64, True, 2048, 0, False, None),
+    ("qwen2moe-train", 64, 64, 1024, 1024, 128, True, None, 0, False, None),
+    # train-sp's ring steps (P_u 2 x P_r 2, group 6) for the rows of ring
+    # rank 1: the past chunk, fully visible, and the diagonal one, each
+    # with the rows' statistics over both chunks
+    ("train-sp-past", 24, 4, 512, 512, 128, True, None, 0, False, (0, 1024)),
+    ("train-sp-diagonal", 24, 4, 512, 512, 128, True, None, 0, False,
+     (512, 1024)),
 )
 TRAIN_TOL = 1e-4  # train-layer and whisper, card vs twin, of max|ref|
 TRAIN_LAYER_L = 1024  # train-layer's tokens (B 1)
@@ -4274,6 +4303,14 @@ TRAIN_MOE_LAYERS = 4  # train-moe: qwen2-moe-a2.7b at 4 of its 24 layers
 # from TRAIN_LAYER_SEED, and its (K1, K1b, K5, K5b) launches (the forward,
 # its recomputation and one backward)
 TRAIN_LAYER_SEED = 31
+# train-sp: qwen2-1.5b over the virtual mesh (pod 2, model 2), SP over both
+# axes (swift_torus plans P_u 2 x P_r 2 for its 12 / 2 heads, so the
+# backward has Ulysses and ring legs); all 28 layers, one warm-up step and
+# TRAIN_SP_STEPS timed steps; the phase fails past TRAIN_SP_BUDGET_S
+TRAIN_SP_MESH = ((2, 2), ("pod", "model"))
+TRAIN_SP_STEPS = 3
+TRAIN_SP_LOSS_TOL = 2e-2  # step 0's loss, bf16, SP vs degree 1, relative
+TRAIN_SP_BUDGET_S = 45
 TRAIN_LAYER_ARCHS = {"qwen2-1.5b": (2, 1, 0, 0), "rwkv6-1.6b": (0, 0, 2, 1),
                      "hymba-1.5b": (2, 1, 0, 0),
                      "qwen2-moe-a2.7b": (2, 1, 0, 0)}
@@ -4397,13 +4434,15 @@ def k5b_numbers(card: str) -> dict:
 
 def k1b_inputs(gen, case, dtype):
     """K1b's inputs for ``case``: q, k, v and dO, and the (o, l, m) of K1's
-    forward on them."""
+    forward on them (on all the rows' keys when the case names a chunk;
+    k and v are then the chunk's)."""
     import torch
     from repro_torch.kernels import flash_mqkv as fm
-    _, bh, bhkv, lq, lk, d, causal, window, pad, dead = case
-    q, k, v = k1_inputs(gen, bh, bhkv, lq, lk, d, dtype)
-    q_pos = torch.arange(lk - lq, lk, dtype=torch.int32, device="cuda")
-    k_pos = torch.arange(lk, dtype=torch.int32, device="cuda")
+    _, bh, bhkv, lq, lk, d, causal, window, pad, dead, chunk = case
+    off, keys = chunk or (0, lk)
+    q, k, v = k1_inputs(gen, bh, bhkv, lq, keys, d, dtype)
+    q_pos = torch.arange(keys - lq, keys, dtype=torch.int32, device="cuda")
+    k_pos = torch.arange(keys, dtype=torch.int32, device="cuda")
     if pad:
         k_pos[-pad:] = -1
     if dead:  # row 0 sees only keys at positions <= 0, and those are padding
@@ -4412,6 +4451,8 @@ def k1b_inputs(gen, case, dtype):
     kw = dict(group=bh // bhkv, scale=d ** -0.5, causal=causal, window=window)
     with torch.no_grad():
         o, l, m = fm.flash_mqkv(q, k, v, q_pos, k_pos, **kw)
+    k, v = (t[:, off:off + lk].contiguous() for t in (k, v))
+    k_pos = k_pos[off:off + lk].contiguous()
     do = torch.randn((bh, lq, d), generator=gen, device="cuda").to(dtype)
     return (q, k, v, o, do, m, l, q_pos, k_pos), kw
 
@@ -4421,7 +4462,8 @@ def check_k1b(results: dict) -> None:
     kernels/ref.py) on the same card tensors at K1B_CASES, float32 (TF32
     off) within TOL["float32"] and bfloat16 within TOL["bfloat16"] of each
     gradient's max|ref|; two runs bitwise equal; the fully masked rows'
-    gradients zero.  Negative controls: the kernel with the causal mask
+    gradients zero; train-sp's KV chunks with the rows' statistics over
+    all their keys.  Negative controls: the kernel with the causal mask
     off must break the float32 and the bfloat16 gates at the qwen2
     training shape."""
     import torch
@@ -4443,7 +4485,7 @@ def check_k1b(results: dict) -> None:
             bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
             finite = all(bool(torch.isfinite(g).all()) for g in got)
             dead_ok = True
-            if case[-1]:
+            if case[9]:
                 dead = args[6] == 0
                 dead_ok = bool(dead.any()) and bool((got[0][dead] == 0).all())
             plan = ""
@@ -4455,7 +4497,9 @@ def check_k1b(results: dict) -> None:
                 f"causal={kw['causal']} window={kw['window']} {name}{plan}: "
                 f"max over dq, dk, dv of max|d|/max|ref| {err:.3e} (tol "
                 f"{TOL[name]}), repeat bitwise {bitwise}, finite {finite}"
-                + (f", masked rows zero {dead_ok}" if case[-1] else ""))
+                + (f", masked rows zero {dead_ok}" if case[9] else "")
+                + (f", the chunk of keys {int(args[8][0])}..{int(args[8][-1])}"
+                   f" with (o, m, l) over {case[10][1]}" if case[10] else ""))
             if not (err <= TOL[name] and bitwise and finite and dead_ok):
                 fail(f"k1b {label} {name}: err {err} bitwise {bitwise} "
                      f"finite {finite} masked rows {dead_ok}")
@@ -4478,9 +4522,11 @@ def check_k1b(results: dict) -> None:
     results["k1b_err"] = errs
 
 
-def _grads(bundle, params, batch, cfg, device, remat="full"):
+def _grads(bundle, params, batch, cfg, device, remat="full", mesh=None,
+           sp=None):
     """(loss, [(name, gradient or None)]) of ``bundle.loss`` in train mode
-    on ``device``, every parameter a leaf that requires grad."""
+    on ``device`` (over ``mesh`` under ``sp`` when given), every parameter
+    a leaf that requires grad."""
     import torch
     from repro_torch.core import SPConfig
     from repro_torch.models import ParallelContext
@@ -4490,8 +4536,8 @@ def _grads(bundle, params, batch, cfg, device, remat="full"):
     leaves = tree_leaves(p)
     for t in leaves:
         t.requires_grad_(True)
-    ctx = ParallelContext(SPConfig(strategy="full"), "train", device,
-                          remat=remat)
+    ctx = ParallelContext(sp or SPConfig(strategy="full"), "train", device,
+                          mesh=mesh, remat=remat)
     b = {k: v.to(device) for k, v in batch.items()}
     loss, _ = bundle.loss(p, b, cfg, ctx)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -4694,6 +4740,7 @@ def train_launcher(results: dict, card: str) -> None:
         fail(f"train: launches {run['counts']} moved {moved} round trip "
              f"{same}")
     results["train_k1b_launches"] = round(k1b * TRAIN_STEPS)
+    results["train_run"] = run
 
 
 def train_family(results: dict, card: str, arch: str) -> None:
@@ -4779,21 +4826,206 @@ def train_moe(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def train_sp_counts(layout, ranks: int, n_layers: int) -> dict:
+    """Launches that one training step over ``n_layers`` layers implies
+    under swift_torus (Pull-Q unfused) on ``layout`` with ``ranks`` virtual
+    ranks and remat "full" (each layer's forward runs twice, the backward
+    once), every put a K4 (two SP axes).  A forward: every ring
+    circulation (stage 0, P_u - 1 Pull-Q, P_u - 1 Pull-KV) is P_r - 1 K2
+    steps and one K1 step per rank; 3 (P_u - 1) puts (Pull-Q, Pull-KV,
+    Push-O).  The backward (core/sp_grad.py): P_r K1b calls per rank; the
+    five gathers (q, k, v, o, dO) and three scatters (dq, dk, dv) of
+    P_u - 1 puts each, P_r - 1 KV hops and P_r (dK, dV) hops."""
+    p_u, p_r = layout.p_ulysses, layout.p_ring
+    circ = 1 + 2 * (p_u - 1)
+    puts = 2 * 3 * (p_u - 1) + 8 * (p_u - 1) + (p_r - 1) + p_r
+    return {"flash_mqkv": n_layers * 2 * ranks * circ,
+            "ring_flash_step": n_layers * 2 * ranks * circ * (p_r - 1),
+            "flash_mqkv_bwd": n_layers * ranks * p_r,
+            "remote_put": 0, "landing_copy": n_layers * puts}
+
+
+def train_sp(results: dict, card: str) -> None:
+    """Phase train-sp: training over the virtual mesh TRAIN_SP_MESH, SP
+    over both axes, swift_torus, comm_backend "pallas" (every put a K4):
+    the backward of the SP schedule (core/sp_grad.py) through K1b per KV
+    chunk and K4 for every transfer.
+
+    (a) One full-width float32 qwen2-1.5b layer plus the loss (vocab cut to
+    TRAIN_LAYER_VOCAB, B 1 x L TRAIN_LAYER_L, seed TRAIN_LAYER_SEED as
+    train-layer): every parameter's gradient over the mesh within
+    TRAIN_TOL of that tensor's max|grad| at degree 1 on the card, the
+    gradient gate, the launches ``train_sp_counts`` implies; then a
+    negative control, one ring step's (dK, dV) dropped in every backward,
+    that must break TRAIN_TOL.  (K1b at these ring steps' shapes and
+    statistics: K1B_CASES in phase k1b.)
+    (b) qwen2-1.5b at full width and depth, bf16, B 4 x L 1024,
+    Trainer in process from the seed's init: the gradient gate on step
+    0's parameters and batch, one warm-up step, TRAIN_SP_STEPS timed
+    steps; every loss finite, step 0's within TRAIN_SP_LOSS_TOL of the
+    degree-1 loss on the same parameters and batch, the launches per step
+    ``train_sp_counts`` implies; step time, tokens/s and peak memory
+    beside the degree-1 train phase's; the phase within TRAIN_SP_BUDGET_S."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig, sp_grad
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, get_model, init_lm
+    from repro_torch.train import AdamWConfig, SyntheticStream, Trainer
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    mesh = make_mesh(*TRAIN_SP_MESH, device="cuda")
+    sp = sp_config(TRAIN_SP_MESH[1])
+    ranks = mesh.axes_size(sp.sp_axes)
+
+    def counts_now():
+        c = read_counts()
+        c["flash_mqkv_bwd"] = fm.bwd_launch_count()
+        return c
+
+    def reset_all():
+        reset_counts()
+        fm.reset_bwd_launch_count()
+
+    # (a) one fp32 layer: over the mesh against degree 1, both on the card
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=1,
+                              dtype="float32", vocab=TRAIN_LAYER_VOCAB)
+    layout = resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+    log(f"train-sp mesh {dict(mesh.shape)} of virtual ranks, SP over "
+        f"{sp.sp_axes}: swift_torus P_u {layout.p_ulysses} x P_r "
+        f"{layout.p_ring} for {cfg.n_heads} / {cfg.n_kv_heads} heads")
+    if layout.p_ulysses < 2 or layout.p_ring < 2:
+        fail(f"train-sp: layout {layout} lacks a Ulysses or a ring leg")
+    gen = torch.Generator().manual_seed(TRAIN_LAYER_SEED)
+    params = init_lm(cfg, gen, device="cpu")
+    perturb_lm(params, gen)
+    batch = SyntheticStream(cfg, InputShape("t", TRAIN_LAYER_L, 1, "training"),
+                            seed=TRAIN_LAYER_SEED).batch(0, "cpu")
+    bundle = get_model(cfg)
+    _, loss1, want = _grads(bundle, params, batch, cfg, cuda)
+    reset_all()
+    _, loss_sp, got = _grads(bundle, params, batch, cfg, cuda, mesh=mesh,
+                             sp=sp)
+    torch.cuda.synchronize()
+    counts, expected = counts_now(), train_sp_counts(layout, ranks, 1)
+    gradient_gate("train-sp layer", got)
+    worst = max(rel_err(g, w, floor=0.0) for g, w in zip(got, want))
+    loss_err = abs(float(loss_sp) - float(loss1)) / abs(float(loss1))
+
+    real, calls = sp_grad.flash_mqkv_bwd, [0]
+
+    def dropping(*args, **kw):  # zero ring step 1's (dK, dV) of each call
+        dq, dk, dv = real(*args, **kw)
+        step = calls[0] // ranks % layout.p_ring
+        calls[0] += 1
+        if step == 1:
+            return dq, torch.zeros_like(dk), torch.zeros_like(dv)
+        return dq, dk, dv
+
+    sp_grad.flash_mqkv_bwd = dropping
+    try:
+        _, _, dropped = _grads(bundle, params, batch, cfg, cuda, mesh=mesh,
+                               sp=sp)
+    finally:
+        sp_grad.flash_mqkv_bwd = real
+    control = max(rel_err(g, w, floor=0.0) for g, w in zip(dropped, want))
+    log(f"train-sp layer qwen2-1.5b 1 layer d={cfg.d_model} fp32 B=1 L="
+        f"{TRAIN_LAYER_L} over {ranks} ranks: loss {float(loss_sp):.6f} "
+        f"(degree 1 {float(loss1):.6f}, rel {loss_err:.2e}), worst gradient "
+        f"max|d|/max|ref| against degree 1 on the card {worst:.3e} over "
+        f"{len(got)} tensors (tol {TRAIN_TOL}); negative control (ring step "
+        f"1's dK/dV dropped) {control:.3e} (must exceed {TRAIN_TOL}); "
+        f"launches {counts} (expected {expected})")
+    if not (worst <= TRAIN_TOL and loss_err <= TRAIN_TOL
+            and control > TRAIN_TOL and counts == expected):
+        fail(f"train-sp layer: worst {worst}, loss {loss_err}, control "
+             f"{control}, launches {counts} (expected {expected})")
+    del params, got, want, dropped
+    results["train_sp_layer_err"] = worst
+
+    # (b) full width, bf16, in process
+    b, l = TRAIN_BL
+    cfg = get_config("qwen2-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, mesh, sp, InputShape("cli", l, b, "training"),
+                 opt_cfg=AdamWConfig(total_steps=1 + TRAIN_SP_STEPS))
+    params, opt = tr.setup()
+    bundle = get_model(cfg)
+    batch0 = tr.stream.batch(0, cuda)
+    with torch.no_grad():
+        loss1, _ = bundle.loss(params, batch0, cfg, ParallelContext(
+            SPConfig(strategy="full"), "train", cuda))
+    loss_gate, _ = bundle.loss(params, batch0, cfg,
+                               ParallelContext(sp, "train", mesh=mesh))
+    gradient_gate("train-sp", torch.autograd.grad(
+        loss_gate, tree_leaves(params), allow_unused=True))
+    losses, times = [], []
+    for step in range(1 + TRAIN_SP_STEPS):  # step 0: the warm-up
+        if step == 1:
+            reset_all()
+        ts = time.perf_counter()
+        params, opt, metrics = tr.step_fn(params, opt,
+                                          tr.stream.batch(step, cuda))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(float(metrics["loss"]))
+    counts = {k: n / TRAIN_SP_STEPS for k, n in counts_now().items()}
+    expected = train_sp_counts(layout, ranks, cfg.n_layers)
+    step_s = statistics.median(times[1:])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    loss0_err = abs(losses[0] - float(loss1)) / abs(float(loss1))
+    deg1 = results["train_run"]
+    log(f"train-sp qwen2-1.5b {cfg.n_layers} layers d={cfg.d_model} bf16 B={b} "
+        f"L={l} over {ranks} ranks (P_u {layout.p_ulysses} x P_r "
+        f"{layout.p_ring}): losses {[round(x, 4) for x in losses]} (step 0 "
+        f"{losses[0]:.6f}, degree 1 on the same parameters and batch "
+        f"{float(loss1):.6f}, rel {loss0_err:.2e}, tol {TRAIN_SP_LOSS_TOL}), "
+        f"median step {step_s * 1e3:.1f} ms over {TRAIN_SP_STEPS} steps "
+        f"(warm-up {times[0]:.2f} s), {b * l / step_s:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB of its own; degree 1 (train): {deg1['step_ms']} ms, "
+        f"{deg1['tokens_s']:.0f} tokens/s, {deg1['peak_gib']} GiB [{card}]")
+    phase_s = time.perf_counter() - t_phase
+    log(f"train-sp launches per step {counts} (expected {expected}); phase "
+        f"{phase_s:.1f} s (budget {TRAIN_SP_BUDGET_S} s)")
+    if (not all(map(math.isfinite, losses)) or loss0_err > TRAIN_SP_LOSS_TOL
+            or counts != expected or phase_s > TRAIN_SP_BUDGET_S):
+        fail(f"train-sp: losses {losses}, step 0 vs degree 1 {loss0_err}, "
+             f"launches {counts} (expected {expected}), phase {phase_s} s")
+    results["train_sp_launches"] = {k: round(n * TRAIN_SP_STEPS)
+                                    for k, n in counts.items()}
+    del params, opt, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_breakdown(card: str, arch: str = "qwen2-1.5b",
-                    n_layers: int | None = None) -> None:
+                    n_layers: int | None = None, mesh_shape=None) -> None:
     """Phase train-breakdown: one training step of ``arch`` (qwen2-1.5b in
     the phase; scripts/train_trace.py passes the others) as the train
     phases run it (full width, all layers or ``n_layers``, bf16, B 4 x L
-    1024, remat "full"), in process after two warm steps, traced by
-    torch.profiler: wall ms, device busy ms and the idle share, and the
-    device ms of K1, K1b (every launch of its bf16 body), K5, K5b, the
-    GEMMs and the rest, and the top kernels; then AdamW alone on the
-    step's gradients (CUDA events)."""
+    1024, remat "full"; over the virtual mesh ``mesh_shape`` (shape,
+    axes) as train-sp runs it when given), in process after two warm
+    steps, traced by torch.profiler: wall ms, device busy ms and the idle
+    share, and the device ms of K1 (K2 too: they share the kernel), K1b
+    (every launch of its bf16 body), K5, K5b, K3/K4, the GEMMs and the
+    rest, and the top kernels; then AdamW alone on the step's gradients
+    (CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
     from repro_torch.models import ParallelContext, get_model
     from repro_torch.train import (AdamWConfig, SyntheticStream, adamw_update,
                                    init_adamw, make_train_step)
@@ -4810,8 +5042,11 @@ def train_breakdown(card: str, arch: str = "qwen2-1.5b",
         t.requires_grad_(True)
     opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS)
     opt = init_adamw(params)
-    sp = SPConfig(strategy="full")
-    step = make_train_step(cfg, None, sp, opt_cfg, device=dev)
+    mesh = (make_mesh(*mesh_shape, device=dev) if mesh_shape is not None
+            else None)
+    sp = (sp_config(mesh_shape[1]) if mesh_shape is not None
+          else SPConfig(strategy="full"))
+    step = make_train_step(cfg, mesh, sp, opt_cfg, device=dev)
     batch = SyntheticStream(cfg, InputShape("t", l, b, "training")).batch(
         0, dev)
     for _ in range(2):
@@ -4831,7 +5066,8 @@ def train_breakdown(card: str, arch: str = "qwen2-1.5b",
     ms = lambda names: sum(e.self_device_time_total for e in kernels
                            if any(n in e.key for n in names)) / 1e3
     busy = ms(("",))
-    label = f"{arch} ({cfg.n_layers} layers)"
+    label = f"{arch} ({cfg.n_layers} layers" + (
+        f", mesh {dict(mesh.shape)})" if mesh is not None else ")")
     if busy == 0.0:
         log(f"train-breakdown {label}: wall {wall:.1f} ms; the profiler saw "
             f"no device time (shares not measured) [{card}]")
@@ -4841,9 +5077,10 @@ def train_breakdown(card: str, arch: str = "qwen2-1.5b",
         # K5b's three entries wkv_bwd_chain<, wkv_bwd_chunk<, wkv_bwd_du
         k5, k5b = ms(("wkv_kernel<",)), ms(("wkv_bwd_",))
         gemm = ms(("gemm", "Gemm", "nvjet", "cutlass", "xmma"))
+        puts = ms(("remote_put_kernel", "landing_copy_kernel"))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         parts = (("K1b", k1b), ("K5b", k5b), ("GEMMs", gemm), ("K1", k1),
-                 ("K5", k5))
+                 ("K5", k5), ("K3/K4", puts))
         log(f"train-breakdown {label} bf16 B={b} L={l}: step wall "
             f"{wall:.1f} ms; device busy {busy:.2f} ms, idle share "
             f"{1 - busy / wall:.3f}; " + ", ".join(
@@ -4854,7 +5091,7 @@ def train_breakdown(card: str, arch: str = "qwen2-1.5b",
                 f" ms" for e in top) + f" [{card}]")
     # AdamW alone, on gradients of the step's shapes
     loss, _ = bundle.loss(params, batch, cfg, ParallelContext(
-        sp, "train", dev))
+        sp, "train", dev, mesh=mesh))
     grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
     grads = tree_map(lambda _: next(grads), params)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -5253,7 +5490,9 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_sp")
     capture_dit(results, card, params, cfg, conds, deg1)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after capture_dit")
-    profile_phase(results, card, sub, cfg_sp, conds)
+    profile_phase(results, card,
+                  dict(sub, layers=sub["layers"][:PROFILE_LAYERS]),
+                  dataclasses.replace(cfg_sp, n_layers=PROFILE_LAYERS), conds)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after profile_phase")
     del params, sub, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
@@ -5332,6 +5571,8 @@ def main() -> int:
             f"{arch}")
     train_moe(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_moe")
+    train_sp(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_sp")
 
     k1 = k1_numbers(card)
     dense_numbers(card)
@@ -5349,6 +5590,7 @@ def main() -> int:
 
     main_shape = (48, 4352)
     launches = results["launches"]
+    sp_train = results["train_sp_launches"]
     kernels = [
         kernel_row("flash_mqkv", "src/repro_torch/csrc/flash_mqkv.cu",
                    "src/repro/kernels/flash_mqkv.py:104",
@@ -5363,8 +5605,8 @@ def main() -> int:
                    results["put_err"]["remote_put"], puts["remote_put"]),
         kernel_row("landing_copy", "src/repro_torch/csrc/one_sided.cu",
                    "src/repro/comm/pallas_backend.py:83",
-                   launches["landing_copy"], results["put_err"]["landing_copy"],
-                   puts["landing_copy"]),
+                   launches["landing_copy"] + sp_train["landing_copy"],
+                   results["put_err"]["landing_copy"], puts["landing_copy"]),
         kernel_row("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
                    "src/repro/kernels/rwkv6_wkv.py:81", results["lm_launches"],
                    results["k5_err"][LM_PREFILL[0]], k5),
@@ -5372,7 +5614,8 @@ def main() -> int:
         # attention with XLA
         kernel_row("flash_mqkv_bwd", "src/repro_torch/csrc/flash_mqkv_bwd.cu",
                    "src/repro/core/softmax.py:199",
-                   results["train_k1b_launches"],
+                   results["train_k1b_launches"]
+                   + sp_train["flash_mqkv_bwd"],
                    results["k1b_err"]["qwen2-train"], k1b["qwen2-train"]),
         # K5b replaces no Pallas kernel either: the reference differentiates
         # its plain chunked scan with XLA

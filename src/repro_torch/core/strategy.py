@@ -46,6 +46,7 @@ from ..comm.compress import WIRE_DTYPES
 from .collectives import GroupLayout, SlicedLayout
 from .ring import ring_attention
 from .softmax import finalize
+from .sp_grad import SPAttention
 from .torus import torus_attention
 from .ulysses import gather_qkv, group_positions, scatter_o
 
@@ -142,10 +143,13 @@ def resolve_layout(cfg: SPConfig, mesh, num_q_heads: int,
 
 
 def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
-              kv_block=None, backend="xla", interpret=True, wire_dtype=None):
+              kv_block=None, backend="xla", interpret=True, wire_dtype=None,
+              return_stats=False):
     """Shared body for usp/swift/ulysses/ring: monolithic Ulysses gather ->
     Ring Attention -> scatter.  The layout decides which boundary each
-    technique crosses (that single bit is the paper's §4.2 contribution)."""
+    technique crosses (that single bit is the paper's §4.2 contribution).
+    ``return_stats`` also returns each rank's final (m, l), as
+    ``torus_attention`` does."""
     ls = q[0].shape[1]
     dev = q[0].device
     g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret,
@@ -160,9 +164,12 @@ def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
         scale=scale, causal=causal, window=window,
         kv_block=kv_block, backend=backend, interpret=interpret,
     )
-    return scatter_o([finalize(pt, dtype=q[0].dtype) for pt in parts], layout,
-                     backend=backend, interpret=interpret,
-                     wire_dtype=wire_dtype)
+    out = scatter_o([finalize(pt, dtype=q[0].dtype) for pt in parts], layout,
+                    backend=backend, interpret=interpret,
+                    wire_dtype=wire_dtype)
+    if return_stats:
+        return out, [(pt.m, pt.l) for pt in parts]
+    return out
 
 
 def sp_attention(
@@ -183,7 +190,9 @@ def sp_attention(
     first) and the batch over the mesh's batch axes; heads and head dim
     stay whole inside the SP group.  Without a mesh, or at SP degree 1, or
     with strategy "full", it runs the flash_mqkv kernel on the whole
-    sequence and batch.
+    sequence and batch.  When q, k or v wants a gradient, the schedule
+    runs inside ``sp_grad.SPAttention``, whose backward is the
+    schedule's (K1b per KV chunk, the puts).
     """
     sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
     if cfg.strategy == "full" or sp == 1:
@@ -217,10 +226,20 @@ def sp_attention(
     # batch slice s
     shards = [[c for xs in torch.chunk(x, slices, dim=0)
                for c in torch.chunk(xs, sp, dim=1)] for x in (q, k, v)]
-    if cfg.strategy == "swift_torus":
-        out = torus_attention(*shards, layout,
-                              fused_pull_q=cfg.torus_fused_pull_q, **kw)
+
+    def schedule(q_, k_, v_, **extra):
+        if cfg.strategy == "swift_torus":
+            return torus_attention(q_, k_, v_, layout,
+                                   fused_pull_q=cfg.torus_fused_pull_q,
+                                   **kw, **extra)
+        return _usp_like(q_, k_, v_, layout, **kw, **extra)
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        bwd_kw = dict(scale=scale, causal=causal, window=window,
+                      backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
+        out = SPAttention.apply(schedule, layout, bwd_kw, *shards[0],
+                                *shards[1], *shards[2])
     else:
-        out = _usp_like(*shards, layout, **kw)
+        out = schedule(*shards)
     return torch.cat([torch.cat(out[s * sp:(s + 1) * sp], dim=1)
                       for s in range(slices)], dim=0)

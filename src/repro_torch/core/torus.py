@@ -68,9 +68,13 @@ def torus_attention(
     backend: str = "xla",
     interpret: bool = True,
     wire_dtype: str | None = None,
-) -> RankList:
+    return_stats: bool = False,
+) -> RankList | tuple[RankList, list[tuple[torch.Tensor, torch.Tensor]]]:
     """Full SwiftFusion attention with the Torus schedule; returns O in the
-    original [B, Ls, Hq, D] sharding, per rank.
+    original [B, Ls, Hq, D] sharding, per rank.  With ``return_stats``
+    also each rank's final row statistics (m, l), [B, Hq / P_u, P_u * Ls]
+    in the gathered, head-sharded layout (the sequence in source-u order):
+    what the backward (core/sp_grad.py) needs.
 
     ``wire_dtype`` compresses the inter-machine leg of the Push-O when the
     layout is hierarchical (``layout.u_groups > 1``); the Pull legs stay
@@ -185,5 +189,8 @@ def torus_attention(
 
     # ---- Push-O: staged inverse all-to-all; diagonal O never moves
     o = [finalize(a, dtype=q[0].dtype) for a in acc]  # [B, P_u * Ls, h, D]
-    return scatter_o(o, layout, backend=backend, interpret=interpret,
-                     wire_dtype=wire_dtype)
+    out = scatter_o(o, layout, backend=backend, interpret=interpret,
+                    wire_dtype=wire_dtype)
+    if return_stats:
+        return out, [(a.m, a.l) for a in acc]
+    return out

@@ -45,6 +45,22 @@ def group_positions(layout: GroupLayout, shard_len: int, ring_r: int,
             + torch.arange(shard_len, device=device)[None, :]).reshape(-1)
 
 
+def gather_seq(x: RankList, layout: GroupLayout, *, backend: str = "xla",
+               interpret: bool = True,
+               wire_dtype: str | None = None) -> RankList:
+    """One all-to-all of the forward transform: scatter the heads and
+    gather the sequence, [B, Ls, H, D] -> [B, P_u * Ls, H / P_u, D] per
+    rank, the sequence in source-u order."""
+    stacked = monolithic_all_to_all(x, layout, split_axis=HEAD_AXIS,
+                                    backend=backend, interpret=interpret,
+                                    wire_dtype=wire_dtype)
+    out = []
+    for s in stacked:  # [P_u, B, Ls, h, D]
+        p_u, b, ls, h, d = s.shape
+        out.append(s.transpose(0, 1).reshape(b, p_u * ls, h, d))
+    return out
+
+
 def gather_qkv(
     q: RankList, k: RankList, v: RankList, layout: GroupLayout,
     *, backend: str = "xla", interpret: bool = True,
@@ -54,21 +70,11 @@ def gather_qkv(
     compresses the inter-machine leg when the layout is hierarchical
     (``layout.u_groups > 1``); ignored otherwise."""
     shard_len = q[0].shape[SEQ_AXIS]
-
-    def fwd(x: RankList) -> RankList:
-        stacked = monolithic_all_to_all(x, layout, split_axis=HEAD_AXIS,
-                                        backend=backend, interpret=interpret,
-                                        wire_dtype=wire_dtype)
-        # [P_u, B, Ls, h, D] -> [B, P_u * Ls, h, D], source-u order
-        out = []
-        for s in stacked:
-            p_u, b, ls, h, d = s.shape
-            out.append(s.transpose(0, 1).reshape(b, p_u * ls, h, d))
-        return out
-
+    kw = dict(backend=backend, interpret=interpret, wire_dtype=wire_dtype)
     dev = q[0].device
     return Gathered(
-        q=fwd(q), k=fwd(k), v=fwd(v),
+        q=gather_seq(q, layout, **kw), k=gather_seq(k, layout, **kw),
+        v=gather_seq(v, layout, **kw),
         q_pos=[group_positions(layout, shard_len, layout.coords(p)[1], dev)
                for p in range(len(q))])
 

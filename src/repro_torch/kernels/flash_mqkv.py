@@ -35,7 +35,10 @@ products, a dK/dV kernel and a dQ kernel that each write every output
 element from one block) under the tile plan ``bwd_tile_plan``; its f32
 body is the CUDA-core parity path.  A call with a carried state or
 without ``finalize`` (the SP ring's partial calls) raises when it would
-need a gradient: SP training is not ported.
+need a gradient: SP training differentiates the whole schedule instead
+(core/sp_grad.py), calling K1b once per KV chunk with the rows' global
+(m, l); a K1b that also forwards the chunk, as K2 does in the forward, is
+ROADMAP Queue 2 item 8.
 
 There is no fallback from a kernel to its plain version.
 """
@@ -415,8 +418,9 @@ def flash_mqkv(
         if state is not None or not finalize:
             raise NotImplementedError(
                 "flash_mqkv has a gradient only for a finalized call "
-                "without a carried state: SP training (the backward of the "
-                "ring schedule) is ROADMAP Queue 1 item 7")
+                "without a carried state: SP training differentiates the "
+                "whole schedule (core/sp_grad.py SPAttention), not its "
+                "partial calls")
         return FlashMQKV.apply(q, k, v, q_pos, k_pos, group, scale, causal,
                                window)
     return _forward(q, k, v, q_pos, k_pos, group=group, scale=scale,

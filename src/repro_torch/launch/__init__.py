@@ -1,5 +1,7 @@
 """Mesh construction for the port (counterpart of the reference's
 ``launch/``): a mesh of virtual ranks on one device."""
-from .mesh import Mesh, make_host_mesh, make_hybrid_mesh, make_mesh
+from .mesh import (Mesh, launch_mesh, make_host_mesh, make_hybrid_mesh,
+                   make_mesh)
 
-__all__ = ["Mesh", "make_host_mesh", "make_hybrid_mesh", "make_mesh"]
+__all__ = ["Mesh", "launch_mesh", "make_host_mesh", "make_hybrid_mesh",
+           "make_mesh"]

@@ -82,3 +82,35 @@ def make_hybrid_mesh(cfg: int = 1, pipe: int = 1, data: int = 1,
     kept, so one SPConfig works across degrees."""
     return make_mesh((cfg, pipe, data, model), ("cfg", "pipe", "data", "model"),
                      device)
+
+
+def launch_mesh(name: str, model: int = 1, data: int = 1,
+                strategy: str = "swift_torus",
+                device: str | torch.device | None = None):
+    """The mesh of virtual ranks and the SP config that a launcher's
+    ``--mesh`` names: ``host`` is (data, model) from ``data`` and
+    ``model``, SP over model; ``pod`` is the paper's (pod 2, model 8), SP
+    over both axes; ``multipod`` adds a data axis of 2, (pod 2, data 2,
+    model 8).  Above SP degree 1 the schedule runs ``strategy`` through
+    the put kernels (``comm_backend="pallas"``, the direct put K3 on a
+    single-axis route); at degree 1 attention is "full"."""
+    from ..core import SPConfig
+
+    if name == "host":
+        mesh = make_host_mesh(model=model, data=data, device=device)
+        sp_axes, machine = ("model",), None
+    elif name == "pod":
+        mesh = make_mesh((2, 8), ("pod", "model"), device)
+        sp_axes, machine = ("pod", "model"), "pod"
+    elif name == "multipod":
+        mesh = make_mesh((2, 2, 8), ("pod", "data", "model"), device)
+        sp_axes, machine = ("pod", "model"), "pod"
+    else:
+        raise ValueError(f"unknown mesh {name!r}")
+    degree = mesh.axes_size(sp_axes)
+    sp = SPConfig(strategy=strategy if degree > 1 else "full",
+                  sp_axes=sp_axes, batch_axes=("data",),
+                  machine_axis=machine,
+                  comm_backend="pallas" if degree > 1 else "xla",
+                  kernel_interpret=False)
+    return mesh, sp

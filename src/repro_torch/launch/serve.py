@@ -58,30 +58,9 @@ from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                        JsonlTracker, SamplerConfig, Tracker)
 from ..serving.sched import (SCHEMA_VERSION, CalibrationConfig,
                              ControlConfig, PreemptionPolicy)
-from .mesh import make_host_mesh, make_mesh
+from .mesh import launch_mesh
 
 LM_ARCHS = SSM_ARCHS + DENSE_ARCHS + HYBRID_ARCHS + MOE_ARCHS
-
-
-def _mesh_and_sp(args, device: torch.device):
-    """The mesh of virtual ranks and the SP config ``--mesh`` names."""
-    if args.mesh == "host":
-        mesh = make_host_mesh(model=args.model, data=args.data,
-                              device=device)
-        sp_axes, machine = ("model",), None
-    elif args.mesh == "pod":
-        mesh = make_mesh((2, 8), ("pod", "model"), device)
-        sp_axes, machine = ("pod", "model"), "pod"
-    else:
-        mesh = make_mesh((2, 2, 8), ("pod", "data", "model"), device)
-        sp_axes, machine = ("pod", "model"), "pod"
-    degree = mesh.axes_size(sp_axes)
-    sp = SPConfig(strategy=args.strategy if degree > 1 else "full",
-                  sp_axes=sp_axes, batch_axes=("data",),
-                  machine_axis=machine,
-                  comm_backend="pallas" if degree > 1 else "xla",
-                  kernel_interpret=False)
-    return mesh, sp
 
 
 def _graphs_line(steps) -> str:
@@ -139,8 +118,9 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.arch not in DIT_ARCHS + LM_ARCHS:
         raise NotImplementedError(
-            f"{args.arch}: the port serves {DIT_ARCHS + LM_ARCHS}; the "
-            "rest of the model zoo is ROADMAP Queue 1 item 7")
+            f"{args.arch}: the port serves {DIT_ARCHS + LM_ARCHS}; no "
+            "counterpart is owed for the rest (the reference's launcher "
+            "cannot serve whisper-tiny either: ROADMAP F7)")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
@@ -156,7 +136,8 @@ def main(argv: list[str] | None = None) -> int:
     tracker = JsonlTracker(sink) if sink is not None else Tracker()
 
     if cfg.family == "dit":
-        mesh, sp = _mesh_and_sp(args, device)
+        mesh, sp = launch_mesh(args.mesh, args.model, args.data,
+                               args.strategy, device)
         params = init_dit(cfg, gen, device)
         control = ControlConfig(
             preemption=PreemptionPolicy() if args.preempt else None,
@@ -197,7 +178,8 @@ def main(argv: list[str] | None = None) -> int:
             mesh, sp, cache_dtype = None, SPConfig(strategy="full"), \
                 torch.float32
         else:
-            mesh, sp = _mesh_and_sp(args, device)
+            mesh, sp = launch_mesh(args.mesh, args.model, args.data,
+                                   args.strategy, device)
             cache_dtype = torch_dtype(cfg.dtype)
         params = init_lm(cfg, gen, device, ep_degree=ep_degree(mesh))
         srv = ARServer(params, cfg, sp, batch_slots=4, max_len=args.seq,

@@ -5,19 +5,26 @@ for the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --steps 5 --seq 1024 --batch 4 [--ckpt out/ck]
     ... --arch qwen2-1.5b --reduced --device cpu          (on the CPU)
+    ... --mesh host --data 2 --model 4 [--strategy usp]   (over a mesh)
 
 The flags are the reference's, plus ``--device``, ``--remat`` (the
 activation-checkpoint policy: full, dots or none) and ``--log-every``
 (the reference logs every 10th step).  ``--reduced`` trains
 the reduced config in float32, as the reference's.  Every family
-trains (the LMs: dense, vlm, rwkv6, hybrid, moe; whisper; the DiTs), at
-SP degree 1 on one device: ``--model`` or ``--data`` above 1 and the
-``pod``/``multipod`` meshes are refused (train/trainer.py: ROADMAP Queue
-1 item 7).  It prints the reference's line per logged step, then one
-line with the median step time (host clock, the device synchronised at
-each step's end), tokens per second and the peak device memory, and on
-CUDA one line with the launches per step of the attention kernel K1 and
-of its gradient K1b, and of the WKV kernel K5 and of its gradient K5b.
+trains (the LMs: dense, vlm, rwkv6, hybrid, moe; whisper; the DiTs) at
+SP degree 1 on one device.  ``--model`` or ``--data`` above 1 and the
+``pod`` / ``multipod`` meshes train over a mesh of virtual ranks on the
+one device (launch/mesh.py ``launch_mesh``: ``pod`` is (pod 2, model 8),
+SP over both axes; ``--strategy`` picks the SP schedule, run through the
+put kernels); over a mesh the rwkv6, hybrid, moe and audio families are
+refused (train/trainer.py ``check_trainable``: ROADMAP Queue 1
+item 7).  It prints the mesh and its (P_u x P_r) plan, the reference's
+line per logged step, then one line with the median step time (host
+clock, the device synchronised at each step's end), tokens per second and
+the peak device memory, and on CUDA one line with the launches per step
+of the attention kernel K1 and of its gradient K1b, and of the WKV kernel
+K5 and of its gradient K5b, and over a mesh one with those of K2 and the
+put kernels K3 and K4.
 """
 from __future__ import annotations
 
@@ -28,17 +35,20 @@ import sys
 
 import torch
 
+from ..comm import kernel_backend as kb
 from ..configs import get_config, get_reduced
 from ..configs.shapes import SHAPES, InputShape
-from ..core import SPConfig
+from ..core import SPConfig, resolve_layout
 from ..kernels import flash_mqkv as fm
+from ..kernels import ring_flash as rf
 from ..kernels.rwkv6_wkv import (bwd_launch_count as k5b_count,
                                  launch_count as k5_count,
                                  reset_bwd_launch_count as reset_k5b,
                                  reset_launch_count as reset_k5)
 from ..models.blocks import REMAT_POLICIES
 from ..train import AdamWConfig, Trainer
-from ..train.trainer import TRAIN_ITEM
+from ..train.trainer import check_trainable
+from .mesh import launch_mesh
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -61,27 +71,32 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    if args.mesh != "host" or args.model > 1 or args.data > 1:
-        raise NotImplementedError(
-            "the port trains at SP degree 1 on one device: training over a "
-            "mesh of virtual ranks needs the backward of the SP schedule "
-            f"and of the puts ({TRAIN_ITEM})")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32", sharding_overrides=())
     shape = (SHAPES[args.shape] if args.shape
              else InputShape("cli", args.seq, args.batch, "training"))
+    mesh = None
     sp = SPConfig(strategy="full", sp_axes=("model",), batch_axes=("data",))
-    tr = Trainer(cfg, None, sp, shape,
+    if args.mesh != "host" or args.model > 1 or args.data > 1:
+        mesh, sp = launch_mesh(args.mesh, args.model, args.data,
+                               args.strategy, args.device)
+        check_trainable(cfg, mesh)
+        plan = (resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+                if sp.strategy != "full" else None)
+        print(f"mesh: {dict(mesh.shape)} of virtual ranks on {mesh.device}, "
+              f"SP over {sp.sp_axes}: {sp.strategy}"
+              + (f", P_u {plan.p_ulysses} x P_r {plan.p_ring}" if plan
+                 else ""))
+    tr = Trainer(cfg, mesh, sp, shape,
                  opt_cfg=AdamWConfig(total_steps=args.steps),
                  ckpt_path=args.ckpt, device=args.device, remat=args.remat)
     cuda = torch.cuda.is_available() and args.device in (None, "cuda")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    fm.reset_launch_count()
-    fm.reset_bwd_launch_count()
-    reset_k5()
-    reset_k5b()
+    for reset in (fm.reset_launch_count, fm.reset_bwd_launch_count, reset_k5,
+                  reset_k5b, rf.reset_launch_count, kb.reset_launch_count):
+        reset()
     tr.run(args.steps, log_every=args.log_every)
     # the first step builds the kernels: the median of the rest
     times = tr.step_seconds[1:] or tr.step_seconds
@@ -98,6 +113,11 @@ def main(argv: list[str] | None = None) -> int:
               f"flash_mqkv_bwd {per(fm.bwd_launch_count())}, rwkv6_wkv "
               f"{per(k5_count())} and rwkv6_wkv_bwd "
               f"{per(k5b_count())} launches per step")
+        if mesh is not None:
+            print(f"kernels over the mesh: ring_flash_step "
+                  f"{per(rf.launch_count())}, remote_put "
+                  f"{per(kb.launch_count('remote_put'))} and landing_copy "
+                  f"{per(kb.launch_count('landing_copy'))} launches per step")
     return 0
 
 

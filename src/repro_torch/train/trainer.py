@@ -6,18 +6,26 @@ under the context's activation checkpointing), ``torch.autograd.grad``
 over the parameters, then ``adamw_update`` in place.  ``Trainer`` drives
 steps, metrics and checkpointing.
 
-The port trains every family at SP degree 1 on one device: dense, vlm,
-audio (whisper), dit, the rwkv6 family (ssm: the WKV scan's gradient is
-K5b), hybrid (hymba: attention through K1/K1b, the SSD scan in plain
-torch) and moe (at EP 1 the expert exchange is the identity, so no put
-kernel lies on the path).  Training over a mesh of virtual ranks needs the
-backward of the SP schedule and of the expert-parallel exchanges (K2,
-K3/K4): ROADMAP Queue 1 item 7.  It is refused, not run: on CUDA those
-kernels' outputs carry no gradient.
+Every family trains at SP degree 1 on one device: dense, vlm, audio
+(whisper), dit, the rwkv6 family (ssm: the WKV scan's gradient is K5b),
+hybrid (hymba: attention through K1/K1b, the SSD scan in plain torch) and
+moe (at EP 1 the expert exchange is the identity, so no put kernel lies
+on the path).
 
-The reference's ``batch_shardings`` (batch over the data axes, sequence
-over the SP axes) has no counterpart: at SP degree 1 the whole batch lives
-on the one device.
+Over a mesh of virtual ranks (``mesh``, with ``sp`` naming its SP and
+batch axes) the attention-only families train: dense, vlm and dit.  Their
+attention is the SP schedule, differentiated as a whole
+(core/sp_grad.py: K1b per KV chunk, the all-to-alls and ring hops through
+the put kernels K3/K4).  The data axis needs no code: every virtual rank
+lives in this process and reads the one set of parameters, so autograd
+sums the ranks' gradients.  Refused over a mesh, naming ROADMAP Queue 1
+item 7: rwkv6 and hybrid (their cross-rank state passes have no
+backward yet), moe on every mesh (the expert exchange has no backward at
+EP > 1, and no test holds its gradient over a mesh at EP 1) and audio
+(whisper's cross-attention under SP has no parity test).
+
+The reference's ``batch_shardings`` has no counterpart: the whole batch
+lives on the one device and ``sp_attention`` splits it per rank.
 """
 from __future__ import annotations
 
@@ -38,22 +46,33 @@ from .optimizer import (AdamWConfig, AdamWState, adamw_update, init_adamw,
 TRAIN_ITEM = "ROADMAP Queue 1 item 7"
 
 
-def check_trainable(mesh=None) -> None:
-    """Raise NotImplementedError for what the port cannot train yet: a
-    mesh of more than one rank."""
-    if mesh is not None and mesh.size > 1:
+def check_trainable(cfg: ModelConfig, mesh=None) -> None:
+    """Raise NotImplementedError for what the port cannot train yet over a
+    mesh of more than one rank: the rwkv6, hybrid, moe and audio families
+    (moe on every mesh: no test holds its gradient over one, even at
+    EP 1)."""
+    if mesh is None or mesh.size == 1:
+        return
+    why = {"ssm": "the backward of the distributed WKV state pass",
+           "hybrid": "the backward of the distributed SSD state pass",
+           "moe": "the backward of the expert-parallel exchange and a "
+                  "parity test over a mesh",
+           "audio": "a parity test of whisper's attention under SP"
+           }.get(cfg.family)
+    if why is not None:
         raise NotImplementedError(
-            f"training over a mesh of {mesh.size} virtual ranks needs the "
-            f"backward of the SP schedule and of the puts ({TRAIN_ITEM})")
+            f"{cfg.arch_id} over a mesh of {mesh.size} virtual ranks needs "
+            f"{why} ({TRAIN_ITEM})")
 
 
 def make_train_step(cfg: ModelConfig, mesh, sp: SPConfig,
                     opt_cfg: AdamWConfig, remat: str = "full",
                     device: str | torch.device | None = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
-    params and moments updated in place.  ``mesh`` is None (or a mesh of
-    one rank); ``device`` defaults to CUDA."""
-    check_trainable(mesh)
+    params and moments updated in place.  ``mesh`` is None for one device
+    (``device``, CUDA by default) or a mesh of virtual ranks, whose device
+    it is then."""
+    check_trainable(cfg, mesh)
     bundle = get_model(cfg)
     ctx = ParallelContext(sp, "train", device=device, mesh=mesh, remat=remat)
 
@@ -74,7 +93,7 @@ def make_train_step(cfg: ModelConfig, mesh, sp: SPConfig,
 @dataclasses.dataclass
 class Trainer:
     cfg: ModelConfig
-    mesh: object  # None: one device (SP degree 1)
+    mesh: object  # None: one device (SP degree 1); else launch.mesh.Mesh
     sp: SPConfig
     shape: InputShape
     opt_cfg: AdamWConfig = AdamWConfig()
@@ -84,8 +103,9 @@ class Trainer:
     remat: str = "full"
 
     def setup(self):
-        check_trainable(self.mesh)
-        self.device = resolve_device(self.device)
+        check_trainable(self.cfg, self.mesh)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(self.device))
         bundle = get_model(self.cfg)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params = bundle.init(self.cfg, gen, self.device)

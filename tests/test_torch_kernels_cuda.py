@@ -845,6 +845,65 @@ def test_cuda_flash_attention_gradient_matches_cpu(cuda, dtype, tol):
         assert float((g - w).abs().max() / w.abs().max()) <= tol
 
 
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["future", "outside-window"])
+def test_cuda_k1b_writes_zeros_for_a_fully_hidden_chunk(cuda, where, dtype):
+    """K1b against a KV chunk the mask hides from every row, with the
+    rows' (m, l) finite from their visible keys, as a ring step of the SP
+    backward meets it: dq, dk and dv exactly zero (no empty_like garbage)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(dtype)
+    i32 = lambda a, b: torch.arange(a, b, dtype=torch.int32, device=cuda)
+    q, o, do = mk(8, 96, 64), mk(8, 96, 64), mk(8, 96, 64)
+    k, v = mk(2, 80, 64), mk(2, 80, 64)
+    q_pos = i32(96, 192)
+    _, l, m = fm.flash_mqkv_plain(q.float(), k.float(), v.float(), q_pos,
+                                  i32(0, 80), group=4, causal=True,
+                                  finalize=False)
+    k_pos, window = ((i32(200, 280), None) if where == "future"
+                     else (i32(0, 80), 1))
+    for t in fm.flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, group=4,
+                               causal=True, window=window):
+        assert bool((t == 0).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("strategy", ["swift_torus", "usp", "ring"])
+def test_cuda_sp_attention_gradient_matches_cpu(cuda, strategy, dtype, tol):
+    """The SP schedule's gradient (core/sp_grad.py) on mesh (pod 2, model
+    2) through the kernels (K1/K2 forward, K1b per KV chunk, K4 for every
+    transfer), in float32 and in bf16 (K1b's bf16 body on past, diagonal
+    and hidden chunks with the rows' statistics over all their keys),
+    against the same on the CPU (the plain versions) in the same dtype:
+    ``tol`` of each gradient's max|grad|; K1b launched ranks x P_r times."""
+    from repro_torch.core.strategy import resolve_layout
+
+    gen = torch.Generator().manual_seed(6)
+    mk = lambda *s: torch.randn(s, generator=gen)
+    q, k, v, do = mk(2, 256, 12, 64), mk(2, 256, 2, 64), mk(2, 256, 2, 64), \
+        mk(2, 256, 12, 64)
+    cfg = SPConfig(strategy=strategy, sp_axes=("pod", "model"),
+                   batch_axes=None, comm_backend="pallas",
+                   kernel_interpret=False)
+    grads = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh((2, 2), ("pod", "model"), dev)
+        ins = [t.to(dev, dtype).detach().requires_grad_() for t in (q, k, v)]
+        out = sp_attention(*ins, cfg=cfg, mesh=mesh, causal=True)
+        before = fm.bwd_launch_count()
+        out.backward(do.to(dev, dtype))
+        grads[str(dev)] = ([t.grad.float().cpu() for t in ins],
+                           fm.bwd_launch_count() - before)
+    layout = resolve_layout(cfg, mesh, 12, 2)
+    assert grads[str(cuda)][1] == layout.size * layout.p_ring
+    for g, w in zip(grads[str(cuda)][0], grads["cpu"][0]):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max() / w.abs().max()) <= tol
+
+
 # K5b (rwkv6_wkv_bwd, the gradient of K5): (B, L, H, N, chunk) — rwkv6-1.6b's
 # training shape, a sequence shorter than the chunk, smaller heads and chunks
 K5B_CASES = {

@@ -70,7 +70,7 @@ def test_serve_pod_mesh_profiles_on_the_kernel_path(tmp_path, capsys):
 
 
 def test_serve_refuses_what_it_cannot_serve():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP F7"):
         serve.main(["--arch", "whisper-tiny", "--reduced", "--device",
                     "cpu"])
     with pytest.raises(SystemExit):

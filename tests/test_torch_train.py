@@ -16,8 +16,9 @@ bundles' losses) against the reference on the CPU.
 * ``Trainer``'s loss falling by more than 0.2 in 40 steps at the
   reference test's config (the port's own criterion: the reference's
   test_loss_decreases_on_synthetic_lm fails on this jax, ROADMAP F2);
-* ``launch/train.py --reduced --device cpu``, and the refused meshes
-  (the rwkv6, hybrid and moe families: tests/test_torch_train_lm.py).
+* ``launch/train.py --reduced --device cpu``, and the families refused
+  over a mesh (rwkv6, hymba, and qwen2-moe at EP > 1; training over a
+  mesh is tests/test_torch_train_sp.py's).
 
 Parameters are the reference's ``bundle.init`` trees with their constant
 leaves (zero biases, unit norms, the DiT's zero adaLN and output
@@ -247,7 +248,8 @@ def test_bwd_plain_matches_autograd_of_plain(case):
 def test_function_on_cpu_runs_the_plain_backward():
     """flash_mqkv with q/k/v requiring grad goes through FlashMQKV, whose
     CPU backward is flash_mqkv_bwd_plain; a carried state or an
-    unfinalized call raises under grad."""
+    unfinalized call raises under grad, pointing to the SP schedule's
+    gradient."""
     q, k, v, q_pos, k_pos, do, kw = _bwd_inputs(BWD_CASES["causal-gqa"])
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     o, l, m = flash_mqkv(*ins, q_pos, k_pos, **kw)
@@ -258,9 +260,9 @@ def test_function_on_cpu_runs_the_plain_backward():
                                 **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="core/sp_grad.py"):
         flash_mqkv(*ins, q_pos, k_pos, finalize=False, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="core/sp_grad.py"):
         flash_mqkv(*ins, q_pos, k_pos, state=(o.detach(), l, m), **kw)
     with torch.no_grad():  # no gradient wanted: the partial call runs
         flash_mqkv(*ins, q_pos, k_pos, finalize=False, **kw)
@@ -470,10 +472,15 @@ def test_launch_train_reduced_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--model", "2"], ["--data", "2"],
                                    ["--mesh", "pod"]])
 def test_meshes_are_refused(flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launch_train.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
-                           "cpu", "--steps", "1", *flags])
-    cfg, _ = _cfgs("qwen2-1.5b")
+    """Over every mesh the launcher refuses rwkv6, hymba and qwen2-moe (at
+    EP > 1 with --model 2 and --mesh pod, at EP 1 with --data 2), naming
+    the ROADMAP item; make_train_step refuses them as well.  (qwen2-1.5b
+    trains over these meshes: tests/test_torch_train_sp.py.)"""
+    for arch in ("rwkv6-1.6b", "hymba-1.5b", "qwen2-moe-a2.7b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            launch_train.main(["--arch", arch, "--reduced", "--device",
+                               "cpu", "--steps", "1", *flags])
+    cfg, _ = _cfgs("rwkv6-1.6b")
     mesh = make_mesh((2,), ("model",), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         make_train_step(cfg, mesh, SP1, AdamWConfig(), device="cpu")
