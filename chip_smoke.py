@@ -308,6 +308,24 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  the degree-1 loss, K1/K2/K1b/K3/K4 launches per step as
                  the schedule implies; step time, tokens/s and peak memory
                  beside the train phase's.
+ 42. examples  — the four examples of src/repro_torch/examples in process
+                 on the card at their own sizes: quickstart (every SP
+                 strategy on the virtual mesh (pod 2, data 2, model 2)
+                 against the oracle, within the float32 TOL of max|ref|
+                 with TF32 off), serve_dit (6 mixed-resolution requests
+                 on the hybrid mesh (cfg 2, pipe 2, model 2), then the
+                 burst of part two: 10 requests, every latent finite),
+                 generate_text (6 prompts x 8 tokens through ARServer on
+                 (pod 2, data 2, model 2)) and train_lm (the ~95M
+                 qwen2-family model, 30 steps of batch 32, the loss
+                 falling); K1, K2, K3 and K4 each launched by quickstart
+                 or serve_dit.  Budget EXAMPLES_BUDGET_S, printed.
+The numbers phase also prints the first whole-step shares of the card's
+peak: the dry-run's counted FLOPs (launch/dryrun.py on the meta device)
+of the train phase's qwen2-1.5b step and of the serve phase's degree-1
+flux-12b step, over (the measured step time x 989e12), and the mfu that
+launch/calibrate.py fits to the serve phase's degree-1 captured step
+times (one card: no wire term).  These are printed lines, not gates.
 K5b (rwkv6_wkv_bwd, the gradient of K5) is checked right after K1b: the
 k5b phase holds it against its plain version at rwkv6-1.6b's training
 shape (B 4 x L 1024, H 32, N 64) and at L 32 (below the chunk), in
@@ -4309,6 +4327,10 @@ TRAIN_LAYER_SEED = 31
 # TRAIN_SP_STEPS timed steps; the phase fails past TRAIN_SP_BUDGET_S
 TRAIN_SP_MESH = ((2, 2), ("pod", "model"))
 TRAIN_SP_STEPS = 3
+# examples: train_lm's steps and batch on the card (at its default batch
+# of 8 the loss does not fall within 30 steps: 9.849 -> 9.899)
+EXAMPLE_TRAIN = (30, 32)
+EXAMPLES_BUDGET_S = 45
 TRAIN_SP_LOSS_TOL = 2e-2  # step 0's loss, bf16, SP vs degree 1, relative
 TRAIN_SP_BUDGET_S = 45
 TRAIN_LAYER_ARCHS = {"qwen2-1.5b": (2, 1, 0, 0), "rwkv6-1.6b": (0, 0, 2, 1),
@@ -5279,6 +5301,122 @@ def k1b_numbers(card: str) -> dict:
     return rows
 
 
+def examples_phase(card: str) -> None:
+    """Phase examples: the four examples of src/repro_torch/examples, in
+    process on the card at their own sizes (train_lm for EXAMPLE_TRAIN's
+    steps at its batch).  Fails on a quickstart strategy off the
+    oracle by more than the float32 TOL of max|ref|, a non-finite latent,
+    fewer requests or tokens than asked, a loss that did not fall, or one
+    of K1-K4 launched by neither quickstart nor serve_dit."""
+    import torch
+    from repro_torch.examples import (generate_text, quickstart, serve_dit,
+                                      train_lm)
+
+    t0 = time.perf_counter()
+    reset_counts()
+    quick = quickstart.main([])
+    q_counts = read_counts()
+    bad = {s: e for s, e in quick["errors"].items()
+           if not e <= TOL["float32"] * quick["max_ref"]}
+    log(f"examples quickstart: max|d| vs oracle "
+        f"{ {s: f'{e:.2e}' for s, e in quick['errors'].items()} } (max|ref| "
+        f"{quick['max_ref']:.3f}, tol {TOL['float32']} of it), launches "
+        f"{q_counts} [{card}]")
+    if bad or len(quick["errors"]) != 5:
+        fail(f"examples quickstart: {bad or quick['errors']}")
+    gc.collect()
+    reset_counts()
+    dit = serve_dit.main([])
+    d_counts = read_counts()
+    served = sorted(dit["results"])
+    log(f"examples serve_dit: {len(served)} requests {served}, finite "
+        f"{all(dit['finite'].values())}, preemptions {dit['preemptions']}, "
+        f"refits {dit['refits']}, launches {d_counts} [{card}]")
+    if served != [0, 1, 2, 3, 4, 5, 100, 101, 200, 201] or not all(
+            dit["finite"].values()):
+        fail(f"examples serve_dit: served {served}, finite {dit['finite']}")
+    never = [k for k in q_counts if q_counts[k] + d_counts[k] == 0]
+    if never:
+        fail(f"examples: {never} launched by neither quickstart nor "
+             f"serve_dit")
+    del dit
+    gc.collect()
+    gen = generate_text.main([])["tokens"]
+    n_tok = {rid: len(t) for rid, t in gen.items()}
+    log(f"examples generate_text: tokens per request {n_tok} [{card}]")
+    if sorted(gen) != sorted(generate_text.PROMPTS) or any(
+            n != generate_text.NEW_TOKENS for n in n_tok.values()):
+        fail(f"examples generate_text: {n_tok}")
+    t1 = time.perf_counter()
+    n_steps, batch = EXAMPLE_TRAIN
+    hist = train_lm.main(["--steps", str(n_steps), "--batch", str(batch),
+                          "--log-every", "10"])
+    losses = [h["loss"] for h in hist["history"]]
+    steps = hist["step_seconds"]
+    log(f"examples train_lm: {n_steps} steps of batch {batch}, losses "
+        f"{[round(x, 4) for x in losses]}, median step "
+        f"{median(steps[1:]) * 1e3:.1f} ms, {time.perf_counter() - t1:.1f} "
+        f"s [{card}]")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"examples train_lm: losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"examples: {took:.1f} s (budget {EXAMPLES_BUDGET_S} s) [{card}]")
+
+
+def step_shares(results: dict, card: str) -> None:
+    """Numbers: the whole-step shares of the card's peak (989e12 dense
+    bf16 FLOP/s): the dry-run's FLOPs (launch/dryrun.py, counted on the
+    meta device at degree 1) of the train phase's qwen2-1.5b step (B 4 x
+    L 1024, remat full) and of the serve phase's flux-12b step (the 4096
+    bucket: B 2, unguided), over the measured step; then the mfu that
+    launch/calibrate.py fits to the serve phase's degree-1 captured step
+    times (median replays of the 4096 and 1024 buckets).  Printed, not
+    gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import calibrate, dryrun
+    from repro_torch.launch.roofline import PEAK_FLOPS
+
+    def counted(arch, shape):
+        fn, args, _ = dryrun.build_step(get_config(arch), shape, None,
+                                        SPConfig(strategy="full"))
+        return dryrun.count_step(fn, args, None).flops
+
+    b, l = TRAIN_BL
+    train_ms = results["train_run"]["step_ms"]
+    f_train = counted("qwen2-1.5b", InputShape("train", l, b, "training"))
+    log(f"numbers: share of peak qwen2-1.5b train step (B {b} x L {l}, "
+        f"bf16, remat full): {f_train:.4e} counted FLOPs / ({train_ms} ms "
+        f"x {PEAK_FLOPS:.3e}) = {f_train / (train_ms / 1e3 * PEAK_FLOPS):.4f}"
+        f" [{card}]")
+    replay = {seq: median(results["step_times"][seq][2:])
+              for seq in (4096, 1024)}
+    f_serve = counted("flux-12b", InputShape("serve", 4096, 2, "prefill"))
+    log(f"numbers: share of peak flux-12b degree-1 serve step (B 2 x 4096 "
+        f"latents + 256 cond, bf16, captured): {f_serve:.4e} counted FLOPs "
+        f"/ ({replay[4096] * 1e3:.2f} ms x {PEAK_FLOPS:.3e}) = "
+        f"{f_serve / (replay[4096] * PEAK_FLOPS):.4f} [{card}]")
+    cfg = get_config("flux-12b")
+    recs = [{"name": f"flux-12b-deg1-{seq}", "n_machines": 1,
+             "m_per_machine": 1, "guided": False,
+             "workload": {"batch": rows, "seq": seq, "heads": cfg.n_heads,
+                          "head_dim": cfg.resolved_head_dim,
+                          "n_layers": cfg.n_layers},
+             "plan": {"cfg": 1, "pp": 1, "p_ulysses": 1, "p_ring": 1,
+                      "num_patches": None},
+             "measured_step_us": replay[seq] * 1e6}
+            for seq, rows in ((4096, 2), (1024, 1))]
+    net, report = calibrate.fit(recs)
+    log(f"numbers: calibrate fit of {len(recs)} degree-1 captured flux-12b "
+        f"step records: mfu {net.mfu:.4f} (the comm model's compute term is "
+        f"attention FLOPs alone; ratio to nominal "
+        f"{report['ratio_vs_nominal']['mfu']:.4f}, rms rel error "
+        f"{report['rms_rel_error']:.4f}) [{card}]")
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled entry: (registers, spill store bytes, spill load bytes,
     static shared-memory bytes)} from nvcc's -Xptxas -v output."""
@@ -5573,6 +5711,8 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_moe")
     train_sp(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_sp")
+    examples_phase(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after examples")
 
     k1 = k1_numbers(card)
     dense_numbers(card)
@@ -5587,6 +5727,7 @@ def main() -> int:
     lm_breakdown(card, lm_params, lm_cfg)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after lm_breakdown")
     del lm_params
+    step_shares(results, card)
 
     main_shape = (48, 4352)
     launches = results["launches"]

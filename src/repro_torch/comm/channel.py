@@ -190,7 +190,8 @@ class Channel:
             kind="comm", stream=self.stream, channel=self.name,
             stage=self.stage, axes=tuple(self.axes),
             nbytes=_profiler.nbytes_of(tensors), n_tensors=len(tensors),
-            backend=backend, intent=overlaps, ranks=len(tensors[0]))
+            backend=backend, intent=overlaps, ranks=len(tensors[0]),
+            perm=tuple(self.perm))
 
     def _put_kernel(self, tensors: tuple[RankList, ...],
                     overlaps: str) -> "InFlight":

@@ -35,6 +35,7 @@ from typing import Sequence
 import torch
 
 from . import trace as _trace
+from ..kernels.ref import PLAIN_DEVICES
 from .channel import RankList, dest_table, issue, receive_buffers
 
 __all__ = ["BACKENDS", "SymmetricHeap", "deliver", "existing_heap",
@@ -240,7 +241,7 @@ def remote_put(src: Sequence[Sequence[torch.Tensor]],
     words = ranks * len(src[0])
     if signal.numel() < words or arrive.numel() < words:
         raise ValueError(f"{words} signal words needed")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return remote_put_plain(src, dst, perm, signal, epoch)
     if dev.type != "cuda":
         raise ValueError(f"remote_put runs on cpu or cuda, not {dev}")
@@ -268,7 +269,7 @@ def landing_copy(src: Sequence[Sequence[torch.Tensor]],
     words = ranks * len(src[0])
     if signal.numel() < words or arrive.numel() < words:
         raise ValueError(f"{words} signal words needed")
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return landing_copy_plain(src, dst, signal, epoch)
     if dev.type != "cuda":
         raise ValueError(f"landing_copy runs on cpu or cuda, not {dev}")

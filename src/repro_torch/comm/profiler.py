@@ -81,6 +81,9 @@ class LegMeta:
     intent: str  # ``overlaps`` label from the put ("" = not meant hidden)
     label: str = ""
     ranks: int = 1  # ranks of the route one put covers
+    # a put's (src, dst) flat ranks on ``axes`` (launch/dryrun.py reads
+    # which of them cross the pod axis)
+    perm: tuple[tuple[int, int], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)

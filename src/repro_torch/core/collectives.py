@@ -29,6 +29,7 @@ import torch
 
 from ..comm import (hier_all_to_all, hier_ungroup, staged_all_to_all,
                     staged_ungroup)
+from ..comm import profiler as _profiler
 from ..comm.channel import RankList
 
 AxisNames = tuple[str, ...]
@@ -225,9 +226,30 @@ def _all_to_all(chunks: list[list[torch.Tensor]], layout) -> RankList:
     its group, stacked in source order.  A group is P_u consecutive ranks
     of the list (one per batch slice under ``SlicedLayout``)."""
     n = layout.p_ulysses
+    _observe_exchange(chunks, layout)
     return [torch.stack([chunks[p - p % n + j][p % n] for j in range(n)],
                         dim=0)
             for p in range(len(chunks))]
+
+
+def _observe_exchange(chunks: list[list[torch.Tensor]], layout) -> None:
+    """With a comm profiler active, record the atomic exchange's issue as a
+    leg of every (src, dst) pair of the rank list, ``nbytes`` one chunk.
+    It is no put: it has no signal and makes no span (emit_leg_spans pairs
+    an issue with its signal); launch/dryrun.py counts its bytes."""
+    prof = _profiler.active()
+    if prof is None:
+        return
+    n = layout.p_ulysses
+    ranks = len(chunks)
+    first = chunks[0][0]
+    meta = prof.new_leg(
+        kind="comm", stream="", channel="ulysses.all_to_all", stage=0,
+        axes=tuple(layout.axes), nbytes=first.numel() * first.element_size(),
+        n_tensors=1, backend="xla", intent="", ranks=ranks,
+        perm=tuple((p, p - p % n + j) for p in range(ranks)
+                   for j in range(n)))
+    _profiler.mark(prof, meta, "issue", first.device)
 
 
 def monolithic_all_to_all(

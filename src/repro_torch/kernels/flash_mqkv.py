@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .ref import flash_attention_ref, flash_mqkv_bwd_plain
+from .ref import PLAIN_DEVICES, flash_attention_ref, flash_mqkv_bwd_plain
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -179,7 +179,7 @@ def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
     CPU tensors (the plain versions take any D) and kernel head dims are
     returned as they are."""
     d = x.shape[-1]
-    if x.device.type == "cpu" or d in HEAD_DIMS:
+    if x.device.type in PLAIN_DEVICES or d in HEAD_DIMS:
         return x
     return F.pad(x, (0, kernel_head_dim(d) - d))
 
@@ -342,7 +342,7 @@ def _forward(
     """The forward without autograd: the plain version on the CPU, K1 on
     CUDA (at the padded head dim where ``d`` is not one of HEAD_DIMS)."""
     d = q.shape[-1]
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_mqkv_plain(q, k, v, q_pos, k_pos, group=group,
                                 scale=scale, causal=causal, window=window,
                                 state=state, finalize=finalize)
@@ -461,7 +461,7 @@ def flash_mqkv_bwd(q, k, v, o, do, m, l, q_pos, k_pos, *, group=1,
     bhkv, lk, _ = k.shape
     if scale is None:
         scale = d ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_mqkv_bwd_plain(q, k, v, o, do, m, l, q_pos, k_pos,
                                     group=group, scale=scale, causal=causal,
                                     window=window)

@@ -23,6 +23,11 @@ from __future__ import annotations
 
 import torch
 
+# devices on which a wrapper runs its kernel's plain version: the CPU, and
+# ``meta``, where nothing is computed (launch/dryrun.py counts the plain
+# version's operators there); on CUDA a wrapper launches its kernel
+PLAIN_DEVICES = ("cpu", "meta")
+
 NEG_INF = float("-inf")
 
 

@@ -28,6 +28,7 @@ import torch
 from . import _build
 from .flash_mqkv import (ARGTYPES, check_tensor, flash_mqkv_plain,
                          kernel_args, ptr)
+from .ref import PLAIN_DEVICES
 
 _launches = 0
 
@@ -134,7 +135,7 @@ def ring_flash_step(
     v_dst = torch.empty_like(v) if v_dst is None else v_dst
     kw = dict(group=group, scale=scale, causal=causal, window=window,
               state=state, finalize=finalize)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         out = ring_flash_step_plain(q, k, v, q_pos, k_pos, k_dst=k_dst,
                                     v_dst=v_dst, flag=flag, epoch=epoch, **kw)
     elif q.device.type == "cuda":

@@ -40,7 +40,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import WKV_CHUNK, rwkv6_wkv_bwd_plain, rwkv6_wkv_ref, wkv_chunk
+from .ref import PLAIN_DEVICES, WKV_CHUNK, rwkv6_wkv_bwd_plain, rwkv6_wkv_ref, wkv_chunk
 
 SIZES = (8, 16, 32, 64)  # head sizes N and chunks c the kernel takes
 SPLITS = (1, 2, 4)  # blocks of value columns per row the kernel takes
@@ -202,9 +202,11 @@ def _launch(r, k, v, w, u, *, chunk: int) -> torch.Tensor:
 
 
 def _dispatch(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type in PLAIN_DEVICES:
+        return "cpu"
+    if x.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv runs on cpu or cuda, not {x.device}")
-    return x.device.type
+    return "cuda"
 
 
 def rwkv6_wkv(

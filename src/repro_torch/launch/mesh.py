@@ -67,6 +67,16 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
                 resolve_device(device))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device | None = None) -> Mesh:
+    """The reference's production mesh, (data 16, model 16), or (pod 2,
+    data 16, model 16) with ``multi_pod``, as virtual ranks on ``device``
+    (the dry-run runs it on ``meta``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
 def make_host_mesh(model: int = 1, data: int = 1,
                    device: str | torch.device | None = None) -> Mesh:
     """(data, model) mesh, as the reference's ``make_host_mesh``."""

@@ -70,7 +70,7 @@ def init_dit(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Fresh DiT parameters on ``device`` (CUDA by default), drawn from
     ``generator`` (one on that device; seeded with 0 when None)."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":  # meta draws nothing
         generator = torch.Generator(device=device).manual_seed(0)
     b = ParamBuilder(generator, torch_dtype(cfg.dtype), device)
     init_linear(b, "proj_in", LATENT_CHANNELS, cfg.d_model)

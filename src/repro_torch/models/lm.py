@@ -168,7 +168,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     size."""
     _check_family(cfg)
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":  # meta draws nothing
         generator = torch.Generator(device=device).manual_seed(0)
     b = ParamBuilder(generator, torch_dtype(cfg.dtype), device)
     b.add("embed", (cfg.vocab, cfg.d_model), scale=0.02)

@@ -84,7 +84,7 @@ def init_whisper(cfg: ModelConfig, generator: torch.Generator | None = None,
     signature; whisper has no experts."""
     _check_audio(cfg)
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":  # meta draws nothing
         generator = torch.Generator(device=device).manual_seed(0)
     b = ParamBuilder(generator, torch_dtype(cfg.dtype), device)
     b.add("embed", (cfg.vocab, cfg.d_model), scale=0.02)

@@ -338,3 +338,22 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
         if interrupt is not None and interrupt(i):
             return x
     return x
+
+
+
+def toy_vae_decode(latents: torch.Tensor, out_channels: int = 3,
+                   patch: int = 2,
+                   weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Stub VAE decoder: fixed linear map latent tokens -> pixel patches.
+    [B, T, C] -> [B, T * patch**2, out_channels], scaled by 1/√C.  The
+    fixed ``weight`` [C, patch² · out_channels] is drawn from a
+    ``torch.Generator`` seeded 42 on the latents' device unless given (the
+    reference draws it from ``jax.random.PRNGKey(42)``, which torch cannot
+    reproduce: a test hands that weight across)."""
+    b, t, c = latents.shape
+    if weight is None:
+        gen = torch.Generator(device=latents.device).manual_seed(42)
+        weight = torch.randn((c, patch * patch * out_channels), generator=gen,
+                             dtype=latents.dtype, device=latents.device)
+    px = torch.einsum("btc,cp->btp", latents, weight) / (c ** 0.5)
+    return px.reshape(b, t * patch * patch, out_channels)

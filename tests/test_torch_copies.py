@@ -35,6 +35,7 @@ VERBATIM = ["configs/base.py", "configs/flux_12b.py", "configs/rwkv6_1_6b.py",
             *(f"configs/{n}.py" for n in AUDIO_CONFIGS),
             "core/calibration.py",
             "serving/metrics.py",
+            "serving/fleet.py",
             *(f"serving/sched/{n}.py" for n in (
                 "__init__", "admission", "bucketer", "control", "drift",
                 "forecast", "plan_cache", "scheduler"))]
@@ -370,3 +371,25 @@ def test_profiler_pairing_equal():
 
     mine, ref = spans(t_prof, t_met), spans(j_prof, j_met)
     assert mine == ref and mine[0] == 6
+
+
+def test_fleet_cli_is_a_copy():
+    """launch/fleet.py is the reference's below its docstring; the
+    docstring differs only in the usage line's package name."""
+    mine = (ROOT / "repro_torch/launch/fleet.py").read_text()
+    ref = (ROOT / "repro/launch/fleet.py").read_text()
+    end = '"""\nfrom __future__'
+    assert mine[mine.index(end):] == ref[ref.index(end):]
+    assert mine[:mine.index(end)].replace("repro_torch.launch", "repro.launch") \
+        == ref[:ref.index(end)]
+
+
+def test_serving_exports_cover_the_reference():
+    """The port's ``repro_torch.serving`` exports every name the
+    reference's ``repro.serving`` does."""
+    import repro.serving as j_srv
+    import repro_torch.serving as t_srv
+
+    assert set(j_srv.__all__) <= set(t_srv.__all__)
+    for name in t_srv.__all__:
+        assert getattr(t_srv, name) is not None

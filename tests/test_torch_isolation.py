@@ -150,3 +150,14 @@ def test_training_modules_are_covered(name):
     """The training path's and whisper's modules are among those scanned
     and imported (with jax blocked) above."""
     assert f"repro_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("name", [
+    "serving.fleet", "serving.sampler", "launch.fleet", "launch.calibrate",
+    "launch.dryrun", "launch.roofline", "launch.report", "examples",
+    "examples.quickstart", "examples.serve_dit", "examples.generate_text",
+    "examples.train_lm"])
+def test_fleet_tools_and_examples_are_covered(name):
+    """The fleet tier, the offline tools and the examples are among the
+    modules scanned and imported (with jax blocked) above."""
+    assert f"repro_torch.{name}" in MODULES

@@ -170,10 +170,18 @@ def test_cpu_runs_plain_version_without_launching():
 
 
 def test_other_devices_raise():
+    """cpu and meta (shape only: the dry-run counts there) run the plain
+    version, CUDA the kernel; any other device raises."""
+    import types
+
     q = torch.zeros((2, 16, 16), device="meta")
     pos = torch.zeros((16,), dtype=torch.int32, device="meta")
+    o, l, m = fm.flash_mqkv(q, q, q, pos, pos)
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert l.shape == m.shape == (2, 16) and fm.launch_count() == 0
+    other = types.SimpleNamespace(shape=q.shape, device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fm.flash_mqkv(q, q, q, pos, pos)
+        fm._forward(other, other, other, pos, pos)
 
 
 # ---------------------------------------------------------------------------
