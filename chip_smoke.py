@@ -4333,6 +4333,20 @@ EXAMPLE_TRAIN = (30, 32)
 EXAMPLES_BUDGET_S = 45
 TRAIN_SP_LOSS_TOL = 2e-2  # step 0's loss, bf16, SP vs degree 1, relative
 TRAIN_SP_BUDGET_S = 45
+# train-sp-families: the four families over TRAIN_SP_MESH.  (a) a float32
+# layer of each against degree 1; the MoE at a capacity that drops no token
+# and without its load-balance loss: over a mesh that loss is averaged over
+# the ranks' shards (the reference's pmean), not taken over the whole
+# batch, which moves the router's gradient by ~1e-2 of its max at full
+# width (1.396e-2 on the card; 9.3e-4 on the CPU's reduced config, where
+# tests/test_torch_train_sp_state.py holds it to the reference's own SP
+# gradient).  (b) bf16 steps at these depths: rwkv6 whole, qwen2-moe at 2
+# of 24 layers (time and memory: 24 need ~14.3 B parameters)
+TRAIN_SP_FAMILIES = ("rwkv6-1.6b", "hymba-1.5b", "qwen2-moe-a2.7b",
+                     "whisper-tiny")
+TRAIN_SP_NO_DROP = 8.0
+TRAIN_SP_FAMILY_LAYERS = {"rwkv6-1.6b": 24, "qwen2-moe-a2.7b": 2}
+TRAIN_SP_FAMILIES_BUDGET_S = 60
 TRAIN_LAYER_ARCHS = {"qwen2-1.5b": (2, 1, 0, 0), "rwkv6-1.6b": (0, 0, 2, 1),
                      "hymba-1.5b": (2, 1, 0, 0),
                      "qwen2-moe-a2.7b": (2, 1, 0, 0)}
@@ -4789,9 +4803,12 @@ def train_family(results: dict, card: str, arch: str) -> None:
              f"{TRAIN_FAMILIES[arch]}")
     if arch == "rwkv6-1.6b":
         results["train_k5b_launches"] = round(run["counts"][3] * TRAIN_STEPS)
+    results.setdefault("train_degree1", {})[arch] = dict(
+        phase=f"train-{arch.split('-')[0]}", step_ms=run["step_ms"],
+        tokens_s=run["tokens_s"], peak_gib=run["peak_gib"])
 
 
-def train_moe(card: str) -> None:
+def train_moe(results: dict, card: str) -> None:
     """Phase train-moe: ``Trainer`` (make_train_step, AdamW in place) on
     qwen2-moe-a2.7b at full width (60 routed experts top 4 + 4 shared, d
     2048, untied embeddings) and TRAIN_MOE_LAYERS of its 24 layers (all 24
@@ -4843,6 +4860,10 @@ def train_moe(card: str) -> None:
     if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
             or k1 != 2 * cfg.n_layers or k1b != cfg.n_layers):
         fail(f"train-moe: losses {losses} K1 {k1} K1b {k1b}")
+    results.setdefault("train_degree1", {})["qwen2-moe-a2.7b"] = dict(
+        phase=f"train-moe, {cfg.n_layers} of 24 layers",
+        step_ms=round(step_s * 1e3, 1), tokens_s=b * l / step_s,
+        peak_gib=round(peak, 2))
     del params, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -4857,10 +4878,12 @@ def train_sp_counts(layout, ranks: int, n_layers: int) -> dict:
     steps and one K1 step per rank; 3 (P_u - 1) puts (Pull-Q, Pull-KV,
     Push-O).  The backward (core/sp_grad.py): P_r K1b calls per rank; the
     five gathers (q, k, v, o, dO) and three scatters (dq, dk, dv) of
-    P_u - 1 puts each, P_r - 1 KV hops and P_r (dK, dV) hops."""
+    P_u - 1 puts each, P_r - 1 KV hops and P_r (dK, dV) hops (none at
+    P_r 1: the accumulators never leave their owner)."""
     p_u, p_r = layout.p_ulysses, layout.p_ring
     circ = 1 + 2 * (p_u - 1)
-    puts = 2 * 3 * (p_u - 1) + 8 * (p_u - 1) + (p_r - 1) + p_r
+    puts = (2 * 3 * (p_u - 1) + 8 * (p_u - 1) + (p_r - 1)
+            + (p_r if p_r > 1 else 0))
     return {"flash_mqkv": n_layers * 2 * ranks * circ,
             "ring_flash_step": n_layers * 2 * ranks * circ * (p_r - 1),
             "flash_mqkv_bwd": n_layers * ranks * p_r,
@@ -5028,6 +5051,327 @@ def train_sp(results: dict, card: str) -> None:
     del params, opt, tr
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def train_sp_family_counts(cfg, layout, ranks: int, ep: int) -> dict:
+    """Launches that one training step of ``cfg`` (remat "full": each
+    layer's forward runs twice, the backward once) implies over ``ranks``
+    virtual ranks, every put of SP attention a K4 (two SP axes): per
+    attention call (none for rwkv6; one per hymba or moe layer; whisper's
+    encoder self-attention and decoder self- and cross-attention) what
+    ``train_sp_counts`` says; for rwkv6, K5 per rank and forward and K5b
+    per rank; for the moe family at EP ``ep``, the expert exchange on
+    'model' (one axis: K3), ep - 1 puts for each of its three exchanges
+    (tokens, expert ids, outputs) per forward and for the backward of the
+    two that carry a gradient (tokens, outputs).  The token shifts and
+    the state passes of rwkv6 and hymba are plain copies (the reference's
+    ``lax.ppermute``), forward and backward: no put kernel."""
+    layers = cfg.n_layers
+    calls = {"ssm": 0, "audio": cfg.encoder_layers + 2 * layers}.get(
+        cfg.family, layers)
+    counts = (train_sp_counts(layout, ranks, calls) if calls else
+              dict.fromkeys(("flash_mqkv", "ring_flash_step",
+                             "flash_mqkv_bwd", "remote_put",
+                             "landing_copy"), 0))
+    ssm = cfg.family == "ssm"
+    counts["rwkv6_wkv"] = 2 * ranks * layers if ssm else 0
+    counts["rwkv6_wkv_bwd"] = ranks * layers if ssm else 0
+    if cfg.family == "moe":
+        counts["remote_put"] = (2 * 3 + 2) * (ep - 1) * layers
+    return counts
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Paths of ``tree_leaves(tree)``, in its order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def family_grad_gap(cfg, names, got, want) -> tuple[float, str]:
+    """(the largest max|d| / max|ref| over the leaves, its leaf).  Without
+    rotary positions (whisper) a K bias's gradient is 0 in exact
+    arithmetic (it shifts a row of scores by a constant), so both sides
+    hold rounding there: that leaf's max|d| is taken over the largest
+    max|ref| of any leaf, as tests/test_torch_train_sp.py does."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = (0.0, "")
+    for name, g, w in zip(names, got, want):
+        if cfg.rope in ("none", "sinusoidal") and name.endswith("wk/b"):
+            e = float((g - w).abs().max()) / top
+        else:
+            e = rel_err(g, w, floor=0.0)
+        worst = max(worst, (e, name))
+    return worst
+
+
+@contextlib.contextmanager
+def detached_puts():
+    """Every channel put outside SP attention (whose forward runs without
+    a gradient and whose backward is its own) delivers buffers without a
+    gradient function: what the put kernels gave before a put had a
+    gradient (comm/grad.py)."""
+    import torch
+    from repro_torch.comm import grad as put_grad
+    real = put_grad.put_with_grad
+
+    def detached(channel, issue, tensors):
+        with torch.no_grad():
+            return issue(tuple(tensors))
+
+    put_grad.put_with_grad = detached
+    try:
+        yield
+    finally:
+        put_grad.put_with_grad = real
+
+
+def _family_layer(arch: str):
+    """(cfg, params on the CPU, batch on the CPU) of train-sp-families'
+    float32 layer of ``arch``: one layer (whisper: one encoder and one
+    decoder layer) at full width, the LMs' vocabulary cut to
+    TRAIN_LAYER_VOCAB, the MoE at capacity TRAIN_SP_NO_DROP without its
+    load-balance loss (see TRAIN_SP_FAMILIES), constants
+    perturbed, the rwkv6 decays from RWKV6's range, all from
+    TRAIN_LAYER_SEED; B 1 x TRAIN_LAYER_L tokens, whisper B 1 x its 1536
+    frames x WHISPER_BL[1] tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.models import init_lm, init_whisper
+    from repro_torch.train import SyntheticStream
+
+    gen = torch.Generator().manual_seed(TRAIN_LAYER_SEED)
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype="float32")
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, encoder_layers=1)
+        params = init_whisper(cfg, gen, device="cpu")
+        perturb_dense(params, gen)
+        l = WHISPER_BL[1]
+        tokens = torch.randint(0, cfg.vocab, (1, l), generator=gen)
+        batch = {"frames": torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                                       generator=gen) * 0.5,
+                 "tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        return cfg, params, batch
+    cfg = dataclasses.replace(cfg, vocab=TRAIN_LAYER_VOCAB)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=TRAIN_SP_NO_DROP, router_aux_coef=0.0))
+    ep = TRAIN_SP_MESH[0][TRAIN_SP_MESH[1].index("model")]
+    params = init_lm(cfg, gen, device="cpu",
+                     ep_degree=ep if cfg.family == "moe" else 1)
+    if cfg.family == "ssm":
+        perturb_rwkv(params, gen)
+    perturb_lm(params, gen)
+    batch = SyntheticStream(cfg, InputShape("t", TRAIN_LAYER_L, 1, "training"),
+                            seed=TRAIN_LAYER_SEED).batch(0, "cpu")
+    return cfg, params, batch
+
+
+def train_sp_families(results: dict, card: str) -> None:
+    """Phase train-sp-families: rwkv6-1.6b, hymba-1.5b, qwen2-moe-a2.7b and
+    whisper-tiny trained over the virtual mesh TRAIN_SP_MESH, SP over both
+    axes, swift_torus, comm_backend "pallas": SP attention through
+    core/sp_grad.py (K1/K2 forward, K1b backward, K4 puts), and every
+    other transfer a differentiable put (comm/grad.py): the token shifts
+    and state passes of rwkv6 and hymba, plain copies both ways, and the
+    MoE's expert exchange at EP 2 over 'model', K3 both ways.
+
+    (a) One full-width float32 layer of each (``_family_layer``): every
+    parameter's gradient over the mesh within TRAIN_TOL of that tensor's
+    max|grad| at degree 1 on the card (whisper's K biases, 0 in exact
+    arithmetic, of the largest: ``family_grad_gap``)
+    (K5/K5b on both sides for rwkv6), the loss too; the gradient gate; the
+    launches ``train_sp_family_counts`` implies; for rwkv6, hymba and the
+    MoE a negative control, every put outside SP attention detached
+    (``detached_puts``), that must break that tolerance.
+    (b) rwkv6-1.6b at full width and depth and qwen2-moe-a2.7b at
+    TRAIN_SP_FAMILY_LAYERS of its 24 layers (EP 2), bf16, B 4 x L 1024,
+    remat "full", Trainer in process from the seed's init (rwkv6's
+    zero-initialised tensors drawn as ``perturb_rwkv`` draws them: at the
+    fresh init wlora_a has no gradient): the gradient
+    gate on step 0's parameters and batch, one warm-up step,
+    TRAIN_SP_STEPS timed steps; every loss finite, step 0's within
+    TRAIN_SP_LOSS_TOL of the degree-1 loss on the same parameters and
+    batch, the launches per step the counts imply; step time, tokens/s
+    and peak memory beside train-rwkv6's and train-moe's degree 1.  The
+    phase fails past TRAIN_SP_FAMILIES_BUDGET_S."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import SPConfig
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.kernels import flash_mqkv as fm
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext, get_model
+    from repro_torch.models.moe import ep_degree
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    wkv = wkv_module()
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    mesh = make_mesh(*TRAIN_SP_MESH, device="cuda")
+    sp = sp_config(TRAIN_SP_MESH[1])
+    ranks, ep = mesh.axes_size(sp.sp_axes), ep_degree(mesh)
+
+    def counts_now():
+        c = read_counts()
+        c["flash_mqkv_bwd"] = fm.bwd_launch_count()
+        c["rwkv6_wkv"] = wkv.launch_count()
+        c["rwkv6_wkv_bwd"] = wkv.bwd_launch_count()
+        return c
+
+    def reset_all():
+        reset_counts()
+        for mod in (fm, wkv):
+            mod.reset_bwd_launch_count()
+        wkv.reset_launch_count()
+
+    def expected(cfg):
+        layout = (resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
+                  if cfg.family != "ssm" else None)
+        return train_sp_family_counts(cfg, layout, ranks, ep), layout
+
+    # (a) one float32 layer of each family: over the mesh against degree 1
+    total = dict.fromkeys(counts_now(), 0)
+    for arch in TRAIN_SP_FAMILIES:
+        t0 = time.perf_counter()
+        cfg, params, batch = _family_layer(arch)
+        bundle = get_model(cfg)
+        names = leaf_names(params)
+        want_counts, layout = expected(cfg)
+        _, loss1, want = _grads(bundle, params, batch, cfg, cuda)
+        reset_all()
+        _, loss_sp, got = _grads(bundle, params, batch, cfg, cuda, mesh=mesh,
+                                 sp=sp)
+        torch.cuda.synchronize()
+        counts = counts_now()
+        total = {k: total[k] + n for k, n in counts.items()}
+        gradient_gate(f"train-sp-families {arch}", got)
+        tol = TRAIN_TOL
+        worst, where = family_grad_gap(cfg, names, got, want)
+        loss_err = abs(float(loss_sp) - float(loss1)) / abs(float(loss1))
+        control = None
+        if cfg.family != "audio":
+            with detached_puts():
+                _, _, dropped = _grads(bundle, params, batch, cfg, cuda,
+                                       mesh=mesh, sp=sp)
+            control, _ = family_grad_gap(cfg, names, dropped, want)
+            del dropped
+        plan = ("" if layout is None else f", swift_torus P_u "
+                f"{layout.p_ulysses} x P_r {layout.p_ring}")
+        depth = (f"{cfg.encoder_layers} + {cfg.n_layers} layers"
+                 if cfg.family == "audio" else "1 layer")
+        log(f"train-sp-families {arch} {depth} d={cfg.d_model} fp32 over "
+            f"{ranks} ranks{plan}"
+            + (f", EP {ep} capacity {TRAIN_SP_NO_DROP}, no load-balance "
+               "loss" if cfg.family == "moe" else "")
+            + f": loss {float(loss_sp):.6f} (degree 1 {float(loss1):.6f}, "
+            f"rel {loss_err:.2e}), worst gradient max|d|/max|ref| against "
+            f"degree 1 on the card {worst:.3e} ({where}) over {len(got)} "
+            f"tensors (tol {tol})"
+            + ("" if control is None else
+               f"; negative control (puts outside SP attention detached) "
+               f"{control:.3e} (must exceed {tol})")
+            + f"; launches {counts} (expected {want_counts}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (worst <= tol and loss_err <= tol and counts == want_counts
+                and (control is None or control > tol)):
+            fail(f"train-sp-families {arch}: worst {worst}, loss {loss_err}, "
+                 f"control {control}, launches {counts} (expected "
+                 f"{want_counts})")
+        results.setdefault("train_sp_families_err", {})[arch] = worst
+        del params, got, want
+    # every kernel of the path ran in (a)
+    idle = [k for k, n in total.items() if n <= 0]
+    if idle:
+        fail(f"train-sp-families: {idle} never launched")
+    results["train_sp_families_launches"] = total
+
+    # (b) bf16 steps through the Trainer, in process
+    b, l = TRAIN_BL
+    runs = {}
+    for arch, layers in TRAIN_SP_FAMILY_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, mesh, sp, InputShape("cli", l, b, "training"),
+                     opt_cfg=AdamWConfig(total_steps=1 + TRAIN_SP_STEPS))
+        params, opt = tr.setup()
+        if cfg.family == "ssm":
+            # at the fresh init the LoRA's wlora_b is 0, so wlora_a has no
+            # gradient: draw the tensors init leaves at zero, in place
+            drawn = tree_map(lambda t: t.detach().clone(), params)
+            perturb_rwkv(drawn, torch.Generator(device=cuda).manual_seed(
+                TRAIN_LAYER_SEED))
+            with torch.no_grad():
+                for t, d in zip(tree_leaves(params), tree_leaves(drawn)):
+                    t.copy_(d)
+            del drawn
+        bundle = get_model(cfg)
+        batch0 = tr.stream.batch(0, cuda)
+        with torch.no_grad():
+            loss1, _ = bundle.loss(params, batch0, cfg, ParallelContext(
+                SPConfig(strategy="full"), "train", cuda))
+        loss_gate, _ = bundle.loss(params, batch0, cfg,
+                                   ParallelContext(sp, "train", mesh=mesh))
+        gradient_gate(f"train-sp-families {arch}", torch.autograd.grad(
+            loss_gate, tree_leaves(params), allow_unused=True))
+        del loss_gate
+        losses, times = [], []
+        for step in range(1 + TRAIN_SP_STEPS):  # step 0: the warm-up
+            if step == 1:
+                reset_all()
+            ts = time.perf_counter()
+            params, opt, metrics = tr.step_fn(params, opt,
+                                              tr.stream.batch(step, cuda))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+            losses.append(float(metrics["loss"]))
+        counts = {k: n / TRAIN_SP_STEPS for k, n in counts_now().items()}
+        want_counts, layout = expected(cfg)
+        step_s = statistics.median(times[1:])
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        loss0_err = abs(losses[0] - float(loss1)) / abs(float(loss1))
+        deg1 = results["train_degree1"][arch]
+        cut = (f"{layers} of {get_config(arch).n_layers} layers"
+               if layers < get_config(arch).n_layers else f"{layers} layers")
+        log(f"train-sp-families {arch} {cut} d={cfg.d_model} bf16 B={b} "
+            f"L={l} over {ranks} ranks"
+            + (f" (EP {ep})" if cfg.family == "moe" else "")
+            + f": losses {[round(x, 4) for x in losses]} (step 0 "
+            f"{losses[0]:.6f}, degree 1 on the same parameters and batch "
+            f"{float(loss1):.6f}, rel {loss0_err:.2e}, tol "
+            f"{TRAIN_SP_LOSS_TOL}), median step {step_s * 1e3:.1f} ms over "
+            f"{TRAIN_SP_STEPS} steps (warm-up {times[0]:.2f} s), "
+            f"{b * l / step_s:.0f} tokens/s, peak {peak:.2f} GiB of its own; "
+            f"degree 1 ({deg1['phase']}): {deg1['step_ms']} ms, "
+            f"{deg1['tokens_s']:.0f} tokens/s, {deg1['peak_gib']} GiB; "
+            f"launches per step {counts} (expected {want_counts}) [{card}]")
+        if (not all(map(math.isfinite, losses))
+                or loss0_err > TRAIN_SP_LOSS_TOL or counts != want_counts):
+            fail(f"train-sp-families {arch}: losses {losses}, step 0 vs "
+                 f"degree 1 {loss0_err}, launches {counts} (expected "
+                 f"{want_counts})")
+        runs[arch] = dict(step_ms=round(step_s * 1e3, 1), peak_gib=peak)
+        del params, opt, tr, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"train-sp-families phase {phase_s:.1f} s (budget "
+        f"{TRAIN_SP_FAMILIES_BUDGET_S} s)")
+    if phase_s > TRAIN_SP_FAMILIES_BUDGET_S:
+        fail(f"train-sp-families: phase {phase_s} s over its budget")
+    results["train_sp_families_runs"] = runs
 
 
 def train_breakdown(card: str, arch: str = "qwen2-1.5b",
@@ -5707,10 +6051,13 @@ def main() -> int:
         train_family(results, card, arch)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s after train "
             f"{arch}")
-    train_moe(card)
+    train_moe(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_moe")
     train_sp(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after train_sp")
+    train_sp_families(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after "
+        "train_sp_families")
     examples_phase(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after examples")
 
@@ -5732,6 +6079,8 @@ def main() -> int:
     main_shape = (48, 4352)
     launches = results["launches"]
     sp_train = results["train_sp_launches"]
+    # the (a) part of train-sp-families: each family's one-layer step
+    fam = results["train_sp_families_launches"]
     kernels = [
         kernel_row("flash_mqkv", "src/repro_torch/csrc/flash_mqkv.cu",
                    "src/repro/kernels/flash_mqkv.py:104",
@@ -5742,27 +6091,30 @@ def main() -> int:
                    launches["ring_flash_step"], results["k2_err"], k2),
         kernel_row("remote_put", "src/repro_torch/csrc/one_sided.cu",
                    "src/repro/comm/pallas_backend.py:134",
-                   results["launches_model16"]["remote_put"],
+                   results["launches_model16"]["remote_put"]
+                   + fam["remote_put"],
                    results["put_err"]["remote_put"], puts["remote_put"]),
         kernel_row("landing_copy", "src/repro_torch/csrc/one_sided.cu",
                    "src/repro/comm/pallas_backend.py:83",
-                   launches["landing_copy"] + sp_train["landing_copy"],
+                   launches["landing_copy"] + sp_train["landing_copy"]
+                   + fam["landing_copy"],
                    results["put_err"]["landing_copy"], puts["landing_copy"]),
         kernel_row("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
-                   "src/repro/kernels/rwkv6_wkv.py:81", results["lm_launches"],
+                   "src/repro/kernels/rwkv6_wkv.py:81",
+                   results["lm_launches"] + fam["rwkv6_wkv"],
                    results["k5_err"][LM_PREFILL[0]], k5),
         # K1b replaces no Pallas kernel: the reference differentiates plain
         # attention with XLA
         kernel_row("flash_mqkv_bwd", "src/repro_torch/csrc/flash_mqkv_bwd.cu",
                    "src/repro/core/softmax.py:199",
                    results["train_k1b_launches"]
-                   + sp_train["flash_mqkv_bwd"],
+                   + sp_train["flash_mqkv_bwd"] + fam["flash_mqkv_bwd"],
                    results["k1b_err"]["qwen2-train"], k1b["qwen2-train"]),
         # K5b replaces no Pallas kernel either: the reference differentiates
         # its plain chunked scan with XLA
         kernel_row("rwkv6_wkv_bwd", "src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
                    "src/repro/models/ssm.py:50",
-                   results["train_k5b_launches"],
+                   results["train_k5b_launches"] + fam["rwkv6_wkv_bwd"],
                    results["k5b_err"]["rwkv6-train"], k5b),
     ]
     for row in kernels:

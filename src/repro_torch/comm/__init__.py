@@ -14,6 +14,8 @@ of ``src/repro/comm``).
   kernel_backend — the ``comm_backend="pallas"`` lowering: the put
                    kernels K3 (direct put) and K4 (landing copy) with
                    per-tensor signal words.
+  grad           — the gradient of a put: the put of the cotangents
+                   along the inverse route, through the same lowering.
   trace          — records the intended schedule and validates its routes,
                    its overlap (on the host order of an eager program) and
                    its semaphore protocol.

@@ -26,7 +26,9 @@ returns an ``InFlight`` handle whose payload is the receive buffers.
 Streams (stream.py) compose channels into staged transfer programs;
 trace.py records every put, wait and signal for ``validate`` and
 ``validate_semaphores``, and under an active profiler (profiler.py) each
-put is one leg observed at its issue, signal and wait.  Between cards
+put is one leg observed at its issue, signal and wait.  Under a gradient
+a put is differentiable (grad.py): its backward is a put of the
+cotangents along the inverse route, through the same lowering.  Between cards
 (one process per card) the puts are not modelled yet: ROADMAP Queue 1
 item 8.
 """
@@ -155,8 +157,20 @@ class Channel:
 
         Several tensors ride one put (K and V travel together).  The
         returned handle's payload is the receive buffers, one rank list per
-        tensor: ``payload[i][perm[s]]`` holds ``tensors[i][s]``.
+        tensor: ``payload[i][perm[s]]`` holds ``tensors[i][s]``.  When a
+        payload tensor wants a gradient, the put runs inside
+        ``grad.Put``, whose backward puts the cotangents along the
+        inverse route; otherwise nothing is added.
         """
+        from . import grad as _grad
+
+        if _grad.wants_grad(tensors):
+            return _grad.put_with_grad(
+                self, lambda ts: self._put(ts, overlaps), tensors)
+        return self._put(tensors, overlaps)
+
+    def _put(self, tensors: tuple[RankList, ...],
+             overlaps: str) -> "InFlight":
         if self.backend == "pallas":
             return self._put_kernel(tensors, overlaps)
         from . import kernel_backend as _kb

@@ -106,7 +106,7 @@ def sp_attention_bwd(
 ) -> tuple[RankList, RankList, RankList]:
     """(dq, dk, dv) of every rank, sequence-sharded as q, k and v, from
     the forward's output and row statistics (see the module docstring)."""
-    ls, d = q[0].shape[1], q[0].shape[-1]
+    ls, lk, d = q[0].shape[1], k[0].shape[1], q[0].shape[-1]
     if scale is None:
         scale = d ** -0.5
     dev = q[0].device
@@ -120,7 +120,9 @@ def sp_attention_bwd(
                            for xs in (qg, kg, vg, og, dog))
     mf = [x.reshape(b * h, lg).contiguous() for x in m]
     lf = [x.reshape(b * h, lg).contiguous() for x in l]
-    pos = [group_positions(layout, ls, r, dev).to(torch.int32)
+    # each of q and K/V at its own shard length (Lq != Lk: cross-attention)
+    pos = [(group_positions(layout, ls, r, dev).to(torch.int32),
+            group_positions(layout, lk, r, dev).to(torch.int32))
            for r in range(layout.p_ring)]
     # 2. the ring backward
     dqf, dkf, dvf = _ring_backward(
@@ -129,7 +131,7 @@ def sp_attention_bwd(
 
     # 3. the heads-to-sequence all-to-alls, in the inputs' dtypes
     def back(xs, heads, dtype):
-        return scatter_o([x.to(dtype).reshape(b, heads, lg, d).transpose(1, 2)
+        return scatter_o([x.to(dtype).reshape(b, heads, -1, d).transpose(1, 2)
                           for x in xs], layout, **comm)
 
     return (back(dqf, h, q[0].dtype), back(dkf, hkv, k[0].dtype),
@@ -143,8 +145,8 @@ def _ring_backward(qf, kf, vf, of, dof, m, l, pos, layout, *, group, scale,
     (its hop for step s + 1 issued before step s's K1b calls), and after
     each step the chunk's float32 (dK, dV) accumulator follows it, so that
     after the last step's put every accumulator is back at its owner.
-    ``pos[r]`` is the gathered sequence's positions at ring coordinate r:
-    rank p's q rows and the chunk that ring rank r owns."""
+    ``pos[r]`` is the gathered sequence's (q, K/V) positions at ring
+    coordinate r: rank p's q rows and the chunk that ring rank r owns."""
     p_r = layout.p_ring
     ranks = range(len(qf))
     my_r = [layout.coords(p)[1] for p in ranks]
@@ -164,7 +166,7 @@ def _ring_backward(qf, kf, vf, of, dof, m, l, pos, layout, *, group, scale,
                 owner = (my_r[p] - s) % p_r
                 gq, gk, gv = flash_mqkv_bwd(
                     qf[p], kc[p], vc[p], of[p], dof[p], m[p], l[p],
-                    pos[my_r[p]], pos[owner], group=group, scale=scale,
+                    pos[my_r[p]][0], pos[owner][1], group=group, scale=scale,
                     causal=causal, window=window)
                 dq[p] += gq
                 dk[p] += gk

@@ -150,13 +150,13 @@ def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
     technique crosses (that single bit is the paper's §4.2 contribution).
     ``return_stats`` also returns each rank's final (m, l), as
     ``torus_attention`` does."""
-    ls = q[0].shape[1]
+    lk = k[0].shape[1]  # the K/V shard's own length (cross-attention)
     dev = q[0].device
     g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret,
                    wire_dtype=wire_dtype)
 
     def kpos_fn(p, owner_r):
-        return group_positions(layout, ls, owner_r, dev)
+        return group_positions(layout, lk, owner_r, dev)
 
     parts = ring_attention(
         g.q, g.k, g.v, layout,
@@ -204,10 +204,10 @@ def sp_attention(
     if q.shape[0] % slices:
         raise ValueError(f"batch {q.shape[0]} does not split evenly over "
                          f"{slices} batch slices (as shard_map requires)")
-    seq = q.shape[1]
-    if seq % sp:
-        raise ValueError(f"sequence length {seq} does not split evenly over "
-                         f"SP degree {sp} (as shard_map requires)")
+    for seq in {q.shape[1], k.shape[1]}:
+        if seq % sp:
+            raise ValueError(f"sequence length {seq} does not split evenly "
+                             f"over SP degree {sp} (as shard_map requires)")
 
     layout = resolve_layout(cfg, mesh, q.shape[2], k.shape[2])
     if cfg.replicate_kv and layout.p_ulysses > 1:

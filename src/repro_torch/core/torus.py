@@ -96,10 +96,12 @@ def torus_attention(
     p_u, p_r = layout.p_ulysses, layout.p_ring
     ranks = range(len(q))
     b, ls, hq, d = q[0].shape
+    lk = k[0].shape[1]  # the K/V shard's own length (cross-attention)
     h = hq // p_u
     dev = q[0].device
     coords = [layout.coords(p) for p in ranks]
     ar = torch.arange(ls, device=dev)
+    ark = torch.arange(lk, device=dev)
     ring_kw = dict(scale=scale, causal=causal, window=window,
                    kv_block=kv_block, backend=backend, interpret=interpret)
 
@@ -114,7 +116,7 @@ def torus_attention(
 
     def diag_kpos_fn(p: int, owner_r: int) -> torch.Tensor:
         # position of rank p's diagonal KV chunk as it circulates the ring
-        return _rank_of(layout, coords[p][0], owner_r) * ls + ar
+        return _rank_of(layout, coords[p][0], owner_r) * lk + ark
 
     def send(chunks, kstage):
         return [chunks[p][(u + kstage) % p_u] for p, (u, _) in enumerate(coords)]
@@ -181,7 +183,7 @@ def torus_attention(
         srcs = [(u - kstage) % p_u for u, _ in coords]
 
         def kpos_fn(p: int, owner_r: int, srcs=srcs) -> torch.Tensor:
-            return _rank_of(layout, srcs[p], owner_r) * ls + ar
+            return _rank_of(layout, srcs[p], owner_r) * lk + ark
 
         parts = ring_attention(q_gather, k_recv, v_recv, layout,
                                q_pos=q_pos_all, k_pos_fn=kpos_fn, **ring_kw)

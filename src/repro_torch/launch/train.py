@@ -12,13 +12,12 @@ activation-checkpoint policy: full, dots or none) and ``--log-every``
 (the reference logs every 10th step).  ``--reduced`` trains
 the reduced config in float32, as the reference's.  Every family
 trains (the LMs: dense, vlm, rwkv6, hybrid, moe; whisper; the DiTs) at
-SP degree 1 on one device.  ``--model`` or ``--data`` above 1 and the
-``pod`` / ``multipod`` meshes train over a mesh of virtual ranks on the
-one device (launch/mesh.py ``launch_mesh``: ``pod`` is (pod 2, model 8),
-SP over both axes; ``--strategy`` picks the SP schedule, run through the
-put kernels); over a mesh the rwkv6, hybrid, moe and audio families are
-refused (train/trainer.py ``check_trainable``: ROADMAP Queue 1
-item 7).  It prints the mesh and its (P_u x P_r) plan, the reference's
+SP degree 1 on one device, and over a mesh of virtual ranks on the one
+device with ``--model`` or ``--data`` above 1 or the ``pod`` /
+``multipod`` meshes (launch/mesh.py ``launch_mesh``: ``pod`` is (pod 2,
+model 8), SP over both axes; ``--strategy`` picks the SP schedule, run
+through the put kernels; the moe family's experts split over 'model').
+It prints the mesh and its (P_u x P_r) plan, the reference's
 line per logged step, then one line with the median step time (host
 clock, the device synchronised at each step's end), tokens per second and
 the peak device memory, and on CUDA one line with the launches per step
@@ -47,7 +46,6 @@ from ..kernels.rwkv6_wkv import (bwd_launch_count as k5b_count,
                                  reset_launch_count as reset_k5)
 from ..models.blocks import REMAT_POLICIES
 from ..train import AdamWConfig, Trainer
-from ..train.trainer import check_trainable
 from .mesh import launch_mesh
 
 
@@ -81,7 +79,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.mesh != "host" or args.model > 1 or args.data > 1:
         mesh, sp = launch_mesh(args.mesh, args.model, args.data,
                                args.strategy, args.device)
-        check_trainable(cfg, mesh)
         plan = (resolve_layout(sp, mesh, cfg.n_heads, cfg.n_kv_heads)
                 if sp.strategy != "full" else None)
         print(f"mesh: {dict(mesh.shape)} of virtual ranks on {mesh.device}, "

@@ -35,9 +35,10 @@ The reference runs the layers in one ``lax.scan`` over stacked weights;
 here they are a Python loop over a list of per-layer dicts, and caches
 stay stacked on a leading layer axis, as the reference's.  In train mode
 each layer runs under ``ctx.remat_wrap`` (activation checkpointing), as
-the reference's scan body does; every family trains at SP degree 1 (the
-WKV scan's gradient is K5b, attention's K1b; train/trainer.py refuses a
-mesh).  Whisper is models/whisper.py.
+the reference's scan body does; every family trains, at SP degree 1 and
+over a mesh (the WKV scan's gradient is K5b, attention's K1b, and the
+token shifts' and state passes' puts are differentiable, comm/grad.py).
+Whisper is models/whisper.py.
 """
 from __future__ import annotations
 

@@ -19,7 +19,11 @@ group (the mesh's last axis, so a group is consecutive ranks), so with
 kernel K3 (``kernel_interpret=False``: the route has one axis) or K4.  The owner runs its experts
 over capacity-bounded buffers and the outputs travel back by the same
 exchange.  The reference's three ``lax.all_to_all`` are three exchanges
-here (tokens, expert ids, outputs).
+here (tokens, expert ids, outputs).  In training the exchange has a
+gradient, as the reference's all-to-all has its transpose: each put of
+the tokens and of the outputs runs under ``comm/grad.py:Put``, whose
+backward puts the cotangents back along the inverse route through the
+same kernel (K3 or K4), so each token's gradient returns to its rank.
 
 Decode (tokens replicated over 'model'): each EP rank computes its
 experts' contribution to every token and the contributions are summed

@@ -15,7 +15,10 @@ sharded over the SP ranks with a **two-pass distributed prefix scan**
   pass 2 (local)   : outputs = outputs₀ + influence(S_in)
 
 The composition ((a₂,b₂)∘(a₁,b₁) = (a₂a₁, a₂b₁+b₂)) is associative, so the
-cross-rank pass is exact.
+cross-rank pass is exact.  Its shifts are puts with a gradient
+(comm/grad.py): in training the backward puts each received summary's
+cotangent back to its sender, as JAX transposes the reference's
+``lax.ppermute``.
 
 Two chunk scans, as in the reference:
   * rwkv6 (Finch): per-channel decay, state [N_k, N_v] per head (its

@@ -7,7 +7,9 @@ embeddings [B, encoder_seq, d_model].  Everything else is real:
 sinusoidal positions, a bidirectional encoder, a causal decoder with
 cross-attention to the encoder's output (``blocks.attention`` with
 ``xkv``: K and V from the memory, no rotation, Lq != Lk).  Every
-attention runs through K1 (and K1b in training) at SP degree 1.
+attention runs through K1 (and K1b in training) at SP degree 1; over a
+mesh every one is the SP schedule (core/sp_grad.py in training), the
+cross-attention's K/V shards at the memory's own length.
 
 Decode: the self-attention KV caches [n_layers, B, max_len, Hkv, D] are
 written in place at ``cur_index`` through ``core.decode_attention``, as

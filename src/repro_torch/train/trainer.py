@@ -6,23 +6,20 @@ under the context's activation checkpointing), ``torch.autograd.grad``
 over the parameters, then ``adamw_update`` in place.  ``Trainer`` drives
 steps, metrics and checkpointing.
 
-Every family trains at SP degree 1 on one device: dense, vlm, audio
-(whisper), dit, the rwkv6 family (ssm: the WKV scan's gradient is K5b),
-hybrid (hymba: attention through K1/K1b, the SSD scan in plain torch) and
-moe (at EP 1 the expert exchange is the identity, so no put kernel lies
-on the path).
-
-Over a mesh of virtual ranks (``mesh``, with ``sp`` naming its SP and
-batch axes) the attention-only families train: dense, vlm and dit.  Their
-attention is the SP schedule, differentiated as a whole
-(core/sp_grad.py: K1b per KV chunk, the all-to-alls and ring hops through
-the put kernels K3/K4).  The data axis needs no code: every virtual rank
-lives in this process and reads the one set of parameters, so autograd
-sums the ranks' gradients.  Refused over a mesh, naming ROADMAP Queue 1
-item 7: rwkv6 and hybrid (their cross-rank state passes have no
-backward yet), moe on every mesh (the expert exchange has no backward at
-EP > 1, and no test holds its gradient over a mesh at EP 1) and audio
-(whisper's cross-attention under SP has no parity test).
+Every family trains, at SP degree 1 on one device and over a mesh of
+virtual ranks (``mesh``, with ``sp`` naming its SP and batch axes): dense,
+vlm, audio (whisper), dit, the rwkv6 family (ssm: the WKV scan's gradient
+is K5b), hybrid (hymba: attention through K1/K1b, the SSD scan in plain
+torch) and moe.  Over a mesh, attention is the SP schedule,
+differentiated as a whole (core/sp_grad.py: K1b per KV chunk, the
+all-to-alls and ring hops through the put kernels K3/K4), whisper's
+cross-attention too (Lq != Lk); every other transfer is a channel put,
+differentiable on its own (comm/grad.py: the backward puts the cotangents
+along the inverse route): rwkv6's token shifts, the cross-rank state
+passes of rwkv6 and hymba, and the moe family's expert-parallel exchange
+at EP > 1.  The data axis needs no code: every virtual rank lives in this
+process and reads the one set of parameters, so autograd sums the ranks'
+gradients.
 
 The reference's ``batch_shardings`` has no counterpart: the whole batch
 lives on the one device and ``sp_attention`` splits it per rank.
@@ -38,32 +35,11 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import InputShape
 from ..core import SPConfig
 from ..models import ParallelContext, get_model, resolve_device
+from ..models.moe import ep_degree
 from . import checkpoint as ckpt_lib
 from .data import SyntheticStream
 from .optimizer import (AdamWConfig, AdamWState, adamw_update, init_adamw,
                         tree_leaves, tree_map)
-
-TRAIN_ITEM = "ROADMAP Queue 1 item 7"
-
-
-def check_trainable(cfg: ModelConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what the port cannot train yet over a
-    mesh of more than one rank: the rwkv6, hybrid, moe and audio families
-    (moe on every mesh: no test holds its gradient over one, even at
-    EP 1)."""
-    if mesh is None or mesh.size == 1:
-        return
-    why = {"ssm": "the backward of the distributed WKV state pass",
-           "hybrid": "the backward of the distributed SSD state pass",
-           "moe": "the backward of the expert-parallel exchange and a "
-                  "parity test over a mesh",
-           "audio": "a parity test of whisper's attention under SP"
-           }.get(cfg.family)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id} over a mesh of {mesh.size} virtual ranks needs "
-            f"{why} ({TRAIN_ITEM})")
-
 
 def make_train_step(cfg: ModelConfig, mesh, sp: SPConfig,
                     opt_cfg: AdamWConfig, remat: str = "full",
@@ -72,7 +48,6 @@ def make_train_step(cfg: ModelConfig, mesh, sp: SPConfig,
     params and moments updated in place.  ``mesh`` is None for one device
     (``device``, CUDA by default) or a mesh of virtual ranks, whose device
     it is then."""
-    check_trainable(cfg, mesh)
     bundle = get_model(cfg)
     ctx = ParallelContext(sp, "train", device=device, mesh=mesh, remat=remat)
 
@@ -103,12 +78,14 @@ class Trainer:
     remat: str = "full"
 
     def setup(self):
-        check_trainable(self.cfg, self.mesh)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(self.device))
         bundle = get_model(self.cfg)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        params = bundle.init(self.cfg, gen, self.device)
+        # the moe family's experts padded to split over the EP axis
+        kw = ({"ep_degree": ep_degree(self.mesh)}
+              if self.cfg.family == "moe" else {})
+        params = bundle.init(self.cfg, gen, self.device, **kw)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         opt_state = init_adamw(params)

@@ -133,7 +133,7 @@ def test_roadmap_pointers_name_open_items():
         text = re.sub(r"\s*\n\s*(#|//)?\s*", " ", text)
         for m in re.finditer(r"ROADMAP Queue (\d+),? items? (\w+)", text):
             refs.append((path.relative_to(SRC), m.group(1), m.group(2)))
-    assert len(refs) >= 10
+    assert len(refs) >= 7
     for where, queue, item in refs:
         assert item.isdigit(), (where, queue, item)
         got = queues.get(int(queue), {}).get(int(item))

@@ -361,11 +361,41 @@ def test_lower_pair_extrapolates_what_it_would_count_directly():
     assert direct["roofline"]["model_flops"] == dr.model_flops(cfg, shape)
 
 
-def test_dryrun_cli_reports_what_cannot_run(tmp_path, capsys):
+def test_dryrun_cli_reports_what_cannot_run(tmp_path, capsys, monkeypatch):
+    """A pair that raises prints FAIL with its reason, and the summary
+    counts it (a pair made to fail: every family now counts)."""
+    def refuse(arch, *args, **kw):
+        raise NotImplementedError(f"{arch} cannot be counted")
+
+    monkeypatch.setattr(dr, "lower_pair", refuse)
     rc = dr.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k",
                   "--out", str(tmp_path)])
     out = capsys.readouterr().out
     assert rc == 1
-    assert ("FAIL rwkv6-1.6b_train_4k_pod_swift_torus: NotImplementedError:"
-            in out) and "ROADMAP Queue 1 item 7" in out
+    assert ("FAIL rwkv6-1.6b_train_4k_pod_swift_torus: NotImplementedError: "
+            "rwkv6-1.6b cannot be counted" in out)
     assert "dry-run complete: 0 ok, 1 failed" in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "qwen2-moe-a2.7b"])
+def test_training_pairs_of_the_state_families_count(arch):
+    """A training pair of the families that once could not train over a
+    mesh counts on a small one: FLOPs, bytes and put bytes (the token
+    shifts and state passes of rwkv6, the expert exchange of the MoE at
+    EP 2) per rank, directly and as the two-point extrapolation (the
+    FLOPs and put bytes linear in depth)."""
+    cfg = dataclasses.replace(get_reduced(arch), n_layers=2)
+    mesh = make_mesh((2, 2), ("data", "model"), "meta")
+    shape = InputShape("t", 32, 2, "training")
+    res = dr.lower_pair(arch, "t", mesh, "swift_torus", cfg=cfg, shape=shape)
+    ext = dr.lower_pair(arch, "t", mesh, "swift_torus", cfg=cfg, shape=shape,
+                        direct_s=0.0)
+    assert res["depth"] == "direct"
+    assert res["cost"]["flops"] > 0 and res["cost"]["bytes accessed"] > 0
+    assert res["roofline"]["collective_bytes"] > 0
+    assert ext["cost"]["flops"] == res["cost"]["flops"]
+    assert (ext["roofline"]["collective_bytes"]
+            == res["roofline"]["collective_bytes"])
+    # a few hundred bytes of per-step terms do not scale with depth
+    assert abs(ext["cost"]["bytes accessed"] / res["cost"]["bytes accessed"]
+               - 1) < 1e-4

@@ -50,13 +50,11 @@ from repro_torch.core import SPConfig
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.flash_mqkv import flash_mqkv, flash_mqkv_plain
 from repro_torch.kernels.ref import flash_mqkv_bwd_plain
-from repro_torch.launch import make_mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import ParallelContext, get_model
 from repro_torch.models.blocks import params_from_numpy
 from repro_torch.train import (AdamWConfig, SyntheticStream, Trainer,
-                               adamw_update, checkpoint, init_adamw,
-                               make_train_step)
+                               adamw_update, checkpoint, init_adamw)
 from repro_torch.train.optimizer import schedule, tree_leaves, tree_map
 
 CPU = torch.device("cpu")
@@ -471,19 +469,22 @@ def test_launch_train_reduced_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--model", "2"], ["--data", "2"],
                                    ["--mesh", "pod"]])
-def test_meshes_are_refused(flags):
-    """Over every mesh the launcher refuses rwkv6, hymba and qwen2-moe (at
-    EP > 1 with --model 2 and --mesh pod, at EP 1 with --data 2), naming
-    the ROADMAP item; make_train_step refuses them as well.  (qwen2-1.5b
-    trains over these meshes: tests/test_torch_train_sp.py.)"""
+def test_meshes_are_refused(flags, capsys):
+    """Over every mesh the launcher once refused rwkv6, hymba and
+    qwen2-moe (ROADMAP Queue 1 item 7, done): now it trains each of them
+    one step over it, reduced, on the CPU (the moe family at EP 2 with
+    --model 2, EP 8 with --mesh pod and EP 1 with --data 2).  Their
+    gradients over a mesh are held to the reference's in
+    tests/test_torch_train_sp_state.py."""
     for arch in ("rwkv6-1.6b", "hymba-1.5b", "qwen2-moe-a2.7b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            launch_train.main(["--arch", arch, "--reduced", "--device",
-                               "cpu", "--steps", "1", *flags])
-    cfg, _ = _cfgs("rwkv6-1.6b")
-    mesh = make_mesh((2,), ("model",), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_train_step(cfg, mesh, SP1, AdamWConfig(), device="cpu")
+        assert launch_train.main(["--arch", arch, "--reduced", "--device",
+                                  "cpu", "--steps", "1", "--seq", "16",
+                                  "--batch", "2", *flags]) == 0
+        out = capsys.readouterr().out
+        assert "of virtual ranks on cpu" in out
+        losses = [float(line.split()[3]) for line in out.splitlines()
+                  if line.startswith("step ")]
+        assert len(losses) == 1 and all(np.isfinite(losses)), (arch, out)
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
