@@ -186,7 +186,7 @@ tokens (end of serve-lm).  It prints each step's wall clock captured
 against eager.  layer-paper and numbers add one captured swift_torus layer
 (wall clock, device time, idle share).  Phase 23, serve-cli (after
 commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
-flux-12b at degree 1 and on --mesh pod (16 of its 96 layers), and
+flux-12b at degree 1 (32 of its 96 layers) and on --mesh pod (8), and
 rwkv6-1.6b.
 
 Phases 24 to 27 (after serve-lm) and the numbers phase serve the dense and
@@ -225,8 +225,9 @@ degree 1 and on --mesh pod.
 Phases 28 to 34 (after serve-dense) settle the bf16 parting of the
 launcher's SP decode and serve the hybrid and MoE LMs:
 
- 28. decode-gap — the serve-cli qwen2-1.5b decode (the launcher's weights
-                 and requests) at degree 1 and on mesh (pod 2, model 8),
+ 28. decode-gap — the launcher's qwen2-1.5b decode at full depth (its
+                 weights and requests) at degree 1 and on mesh (pod 2,
+                 model 8),
                  token by token: where the runs' tokens part, the top-2
                  logit gap, the runs' logit difference and bf16's spacing;
                  in float32 the runs must agree, and every bf16 parting
@@ -320,6 +321,17 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  qwen2-family model, 30 steps of batch 32, the loss
                  falling); K1, K2, K3 and K4 each launched by quickstart
                  or serve_dit.  Budget EXAMPLES_BUDGET_S, printed.
+ 43. serve-procs — the process mesh (launch/procs.py): four worker
+                 processes on the one card, one rank each, every put into a
+                 peer process's buffers mapped over CUDA IPC: sp_attention
+                 at the 4096-bucket flux shape on (pod 2, model 2) (K1, K4;
+                 under ring K1, K2) and (model 4) (K1, K3) bitwise the
+                 virtual mesh's shards,
+                 with its per-rank share of launches and a wrong-route
+                 negative control; DiTServer led by process 0 on (pod 2,
+                 model 2) at 8 of 96 layers within SERVE_SP_TOL of the
+                 virtual-mesh server; ``launch.serve --procs 4`` (K3).
+                 Runs after profile.  Budget SERVE_PROCS_BUDGET_S, printed.
 The numbers phase also prints the first whole-step shares of the card's
 peak: the dry-run's counted FLOPs (launch/dryrun.py on the meta device)
 of the train phase's qwen2-1.5b step and of the serve phase's degree-1
@@ -358,7 +370,10 @@ just after — except K3's, which come from the same kind of run on mesh
 from the lm-prefill run, and K1b's and K5b's, which the train and
 train-rwkv6 phases' launchers count from 0 in their own processes and
 print.  K1b's, K3's and K4's add the launches of train-sp's timed steps
-(counted from 0 after its warm-up step).  The line before the
+(counted from 0 after its warm-up step).  K1-K4's add serve-procs' (each
+counted from 0 in every worker process, summed over the four): K2's from
+its ring sp_attention, K3's from its (model 4) one, K1's and K4's from its
+served run.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -1492,6 +1507,182 @@ DISPLACED_FWD_TOL = SERVE_SP_TOL
 VELOCITY_SCALE = 0.2
 
 
+# serve-procs (phase 43): one process per rank on the one card
+PROCS = 4
+PROCS_MESHES = {"pod": ((2, 2), ("pod", "model")), "model": ((4,), ("model",))}
+# (mesh, strategy, the kernels it runs): for flux's 24 heads on 4 ranks the
+# planner gives swift_torus P_u 4 x P_r 1, no ring step, so K2 across
+# processes runs under the ring strategy (P_r 4) on the same mesh and shape
+PROCS_CASES = (("pod", "swift_torus", "K1, K4"), ("pod", "ring", "K1, K2"),
+               ("model", "swift_torus", "K1, K3"))
+PROCS_SHAPE = (2, 4352, 24, 24, 128)  # B, L, Hq, Hkv, D: the 4096 bucket
+SERVE_PROCS_LAYERS = 8  # of flux-12b's 96
+SERVE_PROCS_STEPS = 2
+SERVE_PROCS_BUDGET_S = 60
+PROCS_DEADLINE_S = 300  # the launcher's watchdog: a hung worker fails here
+PROCS_CLI = ["--arch", "flux-12b", "--procs", "4", "--mesh", "host",
+             "--model", "4", "--eager", "--layers", "1", "--seq", "1024",
+             "--requests", "1", "--steps", "1"]
+
+
+def procs_sp(mesh, strategy: str = "swift_torus") -> dict:
+    return dict(strategy=strategy, sp_axes=mesh[1], batch_axes=None,
+                comm_backend="pallas", kernel_interpret=False)
+
+
+def serve_procs(results: dict, card: str) -> None:
+    """Phase 43, serve-procs: the process mesh (launch/procs.py), four
+    worker processes on the one card, each owning one rank, every put
+    written into a peer process's buffers mapped over CUDA IPC.
+
+    (a) ``sp_attention`` at the 4096-bucket flux shape (B 2, L 4352, 24 x
+    128, bf16), PROCS_CASES: swift_torus on (pod 2, model 2) through K1
+    and K4, ring on it through K1 and K2, swift_torus on (model 4) through
+    K1 and K3: each process's output shard bitwise the same rows of the
+    mesh of virtual ranks in this process; its launches the virtual
+    mesh's per-rank share (K1, K2: a quarter; K3, K4: one launch per put,
+    as the virtual mesh's one launch covers every rank).  A negative
+    control, every Ulysses hop put along the wrong route (to the sender
+    itself), must break the bitwise check.  (b) DiTServer under
+    swift_torus on (pod 2, model 2), process 0 leading: REQUESTS for
+    SERVE_PROCS_STEPS steps at SERVE_PROCS_LAYERS of the 96 layers (full
+    width), each request's latents within SERVE_SP_TOL (latent_err) of
+    the virtual-mesh eager server's, the launches per process a quarter
+    of its K1 and all of its K4.  (c) ``python -m
+    repro_torch.launch.serve --procs 4`` on (model 4).  A worker's failure
+    or a timeout fails the phase; the wall times are four time-sliced
+    contexts on one card: no speed figure, and no prediction of NVLink."""
+    import torch
+    from repro_torch.core import SPConfig, sp_attention
+    from repro_torch.launch import make_mesh, procs
+    from repro_torch.serving import DiTRequest, SamplerConfig
+
+    t_phase = time.perf_counter()
+    cases = [dict(mesh=PROCS_MESHES[m], sp=procs_sp(PROCS_MESHES[m], st),
+                  shape=PROCS_SHAPE, seed=41, dtype="bfloat16")
+             for m, st, _ in PROCS_CASES]
+    cases.append(dict(cases[0], wrong_route=True))
+    pod = PROCS_MESHES["pod"]
+    spec = dict(arch="flux-12b", cfg={"n_layers": SERVE_PROCS_LAYERS},
+                seed=43, mesh=pod, steps=SERVE_PROCS_STEPS,
+                requests=list(REQUESTS), sp=procs_sp(pod))
+    t0 = time.perf_counter()
+    try:
+        res = procs.launch(procs.chain_job, PROCS, [
+            (procs.sp_attention_job, (cases,)),
+            (procs.serve_job, (spec,))], device="cuda",
+            deadline=PROCS_DEADLINE_S)
+    except Exception as err:  # a worker failed, died or timed out
+        fail(f"serve-procs: {err}")
+    launch_s = time.perf_counter() - t0
+    log(f"serve-procs: one launch of {PROCS} worker processes (spawn, CUDA "
+        f"IPC of the slabs, sp_attention x {len(cases)}, served run) "
+        f"{launch_s:.1f} s [{card}]")
+
+    dev = torch.device("cuda")
+    checks = []
+    results["procs_launches"] = {}
+    for n, (name, strategy, kernels) in enumerate(PROCS_CASES):
+        mesh = PROCS_MESHES[name]
+        q, k, v = procs._sp_inputs(cases[n], dev)
+        reset_counts()
+        want = sp_attention(q, k, v, cfg=SPConfig(**cases[n]["sp"]),
+                            mesh=make_mesh(*mesh, device=dev))
+        torch.cuda.synchronize()
+        virtual = read_counts()
+        want = want.cpu()
+        share = {"flash_mqkv": virtual["flash_mqkv"] // PROCS,
+                 "ring_flash_step": virtual["ring_flash_step"] // PROCS,
+                 "remote_put": virtual["remote_put"],
+                 "landing_copy": virtual["landing_copy"]}
+        for r, worker in enumerate(res):
+            got = worker[0][n]
+            lo, hi = got["rows"]
+            same = torch.equal(got["shards"][0], want[:, lo:hi])
+            log(f"serve-procs sp_attention {strategy} ({name}, through "
+                f"{kernels}) process {r} rows [{lo}, {hi}): bitwise {same}, "
+                f"launches "
+                f"{got['counts']} (the virtual mesh's per-rank share "
+                f"{share}), {got['seconds'] * 1e3:.1f} ms with its warm-up, "
+                f"{got['heap_bytes'] / 2**20:.1f} MiB of its slab [{card}]")
+            checks.append(same and got["counts"] == share)
+        if n == 0:
+            wrong = []
+            for w in res:
+                bad = w[0][len(PROCS_CASES)]
+                wrong.append(torch.equal(
+                    bad["shards"][0], want[:, bad["rows"][0]:bad["rows"][1]]))
+            log(f"serve-procs negative control (every Ulysses hop to the "
+                f"sender itself): bitwise per process {wrong} (must break)")
+            checks.append(not all(wrong))
+        for kernel in ("ring_flash_step", "remote_put"):
+            results["procs_launches"][kernel] = results["procs_launches"].get(
+                kernel, 0) + sum(w[0][n]["counts"][kernel] for w in res)
+    del q, k, v
+
+    cfg, params = procs._dit_params(spec, dev)
+    conds = {}
+    for rid, _ in REQUESTS:
+        gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 2 + rid)
+        conds[rid] = torch.randn((256, cfg.d_model), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+    out, wall, virtual, _, srv = run_server(
+        params, cfg, conds, REQUESTS, SPConfig(**spec["sp"]),
+        mesh=make_mesh(*pod, device=dev),
+        sampler=SamplerConfig(num_steps=SERVE_PROCS_STEPS), capture=False)
+    got = res[0][1]["latents"]
+    for rid, seq in REQUESTS:
+        noise = srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
+        x = got[rid].to(dev)
+        err = latent_err(x, out[rid].latents, noise)
+        finite = bool(torch.isfinite(x).all())
+        log(f"serve-procs served rid={rid} seq={seq}: shape "
+            f"{tuple(x.shape)} finite={finite} latent_err {err:.4e} against "
+            f"the virtual-mesh server (limit {SERVE_SP_TOL}) [{card}]")
+        checks.append(finite and tuple(x.shape) == (seq, 64)
+                      and err <= SERVE_SP_TOL)
+    share = {"flash_mqkv": virtual["flash_mqkv"] // PROCS,
+             "ring_flash_step": virtual["ring_flash_step"] // PROCS,
+             "remote_put": virtual["remote_put"],
+             "landing_copy": virtual["landing_copy"]}
+    for r, worker in enumerate(res):
+        c = worker[1]["counts"]
+        log(f"serve-procs served run process {r}: launches {c} (share "
+            f"{share}), {worker[1]['seconds']:.2f} s of serving; the "
+            f"virtual-mesh eager server {wall:.2f} s in this process "
+            f"[{card}]")
+        checks.append(c == share)
+    for name in ("flash_mqkv", "landing_copy"):
+        results["procs_launches"][name] = sum(w[1]["counts"][name]
+                                              for w in res)
+    del params, srv, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_CLI],
+        capture_output=True, text=True, timeout=PROCS_DEADLINE_S,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"serve-procs cli: {line}")
+    cli_ok = (proc.returncode == 0
+              and any(x.startswith("process mesh: 4 processes")
+                      for x in lines)
+              and any(x.startswith("request 0: latents (1024, 64)")
+                      for x in lines))
+    log(f"serve-procs cli {' '.join(PROCS_CLI)}: rc {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not cli_ok:
+        fail(f"serve-procs cli: rc {proc.returncode}: {proc.stderr[-1500:]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"serve-procs: {phase_s:.1f} s (budget {SERVE_PROCS_BUDGET_S} s) "
+        f"[{card}]")
+    if not all(checks):
+        fail("serve-procs: a process-mesh check failed (see above)")
+
+
 def paper_attn(card: str) -> None:
     """K1 at the paper's two workloads at degree 1 (B 1, every head, not
     causal, bf16) and K2 at their Pull-KV ring step on mesh (pod 2, model
@@ -1935,13 +2126,16 @@ FP8_TOL = {"float8_e4m3fn": 0.08, "float8_e5m2": 0.15}
 # 7 Pull-Q + 7 Pull-KV + 7 Push-O flat; the hierarchical Push-O is 3 intra
 # puts (of 2-chunk bundles) and 1 inter put (of a 4-chunk bundle)
 HIER_PUTS = {False: 3 * (P_U - 1), True: 2 * (P_U - 1) + (P_U // 2 - 1) + 1}
-CAPTURE_LAYERS = 8  # depth of the capture phase's swift_torus oracle
+# depth of the capture phase's swift_torus oracle (8 until PR 29, which
+# cut it to make room for serve-procs; its gates are bitwise)
+CAPTURE_LAYERS = 4
 HYBRID_CAPTURE_LAYERS = 2  # depth of its fp32 hybrid oracle (cogvideox-5b)
 PROFILE_LATENTS = 1024  # the profile phase's one request
 PROFILE_STEPS = 3  # an eager warm-up, a capture + replay, a replay
 # the profile phase's depth of flux-12b's 96 layers (its checks do not
-# depend on depth; at SERVE_SP_LAYERS it took ~41 s)
-PROFILE_LAYERS = 16
+# depend on depth; at SERVE_SP_LAYERS it took ~41 s, at 16 22.5 s; PR 29
+# cut it from 16 to 8 to make room for serve-procs)
+PROFILE_LAYERS = 8
 
 
 def _layer_times(fn, label: str, card: str) -> dict:
@@ -2298,31 +2492,38 @@ def commcheck_phase(card: str) -> None:
 
 
 SERVE_CLI = (
+    # 32 and 8 of the 96 layers (96 and 16 until PR 29, which cut them to
+    # make room for serve-procs): a 96-layer SP graph alone takes ~50 s to
+    # capture and instantiate, and the serve phase already runs all 96
     ("flux-12b degree 1", ["--arch", "flux-12b", "--requests", "2",
-                           "--seq", "1024", "--steps", "3"]),
-    # 16 of the 96 layers: a 96-layer SP graph alone takes ~50 s to
-    # capture and instantiate
+                           "--seq", "1024", "--steps", "3", "--layers",
+                           "32"]),
     ("flux-12b mesh pod", ["--arch", "flux-12b", "--mesh", "pod",
                            "--requests", "1", "--seq", "256", "--steps",
-                           "3", "--layers", "16"]),
+                           "3", "--layers", "8"]),
     ("rwkv6-1.6b", ["--arch", "rwkv6-1.6b", "--requests", "4"]),
-    ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4"]),
+    # the attention LMs at 4 of their layers (all of them until PR 29): the
+    # prefill and serve phases run them at full depth
+    ("qwen2-1.5b degree 1", ["--arch", "qwen2-1.5b", "--requests", "4",
+                             "--layers", "4"]),
     ("qwen2-1.5b mesh pod", ["--arch", "qwen2-1.5b", "--mesh", "pod",
-                             "--requests", "4"]),
-    ("hymba-1.5b degree 1", ["--arch", "hymba-1.5b", "--requests", "2"]),
+                             "--requests", "4", "--layers", "4"]),
+    ("hymba-1.5b degree 1", ["--arch", "hymba-1.5b", "--requests", "2",
+                             "--layers", "4"]),
     ("hymba-1.5b mesh pod", ["--arch", "hymba-1.5b", "--mesh", "pod",
-                             "--requests", "2"]),
+                             "--requests", "2", "--layers", "4"]),
     ("qwen2-moe-a2.7b degree 1", ["--arch", "qwen2-moe-a2.7b",
-                                  "--requests", "2"]),
+                                  "--requests", "2", "--layers", "4"]),
     ("qwen2-moe-a2.7b mesh pod", ["--arch", "qwen2-moe-a2.7b", "--mesh",
-                                  "pod", "--requests", "2"]),
+                                  "pod", "--requests", "2", "--layers", "4"]),
 )
 
 
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
-    size with random weights: flux-12b at degree 1 and on the paper's mesh
-    (pod 2, model 8) at 16 of its 96 layers (``--layers``), rwkv6-1.6b, and qwen2-1.5b, hymba-1.5b and
+    width with random weights: flux-12b at degree 1 (32 of its 96 layers)
+    and on the paper's mesh (pod 2, model 8) at 8 (``--layers``),
+    rwkv6-1.6b, and at 4 layers each qwen2-1.5b, hymba-1.5b and
     qwen2-moe-a2.7b at degree 1 and with the KV cache sharded over (pod 2,
     model 8) (the experts over model 8); each run prints its requests,
     the DiT runs their scheduler line, and every run its captured
@@ -4139,7 +4340,7 @@ def _greedy_cli(params, cfg, ctx, cache_dtype):
 
 def decode_gap(results: dict, card: str) -> None:
     """Phase 28, decode-gap (ROADMAP Queue 3's unconfirmed fault): the
-    serve-cli qwen2-1.5b decode (the launcher's weights: seed 0, as
+    launcher's qwen2-1.5b decode at full depth (its weights: seed 0, as
     initialised; its 4 requests; bf16) at degree 1 and with the KV cache
     over mesh (pod 2, model 8), token by token.  Where a request's tokens
     part: the top-2 logit gap of each run there, the largest difference of
@@ -5979,6 +6180,8 @@ def main() -> int:
     del params, sub, deg1
     gc.collect()  # the servers' reference cycles hold the flux weights
     torch.cuda.empty_cache()
+    serve_procs(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_procs")
 
     paper_attn(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after paper_attn")
@@ -6117,6 +6320,10 @@ def main() -> int:
                    results["train_k5b_launches"] + fam["rwkv6_wkv_bwd"],
                    results["k5b_err"]["rwkv6-train"], k5b),
     ]
+    # the process mesh's launches (serve-procs: K1 and K4 from the served
+    # run, K2 from ring and K3 from (model 4)), summed over its processes
+    for row in kernels[:4]:
+        row["launches"] += results["procs_launches"][row["name"]]
     for row in kernels:
         if row["launches"] <= 0:
             fail(f"{row['name']} was never launched on its path")

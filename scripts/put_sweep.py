@@ -13,7 +13,9 @@ bf16, beside one ``Tensor.copy_`` of the same bytes.  Plans and copy_ take
 turns over input sets that together touch four times the L2, so every call
 reads from HBM.  A plan with the suffix "-noarrive" leaves the arrival
 out (no signal word is set: an ablation that prices the signal protocol,
-never a kernel to ship).  Prints one line per shape and plan.
+never a kernel to ship); "-gpuscope" release-stores the signal word at
+``.gpu`` scope instead of ``.sys`` (prices the system scope, which a put
+into another card's memory needs).  Prints one line per shape and plan.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ PLANS = ("16384x4x2,16384x4x2-noarrive,8192x4x2,8192x4x4,32768x3x2,"
 
 
 ARRIVAL = "if (need > 0 && landed[a] > 0) {"
+SYS_STORE = "st.release.sys.global.u32"
 
 
 def build_plan(plan: str) -> pathlib.Path:
@@ -54,6 +57,11 @@ def build_plan(plan: str) -> pathlib.Path:
         if src.count(ARRIVAL) != 1:
             raise SystemExit("one_sided.cu: the arrival is not where expected")
         src = src.replace(ARRIVAL, "if (false) {")
+    elif ablation == "gpuscope":
+        if src.count(SYS_STORE) != 1:
+            raise SystemExit("one_sided.cu: the signal store is not where "
+                             "expected")
+        src = src.replace(SYS_STORE, "st.release.gpu.global.u32")
     elif ablation:
         raise SystemExit(f"unknown ablation {ablation!r}")
     out = _build.BUILD_DIR / "put_sweep"

@@ -28,9 +28,14 @@ trace.py records every put, wait and signal for ``validate`` and
 ``validate_semaphores``, and under an active profiler (profiler.py) each
 put is one leg observed at its issue, signal and wait.  Under a gradient
 a put is differentiable (grad.py): its backward is a put of the
-cotangents along the inverse route, through the same lowering.  Between cards
-(one process per card) the puts are not modelled yet: ROADMAP Queue 1
-item 8.
+cotangents along the inverse route, through the same lowering.
+
+On a process mesh (launch/procs.py) each process holds the tensors of the
+ranks it owns, and a rank list holds None for the others.  A put then
+writes into the receive buffers of the peer process, mapped into this
+one (kernel_backend.deliver_procs), and the wait is on the signal words
+in this process's own heap at the put's epoch.  Across cards (NVLink,
+InfiniBand) that path is ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -42,10 +47,28 @@ import torch
 from . import profiler as _profiler
 from . import trace as _trace
 
-__all__ = ["Channel", "InFlight", "RankList", "fence", "pin", "ring_perm_of",
-           "shift_perm"]
+__all__ = ["Channel", "InFlight", "RankList", "fence", "first",
+           "owned_ranks", "pin", "rank_map", "ring_perm_of", "shift_perm"]
 
 RankList = list  # list[torch.Tensor]: one tensor per rank, flat-rank order
+
+
+def first(xs: RankList) -> torch.Tensor:
+    """The first tensor of a rank list that this process holds."""
+    return next(x for x in xs if x is not None)
+
+
+def owned_ranks(xs: RankList) -> list[int]:
+    """The ranks of a rank list whose tensors this process holds: every
+    rank on a mesh of virtual ranks; on a process mesh its own (the
+    entries of the ranks other processes own are None)."""
+    return [p for p, x in enumerate(xs) if x is not None]
+
+
+def rank_map(f: Callable, *xs: RankList) -> RankList:
+    """``f`` over the held ranks of rank lists (rank by rank), None where
+    another process holds the rank."""
+    return [None if a[0] is None else f(*a) for a in zip(*xs)]
 
 
 def shift_perm(size: int, shift: int = 1) -> tuple[tuple[int, int], ...]:
@@ -149,7 +172,7 @@ class Channel:
         return _trace.TransferEvent(
             stream=self.stream, channel=self.name, stage=self.stage,
             axes=tuple(self.axes), perm=tuple(self.perm),
-            shape=tuple(tensors[0][0].shape), n_tensors=len(tensors),
+            shape=tuple(first(tensors[0]).shape), n_tensors=len(tensors),
             overlaps=overlaps, backend=backend)
 
     def put(self, *tensors: RankList, overlaps: str = "") -> "InFlight":
@@ -175,7 +198,9 @@ class Channel:
             return self._put_kernel(tensors, overlaps)
         from . import kernel_backend as _kb
 
-        dev = tensors[0][0].device
+        dev = first(tensors[0]).device
+        if _kb.process_heap(dev) is not None:
+            return self._put_procs(tensors, overlaps, "xla", "copy")
         dst = dest_table(self.perm, len(tensors[0]))
         recv = receive_buffers(tensors, dst)
 
@@ -207,11 +232,40 @@ class Channel:
             backend=backend, intent=overlaps, ranks=len(tensors[0]),
             perm=tuple(self.perm))
 
+    def _put_procs(self, tensors: tuple[RankList, ...], overlaps: str,
+                   backend: str, lowering: str) -> "InFlight":
+        """A put on a process mesh (kernel_backend.deliver_procs): the
+        handle waits on the signal words in this process's heap."""
+        from . import kernel_backend as _kb
+
+        dev = first(tensors[0]).device
+        sem = _kb.new_sem(self.name, self.stage) if backend == "pallas" else ""
+        _trace.emit(self._event(tensors, overlaps, backend))
+        put = _trace.emit_issue(_lowering(dev), dev.type)
+        if sem:
+            _trace.emit_sem(_trace.SemEvent(
+                kind="put", sem=sem, stream=self.stream, channel=self.name,
+                stage=self.stage))
+        meta = self._leg_meta(tensors, overlaps, backend)
+        out, words, epoch, keep = _kb.deliver_procs(
+            tensors, tuple(self.perm), lowering=lowering, meta=meta)
+        if sem:
+            _trace.emit_sem(_trace.SemEvent(
+                kind="signal", sem=sem, stream=self.stream,
+                channel=self.name, stage=self.stage))
+        return InFlight(channel=self, payload=tuple(out), sem=sem, meta=meta,
+                        put=put, keep=keep, words=words, epoch=epoch)
+
     def _put_kernel(self, tensors: tuple[RankList, ...],
                     overlaps: str) -> "InFlight":
         """The put kernels' lowering: signal-tracked delivery."""
         from . import kernel_backend as _kb
 
+        if _kb.process_heap(first(tensors[0]).device) is not None:
+            direct = not self.interpret and len(self.axes) == 1
+            return self._put_procs(tensors, overlaps, "pallas",
+                                   "remote_put" if direct
+                                   else "landing_copy")
         sem = _kb.new_sem(self.name, self.stage)
         _trace.emit(self._event(tensors, overlaps, "pallas"))
         dev = tensors[0][0].device
@@ -230,7 +284,8 @@ class Channel:
                         meta=meta, put=put, keep=keep)
 
     def put_fused(self, *tensors: RankList, launch: Callable[[], None],
-                  overlaps: str = "") -> "InFlight":
+                  overlaps: str = "", words: Any = None,
+                  epoch: int = 0) -> "InFlight":
         """A put that a fused kernel (K2, kernels/ring_flash.py) performs:
         ``launch`` enqueues the kernels, whose blocks write the chunk
         straight into the receive buffers ``tensors`` of the destination
@@ -239,16 +294,20 @@ class Channel:
         the hop — and this records the schedule (a put flagged
         ``overlap=True``, whose wait the validator requires to follow a
         compute block), brackets ``launch`` with the leg's issue and signal
-        observations, and hands the buffers on."""
+        observations, and hands the buffers on.  On a process mesh the
+        buffers lie in the peers' heaps and ``words`` (this process's
+        completion words, written by its ring predecessor's K2 at
+        ``epoch``) are what the wait waits on."""
         assert self.backend == "pallas", "put_fused is a Pallas-path verb"
         from . import kernel_backend as _kb
 
-        dev = tensors[0][0].device
+        dev = first(tensors[0]).device
         meta = self._leg_meta(tensors, overlaps, "pallas")
         if meta is not None:
             _profiler.mark(_profiler.active(), meta, "issue", dev)
         sem = _kb.fused_transfer_events(
-            self, tuple(tensors[0][0].shape), len(tensors), overlaps=overlaps)
+            self, tuple(first(tensors[0]).shape), len(tensors),
+            overlaps=overlaps)
         put = _trace.emit_issue("kernel", dev.type)
         launch()
         _trace.emit_sem(_trace.SemEvent(
@@ -257,7 +316,7 @@ class Channel:
         if meta is not None:
             _profiler.mark(_profiler.active(), meta, "signal", dev)
         return InFlight(channel=self, payload=tuple(tensors), sem=sem,
-                        meta=meta, put=put)
+                        meta=meta, put=put, words=words, epoch=epoch)
 
 
 def _lowering(device: torch.device) -> str:
@@ -278,6 +337,10 @@ class InFlight:
     put: int = -1  # the put's index in the recording trace (-1: none)
     # the put's tensors, held until the wait while a graph is captured
     keep: tuple = ()
+    # process mesh: the signal words in this process's heap, and the
+    # epoch they reach once the payload has landed
+    words: Any = None
+    epoch: int = 0
 
     def wait(self, *deps: Any) -> Any:
         """Signal-wait: the current stream waits for the put's completion.
@@ -291,7 +354,7 @@ class InFlight:
                 kind="wait", sem=self.sem, stream=self.channel.stream,
                 channel=self.channel.name, stage=self.channel.stage))
         _trace.emit_wait(self.put)
-        dev = self.payload[0][0].device
+        dev = first(self.payload[0]).device
         prof = _profiler.active()
         if self.meta is not None and prof is not None:
             # when the consumer needs the buffer: the current stream has
@@ -299,6 +362,10 @@ class InFlight:
             _profiler.mark(prof, self.meta, "wait", dev)
         if self.event is not None:
             torch.cuda.current_stream(dev).wait_event(self.event)
+        if self.words is not None:
+            from . import kernel_backend as _kb
+
+            _kb.heap_for(dev).wait_words([self.words], self.epoch)
         if not deps:
             return self.payload[0] if len(self.payload) == 1 else self.payload
         if len(self.payload) == 1:

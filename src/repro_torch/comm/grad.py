@@ -44,7 +44,8 @@ def wants_grad(tensors: Sequence[Sequence[torch.Tensor]]) -> bool:
     """Whether a put of ``tensors`` (rank lists) must be differentiated:
     grad mode on and any payload tensor requires a gradient."""
     return torch.is_grad_enabled() and any(
-        t.requires_grad for ranks in tensors for t in ranks)
+        t is not None and t.requires_grad for ranks in tensors
+        for t in ranks)
 
 
 def inverse_perm(perm: Sequence[tuple[int, int]]

@@ -202,8 +202,10 @@ def mark(prof: CommProfiler, meta: LegMeta, phase: str,
 
 
 def nbytes_of(tensors: Sequence[Sequence[torch.Tensor]]) -> int:
-    """Bytes one rank sends: the first rank's tensor of every rank list."""
-    return sum(r[0].numel() * r[0].element_size() for r in tensors)
+    """Bytes one rank sends: the first held rank's tensor of every rank
+    list."""
+    firsts = [next(x for x in r if x is not None) for r in tensors]
+    return sum(x.numel() * x.element_size() for x in firsts)
 
 
 @contextlib.contextmanager

@@ -28,7 +28,10 @@ before every rank's stage-k chunk was issued.  The stages of one leg are
 independent of each other, and in eager PyTorch the order of issue is the
 schedule: a leg issues all its stage puts, then places the stationary
 diagonal chunk (the compute block they run beside; the reference's update
-fusions), then waits for the stages in turn.  ``layout`` ducks as any
+fusions), then waits for the stages in turn.  On a process mesh a
+program issues only the sources this process owns and waits only on the
+destinations it owns (the other entries of its rank lists are None).
+``layout`` ducks as any
 object with ``axes``, ``p_ulysses``, ``coords(p)``, ``ring_perm(k)`` and
 ``ulysses_stage_perm(k)`` (core/collectives.GroupLayout in practice; the
 hierarchical programs also read ``u_groups`` and the intra / inter stage
@@ -42,7 +45,8 @@ from typing import Any
 import torch
 
 from . import compress as _compress
-from .channel import Channel, InFlight, RankList, shift_perm
+from .channel import (Channel, InFlight, RankList, first, owned_ranks,
+                      rank_map, shift_perm)
 from .profiler import mark_compute
 
 __all__ = ["Handoff", "Stream", "hier_all_to_all", "hier_ungroup",
@@ -145,9 +149,9 @@ def _diagonal(out: RankList, src: RankList, idx: list[int], layout: Any,
     """Place each rank's stationary chunk, ``out[p][idx[p]] =
     src[p][idx[p]]``: the compute block a leg's puts run beside."""
     with mark_compute(f"{stream.name} diagonal", layout.axes,
-                      src[0].device, stream=stream.name):
-        for p, i in enumerate(idx):
-            out[p][i].copy_(src[p][i])
+                      first(src).device, stream=stream.name):
+        for p in owned_ranks(src):
+            out[p][idx[p]].copy_(src[p][idx[p]])
 
 
 def staged_all_to_all(
@@ -169,22 +173,28 @@ def staged_all_to_all(
     """
     stream = stream or Stream("a2a", backend=backend, interpret=interpret)
     p_u = layout.p_ulysses
-    chunks = [_split(t, p_u, split_axis) for t in x]
+    chunks = rank_map(lambda t: _split(t, p_u, split_axis), x)
     if p_u == 1:
-        return [c.clone(memory_format=torch.contiguous_format)
-                for c in chunks]
+        return rank_map(
+            lambda c: c.clone(memory_format=torch.contiguous_format), chunks)
     us = [_u_of(layout, p) for p in range(len(x))]
     # each rank puts its chunk for peer (u + k); peer (u - k) puts its own
-    futs = [torus_hop(layout, k,
-                      [chunks[p][(u + k) % p_u] for p, u in enumerate(us)],
-                      stream=stream) for k in range(1, p_u)]
-    out = [torch.empty_like(c, memory_format=torch.contiguous_format)
-           for c in chunks]
+    futs = [torus_hop(layout, k, _send(chunks, us, k, p_u), stream=stream)
+            for k in range(1, p_u)]
+    out = rank_map(lambda c: torch.empty_like(
+        c, memory_format=torch.contiguous_format), chunks)
     _diagonal(out, chunks, us, layout, stream)
     for k, fut in enumerate(futs, start=1):
-        for p, (u, r) in enumerate(zip(us, fut.wait())):
-            out[p][(u - k) % p_u].copy_(r)
+        recv = fut.wait()
+        for p in owned_ranks(out):
+            out[p][(us[p] - k) % p_u].copy_(recv[p])
     return out
+
+
+def _send(chunks: RankList, us: list[int], k: int, p_u: int) -> RankList:
+    """Each held rank's chunk for its ulysses peer u + k."""
+    return [None if c is None else c[(u + k) % p_u]
+            for c, u in zip(chunks, us)]
 
 
 def staged_ungroup(
@@ -202,19 +212,19 @@ def staged_ungroup(
     stream = stream or Stream("a2a.inv", backend=backend, interpret=interpret)
     p_u = layout.p_ulysses
     if p_u == 1:
-        return [s[0] for s in stacked]
+        return rank_map(lambda s: s[0], stacked)
     us = [_u_of(layout, p) for p in range(len(stacked))]
-    futs = [torus_hop(layout, k,
-                      [stacked[p][(u + k) % p_u] for p, u in enumerate(us)],
-                      stream=stream, overlaps="next-layer compute")
+    futs = [torus_hop(layout, k, _send(stacked, us, k, p_u), stream=stream,
+                      overlaps="next-layer compute")
             for k in range(1, p_u)]
-    out = [_concat_buffer(s, concat_axis) for s in stacked]
+    out = rank_map(lambda s: _concat_buffer(s, concat_axis), stacked)
     _diagonal(out, stacked, us, layout, stream)
     for k, fut in enumerate(futs, start=1):
-        for p, (u, r) in enumerate(zip(us, fut.wait())):
-            out[p][(u - k) % p_u].copy_(r)
-    return [o.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
-            for o in out]
+        recv = fut.wait()
+        for p in owned_ranks(out):
+            out[p][(us[p] - k) % p_u].copy_(recv[p])
+    return rank_map(lambda o: o.movedim(0, concat_axis).flatten(
+        concat_axis, concat_axis + 1), out)
 
 
 def _concat_buffer(stacked: torch.Tensor, axis: int) -> torch.Tensor:
@@ -264,6 +274,10 @@ def _hier_exchange(
     buffers) turns on error feedback, and the new residuals are returned
     beside the output.
     """
+    if any(c is None for c in chunks):
+        raise NotImplementedError(
+            "the hierarchical all-to-all over a process mesh comes with the "
+            "hybrid mesh's slice (ROADMAP Queue 1 item 9)")
     g = layout.u_groups
     p_u = layout.p_ulysses
     m_u = p_u // g

@@ -18,8 +18,11 @@ Logical layout (see planner.py):
       -> Ring groups span pods, Ulysses groups stay inside a pod.
 
 The reference reads a rank's coordinates from the traced axis index
-(``my_coords()``); every rank of a mesh lives in this process, so the port
-asks for rank p's coordinates with ``coords(p)``.
+(``my_coords()``); the port asks for rank p's coordinates with
+``coords(p)``.  On a mesh of virtual ranks every rank lives in this
+process.  On a process mesh a rank list holds the tensors of the ranks
+this process owns and None for the others: the schedules loop over
+``owned_ranks`` and map with ``rank_map``, so one schedule serves both.
 """
 from __future__ import annotations
 
@@ -30,7 +33,11 @@ import torch
 from ..comm import (hier_all_to_all, hier_ungroup, staged_all_to_all,
                     staged_ungroup)
 from ..comm import profiler as _profiler
-from ..comm.channel import RankList
+from ..comm.channel import RankList, owned_ranks, rank_map
+
+__all__ = ["GroupLayout", "SlicedLayout", "grouped_all_to_all",
+           "monolithic_all_to_all", "owned_ranks", "rank_map",
+           "ungroup_all_to_all"]
 
 AxisNames = tuple[str, ...]
 
@@ -269,7 +276,10 @@ def monolithic_all_to_all(
         return hier_all_to_all(x, layout, split_axis=split_axis,
                                backend=backend, interpret=interpret,
                                wire_dtype=wire_dtype)
-    if layout.p_ring == 1 and backend == "xla":
+    if layout.p_ring == 1 and backend == "xla" and all(
+            t is not None for t in x):
+        # the atomic exchange reads every rank's chunks: on a process mesh
+        # the staged puts below move the same values
         return _all_to_all(
             [torch.chunk(t, layout.p_ulysses, dim=split_axis) for t in x],
             layout)
@@ -287,12 +297,13 @@ def ungroup_all_to_all(
     all-to-all of Ulysses attention, applied to O)."""
     p_u = layout.p_ulysses
     if p_u == 1:
-        return [s[0] for s in stacked]
+        return rank_map(lambda s: s[0], stacked)
     if layout.u_groups > 1:
         return hier_ungroup(stacked, layout, concat_axis=concat_axis,
                             backend=backend, interpret=interpret,
                             wire_dtype=wire_dtype)
-    if layout.p_ring == 1 and backend == "xla":
+    if layout.p_ring == 1 and backend == "xla" and all(
+            s is not None for s in stacked):
         moved = _all_to_all([list(s) for s in stacked], layout)
         return [torch.cat(list(m), dim=concat_axis) for m in moved]
     return staged_ungroup(stacked, layout, concat_axis=concat_axis,

@@ -6,7 +6,8 @@ several chunks) rotates around the Ring group in P_r steps while each rank
 keeps its local Q and accumulates the online-softmax partial ``(O', l, m)``.
 All ranks of the group run in lockstep: step s of every rank is issued
 before any rank consumes step s's receive buffer.  Every argument that
-differs by rank is a rank list.
+differs by rank is a rank list; the loops run over the ranks this process
+owns (all of them on a mesh of virtual ranks).
 
 The KV transfer for step s+1 is issued *before* the attention of step s
 (double buffering) through a one-sided channel: the put runs on a side
@@ -26,12 +27,12 @@ import torch
 from ..comm import Stream, ring_shift
 from ..comm import trace as _trace
 from ..comm.profiler import mark_compute
-from ..comm.channel import RankList, dest_table
-from ..comm.kernel_backend import heap_for
+from ..comm.channel import RankList, dest_table, first
+from ..comm.kernel_backend import fused_slots, heap_for
 from ..kernels import ops as _ops
 from ..kernels.flash_mqkv import flash_mqkv, pad_head_dim
 from ..kernels.ring_flash import ring_flash_step
-from .collectives import GroupLayout
+from .collectives import GroupLayout, owned_ranks, rank_map
 from .softmax import (MaskSpec, Partial, attend_partial,
                       attend_partial_blockwise, empty_partial, merge)
 
@@ -78,11 +79,11 @@ def ring_attention(
         return attend_partial(q_, k_, v_, scale=scale, mask=mask)
 
     p_r = layout.p_ring
-    ranks = range(len(q))
+    ranks = owned_ranks(q)
     acc = (list(accum) if accum is not None else
-           [empty_partial(*q[p].shape, device=q[p].device) for p in ranks])
+           rank_map(lambda x: empty_partial(*x.shape, device=x.device), q))
     masked = causal or window is not None
-    my_r = [layout.coords(p)[1] for p in ranks]
+    my_r = [layout.coords(p)[1] for p in range(len(q))]
 
     def mask_for(p, owner_r):
         if not masked:
@@ -94,14 +95,15 @@ def ring_attention(
             k_pos=k_pos_fn(p, owner_r) if k_pos_fn is not None else None,
         )
 
-    dev = q[0].device
+    dev = first(q).device
     if p_r == 1:
         # pure-Ulysses plan: no ring rotation, one local attend per rank —
         # still the compute the torus hops are scheduled to hide behind
         with mark_compute("local attend", layout.axes, dev, stream="ring"):
-            return [merge(acc[p], _attend(q[p], k[p], v[p],
+            return [None if q[p] is None else
+                    merge(acc[p], _attend(q[p], k[p], v[p],
                                           mask_for(p, my_r[p])))
-                    for p in ranks]
+                    for p in range(len(q))]
 
     stream = Stream("ring")
     kc, vc = k, v
@@ -148,23 +150,28 @@ def _ring_attention_kernels(
     rank reads in step s is never the buffer another rank writes in step s.
     """
     p_r = layout.p_ring
-    ranks = range(len(q))
-    b, lq, hq, d = q[0].shape
-    lk, hkv = k[0].shape[1], k[0].shape[2]
+    ranks = owned_ranks(q)
+    b, lq, hq, d = first(q).shape
+    lk, hkv = first(k).shape[1], first(k).shape[2]
     group = hq // hkv
-    dev = q[0].device
-    my_r = [layout.coords(p)[1] for p in ranks]
+    dev = first(q).device
+    my_r = [layout.coords(p)[1] for p in range(len(q))]
 
     # a head dim the kernels lack (80) circulates zero-padded to the next
     # one (128); the scale stays the true head dim's
     if scale is None:
         scale = d ** -0.5
-    qf = [pad_head_dim(_ops.flatten_heads(x)) for x in q]
-    qpp = [(q_pos[p] if q_pos is not None
+
+    def flat(x):
+        return pad_head_dim(_ops.flatten_heads(x))
+
+    qf = rank_map(flat, q)
+    qpp = [None if q[p] is None else
+           (q_pos[p] if q_pos is not None
             else torch.arange(lq, device=dev)).to(torch.int32).contiguous()
-           for p in ranks]
-    kc = [pad_head_dim(_ops.flatten_heads(x)) for x in k]
-    vc = [pad_head_dim(_ops.flatten_heads(x)) for x in v]
+           for p in range(len(q))]
+    kc = rank_map(flat, k)
+    vc = rank_map(flat, v)
 
     def kpos_for(p, owner):
         return (k_pos_fn(p, owner) if k_pos_fn is not None
@@ -186,24 +193,24 @@ def _ring_attention_kernels(
                                 f"shift1.s{s}")
             stream.next_stage()
             dst = dest_table(ch.perm, len(q))
-            k_recv = [torch.empty_like(t) for t in kc]
-            v_recv = [torch.empty_like(t) for t in vc]
             epoch = heap.next_epoch()
+            slots = fused_slots(kc, vc, dst, epoch)
 
             def launch():  # called right away, by put_fused
                 for p in ranks:
-                    flag, arrive = heap.words("fused", dst[p], epoch=epoch)
+                    flag, arrive = slots.flag(p)
                     owner = (my_r[p] - s) % p_r
                     state[p], _ = ring_flash_step(
                         qf[p], kc[p], vc[p], qpp[p], kpos_for(p, owner),
-                        k_dst=k_recv[dst[p]], v_dst=v_recv[dst[p]],
+                        k_dst=slots.k[dst[p]], v_dst=slots.v[dst[p]],
                         flag=flag, arrive=arrive, epoch=epoch,
                         state=state[p], **kw)
 
             with mark_compute("ring attend", layout.axes, dev,
                               stream=stream.name):
-                fut = ch.put_fused(k_recv, v_recv, launch=launch,
-                                   overlaps="ring attend")
+                fut = ch.put_fused(*slots.payload, launch=launch,
+                                   overlaps="ring attend", words=slots.words,
+                                   epoch=epoch)
             _trace.mark_compute("ring attend", stream=stream.name)
         else:
             # last step: compute only (2(P-1)/P volume, §2.2)
@@ -215,10 +222,10 @@ def _ring_attention_kernels(
                                           kpos_for(p, owner),
                                           state=state[p], **kw)
 
-    out = []
+    out = [None] * len(q)
     for p in ranks:
         o, l, m = state[p]
         part = Partial(o=o[..., :d].reshape(b, hq, lq, d).transpose(1, 2),
                        l=l.reshape(b, hq, lq), m=m.reshape(b, hq, lq))
-        out.append(part if accum is None else merge(accum[p], part))
+        out[p] = part if accum is None else merge(accum[p], part)
     return out

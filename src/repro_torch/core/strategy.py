@@ -40,10 +40,12 @@ import math
 
 import torch
 
+from ..comm.channel import first
+from ..comm.compress import WIRE_DTYPES
+from ..comm.kernel_backend import process_step
 from ..kernels.ops import flash_attention
 from . import planner
-from ..comm.compress import WIRE_DTYPES
-from .collectives import GroupLayout, SlicedLayout
+from .collectives import GroupLayout, SlicedLayout, rank_map
 from .ring import ring_attention
 from .softmax import finalize
 from .sp_grad import SPAttention
@@ -150,8 +152,8 @@ def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
     technique crosses (that single bit is the paper's §4.2 contribution).
     ``return_stats`` also returns each rank's final (m, l), as
     ``torus_attention`` does."""
-    lk = k[0].shape[1]  # the K/V shard's own length (cross-attention)
-    dev = q[0].device
+    lk = first(k).shape[1]  # the K/V shard's own length (cross-attention)
+    dev = first(q).device
     g = gather_qkv(q, k, v, layout, backend=backend, interpret=interpret,
                    wire_dtype=wire_dtype)
 
@@ -164,11 +166,12 @@ def _usp_like(q, k, v, layout: GroupLayout, *, scale, causal, window,
         scale=scale, causal=causal, window=window,
         kv_block=kv_block, backend=backend, interpret=interpret,
     )
-    out = scatter_o([finalize(pt, dtype=q[0].dtype) for pt in parts], layout,
-                    backend=backend, interpret=interpret,
+    dtype = first(q).dtype
+    out = scatter_o(rank_map(lambda pt: finalize(pt, dtype=dtype), parts),
+                    layout, backend=backend, interpret=interpret,
                     wire_dtype=wire_dtype)
     if return_stats:
-        return out, [(pt.m, pt.l) for pt in parts]
+        return out, rank_map(lambda pt: (pt.m, pt.l), parts)
     return out
 
 
@@ -183,8 +186,7 @@ def sp_attention(
     causal: bool = False,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Attention per the configured SP strategy over the mesh's virtual
-    ranks.
+    """Attention per the configured SP strategy over the mesh's ranks.
 
     The sequence is split over ``cfg.sp_axes`` (flat-rank order, major axis
     first) and the batch over the mesh's batch axes; heads and head dim
@@ -193,6 +195,13 @@ def sp_attention(
     sequence and batch.  When q, k or v wants a gradient, the schedule
     runs inside ``sp_grad.SPAttention``, whose backward is the
     schedule's (K1b per KV chunk, the puts).
+
+    On a process mesh (``mesh.is_process_mesh``) q, k and v are already
+    this process's sequence shard, the concatenation of its ranks'
+    shards: the split and the concatenation are skipped, the schedule
+    runs over the owned ranks (global positions come from their rank
+    numbers) and the result is the shard of the output.  The call is one
+    step of the process heap's fence (kernel_backend.process_step).
     """
     sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
     if cfg.strategy == "full" or sp == 1:
@@ -200,12 +209,15 @@ def sp_attention(
                                scale=scale)
     if q.device != mesh.device:
         raise ValueError(f"q is on {q.device}, the mesh on {mesh.device}")
+    procs = mesh.is_process_mesh
     slices = mesh.axes_size(cfg.effective_batch_axes(mesh) or ())
+    if procs:
+        _check_process_mesh(cfg, mesh, sp, slices, q, k)
     if q.shape[0] % slices:
         raise ValueError(f"batch {q.shape[0]} does not split evenly over "
                          f"{slices} batch slices (as shard_map requires)")
     for seq in {q.shape[1], k.shape[1]}:
-        if seq % sp:
+        if seq % (len(mesh.owned) if procs else sp):
             raise ValueError(f"sequence length {seq} does not split evenly "
                              f"over SP degree {sp} (as shard_map requires)")
 
@@ -222,10 +234,19 @@ def sp_attention(
               wire_dtype=cfg.a2a_wire_dtype)
     if slices > 1:
         layout = SlicedLayout(layout, slices)
-    # rank lists, slice-major: rank s * sp + p holds sequence shard p of
-    # batch slice s
-    shards = [[c for xs in torch.chunk(x, slices, dim=0)
-               for c in torch.chunk(xs, sp, dim=1)] for x in (q, k, v)]
+    if procs:
+        # rank lists of every rank, None where another process holds it
+        owned = mesh.owned
+        shards = []
+        for x in (q, k, v):
+            held = torch.chunk(x, len(owned), dim=1)
+            shards.append([held[p - owned[0]] if p in owned else None
+                           for p in range(sp)])
+    else:
+        # rank lists, slice-major: rank s * sp + p holds sequence shard p
+        # of batch slice s
+        shards = [[c for xs in torch.chunk(x, slices, dim=0)
+                   for c in torch.chunk(xs, sp, dim=1)] for x in (q, k, v)]
 
     def schedule(q_, k_, v_, **extra):
         if cfg.strategy == "swift_torus":
@@ -235,11 +256,38 @@ def sp_attention(
         return _usp_like(q_, k_, v_, layout, **kw, **extra)
 
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if procs:
+            raise NotImplementedError(
+                "training over a process mesh is a later slice (ROADMAP "
+                "Queue 1 item 12)")
         bwd_kw = dict(scale=scale, causal=causal, window=window,
                       backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
         out = SPAttention.apply(schedule, layout, bwd_kw, *shards[0],
                                 *shards[1], *shards[2])
     else:
-        out = schedule(*shards)
+        with process_step(q.device):
+            out = schedule(*shards)
+    if procs:
+        return torch.cat([o for o in out if o is not None], dim=1)
     return torch.cat([torch.cat(out[s * sp:(s + 1) * sp], dim=1)
                       for s in range(slices)], dim=0)
+
+
+def _check_process_mesh(cfg: SPConfig, mesh, sp: int, slices: int, q,
+                        k) -> None:
+    """A process mesh of this slice: the SP axes, in mesh order, are the
+    only axes above size 1, so that a rank's number over them is its
+    number over the mesh (the one the process's block of ranks is counted
+    in), and q and k are the sequence shard of the owned ranks."""
+    big = tuple(a for a, n in zip(mesh.axis_names, mesh.axis_sizes) if n > 1)
+    order = tuple(a for a in mesh.axis_names if a in cfg.sp_axes)
+    if slices > 1 or any(a not in cfg.sp_axes for a in big) or (
+            order != tuple(cfg.sp_axes)):
+        raise NotImplementedError(
+            f"a process mesh over {mesh.shape} with SP axes "
+            f"{cfg.sp_axes}: batch slices and other axes come "
+            "with the hybrid mesh's slice (ROADMAP Queue 1 item 9)")
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            "SP attention with Lq != Lk over a process mesh comes with the "
+            "LM slices (ROADMAP Queue 1 item 10)")

@@ -20,15 +20,16 @@ attention.  Every per-stage compute is a full RINGATTN over the
 intra-machine Ring group, as in Algorithm 1.  All ranks run in lockstep
 (every argument that differs by rank is a rank list); the Push-O stages
 are as in the reference (DESIGN.md §2: the diagonal Q's non-local-KV
-compute is folded into the Pull-KV stages).
+compute is folded into the Pull-KV stages).  On a process mesh the loops
+run over the ranks this process owns.
 """
 from __future__ import annotations
 
 import torch
 
 from ..comm import Stream, torus_hop
-from ..comm.channel import RankList
-from .collectives import GroupLayout
+from ..comm.channel import RankList, first
+from .collectives import GroupLayout, owned_ranks, rank_map
 from .ring import ring_attention
 from .softmax import Partial, empty_partial, finalize, merge
 from .ulysses import group_positions, scatter_o
@@ -94,22 +95,26 @@ def torus_attention(
     staged (distance-k) Q hops but run ONE ring circulation of the diagonal
     KV over the assembled gathered Q instead of one per Pull-Q stage."""
     p_u, p_r = layout.p_ulysses, layout.p_ring
-    ranks = range(len(q))
-    b, ls, hq, d = q[0].shape
-    lk = k[0].shape[1]  # the K/V shard's own length (cross-attention)
+    ranks = owned_ranks(q)
+    b, ls, hq, d = first(q).shape
+    lk = first(k).shape[1]  # the K/V shard's own length (cross-attention)
     h = hq // p_u
-    dev = q[0].device
-    coords = [layout.coords(p) for p in ranks]
+    dev = first(q).device
+    coords = [layout.coords(p) for p in range(len(q))]
     ar = torch.arange(ls, device=dev)
     ark = torch.arange(lk, device=dev)
     ring_kw = dict(scale=scale, causal=causal, window=window,
                    kv_block=kv_block, backend=backend, interpret=interpret)
 
-    qc = [torch.chunk(x, p_u, dim=HEAD_AXIS) for x in q]  # chunk j -> peer j
-    kc = [torch.chunk(x, p_u, dim=HEAD_AXIS) for x in k]
-    vc = [torch.chunk(x, p_u, dim=HEAD_AXIS) for x in v]
-    k_diag = [kc[p][u] for p, (u, _) in enumerate(coords)]
-    v_diag = [vc[p][u] for p, (u, _) in enumerate(coords)]
+    def chunks(x):  # chunk j -> peer j
+        return torch.chunk(x, p_u, dim=HEAD_AXIS)
+
+    def mine(xs, idx):  # [xs[p][idx[p]]] over the held ranks
+        return [None if x is None else x[i] for x, i in zip(xs, idx)]
+
+    qc, kc, vc = rank_map(chunks, q), rank_map(chunks, k), rank_map(chunks, v)
+    us = [u for u, _ in coords]
+    k_diag, v_diag = mine(kc, us), mine(vc, us)
 
     def chunk_pos(p: int, src_u: int) -> torch.Tensor:
         return _rank_of(layout, src_u, coords[p][1]) * ls + ar
@@ -119,7 +124,7 @@ def torus_attention(
         return _rank_of(layout, coords[p][0], owner_r) * lk + ark
 
     def send(chunks, kstage):
-        return [chunks[p][(u + kstage) % p_u] for p, (u, _) in enumerate(coords)]
+        return mine(chunks, [(u + kstage) % p_u for u in us])
 
     stream = Stream("torus", backend=backend, interpret=interpret)
 
@@ -135,28 +140,34 @@ def torus_attention(
     hops = pull_hops()
 
     # gathered-q accumulator per rank, source-u order
-    acc = [empty_partial(b, p_u * ls, h, d, device=dev) for _ in ranks]
+    acc = [None] * len(q)
+    for p in ranks:
+        acc[p] = empty_partial(b, p_u * ls, h, d, device=dev)
     fut = next(hops, None)
+
+    def positions(fn):  # fn(p) over the held ranks
+        return [None if x is None else fn(p) for p, x in enumerate(q)]
 
     if not fused_pull_q:
         # ---- stage 0: stationary diagonal chunks, compute starts, no comm
         parts = ring_attention(
-            [qc[p][u] for p, (u, _) in enumerate(coords)], k_diag, v_diag,
-            layout, q_pos=[chunk_pos(p, coords[p][0]) for p in ranks],
+            mine(qc, us), k_diag, v_diag,
+            layout, q_pos=positions(lambda p: chunk_pos(p, us[p])),
             k_pos_fn=diag_kpos_fn, **ring_kw)
-        for p, (u, _) in enumerate(coords):
-            _merge_slice(acc[p], parts[p], u * ls, ls)
+        for p in ranks:
+            _merge_slice(acc[p], parts[p], us[p] * ls, ls)
 
     # ---- Pull-Q stages: Q chunks arrive one hop-distance k at a time
-    q_recv = [[None] * p_u for _ in ranks]  # q_recv[p][j]: Q chunk from peer j
+    # q_recv[p][j]: Q chunk from peer j
+    q_recv = [[None] * p_u for _ in range(len(q))]
     for kstage in range(1, p_u):
         recv = fut.wait()
         fut = next(hops, None)
-        srcs = [(u - kstage) % p_u for u, _ in coords]
+        srcs = [(u - kstage) % p_u for u in us]
         if not fused_pull_q:
             parts = ring_attention(
                 recv, k_diag, v_diag, layout,
-                q_pos=[chunk_pos(p, srcs[p]) for p in ranks],
+                q_pos=positions(lambda p: chunk_pos(p, srcs[p])),
                 k_pos_fn=diag_kpos_fn, **ring_kw)
             for p in ranks:
                 _merge_slice(acc[p], parts[p], srcs[p] * ls, ls)
@@ -164,35 +175,38 @@ def torus_attention(
             q_recv[p][srcs[p]] = recv[p]
 
     # assemble the gathered Q (source-u order) for the Pull-KV stages
-    for p, (u, _) in enumerate(coords):
-        q_recv[p][u] = qc[p][u]
-    q_gather = [torch.cat(q_recv[p], dim=1) for p in ranks]
-    q_pos_all = [group_positions(layout, ls, r, dev) for _, r in coords]
+    for p in ranks:
+        q_recv[p][us[p]] = qc[p][us[p]]
+    q_gather = [None if x is None else torch.cat(q_recv[p], dim=1)
+                for p, x in enumerate(q)]
+    q_pos_all = positions(
+        lambda p: group_positions(layout, ls, coords[p][1], dev))
 
     if fused_pull_q:
         # single ring circulation of the diagonal KV over ALL gathered Q
         parts = ring_attention(q_gather, k_diag, v_diag, layout,
                                q_pos=q_pos_all, k_pos_fn=diag_kpos_fn,
                                **ring_kw)
-        acc = [merge(acc[p], parts[p]) for p in ranks]
+        acc = rank_map(merge, acc, parts)
 
     # ---- Pull-KV stages: KV chunks arrive; all Q attends each new chunk
     for kstage in range(1, p_u):
         k_recv, v_recv = fut.wait()
         fut = next(hops, None)
-        srcs = [(u - kstage) % p_u for u, _ in coords]
+        srcs = [(u - kstage) % p_u for u in us]
 
         def kpos_fn(p: int, owner_r: int, srcs=srcs) -> torch.Tensor:
             return _rank_of(layout, srcs[p], owner_r) * lk + ark
 
         parts = ring_attention(q_gather, k_recv, v_recv, layout,
                                q_pos=q_pos_all, k_pos_fn=kpos_fn, **ring_kw)
-        acc = [merge(acc[p], parts[p]) for p in ranks]
+        acc = rank_map(merge, acc, parts)
 
     # ---- Push-O: staged inverse all-to-all; diagonal O never moves
-    o = [finalize(a, dtype=q[0].dtype) for a in acc]  # [B, P_u * Ls, h, D]
+    dtype = first(q).dtype
+    o = rank_map(lambda a: finalize(a, dtype=dtype), acc)  # [B, P_u*Ls, h, D]
     out = scatter_o(o, layout, backend=backend, interpret=interpret,
                     wire_dtype=wire_dtype)
     if return_stats:
-        return out, [(a.m, a.l) for a in acc]
+        return out, rank_map(lambda a: (a.m, a.l), acc)
     return out

@@ -18,8 +18,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..comm.channel import RankList
-from .collectives import GroupLayout, monolithic_all_to_all, ungroup_all_to_all
+from ..comm.channel import RankList, first
+from .collectives import (GroupLayout, monolithic_all_to_all, rank_map,
+                          ungroup_all_to_all)
 
 HEAD_AXIS = 2  # [B, L, H, D]
 SEQ_AXIS = 1
@@ -54,11 +55,11 @@ def gather_seq(x: RankList, layout: GroupLayout, *, backend: str = "xla",
     stacked = monolithic_all_to_all(x, layout, split_axis=HEAD_AXIS,
                                     backend=backend, interpret=interpret,
                                     wire_dtype=wire_dtype)
-    out = []
-    for s in stacked:  # [P_u, B, Ls, h, D]
+    def gathered(s):  # [P_u, B, Ls, h, D]
         p_u, b, ls, h, d = s.shape
-        out.append(s.transpose(0, 1).reshape(b, p_u * ls, h, d))
-    return out
+        return s.transpose(0, 1).reshape(b, p_u * ls, h, d)
+
+    return rank_map(gathered, stacked)
 
 
 def gather_qkv(
@@ -69,14 +70,15 @@ def gather_qkv(
     """The first three all-to-alls of Ulysses Attention.  ``wire_dtype``
     compresses the inter-machine leg when the layout is hierarchical
     (``layout.u_groups > 1``); ignored otherwise."""
-    shard_len = q[0].shape[SEQ_AXIS]
+    shard_len = first(q).shape[SEQ_AXIS]
     kw = dict(backend=backend, interpret=interpret, wire_dtype=wire_dtype)
-    dev = q[0].device
+    dev = first(q).device
     return Gathered(
         q=gather_seq(q, layout, **kw), k=gather_seq(k, layout, **kw),
         v=gather_seq(v, layout, **kw),
-        q_pos=[group_positions(layout, shard_len, layout.coords(p)[1], dev)
-               for p in range(len(q))])
+        q_pos=[None if x is None else
+               group_positions(layout, shard_len, layout.coords(p)[1], dev)
+               for p, x in enumerate(q)])
 
 
 def scatter_o(o: RankList, layout: GroupLayout, *, backend: str = "xla",
@@ -85,10 +87,12 @@ def scatter_o(o: RankList, layout: GroupLayout, *, backend: str = "xla",
     """The fourth all-to-all: restore O from [B, P_u*Ls, H/P_u, D] to the
     original [B, Ls, H, D] sequence sharding."""
     p_u = layout.p_ulysses
-    stacked = []
-    for x in o:
+
+    def by_source(x):
         b, lg, h, d = x.shape
-        stacked.append(x.reshape(b, p_u, lg // p_u, h, d).transpose(0, 1))
+        return x.reshape(b, p_u, lg // p_u, h, d).transpose(0, 1)
+
+    stacked = rank_map(by_source, o)
     return ungroup_all_to_all(stacked, layout, concat_axis=HEAD_AXIS,
                               backend=backend, interpret=interpret,
                               wire_dtype=wire_dtype)

@@ -115,8 +115,11 @@ struct Forward {
   unsigned epoch;
 };
 
+// system scope: on a process mesh the word lies in the next ring rank's
+// heap, another process's (or, across cards, another card's) memory; one
+// card cannot tell .gpu from .sys
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
 }
 

@@ -57,10 +57,24 @@
 //     The add that completes the entry's tile count resets the word and
 //     release-stores the epoch.  No thread fences per byte it copied, and
 //     thread 0 starts its loads without waiting on the block's barrier.
-// Across cards (ROADMAP Queue 1 item 8): the bulk store takes any global
-// address, so pointing dst at a peer's mapped buffer (CUDA IPC or
-// symmetric memory over NVLink) should need no change to the body; with one
-// card that is unverified.
+// Across processes: the bulk store takes any global address, so dst may be
+// a peer process's receive buffer mapped here over CUDA IPC, and signal its
+// signal words (a process mesh, launch/procs.py; one launch per source
+// rank, comm/kernel_backend.py deliver_procs).  The release-store of the
+// signal is at system scope, so that the same body holds when the peer is
+// another card; on one card, where every process's memory is the same
+// card's, .gpu and .sys cannot be told apart.  Across cards over NVLink or
+// InfiniBand it is unverified (ROADMAP Queue 1 item 8).
+//
+// signal_wait_on_stream / signal_write_on_stream: the stream side of the
+// protocol, NVSHMEM's signal_wait_until_on_stream pattern.  The consumer's
+// stream waits for a signal word (cuStreamWaitValue32, GEQ the epoch) and a
+// sender's stream writes one behind its copies (cuStreamWriteValue32 with
+// its default memory barrier).  Both are resolved through
+// cudaGetDriverEntryPoint, so the library links no -lcuda.  The waits stay
+// on the stream: a block spinning on a word would hold its time slice,
+// while without MPS the processes' contexts on one card take turns.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -181,8 +195,9 @@ __device__ __forceinline__ void copy_bytes(const char* s, char* d,
   copy_words<unsigned char>(s, d, n, i0, step);
 }
 
+// system scope: the word may lie in another process's (or card's) memory
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
 }
 
@@ -391,4 +406,51 @@ extern "C" int landing_copy(int ranks, int tensors, const void* const* src,
 
 extern "C" const char* one_sided_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+namespace {
+
+typedef CUresult (*StreamValue32)(CUstream, CUdeviceptr, cuuint32_t,
+                                  unsigned int);
+
+// A driver entry point of the CUDA 12 ABI, or null when the driver has none.
+StreamValue32 driver_entry(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<StreamValue32>(fn);
+}
+
+constexpr int NO_ENTRY = -1;  // the driver lacks the entry point
+
+}  // namespace
+
+// The stream waits until (int)(*word - value) >= 0: the epochs wrap as the
+// kernels' do.  Returns a CUresult, or NO_ENTRY.
+extern "C" int signal_wait_on_stream(const unsigned* word, unsigned value,
+                                     void* stream) {
+  static const StreamValue32 wait = driver_entry("cuStreamWaitValue32");
+  if (wait == nullptr) return NO_ENTRY;
+  return static_cast<int>(wait(static_cast<CUstream>(stream),
+                               reinterpret_cast<CUdeviceptr>(word), value,
+                               CU_STREAM_WAIT_VALUE_GEQ));
+}
+
+// *word = value once the stream's earlier work is done, behind a memory
+// barrier (the default flags).  Returns a CUresult, or NO_ENTRY.
+extern "C" int signal_write_on_stream(unsigned* word, unsigned value,
+                                      void* stream) {
+  static const StreamValue32 write = driver_entry("cuStreamWriteValue32");
+  if (write == nullptr) return NO_ENTRY;
+  return static_cast<int>(write(static_cast<CUstream>(stream),
+                                reinterpret_cast<CUdeviceptr>(word), value,
+                                CU_STREAM_WRITE_VALUE_DEFAULT));
 }

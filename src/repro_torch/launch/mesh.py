@@ -8,9 +8,15 @@ which lies in the same address space — NVSHMEM's symmetric heap, trivially.
 Ranks are numbered as ``lax.axis_index(axes)`` numbers them: the flat rank
 over a tuple of axes is major-first.
 
-Puts across NVLink or InfiniBand (one process per card) are not modelled
-here; see ROADMAP.  Functions, not module constants: importing this module
-touches no device.
+A *process mesh* is the same mesh of ranks spread over ``procs``
+processes (launch/procs.py), each owning a contiguous block of them:
+one process per rank is the reference's layout, one device each
+(``rank % device_count``).  Its puts write into a peer process's receive
+buffers, mapped here over CUDA IPC (comm/kernel_backend.py); the default,
+one process owning every rank, is the mesh of virtual ranks above.  What
+one card cannot show (NVLink and InfiniBand, ``.sys`` visibility across
+cards) is ROADMAP Queue 1 item 8.  Functions, not module constants:
+importing this module touches no device.
 """
 from __future__ import annotations
 
@@ -24,11 +30,16 @@ from ..models.blocks import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axes and their sizes; every rank lives on ``device``."""
+    """Named axes and their sizes; the ranks this process owns live on
+    ``device``.  ``procs`` processes split the ranks into contiguous
+    blocks and this one is ``process``: the default, one process, owns
+    every rank (the mesh of virtual ranks)."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
     device: torch.device
+    process: int = 0
+    procs: int = 1
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -43,6 +54,10 @@ class Mesh:
             # the index tensors report, so that devices compare equal
             dev = torch.device("cuda", torch.cuda.current_device())
         object.__setattr__(self, "device", dev)
+        if self.size % self.procs or not 0 <= self.process < self.procs:
+            raise ValueError(f"{self.size} ranks do not split over "
+                             f"{self.procs} processes as process "
+                             f"{self.process}")
 
     @property
     def shape(self) -> dict[str, int]:
@@ -57,6 +72,31 @@ class Mesh:
         """Number of ranks over ``axes`` (the flat-rank range)."""
         shape = self.shape
         return math.prod(shape[a] for a in axes)
+
+    @property
+    def owned(self) -> range:
+        """The flat ranks (over every axis) this process owns."""
+        k = self.size // self.procs
+        return range(self.process * k, (self.process + 1) * k)
+
+    @property
+    def is_process_mesh(self) -> bool:
+        """True when other processes own some of the ranks."""
+        return self.procs > 1
+
+
+def process_mesh(mesh: Mesh, process: int, procs: int,
+                 device: str | torch.device | None = None) -> Mesh:
+    """``mesh`` spread over ``procs`` processes, as seen by ``process``:
+    on the card its device is ``process % device_count`` unless
+    ``device`` says otherwise."""
+    if device is None:
+        device = mesh.device
+        if device.type == "cuda":
+            device = torch.device("cuda",
+                                  process % torch.cuda.device_count())
+    return Mesh(mesh.axis_names, mesh.axis_sizes, resolve_device(device),
+                process=process, procs=procs)
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],

@@ -1,0 +1,507 @@
+"""One process per rank: the launcher of a process mesh.
+
+The reference runs every rank of its mesh on a device of its own.  The
+mesh of virtual ranks (launch/mesh.py) runs them all in one process; this
+launcher spreads the same mesh over P worker processes, each owning a
+contiguous block of its ranks (one rank each at P = mesh size), on the
+card ``rank % device_count`` unless the caller asks for the CPU:
+
+  * workers start from ``torch.multiprocessing``'s "spawn" context and
+    run a job of this package, ``job(group, *args)``;
+  * each makes one zeroed slab (a uint8 ``torch.empty``) for its heap,
+    held until every peer is done with it, and hands it to every peer
+    through an ``mp.Queue``: torch's reduction shares it over CUDA IPC on
+    the card and as shared memory on the CPU; each worker maps every
+    peer's slab beside its own and installs the heap
+    (comm/kernel_backend.py ``SymmetricHeap``);
+  * barriers are ``mp.Barrier``; control messages (``Group.send`` /
+    ``recv``) travel over one pipe per pair of workers; results come back
+    to the caller as CPU tensors;
+  * a watchdog joins the workers with a deadline and kills them all and
+    raises when it passes: a stream wait on the card has no trap (a put
+    whose signal never comes would wait for ever), and on the CPU a wait
+    spins to the same deadline.
+
+The parent builds the kernel libraries before spawning, so workers only
+load them.  ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` is
+refused: its segments do not share over CUDA IPC.  NCCL refuses two ranks
+on one card, so nothing here uses a ``torch.distributed`` collective.
+
+    python -m repro_torch.launch.serve --arch flux-12b --procs 4 ...
+
+runs the serving launcher this way; the jobs below are what the tests and
+``chip_smoke.py`` run across processes.
+"""
+from __future__ import annotations
+
+import faulthandler
+import gc
+import io
+import multiprocessing.connection
+import os
+import threading
+import time
+import traceback
+from typing import Any, Callable
+
+import torch
+
+DEADLINE_S = 600.0
+SLAB_BYTES = {"cuda": 512 << 20, "cpu": 16 << 20}
+# what a worker process needs built before it starts (the SP path's)
+LIBRARIES = ("flash_mqkv", "ring_flash", "one_sided")
+
+_group: "Group | None" = None
+
+
+def group() -> "Group":
+    """This worker's group (only inside a job the launcher runs)."""
+    if _group is None:
+        raise RuntimeError("not inside a worker of launch/procs.py")
+    return _group
+
+
+def _pack(obj: Any) -> bytes:
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    return buf.getvalue()
+
+
+def _unpack(data: bytes) -> Any:
+    return torch.load(io.BytesIO(data), map_location="cpu",
+                      weights_only=False)
+
+
+def to_cpu(obj: Any) -> Any:
+    """``obj`` with every tensor moved to the CPU (what crosses a pipe)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
+
+
+class Group:
+    """The workers of one launch, seen from worker ``rank``: control
+    messages over pipes (tensors cross as CPU tensors), a barrier, and
+    the gather of a sharded result."""
+
+    def __init__(self, rank: int, size: int, device: torch.device, links,
+                 barrier, deadline: float):
+        self.rank, self.size, self.device = rank, size, device
+        self._links = links
+        self._barrier = barrier
+        self.deadline = deadline
+
+    def send(self, peer: int, obj: Any) -> None:
+        self._links[peer].send_bytes(_pack(to_cpu(obj)))
+
+    def recv(self, peer: int) -> Any:
+        if not self._links[peer].poll(self.deadline):
+            raise TimeoutError(f"worker {self.rank}: no message from "
+                               f"{peer} in {self.deadline} s")
+        return _unpack(self._links[peer].recv_bytes())
+
+    def barrier(self) -> None:
+        self._barrier.wait(self.deadline)
+
+    def all_gather(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Every worker's ``x``, in rank order, on this worker's device.
+        The sends run on a thread, so that no pair of workers blocks on a
+        full pipe."""
+        peers = [q for q in range(self.size) if q != self.rank]
+        sender = threading.Thread(
+            target=lambda: [self.send(q, x) for q in peers])
+        sender.start()
+        got = {q: self.recv(q).to(x.device) for q in peers}
+        sender.join()
+        got[self.rank] = x
+        return [got[q] for q in range(self.size)]
+
+
+def _check_allocator(device_type: str) -> None:
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "").replace(" ", "")
+    if device_type == "cuda" and "expandable_segments:True" in conf:
+        raise RuntimeError(
+            "PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True: its segments "
+            "do not share over CUDA IPC, which a process mesh maps its "
+            "peers' heaps with; unset it")
+
+
+def _worker(rank: int, size: int, job: Callable, args: tuple,
+            device_type: str, slab_bytes: int, queues, barrier, links,
+            result, deadline: float, threads: int | None) -> None:
+    global _group
+    from ..comm import kernel_backend as kb
+
+    # a worker still running shortly before the watchdog kills it prints
+    # where it waits
+    faulthandler.dump_traceback_later(max(deadline - 5.0, 1.0), exit=False)
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        if device_type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device(device_type)
+        slab = torch.zeros(slab_bytes, dtype=torch.uint8, device=device)
+        if device_type == "cpu":
+            slab.share_memory_()
+        for q in range(size):
+            if q != rank:
+                queues[q].put((rank, slab))
+        slabs, peer = [None] * size, None
+        slabs[rank] = slab
+        for _ in range(size - 1):
+            q, peer = queues[rank].get(timeout=deadline)
+            slabs[q] = peer
+        kb.install_heap(kb.SymmetricHeap(device, slabs, process=rank,
+                                         deadline=deadline))
+        _group = Group(rank, size, device, links, barrier, deadline)
+        barrier.wait(deadline)  # every heap mapped before the first put
+        out = to_cpu(job(_group, *args))
+        if device_type == "cuda":
+            torch.cuda.synchronize(device)
+        # let go of the peers' slabs before any peer exits
+        kb.uninstall_heap(device)
+        del slabs, peer
+        gc.collect()
+        barrier.wait(deadline)  # every peer done with this slab
+        result.send_bytes(_pack(("ok", out)))
+    except BaseException:
+        barrier.abort()
+        result.send_bytes(_pack(("error", traceback.format_exc())))
+
+
+def launch(job: Callable, procs: int, *args: Any, device: str = "cuda",
+           deadline: float = DEADLINE_S, slab_bytes: int | None = None,
+           threads: int | None = None) -> list:
+    """Run ``job(group, *args)`` (a module-level function) in ``procs``
+    worker processes, one heap each; returns each worker's result, in
+    rank order, with its tensors on the CPU.  A worker that fails, dies or
+    outlives ``deadline`` seconds (from the start) fails the launch: every
+    worker is killed and the error raised.  ``threads`` sets each
+    worker's intra-op threads."""
+    device_type = torch.device(device).type
+    _check_allocator(device_type)
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu'")
+        from ..kernels import _build
+
+        for name in LIBRARIES:
+            _build.build(name)
+    elif device_type != "cpu":
+        raise ValueError(f"a process mesh runs on cuda or cpu, not {device}")
+    slab_bytes = slab_bytes or SLAB_BYTES[device_type]
+    ctx = torch.multiprocessing.get_context("spawn")
+    queues = [ctx.Queue() for _ in range(procs)]
+    barrier = ctx.Barrier(procs)
+    links = [[None] * procs for _ in range(procs)]
+    for a in range(procs):
+        for b in range(a + 1, procs):
+            links[a][b], links[b][a] = ctx.Pipe()
+    workers, results = [], []
+    until = time.monotonic() + deadline
+    try:
+        for r in range(procs):
+            rx, tx = ctx.Pipe(duplex=False)
+            w = ctx.Process(target=_worker, daemon=True, args=(
+                r, procs, job, args, device_type, slab_bytes, queues,
+                barrier, links[r], tx, deadline, threads))
+            w.start()
+            tx.close()
+            workers.append(w)
+            results.append(rx)
+        for row in links:  # the workers hold their own ends now
+            for c in row:
+                if c is not None:
+                    c.close()
+        return _watch(workers, results, until, deadline)
+    finally:
+        for w in workers:
+            if w.is_alive():
+                w.kill()
+        for w in workers:
+            w.join(10)
+
+
+def _watch(workers, results, until: float, deadline: float) -> list:
+    """Collect every worker's report before ``until``; raise on the
+    first failure (with whatever the others report within a few seconds)
+    or at the deadline."""
+    out = [None] * len(workers)
+    pending = set(range(len(workers)))
+    errors: dict[int, str] = {}
+    while pending:
+        left = until - time.monotonic()
+        if left <= 0:
+            raise TimeoutError(
+                f"process mesh: workers {sorted(pending)} still running "
+                f"after the {deadline} s deadline (a put whose signal never "
+                "came, or a hung worker); every worker was killed")
+        waitables = [results[r] for r in pending] + [
+            workers[r].sentinel for r in pending]
+        multiprocessing.connection.wait(waitables, timeout=left)
+        for r in sorted(pending):
+            if results[r].poll():
+                try:
+                    status, value = _unpack(results[r].recv_bytes())
+                except EOFError:
+                    status, value = "error", (
+                        f"exited with code {workers[r].exitcode} before it "
+                        "reported")
+                pending.discard(r)
+                if status == "ok":
+                    out[r] = value
+                else:
+                    errors[r] = value
+            elif not workers[r].is_alive():
+                pending.discard(r)
+                errors[r] = (f"died with exit code {workers[r].exitcode} "
+                             "before it reported")
+        if errors:
+            grace = time.monotonic() + 3.0
+            for r in sorted(pending):
+                if results[r].poll(max(grace - time.monotonic(), 0)):
+                    status, value = _unpack(results[r].recv_bytes())
+                    if status != "ok":
+                        errors[r] = value
+            # the first failure first: the others often only saw the
+            # broken barrier it left
+            order = sorted(errors, key=lambda r: "BrokenBarrierError"
+                           in errors[r])
+            raise RuntimeError("process mesh: " + "\n".join(
+                f"worker {r} failed:\n{errors[r]}" for r in order))
+    for w in workers:
+        w.join(max(until - time.monotonic(), 1.0))
+        if w.exitcode not in (0, None):
+            raise RuntimeError(f"process mesh: a worker exited with code "
+                               f"{w.exitcode} after it reported")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# jobs: what the tests, chip_smoke.py and the serving launcher run
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    """The kernel launch counters of this process (CUDA launches only)."""
+    from ..comm import kernel_backend as kb
+    from ..kernels import flash_mqkv as fm
+    from ..kernels import ring_flash as rf
+
+    return {"flash_mqkv": fm.launch_count(),
+            "ring_flash_step": rf.launch_count(),
+            "remote_put": kb.launch_count("remote_put"),
+            "landing_copy": kb.launch_count("landing_copy")}
+
+
+def reset_counts() -> None:
+    from ..comm import kernel_backend as kb
+    from ..kernels import flash_mqkv as fm
+    from ..kernels import ring_flash as rf
+
+    fm.reset_launch_count()
+    rf.reset_launch_count()
+    kb.reset_launch_count()
+
+
+def chain_job(group: Group, jobs: list) -> list:
+    """Several jobs, ``(job, args)`` each, one after another in the same
+    workers (one spawn for all)."""
+    return [job(group, *args) for job, args in jobs]
+
+
+def _sp_inputs(spec: dict, device: torch.device):
+    """q, k, v of an ``sp_attention_job`` case: given (CPU tensors), or
+    drawn on the device from ``seed`` (every worker draws the same)."""
+    if "qkv" in spec:
+        return [x.to(device) for x in spec["qkv"]]
+    b, l, hq, hkv, d = spec["shape"]
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    return [torch.randn((b, l, h, d), generator=gen, device=device).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
+    """``core.sp_attention`` on process meshes: per case (``mesh``:
+    (shape, axes); ``sp``: SPConfig fields; ``causal``; inputs as
+    ``_sp_inputs`` reads them; ``steps``: calls in a row, each on inputs
+    of seed + step) this worker's output shards, its launch counts and
+    the heap offsets it allocated (``offsets``: a list per call of
+    (kind, offset) in allocation order) and the most of its slab a call
+    used (``heap_bytes``).  ``wrong_route`` makes every
+    Ulysses stage hop land on the sender itself: a put along the wrong
+    route, which a bitwise check must catch."""
+    from ..comm import kernel_backend as kb
+    from ..core import SPConfig, sp_attention
+    from ..core.collectives import GroupLayout
+    from .mesh import make_mesh, process_mesh
+
+    out = []
+    for spec in cases:
+        mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                            group.rank, group.size)
+        cfg = SPConfig(**spec["sp"])
+        ln = spec["shape"][1] if "shape" in spec else spec["qkv"][0].shape[1]
+        rows = slice(mesh.owned[0] * ln // mesh.size,
+                     (mesh.owned[-1] + 1) * ln // mesh.size)
+        heap = kb.process_heap(group.device)
+        real = GroupLayout.ulysses_stage_perm
+        if spec.get("wrong_route"):
+            GroupLayout.ulysses_stage_perm = lambda self, k: [
+                (p, p) for p, _ in real(self, k)]
+        shards, offsets = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            for step in range(spec.get("steps", 1)):
+                drawn = (dict(spec, seed=spec["seed"] + step)
+                         if "seed" in spec else spec)
+                q, k, v = (x[:, rows]
+                           for x in _sp_inputs(drawn, group.device))
+                heap.trace = []
+                shards.append(sp_attention(q, k, v, cfg=cfg, mesh=mesh,
+                                           causal=spec.get("causal", False)))
+                offsets.append(heap.trace)
+                heap.trace = None
+            if group.device.type == "cuda":
+                torch.cuda.synchronize(group.device)
+        finally:
+            GroupLayout.ulysses_stage_perm = real
+        out.append({"shards": shards, "rows": (rows.start, rows.stop),
+                    "counts": launch_counts(), "offsets": offsets,
+                    "seconds": time.perf_counter() - t0,
+                    "heap_bytes": heap.high_water})
+    return out
+
+
+def _dit_params(spec: dict, device: torch.device):
+    """The DiT config and weights of a job: the reference's tree handed
+    across as numpy (``tree``), or ``init_dit`` from ``seed`` with the
+    zero-initialised tensors perturbed from ``seed + 1``."""
+    import dataclasses
+
+    from ..configs import get_config, get_reduced
+    from ..models import init_dit, load_jax_params
+
+    cfg = (get_reduced(spec["arch"]) if spec.get("reduced")
+           else get_config(spec["arch"]))
+    cfg = dataclasses.replace(cfg, **spec.get("cfg", {}))
+    if "tree" in spec:
+        return cfg, load_jax_params(spec["tree"], cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params = init_dit(cfg, gen, device=device)
+    gen.manual_seed(spec["seed"] + 1)
+    perturb_dit(params, gen)
+    return cfg, params
+
+
+def perturb_dit(params, gen: torch.Generator) -> None:
+    """Draw the tensors a fresh DiT holds at zero (adaLN, the output
+    projection), so that it is no identity: fan-in normal."""
+    with torch.no_grad():
+        for tree in [params["ada_f"], params["proj_out"]] + [
+                lp["ada"] for lp in params["layers"]]:
+            w = tree["w"]
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                    .mul_(w.shape[0] ** -0.5).to(w.dtype))
+
+
+def dit_step_job(group: Group, spec: dict) -> dict:
+    """``serving.sampler.sample_step`` on a process mesh: the latents
+    (``inputs["latents"]``, whole) are cut to this worker's rows, stepped
+    ``steps`` times from ``t`` by ``dt``, and returned as its shard.  Then
+    ``serving.sampler.sample`` from the same latents as noise for
+    ``sample_steps`` steps: every worker returns the gathered latents."""
+    from ..core import SPConfig
+    from ..models import ParallelContext
+    from ..models.dit import latent_rows
+    from ..serving.sampler import SamplerConfig, sample, sample_step
+    from .mesh import make_mesh, process_mesh
+
+    cfg, params = _dit_params(spec, group.device)
+    mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                        group.rank, group.size)
+    ctx = ParallelContext(SPConfig(**spec["sp"]), mesh=mesh)
+    x = spec["inputs"]["latents"].to(group.device)
+    seq = x.shape[1]
+    x = x[:, latent_rows(ctx, seq)]
+    cond = spec["inputs"]["cond"].to(group.device)
+    reset_counts()
+    t = spec.get("t", 0.8)
+    dt = spec.get("dt", 0.25)
+    with torch.inference_mode():
+        for i in range(spec.get("steps", 1)):
+            x = sample_step(params, cfg, ctx, x, cond, t - i * dt, dt,
+                            SamplerConfig(num_steps=4), seq_len=seq)
+    noise = spec["inputs"]["latents"].to(group.device)
+    sampled = sample(params, cfg, ctx, batch=noise.shape[0], seq_len=seq,
+                     cond=cond, noise=noise,
+                     sc=SamplerConfig(num_steps=spec.get("sample_steps", 2)))
+    rows = latent_rows(ctx, seq)
+    return {"shard": x, "rows": (rows.start, rows.stop), "sampled": sampled,
+            "counts": launch_counts()}
+
+
+def serve_job(group: Group, spec: dict) -> dict:
+    """``DiTServer`` on a process mesh: every worker builds the same
+    weights and server; worker 0 runs the scheduler, submits
+    ``requests`` ((rid, latent tokens) pairs, each with a cond drawn from
+    ``seed + 2 + rid``) and serves them, the others follow its steps.
+    Worker 0 returns each request's latents; every worker its launch
+    counts and the wall time of the served run."""
+    from ..core import SPConfig
+    from ..serving import DiTRequest, DiTServer, SamplerConfig
+    from .mesh import make_mesh, process_mesh
+
+    cfg, params = _dit_params(spec, group.device)
+    mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                        group.rank, group.size)
+    srv = DiTServer(params, cfg, SPConfig(**spec["sp"]), mesh=mesh,
+                    sampler=SamplerConfig(num_steps=spec["steps"]),
+                    capture=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {}
+    if group.rank == 0:
+        for rid, seq in spec["requests"]:
+            gen = torch.Generator(device=group.device).manual_seed(
+                spec["seed"] + 2 + rid)
+            cond = torch.randn((256, cfg.d_model), generator=gen,
+                               device=group.device).to(srv.dtype)
+            srv.submit(DiTRequest(rid=rid, seq_len=seq, cond=cond))
+        got = {r.rid: r.latents for r in srv.serve()}
+        srv.stop_followers()
+    else:
+        srv.follow()
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    return {"latents": got, "counts": launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def shift_put_job(group: Group, withhold: int | None = None) -> dict:
+    """One put along a shift of every rank (K3 on the card, its plain
+    version on the CPU): this worker's rank receives its predecessor's
+    tensor.  Worker ``withhold`` never issues its part: its successor then
+    waits on a signal word that never comes (the watchdog's case)."""
+    from ..comm import Channel, shift_perm
+
+    x = [None] * group.size
+    x[group.rank] = torch.full((4096,), float(group.rank),
+                               device=group.device)
+    ch = Channel(("model",), shift_perm(group.size), backend="pallas",
+                 interpret=False)
+    reset_counts()
+    if group.rank == withhold:
+        return {}
+    got = ch.put(x).wait()
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    return {"got": got[group.rank], "counts": launch_counts()}

@@ -12,6 +12,8 @@ service, on the card unless ``--device cpu`` asks for the CPU.
     ... --arch hymba-1.5b | qwen2-moe-a2.7b [--mesh pod]  (hybrid / MoE;
                                                            experts over model)
     ... --device cpu --reduced ...                        (on the CPU)
+    ... --arch flux-12b --procs 4 --mesh host --model 4 --eager
+                                    (one process per rank: launch/procs.py)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
 request scheduler: ``--mixed`` submits a mixed-resolution queue (seq,
@@ -35,7 +37,12 @@ attention LMs on any mesh: the dense and vlm families (qwen2-1.5b,
 stablelm-3b, starcoder2-7b, chatglm3-6b, qwen2-vl-2b), hymba-1.5b and the
 MoE LMs (qwen2-moe-a2.7b, arctic-480b, whose experts split over the mesh's
 model axis, padded to a multiple of its size), the KV cache sharded on the
-sequence over the SP axes (``--seq`` is the cache length).  An attention
+sequence over the SP axes (``--seq`` is the cache length).  ``--procs P``
+spreads the mesh's ranks over P processes (launch/procs.py; one per rank
+is the reference's layout, on the card ``rank % device_count``): process
+0 prints what the server did, the others follow its steps.  It serves the
+DiTs, eagerly (``--eager`` on the card: captured steps across processes
+are ROADMAP Queue 1 item 13).  An attention
 model's caches take the model's dtype: the reference's launcher leaves
 ARServer's float32 default, which its cache update refuses for a bfloat16
 model.
@@ -58,7 +65,8 @@ from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                        JsonlTracker, SamplerConfig, Tracker)
 from ..serving.sched import (SCHEMA_VERSION, CalibrationConfig,
                              ControlConfig, PreemptionPolicy)
-from .mesh import launch_mesh
+from . import procs as _procs
+from .mesh import launch_mesh, process_mesh
 
 LM_ARCHS = SSM_ARCHS + DENSE_ARCHS + HYBRID_ARCHS + MOE_ARCHS
 
@@ -111,11 +119,38 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the first N layers (depth cut; widths "
                          "stay the config's)")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="spread the mesh's ranks over this many processes "
+                         "(DiT only, eager)")
     args = ap.parse_args(argv)
     if args.profile is not None and args.metrics is not None:
         ap.error("--profile already streams metrics records; "
                  "give one output path, not both")
 
+    if args.procs > 1:
+        if args.arch not in DIT_ARCHS:
+            ap.error("--procs serves the DiTs; the LMs over processes are "
+                     "ROADMAP Queue 1 item 10")
+        if args.metrics is not None or args.profile is not None:
+            ap.error("--procs runs without --metrics or --profile")
+        if not args.eager and resolve_device(args.device).type == "cuda":
+            ap.error("--procs needs --eager: captured steps over processes "
+                     "are ROADMAP Queue 1 item 13")
+        _procs.launch(serve_job, args.procs, args,
+                      device=resolve_device(args.device).type)
+        return 0
+    return _serve(args)
+
+
+def serve_job(group, args) -> None:
+    """One process of ``--procs``: its part of the process mesh."""
+    _serve(args, group)
+
+
+def _serve(args, group=None) -> int:
+    """The launcher's body; with ``group`` (a worker of launch/procs.py)
+    on this process's part of the process mesh, where process 0 leads."""
+    lead = group is None or group.rank == 0
     if args.arch not in DIT_ARCHS + LM_ARCHS:
         raise NotImplementedError(
             f"{args.arch}: the port serves {DIT_ARCHS + LM_ARCHS}; no "
@@ -129,7 +164,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.profile is not None and cfg.family != "dit":
-        ap.error("--profile instruments the DiT step loop; use a dit --arch")
+        raise SystemExit("serve: error: --profile instruments the DiT step "
+                         "loop; use a dit --arch")
     capture = False if args.eager else None
     gen = torch.Generator(device=device).manual_seed(0)
     sink = args.profile if args.profile is not None else args.metrics
@@ -138,6 +174,10 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.family == "dit":
         mesh, sp = launch_mesh(args.mesh, args.model, args.data,
                                args.strategy, device)
+        if group is not None:
+            mesh = process_mesh(mesh, group.rank, group.size)
+            device = mesh.device
+            gen = torch.Generator(device=device).manual_seed(0)
         params = init_dit(cfg, gen, device)
         control = ControlConfig(
             preemption=PreemptionPolicy() if args.preempt else None,
@@ -147,12 +187,20 @@ def main(argv: list[str] | None = None) -> int:
                         sampler=SamplerConfig(num_steps=args.steps),
                         control=control, tracker=tracker,
                         profile=args.profile is not None, capture=capture)
+        if not lead:
+            srv.follow()
+            return 0
         lens = ([args.seq, args.seq // 2, args.seq * 2] if args.mixed
                 else [args.seq])
         for i in range(args.requests):
             srv.submit(DiTRequest(rid=i, seq_len=lens[i % len(lens)],
                                   sla=args.sla))
-        for r in sorted(srv.serve(), key=lambda r: r.rid):
+        served = srv.serve()
+        if group is not None:
+            srv.stop_followers()
+            print(f"process mesh: {group.size} processes, {len(mesh.owned)} "
+                  f"of {mesh.size} ranks each")
+        for r in sorted(served, key=lambda r: r.rid):
             print(f"request {r.rid}: latents {tuple(r.latents.shape)} "
                   f"latency {r.latency * 1e3:.1f} ms"
                   + ("" if r.sla_met else "  SLA MISSED"))
@@ -173,8 +221,9 @@ def main(argv: list[str] | None = None) -> int:
     else:
         if cfg.family == "ssm":
             if args.mesh != "host" or args.model > 1 or args.data > 1:
-                ap.error("the rwkv6 decode tick runs on one rank: --mesh "
-                         "host without --model or --data")
+                raise SystemExit("serve: error: the rwkv6 decode tick runs "
+                                 "on one rank: --mesh host without --model "
+                                 "or --data")
             mesh, sp, cache_dtype = None, SPConfig(strategy="full"), \
                 torch.float32
         else:

@@ -152,6 +152,28 @@ def _embed(params: Params, latents: torch.Tensor, cond: torch.Tensor,
     return x, _time_embedding(params, timesteps, x.dtype)
 
 
+def shard_rows(ctx: ParallelContext, seq_len: int) -> tuple[int, int]:
+    """The rows [start, stop) of [cond ; latents] (``COND_TOKENS +
+    seq_len`` rows) that this process holds: all of them, except on a
+    process mesh, where they are its ranks' sequence shards."""
+    mesh, total = ctx.mesh, COND_TOKENS + seq_len
+    if mesh is None or not mesh.is_process_mesh:
+        return 0, total
+    sp = ctx.sp_degree
+    if total % sp:
+        raise ValueError(f"[cond ; latents] of {total} rows does not split "
+                         f"evenly over SP degree {sp}")
+    per = total // sp
+    return mesh.owned[0] * per, (mesh.owned[-1] + 1) * per
+
+
+def latent_rows(ctx: ParallelContext, seq_len: int) -> slice:
+    """The latent rows this process holds (``shard_rows`` past the
+    conditioning tokens)."""
+    start, stop = shard_rows(ctx, seq_len)
+    return slice(max(start - COND_TOKENS, 0), max(stop - COND_TOKENS, 0))
+
+
 def dit_forward(
     params: Params,
     cfg: ModelConfig,
@@ -162,6 +184,7 @@ def dit_forward(
     timesteps: torch.Tensor,  # [B] in [0, 1], float32
     return_layer_kv: bool = False,
     kv_out: KVState | None = None,
+    seq_len: int | None = None,
 ):
     """Returns predicted velocity [B, T, LATENT_CHANNELS].
 
@@ -170,13 +193,28 @@ def dit_forward(
     pipeline seeds the stale-KV state with it — written into ``kv_out``
     when given (else into a new buffer).  The x-path computation is
     identical either way.
+
+    On a process mesh the forward runs on this process's shard of
+    [cond ; latents]: ``latents`` are its latent rows (``latent_rows``) of
+    ``seq_len`` in all, ``cond`` is whole and gives the conditioning rows
+    the shard holds, positions are the shard's slice of the global
+    ``arange``, and the returned velocity covers its latent rows.
     """
     b_, _, _ = latents.shape
+    start, n_cond = 0, COND_TOKENS
+    if ctx.mesh is not None and ctx.mesh.is_process_mesh:
+        if seq_len is None or return_layer_kv:
+            raise ValueError("a process mesh's forward needs seq_len and "
+                             "keeps no layer KV")
+        start, stop = shard_rows(ctx, seq_len)
+        cond = cond[:, start:min(stop, COND_TOKENS)]
+        n_cond = cond.shape[1]
     x, t_emb = _embed(params, latents, cond, timesteps)
     l_ = x.shape[1]
     # 1-D positions over [cond ; latents], as in the reference (not Flux's
     # 2-D rope)
-    positions = torch.arange(l_, device=x.device)[None].expand(b_, l_)
+    positions = torch.arange(start, start + l_,
+                             device=x.device)[None].expand(b_, l_)
     state = None
     if return_layer_kv:
         shape = (cfg.n_layers, b_, l_, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -191,7 +229,8 @@ def dit_forward(
         x, (k, v) = dit_block(lp, cfg, ctx, x, t_emb, positions,
                               return_kv=True)
         update_state_rows(state, k[None], v[None], 0, first_layer=i)
-    vel = _final_projection(params, cfg, x, t_emb)[:, COND_TOKENS:]
+    # the conditioning rows this shard holds are dropped
+    vel = _final_projection(params, cfg, x, t_emb)[:, n_cond:]
     return (vel, state) if return_layer_kv else vel
 
 

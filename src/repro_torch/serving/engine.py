@@ -22,6 +22,15 @@ once), the port captures each as a CUDA graph and replays it
 (serving/graphs.py): on CUDA by default, eagerly with ``capture=False``
 and always on the CPU.  A captured step's first call runs eagerly (the
 warm-up), its second captures it.
+
+On a process mesh (launch/procs.py) DiTServer stays single-controller, as
+the reference is: process 0's server runs the scheduler and sends each
+step's plan (request ids as noise seeds, bucket, step index, the
+conditioning at step 0) to the other processes, whose ``follow`` runs the
+same step on their shard of the latents; the shards are gathered on
+process 0 once the batch is done.  Followers run no scheduler: the SLA
+scheduler reads the clock, and its choices would part between processes.
+Such a server is eager.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from ..core import SPConfig, plan_hybrid
 from ..core.comm_model import NetworkModel
 from ..core.pipefusion import stage_layers
 from ..models import ParallelContext, get_model, resolve_device, torch_dtype
-from ..models.dit import COND_TOKENS, LATENT_CHANNELS
+from ..models.dit import COND_TOKENS, LATENT_CHANNELS, latent_rows
 from .graphs import CapturedStep, resolve_capture
 from .metrics import Tracker
 from .sampler import (
@@ -175,6 +184,22 @@ class DiTServer:
         self.sampler = sampler
         self.profiler = CommProfiler() if profile else None
         self.capture = resolve_capture(capture, self.device)
+        self.group = None  # a process mesh's workers (launch/procs.py)
+        if mesh is not None and mesh.is_process_mesh:
+            if self.capture:
+                raise NotImplementedError(
+                    "captured steps over a process mesh are a later slice "
+                    "(ROADMAP Queue 1 item 13); serve it with capture=False "
+                    "(--eager)")
+            if sampler.pipelined or (sampler.guided and sampler.cfg_parallel):
+                raise NotImplementedError(
+                    "the pipelined and CFG-parallel samplers over a process "
+                    "mesh come with the hybrid mesh's slice (ROADMAP Queue 1 "
+                    "item 9)")
+            from ..launch import procs as _procs
+
+            self.group = _procs.group()
+            self._follow_steps: dict = {}
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.tracker = tracker if tracker is not None else Tracker()
         self.drift = drift if drift is not None else DriftPolicy()
@@ -276,13 +301,8 @@ class DiTServer:
         def build():
             if sc.pipelined:
                 return _HybridSteps(self, batch, seq, sc)
-            dt = 1.0 / sc.num_steps
-
-            def f(x, cond, t):
-                return sample_step(self.params, self.cfg, self.ctx, x, cond,
-                                   t, dt, sc)
-
-            return self._captured(f, batch, seq, "dit.step")
+            return self._captured(self._plain_step(seq, sc), batch, seq,
+                                  "dit.step")
 
         return self.plan_cache.step_fn(batch, seq, build,
                                        variant=choice.num_patches)
@@ -304,17 +324,86 @@ class DiTServer:
         return math.prod(mesh.shape[a] for a in self.ctx.sp.batch_axes or ()
                          if a in mesh.axis_names)
 
+    def _plain_step(self, seq: int, sc: SamplerConfig):
+        """One Euler step of the bucket (on a process mesh, of this
+        process's shard of ``seq`` latents)."""
+        dt = 1.0 / sc.num_steps
+        kw = dict(seq_len=seq) if self.group is not None else {}
+
+        def f(x, cond, t):
+            return sample_step(self.params, self.cfg, self.ctx, x, cond, t,
+                               dt, sc, **kw)
+
+        return f
+
+    def _noise_keys(self, batch: list[DiTRequest], b: int) -> list[int]:
+        """Each row's noise seed: its request id (pad rows: salt + row
+        index)."""
+        return [batch[i].rid if i < len(batch) else self._PAD_NOISE_SALT + i
+                for i in range(b)]
+
     def _noise(self, batch: list[DiTRequest], b: int, t: int) -> torch.Tensor:
         """Initial latent noise, drawn per ROW from a generator seeded by
         (_NOISE_SEED, rid) (pad rows: (_NOISE_SEED, salt + row index))."""
+        return self._noise_rows(self._noise_keys(batch, b), t)
+
+    def _noise_rows(self, keys: list[int], t: int) -> torch.Tensor:
+        """The noise of rows seeded by ``keys``; on a process mesh, this
+        process's rows of the latent sequence."""
         rows = []
-        for i in range(b):
-            key = batch[i].rid if i < len(batch) else self._PAD_NOISE_SALT + i
+        for key in keys:
             g = torch.Generator(device=self.device)
             g.manual_seed((self._NOISE_SEED << 32) | key)
             rows.append(torch.randn((t, LATENT_CHANNELS), generator=g,
                                     dtype=self.dtype, device=self.device))
-        return torch.stack(rows)
+        x = torch.stack(rows)
+        if self.group is not None:
+            x = x[:, latent_rows(self.ctx, t)].contiguous()
+        return x
+
+    # -- a process mesh: process 0 leads, the others follow -------------------
+    def _tell(self, msg: dict) -> None:
+        """Send one plan message to every follower (process 0 only)."""
+        for q in range(1, self.group.size):
+            self.group.send(q, msg)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Process 0's shard and every follower's, in rank order: the
+        batch's latents."""
+        self._tell({"kind": "gather"})
+        shards = [x] + [self.group.recv(q).to(x.device)
+                        for q in range(1, self.group.size)]
+        return torch.cat(shards, dim=1)
+
+    def stop_followers(self) -> None:
+        """End every follower's ``follow`` loop (process 0 only)."""
+        self._tell({"kind": "stop"})
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """A follower's loop: run each step process 0 plans on this
+        process's shard, hand the shard over at the batch's end, until
+        process 0 says stop."""
+        x = cond = None
+        while True:
+            msg = self.group.recv(0)
+            kind = msg["kind"]
+            if kind == "stop":
+                return
+            if kind == "park":
+                x = None
+                continue
+            if kind == "gather":
+                self.group.send(0, x)
+                x = None
+                continue
+            t = msg["seq"]
+            if msg["step"] == 0:
+                cond = msg["cond"].to(device=self.device)
+                x = self._noise_rows(msg["keys"], t)
+            if t not in self._follow_steps:
+                self._follow_steps[t] = self._plain_step(t, self.sampler)
+            x = self._follow_steps[t](x, cond, msg["t"])
 
     def _park(self, adm, adm_id: int, step: int) -> None:
         """Preempt the running batch: requests return to the head of their
@@ -371,6 +460,7 @@ class DiTServer:
                               device=self.device))
             for i in range(b)
         ])
+        keys = self._noise_keys(batch, b)
         x = self._noise(batch, b, t)
         fn = self._step_fn(b, t, adm.plan)
         dt = 1.0 / sc.num_steps
@@ -447,6 +537,10 @@ class DiTServer:
             else:
                 for i in range(sc.num_steps):
                     t0 = time.perf_counter()
+                    if self.group is not None:
+                        self._tell({"kind": "step", "keys": keys, "seq": t,
+                                    "step": i, "t": 1.0 - i * dt,
+                                    "cond": cond if i == 0 else None})
                     x = fn(x, cond, 1.0 - i * dt)
                     if tick(i, t0):
                         parked = True
@@ -456,7 +550,11 @@ class DiTServer:
             # (comm.leg / comm.compute / comm.exposed_wait spans)
             emit_leg_spans(self.profiler, self.tracker)
         if parked:
+            if self.group is not None:
+                self._tell({"kind": "park"})
             return []
+        if self.group is not None:
+            x = self._gather(x)
         # the latents outlive the next replay of this server's graphs
         x = x.clone()
         sync(self.device)

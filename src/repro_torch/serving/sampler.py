@@ -16,6 +16,11 @@ Beyond the paper, the sampler composes two extra parallel axes with SP:
     ``warmup_steps`` synchronous steps, each step runs the PipeFusion
     forward (models/dit.py ``dit_forward_displaced``) against one-step-
     stale per-layer KV; the sampler threads the KVState across steps.
+
+On a process mesh (launch/procs.py) each process steps its shard of the
+latents (models/dit.py ``latent_rows``); they stay sharded across steps,
+as the reference's GSPMD keeps them, and ``sample`` gathers them once at
+the end.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from ..models.dit import (
     LATENT_CHANNELS,
     dit_forward,
     dit_forward_displaced,
+    latent_rows,
 )
 
 
@@ -126,17 +132,19 @@ def _timesteps(t: float | torch.Tensor, b: int,
 def sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
                 x_t: torch.Tensor, cond: torch.Tensor,
                 t: float | torch.Tensor, dt: float,
-                sc: SamplerConfig) -> torch.Tensor:
+                sc: SamplerConfig, seq_len: int | None = None) -> torch.Tensor:
     """One Euler step x_{t-dt} = x_t - dt * v(x_t, t); ``t`` is a float or
-    a 0-d tensor."""
+    a 0-d tensor.  On a process mesh ``x_t`` is this process's shard of
+    latents ``seq_len`` long (models/dit.py ``latent_rows``)."""
     ctx = _ctx_for(ctx, sc)
     b = x_t.shape[0]
     tt = _timesteps(t, b, x_t.device)
+    fwd = dict(seq_len=seq_len) if seq_len is not None else {}
     if sc.guided and sc.cfg_parallel:
         k = sc.cfg_degree
         lat_k, cond_k = _stack_cfg_branches(x_t, cond, k)
         v_all = dit_forward(params, cfg, ctx, latents=lat_k, cond=cond_k,
-                            timesteps=torch.cat([tt] * k))
+                            timesteps=torch.cat([tt] * k), **fwd)
         v = _cfg_recombine(v_all, b, sc.branch_weights)
         return x_t - dt * v.to(x_t.dtype)
     if sc.guided and sc.cfg_weights is not None:
@@ -146,13 +154,14 @@ def sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
         v = None
         for w, c in zip(sc.branch_weights, conds):
             vb = dit_forward(params, cfg, ctx, latents=x_t, cond=c,
-                             timesteps=tt).float()
+                             timesteps=tt, **fwd).float()
             v = w * vb if v is None else v + w * vb
         return x_t - dt * v.to(x_t.dtype)
-    v = dit_forward(params, cfg, ctx, latents=x_t, cond=cond, timesteps=tt)
+    v = dit_forward(params, cfg, ctx, latents=x_t, cond=cond, timesteps=tt,
+                    **fwd)
     if sc.guided:
         v_un = dit_forward(params, cfg, ctx, latents=x_t,
-                           cond=torch.zeros_like(cond), timesteps=tt)
+                           cond=torch.zeros_like(cond), timesteps=tt, **fwd)
         v, v_un = v.float(), v_un.float()
         v = v_un + sc.guidance_scale * (v - v_un)
     return x_t - dt * v.to(x_t.dtype)
@@ -279,6 +288,17 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
         noise = torch.randn((batch, seq_len, LATENT_CHANNELS),
                             generator=generator,
                             dtype=torch_dtype(cfg.dtype), device=ctx.device)
+    procs = ctx.mesh is not None and ctx.mesh.is_process_mesh
+    if procs:
+        if step_fn is not None or sc.pipelined:
+            raise NotImplementedError(
+                "a process mesh samples with the plain Euler step; the "
+                "pipelined sampler comes with the hybrid mesh's slice "
+                "(ROADMAP Queue 1 item 9)")
+        # this process's latent rows, gathered once after the last step
+        noise = noise[:, latent_rows(ctx, seq_len)]
+        step_fn = lambda x, c, t: sample_step(params, cfg, ctx, x, c, t, dt,
+                                              sc, seq_len=seq_len)
     x = noise
     dt = 1.0 / sc.num_steps
     timed = metrics is not None or (tracker is not None
@@ -311,7 +331,11 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
             x = step_fn(x, cond, 1.0 - i * dt)
             stamp(i, t0)
             if interrupt is not None and interrupt(i):
-                return x
+                break
+        if procs:
+            from ..launch import procs as _procs
+
+            x = torch.cat(_procs.group().all_gather(x), dim=1)
         return x
     thresholds = drift_thresholds or [None] * batch
     use_drift = drift_policy is not None and drift_policy.engaged(thresholds)

@@ -1045,3 +1045,89 @@ def test_cuda_wkv_function_gradient_matches_cpu(cuda):
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     for g, x in zip(grads[str(cuda)], grads["cpu"]):
         assert float((g - x).abs().max() / x.abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the process mesh's stream side (csrc/one_sided.cu) and a put across
+# processes (launch/procs.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.needs_cuda
+def test_cuda_stream_wait_holds_the_stream_until_the_write(cuda):
+    """signal_wait_on_stream holds its stream until a
+    signal_write_on_stream on another stream brings the word to the
+    epoch; GEQ: a later epoch releases it too.  Nothing here touches the
+    default stream while the wait holds: it would wait behind it."""
+    import ctypes
+    import time
+
+    lib = kb._bound_library()
+    words = torch.zeros(2, dtype=torch.int32, device=cuda)
+    x = torch.randn(1 << 20, device=cuda)
+    out = torch.zeros_like(x)
+    waiting, writing = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    ptr = words.data_ptr()
+
+    def write(value):
+        return lib.signal_write_on_stream(
+            ptr, value, ctypes.c_void_p(writing.cuda_stream))
+
+    try:
+        with torch.cuda.stream(waiting):
+            assert lib.signal_wait_on_stream(
+                ptr, 5, ctypes.c_void_p(waiting.cuda_stream)) == 0
+            out.copy_(x)
+        time.sleep(0.2)
+        held = not waiting.query()
+        assert write(7) == 0
+        until = time.monotonic() + 10
+        while not waiting.query() and time.monotonic() < until:
+            time.sleep(0.01)
+        released = waiting.query()
+    finally:
+        # never leave a stream waiting: release it on the writing stream
+        write(100)
+        torch.cuda.synchronize()
+    assert held and released
+    assert torch.equal(out, x)
+    assert int(words[0]) == 100 and int(words[1]) == 0
+
+
+@pytest.mark.needs_cuda
+def test_cuda_put_across_processes(cuda):
+    """Two worker processes on the card: each one's K3 launch writes its
+    tensor into the peer's receive buffer (mapped over CUDA IPC) and
+    signal word; each receives its predecessor's."""
+    from repro_torch.launch import procs
+
+    res = procs.launch(procs.shift_put_job, 2, device="cuda",
+                       slab_bytes=16 << 20, deadline=120)
+    for r, got in enumerate(res):
+        assert torch.equal(got["got"], torch.full((4096,), float(1 - r)))
+        assert got["counts"]["remote_put"] == 1
+
+
+@pytest.mark.needs_cuda
+def test_cuda_sp_attention_across_processes_is_bitwise_the_virtual_mesh(cuda):
+    """swift_torus on (pod 2, model 2) across 4 processes, bf16, with 8
+    query heads over 2 KV heads so that the plan is P_u 2 x P_r 2 (K1, K2
+    and K4 into the peers' slabs): every shard bitwise the virtual
+    mesh's."""
+    from repro_torch.launch import procs
+
+    mesh = ((2, 2), ("pod", "model"))
+    sp = dict(strategy="swift_torus", sp_axes=mesh[1], batch_axes=None,
+              comm_backend="pallas", kernel_interpret=False)
+    case = dict(mesh=mesh, sp=sp, shape=(2, 512, 8, 2, 128), seed=3,
+                dtype="bfloat16")
+    res = procs.launch(procs.sp_attention_job, 4, [case], device="cuda",
+                       slab_bytes=64 << 20, deadline=120)
+    q, k, v = procs._sp_inputs(case, cuda)
+    want = sp_attention(q, k, v, cfg=SPConfig(**sp),
+                        mesh=make_mesh(*mesh, device=cuda)).cpu()
+    for r, worker in enumerate(res):
+        lo, hi = worker[0]["rows"]
+        assert torch.equal(worker[0]["shards"][0], want[:, lo:hi]), r
+        assert worker[0]["counts"]["ring_flash_step"] > 0
+        assert worker[0]["counts"]["landing_copy"] > 0
