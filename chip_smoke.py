@@ -186,7 +186,7 @@ tokens (end of serve-lm).  It prints each step's wall clock captured
 against eager.  layer-paper and numbers add one captured swift_torus layer
 (wall clock, device time, idle share).  Phase 23, serve-cli (after
 commcheck), runs ``python -m repro_torch.launch.serve`` on the card:
-flux-12b at degree 1 (32 of its 96 layers) and on --mesh pod (8), and
+flux-12b at degree 1 (16 of its 96 layers) and on --mesh pod (8), and
 rwkv6-1.6b.
 
 Phases 24 to 27 (after serve-lm) and the numbers phase serve the dense and
@@ -329,9 +329,26 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  virtual mesh's shards,
                  with its per-rank share of launches and a wrong-route
                  negative control; DiTServer led by process 0 on (pod 2,
-                 model 2) at 8 of 96 layers within SERVE_SP_TOL of the
-                 virtual-mesh server; ``launch.serve --procs 4`` (K3).
+                 model 2) at 2 of 96 layers within SERVE_SP_TOL of the
+                 virtual-mesh server; ``launch.serve --procs 4`` (K3)
+                 beside the workers.
                  Runs after profile.  Budget SERVE_PROCS_BUDGET_S, printed.
+ 44. serve-procs-hybrid — the hybrid mesh over a process mesh: eight
+                 worker processes, two of the 16 ranks of (cfg 2, pipe 2,
+                 data 1, model 4) each; DiTServer led by process 0 on
+                 cogvideox-5b (full width, bf16, 4 of 42 layers), one
+                 request of 12,288 latents, guidance 4 with a branch per
+                 cfg coordinate (velocities exchanged by K3 over cfg), the
+                 displaced pipeline (hand-offs by K3 to the next pipe
+                 rank's process, the warm step's layer KV gathered by K3
+                 over model), 3 steps, within PROCS_HYBRID_TOL (inside
+                 SERVE_SP_TOL) of the virtual-mesh twin; each process's launches against the
+                 schedule's share and its slab's high-water mark; as
+                 negative controls the served run with every cfg exchange
+                 put to its own branch, and a hand-off by the flat-rank
+                 owner rule; ``launch.serve --mesh multipod --procs 4``
+                 beside the workers.  The phase fails past
+                 PROCS_HYBRID_BUDGET_S.
 The numbers phase also prints the first whole-step shares of the card's
 peak: the dry-run's counted FLOPs (launch/dryrun.py on the meta device)
 of the train phase's qwen2-1.5b step and of the serve phase's degree-1
@@ -373,7 +390,8 @@ print.  K1b's, K3's and K4's add the launches of train-sp's timed steps
 (counted from 0 after its warm-up step).  K1-K4's add serve-procs' (each
 counted from 0 in every worker process, summed over the four): K2's from
 its ring sp_attention, K3's from its (model 4) one, K1's and K4's from its
-served run.  The line before the
+served run; K1's and K3's also serve-procs-hybrid's served run (summed
+over its eight processes).  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -479,7 +497,9 @@ DENSE_SP_LAYERS = 4
 DENSE_SP_BL = (2, 1024)
 DENSE_SP_TOL = 1e-4  # SP vs degree 1, fp32, relative to max|logits|
 DENSE_DECODE_LAYERS = 4
-DENSE_DECODE_POS = 256  # qwen2 decode positions (16 per rank on 16 ranks)
+# qwen2 decode positions (8 per rank on 16 ranks; 256 before they were
+# halved to make room for serve-procs-hybrid)
+DENSE_DECODE_POS = 128
 WINDOW_DECODE_POS = 64  # starcoder2 positions decoded past its window
 
 
@@ -1195,6 +1215,34 @@ def rss_gib() -> float:
     return float("nan")
 
 
+class DeviceMemory:
+    """The most device memory in use on card 0, by every process on it
+    (``torch.cuda.mem_get_info``), sampled every ``period`` s on a thread
+    while the block runs: what processes run side by side take
+    together."""
+
+    def __init__(self, period: float = 0.1):
+        self.period, self.peak = period, 0
+        self._done = None
+
+    def _sample(self) -> None:
+        import torch
+        while not self._done.wait(self.period):
+            free, total = torch.cuda.mem_get_info(0)
+            self.peak = max(self.peak, total - free)
+
+    def __enter__(self) -> "DeviceMemory":
+        import threading
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._thread.join()
+
+
 def log_graphs(label: str, srv, card: str) -> list:
     """One line per step of ``srv``: its capture and instantiation host
     seconds, replays and launches per replay.  Returns the steps."""
@@ -1516,7 +1564,8 @@ PROCS_MESHES = {"pod": ((2, 2), ("pod", "model")), "model": ((4,), ("model",))}
 PROCS_CASES = (("pod", "swift_torus", "K1, K4"), ("pod", "ring", "K1, K2"),
                ("model", "swift_torus", "K1, K3"))
 PROCS_SHAPE = (2, 4352, 24, 24, 128)  # B, L, Hq, Hkv, D: the 4096 bucket
-SERVE_PROCS_LAYERS = 8  # of flux-12b's 96
+# of flux-12b's 96 (8 before serve-procs-hybrid; its gates are bitwise)
+SERVE_PROCS_LAYERS = 2
 SERVE_PROCS_STEPS = 2
 SERVE_PROCS_BUDGET_S = 60
 PROCS_DEADLINE_S = 300  # the launcher's watchdog: a hung worker fails here
@@ -1549,7 +1598,9 @@ def serve_procs(results: dict, card: str) -> None:
     width), each request's latents within SERVE_SP_TOL (latent_err) of
     the virtual-mesh eager server's, the launches per process a quarter
     of its K1 and all of its K4.  (c) ``python -m
-    repro_torch.launch.serve --procs 4`` on (model 4).  A worker's failure
+    repro_torch.launch.serve --procs 4`` on (model 4), run beside the
+    worker launch (the most device memory the processes use together is
+    printed).  A worker's failure
     or a timeout fails the phase; the wall times are four time-sliced
     contexts on one card: no speed figure, and no prediction of NVLink."""
     import torch
@@ -1566,18 +1617,28 @@ def serve_procs(results: dict, card: str) -> None:
     spec = dict(arch="flux-12b", cfg={"n_layers": SERVE_PROCS_LAYERS},
                 seed=43, mesh=pod, steps=SERVE_PROCS_STEPS,
                 requests=list(REQUESTS), sp=procs_sp(pod))
+    # (c) runs beside the workers: each is mostly its processes' start
     t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_CLI],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     try:
-        res = procs.launch(procs.chain_job, PROCS, [
-            (procs.sp_attention_job, (cases,)),
-            (procs.serve_job, (spec,))], device="cuda",
-            deadline=PROCS_DEADLINE_S)
+        with DeviceMemory() as mem:
+            res = procs.launch(procs.chain_job, PROCS, [
+                (procs.sp_attention_job, (cases,)),
+                (procs.serve_job, (spec,))], device="cuda",
+                deadline=PROCS_DEADLINE_S)
+            cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
     except Exception as err:  # a worker failed, died or timed out
+        cli.kill()
+        cli.communicate()
         fail(f"serve-procs: {err}")
     launch_s = time.perf_counter() - t0
     log(f"serve-procs: one launch of {PROCS} worker processes (spawn, CUDA "
-        f"IPC of the slabs, sp_attention x {len(cases)}, served run) "
-        f"{launch_s:.1f} s [{card}]")
+        f"IPC of the slabs, sp_attention x {len(cases)}, served run) beside "
+        f"the (c) launcher's 4: {launch_s:.1f} s, device memory in use at "
+        f"most {mem.peak / 2**30:.2f} GiB [{card}]")
 
     dev = torch.device("cuda")
     checks = []
@@ -1659,28 +1720,234 @@ def serve_procs(results: dict, card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_CLI],
-        capture_output=True, text=True, timeout=PROCS_DEADLINE_S,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    lines = proc.stdout.splitlines()
+    lines = cli_out.splitlines()
     for line in lines:
         log(f"serve-procs cli: {line}")
-    cli_ok = (proc.returncode == 0
+    cli_ok = (cli.returncode == 0
               and any(x.startswith("process mesh: 4 processes")
                       for x in lines)
               and any(x.startswith("request 0: latents (1024, 64)")
                       for x in lines))
-    log(f"serve-procs cli {' '.join(PROCS_CLI)}: rc {proc.returncode}, "
-        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    log(f"serve-procs cli {' '.join(PROCS_CLI)}: rc {cli.returncode} "
+        f"[{card}]")
     if not cli_ok:
-        fail(f"serve-procs cli: rc {proc.returncode}: {proc.stderr[-1500:]}")
+        fail(f"serve-procs cli: rc {cli.returncode}: {cli_err[-1500:]}")
     phase_s = time.perf_counter() - t_phase
     log(f"serve-procs: {phase_s:.1f} s (budget {SERVE_PROCS_BUDGET_S} s) "
         f"[{card}]")
     if not all(checks):
         fail("serve-procs: a process-mesh check failed (see above)")
+
+
+# serve-procs-hybrid (phase 44): the hybrid mesh over processes
+PROCS_HYBRID = 8  # processes: 2 of HYBRID_MESH's 16 ranks each
+PROCS_HYBRID_LAYERS = 4  # of cogvideox-5b's 42
+PROCS_HYBRID_STEPS = 3  # 1 warm, 2 displaced
+PROCS_HYBRID_BUDGET_S = 50
+# (a)'s limit on latent_err against the virtual-mesh twin, inside
+# SERVE_SP_TOL: the two compute the same operations (bitwise in every run
+# so far), and 0.03 cannot see a cfg exchange put to the wrong branch
+# (2.26e-2 at this depth: guidance is lost, the branches' velocities
+# barely differ under seeded weights)
+PROCS_HYBRID_TOL = 1e-3
+# the negative control's hand-off: (cfg 1, pipe 2, data 4, model 1) over 8
+# processes, where the flat-rank rule (the (data, pipe) list's index read
+# as the flat rank) is a wrong permutation of the processes: every put lands,
+# at the wrong process
+PROCS_HANDOFF_MESH = ((1, 2, 4, 1), ("cfg", "pipe", "data", "model"))
+PROCS_HYBRID_CLI = ["--arch", "flux-12b", "--mesh", "multipod", "--procs",
+                    "4", "--eager", "--layers", "1"]
+
+
+def procs_hybrid_counts(lay, warm: int, displaced: int, layers: int,
+                        patches: int, pp: int, blocks: int) -> tuple:
+    """The launches of the hybrid served run: (the virtual mesh's, one
+    process's).  The virtual mesh runs each warm layer's swift_torus on
+    every (branch, SP rank), ``ranks`` of them, one K3 a put for all, and
+    each displaced forward once for both branches (two K1 a (patch,
+    layer), one K3 a hand-off).  A process owns ``per`` ranks of one
+    (branch, pipe) pair: a quarter of the warm K1 (the pipe replica
+    doubles the virtual mesh's work), one K3 a put per owned source (the
+    torus puts; the KV gather's and the output gather's blocks - 1 puts,
+    one a layer and one a step; the cfg exchange, one a step), and the
+    whole displaced forward of its branch (both pipe stages: the replica
+    runs every stage), one K3 a hand-off and one for the cfg exchange."""
+    ranks = 2 * lay.size
+    circ = 1 + 2 * (lay.p_ulysses - 1)
+    per = lay.size // blocks
+    torus_puts = 3 * (lay.p_ulysses - 1)
+    virtual = {"flash_mqkv": warm * layers * ranks * circ
+               + displaced * 2 * patches * layers,
+               "ring_flash_step": 0,
+               "remote_put": warm * layers * torus_puts
+               + displaced * patches * (pp - 1),
+               "landing_copy": 0}
+    process = {"flash_mqkv": warm * layers * per * circ
+               + displaced * 2 * patches * layers,
+               "ring_flash_step": 0,
+               "remote_put": warm * (layers * (torus_puts + blocks - 1) * per
+                                     + (blocks - 1) * per + 1)
+               + displaced * (patches * (pp - 1) + 1),
+               "landing_copy": 0}
+    return virtual, process
+
+
+def serve_procs_hybrid(results: dict, card: str) -> None:
+    """Phase 44, serve-procs-hybrid: the hybrid mesh over a process mesh,
+    PROCS_HYBRID worker processes on the one card, each owning two of
+    HYBRID_MESH's ranks (cfg 2, pipe 2, data 1, model 4), so that every
+    axis crosses a process boundary and SP also stays inside a process.
+
+    (a) DiTServer led by process 0 on cogvideox-5b at full width, bf16, at
+    PROCS_HYBRID_LAYERS of its 42 layers: one request of HYBRID_LATENTS,
+    guidance GUIDANCE on the cfg axis (each process one branch, the
+    branches' velocities exchanged by K3 over the cfg axis), HYBRID_PIPE's
+    displaced pipeline (hand-offs by K3 to the next pipe rank's
+    process), PROCS_HYBRID_STEPS steps (1 warm, whose layer KV is
+    gathered over the SP axes by K3, then displaced): its latents within
+    PROCS_HYBRID_TOL (latent_err; inside SERVE_SP_TOL) of the
+    virtual-mesh twin's at the same depth.  (b) Each process's K1, K3 and K4 launches against the counts
+    the schedule gives one process beside the virtual mesh's, and its
+    slab's high-water mark.  Negative controls: the served run again with
+    every cfg exchange put to the sender's own branch (serve_job's
+    ``wrong_route``) fails (a)'s limit; a hand-off on PROCS_HANDOFF_MESH
+    routed by the flat-rank owner rule reaches the wrong processes (the
+    owner map's reaches the right ones).  (c) ``python -m
+    repro_torch.launch.serve`` PROCS_HYBRID_CLI, run beside the worker
+    launch, exits 0; the most device memory the processes use together is
+    printed.  The phase fails past PROCS_HYBRID_BUDGET_S.  The wall times
+    are time-sliced contexts on one card: no speed figure."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.core.strategy import resolve_layout
+    from repro_torch.launch import make_mesh, procs
+    from repro_torch.serving import DiTRequest
+
+    t_phase = time.perf_counter()
+    mesh = (HYBRID_MESH, ("cfg", "pipe", "data", "model"))
+    sp = dict(strategy="swift_torus", sp_axes=("model",),
+              batch_axes=("data",), cfg_axis="cfg", pp_axis="pipe",
+              comm_backend="pallas", kernel_interpret=False)
+    sampler = dict(num_steps=PROCS_HYBRID_STEPS, guidance_scale=GUIDANCE,
+                   cfg_parallel=True, pipeline=dict(warmup_steps=1,
+                                                    **HYBRID_PIPE))
+    spec = dict(arch="cogvideox-5b", cfg={"n_layers": PROCS_HYBRID_LAYERS},
+                seed=47, mesh=mesh, sp=sp, sampler=sampler,
+                requests=[(0, HYBRID_LATENTS)])
+    hand = [dict(mesh=PROCS_HANDOFF_MESH, batch_axes=("data",)),
+            dict(mesh=PROCS_HANDOFF_MESH, batch_axes=("data",),
+                 old_owner=True)]
+    # (c) runs beside the workers: each is mostly its processes' start
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_HYBRID_CLI],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    try:
+        with DeviceMemory() as mem:
+            res = procs.launch(procs.chain_job, PROCS_HYBRID, [
+                (procs.handoff_job, (hand,)), (procs.serve_job, (spec,)),
+                (procs.serve_job, (dict(spec, wrong_route=True),))],
+                device="cuda", deadline=PROCS_DEADLINE_S)
+            cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
+    except Exception as err:  # a worker failed, died or timed out
+        cli.kill()
+        cli.communicate()
+        fail(f"serve-procs-hybrid: {err}")
+    both_s = time.perf_counter() - t0
+    log(f"serve-procs-hybrid: one launch of {PROCS_HYBRID} worker processes "
+        f"(hand-offs, served run, misrouted served run) beside the (c) "
+        f"launcher's 4: {both_s:.1f} s, device memory in use at most "
+        f"{mem.peak / 2**30:.2f} GiB [{card}]")
+    checks = []
+
+    # the negative control first: who each process heard from
+    pipe = PROCS_HANDOFF_MESH[1].index("pipe")
+    for n, label in enumerate(("owner map", "flat-rank rule")):
+        right = []
+        for w in res:
+            want = list(w[0][n]["coords"])
+            want[pipe] = (want[pipe] - 1) % PROCS_HANDOFF_MESH[0][pipe]
+            sender = next(r for r, x in enumerate(res)
+                          if x[0][n]["coords"] == tuple(want))
+            right.append(float(w[0][n]["got"][0, 0]) == sender)
+        log(f"serve-procs-hybrid hand-off on {PROCS_HANDOFF_MESH[0]} by the "
+            f"{label}: each process received its peer's slice {right}"
+            + (" (must break)" if n else ""))
+        checks.append(all(right) if n == 0 else not all(right))
+
+    dev = torch.device("cuda")
+    cfg, params = procs._dit_params(spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 2)
+    cond = torch.randn((256, cfg.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    out, wall, virtual, _, srv = run_server(
+        params, cfg, {0: cond}, spec["requests"], SPConfig(**sp),
+        mesh=make_mesh(*mesh, device=dev), sampler=procs._sampler(spec),
+        capture=False)
+    (choice,) = srv.plan_cache.plans.values()
+    patches = srv._bucket_sampler(choice).pipeline.patches
+    noise = srv._noise([DiTRequest(rid=0, seq_len=HYBRID_LATENTS)], 1,
+                       HYBRID_LATENTS)[0]
+    got = res[0][1]["latents"][0].to(dev)
+    err = latent_err(got, out[0].latents, noise)
+    finite = bool(torch.isfinite(got).all())
+    log(f"serve-procs-hybrid (a) cogvideox-5b {PROCS_HYBRID_LAYERS} layers "
+        f"bf16, {HYBRID_LATENTS} latents, {patches} patches: shape "
+        f"{tuple(got.shape)} finite={finite} latent_err {err:.4e} against "
+        f"the virtual-mesh twin (limit {PROCS_HYBRID_TOL})"
+        + (" - bitwise equal" if err == 0.0 else "") + f" [{card}]")
+    checks.append(finite and tuple(got.shape) == (HYBRID_LATENTS, 64)
+                  and err <= PROCS_HYBRID_TOL)
+    bad = latent_err(res[0][2]["latents"][0].to(dev), out[0].latents, noise)
+    log(f"serve-procs-hybrid (a) negative control, every cfg exchange put "
+        f"to the sender's own branch: latent_err {bad:.4e} against the "
+        f"twin (must exceed {PROCS_HYBRID_TOL}; SERVE_SP_TOL "
+        f"{SERVE_SP_TOL} would " + ("" if bad > SERVE_SP_TOL else "not ")
+        + "see it)")
+    checks.append(bad > PROCS_HYBRID_TOL)
+
+    vmesh = make_mesh(*mesh, device=dev)
+    lay = resolve_layout(SPConfig(**sp), vmesh, cfg.n_heads, cfg.n_kv_heads)
+    per_process = math.prod(HYBRID_MESH) // PROCS_HYBRID
+    want_v, want_p = procs_hybrid_counts(
+        lay, 1, PROCS_HYBRID_STEPS - 1, PROCS_HYBRID_LAYERS, patches,
+        HYBRID_PIPE["pp"], lay.size // per_process)
+    log(f"serve-procs-hybrid (b) the virtual-mesh twin: launches {virtual} "
+        f"(the schedule's {want_v}), {wall:.2f} s in this process, "
+        f"swift_torus P_u {lay.p_ulysses} x P_r {lay.p_ring} [{card}]")
+    checks.append(virtual == want_v)
+    for r, w in enumerate(res):
+        c = w[1]["counts"]
+        log(f"serve-procs-hybrid (b) process {r}: launches {c} (one "
+            f"process's share by the schedule {want_p}), "
+            f"{w[1]['seconds']:.2f} s of serving, slab high-water mark "
+            f"{w[1]['heap_bytes'] / 2**20:.1f} MiB of "
+            f"{procs.SLAB_BYTES['cuda'] / 2**20:.0f} MiB [{card}]")
+        checks.append(c == want_p)
+    for name in ("flash_mqkv", "remote_put"):
+        results["procs_launches"][name] += sum(w[1]["counts"][name]
+                                               for w in res)
+    del params, srv, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lines = cli_out.splitlines()
+    for line in lines:
+        log(f"serve-procs-hybrid cli: {line}")
+    log(f"serve-procs-hybrid (c) cli {' '.join(PROCS_HYBRID_CLI)}: rc "
+        f"{cli.returncode} [{card}]")
+    if cli.returncode != 0 or not any(
+            x.startswith("process mesh: 4 processes, 8 of 32 ranks each")
+            for x in lines):
+        fail(f"serve-procs-hybrid cli: rc {cli.returncode}: "
+             f"{cli_err[-1500:]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"serve-procs-hybrid: {phase_s:.1f} s (budget "
+        f"{PROCS_HYBRID_BUDGET_S} s) [{card}]")
+    checks.append(phase_s <= PROCS_HYBRID_BUDGET_S)
+    if not all(checks):
+        fail("serve-procs-hybrid: a process-mesh check failed (see above)")
 
 
 def paper_attn(card: str) -> None:
@@ -2126,16 +2393,19 @@ FP8_TOL = {"float8_e4m3fn": 0.08, "float8_e5m2": 0.15}
 # 7 Pull-Q + 7 Pull-KV + 7 Push-O flat; the hierarchical Push-O is 3 intra
 # puts (of 2-chunk bundles) and 1 inter put (of a 4-chunk bundle)
 HIER_PUTS = {False: 3 * (P_U - 1), True: 2 * (P_U - 1) + (P_U // 2 - 1) + 1}
-# depth of the capture phase's swift_torus oracle (8 until PR 29, which
-# cut it to make room for serve-procs; its gates are bitwise)
-CAPTURE_LAYERS = 4
-HYBRID_CAPTURE_LAYERS = 2  # depth of its fp32 hybrid oracle (cogvideox-5b)
+# depth of the capture phase's swift_torus oracle (8, then 4, each cut to
+# make room for a process-mesh phase; its gates are bitwise)
+# 1 layer since PR 30 (2 before): its gates (bitwise the eager server,
+# launches per replay the eager count) do not depend on depth
+CAPTURE_LAYERS = 1
+# depth of its fp32 hybrid oracle (cogvideox-5b): one layer a pipe stage
+HYBRID_CAPTURE_LAYERS = 2
 PROFILE_LATENTS = 1024  # the profile phase's one request
 PROFILE_STEPS = 3  # an eager warm-up, a capture + replay, a replay
 # the profile phase's depth of flux-12b's 96 layers (its checks do not
 # depend on depth; at SERVE_SP_LAYERS it took ~41 s, at 16 22.5 s; PR 29
-# cut it from 16 to 8 to make room for serve-procs)
-PROFILE_LAYERS = 8
+# cut it from 16 to 8 to make room for serve-procs, then PR 30 to 2)
+PROFILE_LAYERS = 2
 
 
 def _layer_times(fn, label: str, card: str) -> dict:
@@ -2491,13 +2761,15 @@ def commcheck_phase(card: str) -> None:
         fail(f"commcheck: rc {proc.returncode}: {proc.stderr[-1500:]}")
 
 
+SERVE_CLI_AT_ONCE = 3  # concurrent launcher runs (9 in a row took ~125 s)
 SERVE_CLI = (
-    # 32 and 8 of the 96 layers (96 and 16 until PR 29, which cut them to
-    # make room for serve-procs): a 96-layer SP graph alone takes ~50 s to
-    # capture and instantiate, and the serve phase already runs all 96
+    # 16 and 8 of the 96 layers (96 and 16 until PR 29, which cut them to
+    # make room for serve-procs; PR 30 cut degree 1 from 32 to 16): a
+    # 96-layer SP graph alone takes ~50 s to capture and instantiate, and
+    # the serve phase already runs all 96
     ("flux-12b degree 1", ["--arch", "flux-12b", "--requests", "2",
                            "--seq", "1024", "--steps", "3", "--layers",
-                           "32"]),
+                           "16"]),
     ("flux-12b mesh pod", ["--arch", "flux-12b", "--mesh", "pod",
                            "--requests", "1", "--seq", "256", "--steps",
                            "3", "--layers", "8"]),
@@ -2521,21 +2793,34 @@ SERVE_CLI = (
 
 def serve_cli_phase(card: str) -> None:
     """Phase 23: ``python -m repro_torch.launch.serve`` on the card, at full
-    width with random weights: flux-12b at degree 1 (32 of its 96 layers)
+    width with random weights: flux-12b at degree 1 (16 of its 96 layers)
     and on the paper's mesh (pod 2, model 8) at 8 (``--layers``),
     rwkv6-1.6b, and at 4 layers each qwen2-1.5b, hymba-1.5b and
     qwen2-moe-a2.7b at degree 1 and with the KV cache sharded over (pod 2,
     model 8) (the experts over model 8); each run prints its requests,
     the DiT runs their scheduler line, and every run its captured
-    graphs."""
+    graphs.  The runs go SERVE_CLI_AT_ONCE at a time: each is mostly its
+    process's start, and no gate reads a wall time."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for label, argv in SERVE_CLI:
+
+    def run(argv):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", *argv],
             capture_output=True, text=True, timeout=600, env=env)
+        return proc, time.perf_counter() - t0
+
+    import torch
+    held = torch.cuda.memory_reserved(0)
+    with DeviceMemory() as mem, concurrent.futures.ThreadPoolExecutor(
+            SERVE_CLI_AT_ONCE) as pool:
+        runs = list(pool.map(run, [argv for _, argv in SERVE_CLI]))
+    log(f"serve-cli: device memory in use at most {mem.peak / 2**30:.2f} "
+        f"GiB with {SERVE_CLI_AT_ONCE} runs at once, this process's allocator "
+        f"reserving {held / 2**30:.2f} GiB of it [{card}]")
+    for (label, _), (proc, seconds) in zip(SERVE_CLI, runs):
         lines = proc.stdout.splitlines()
         for line in lines:
             log(f"serve-cli {label}: {line}")
@@ -2545,8 +2830,8 @@ def serve_cli_phase(card: str) -> None:
               and any(x.startswith("graphs:") and " captured," in x
                       for x in lines)
               and (not dit or any(x.startswith("scheduler:") for x in lines)))
-        log(f"serve-cli {label}: rc {proc.returncode}, "
-            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        log(f"serve-cli {label}: rc {proc.returncode}, {seconds:.1f} s "
+            f"({SERVE_CLI_AT_ONCE} runs at once) [{card}]")
         if not ok:
             fail(f"serve-cli {label}: rc {proc.returncode}: "
                  f"{proc.stderr[-1500:]}")
@@ -6182,6 +6467,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_procs(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_procs")
+    serve_procs_hybrid(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after "
+        "serve_procs_hybrid")
 
     paper_attn(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after paper_attn")
@@ -6321,7 +6609,8 @@ def main() -> int:
                    results["k5b_err"]["rwkv6-train"], k5b),
     ]
     # the process mesh's launches (serve-procs: K1 and K4 from the served
-    # run, K2 from ring and K3 from (model 4)), summed over its processes
+    # run, K2 from ring and K3 from (model 4); serve-procs-hybrid: K1 and
+    # K3 from its served run), summed over its processes
     for row in kernels[:4]:
         row["launches"] += results["procs_launches"][row["name"]]
     for row in kernels:

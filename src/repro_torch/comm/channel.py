@@ -31,10 +31,15 @@ a put is differentiable (grad.py): its backward is a put of the
 cotangents along the inverse route, through the same lowering.
 
 On a process mesh (launch/procs.py) each process holds the tensors of the
-ranks it owns, and a rank list holds None for the others.  A put then
-writes into the receive buffers of the peer process, mapped into this
-one (kernel_backend.deliver_procs), and the wait is on the signal words
-in this process's own heap at the put's epoch.  Across cards (NVLink,
+ranks it owns, and a rank list holds None for the others.  Which process
+owns an entry is the channel's ``owners`` (launch.mesh.OwnerMap): the
+entry stands for the mesh point at its coordinates on the list's axes and
+this process's own on the other axes, which need not be the route's axes
+(a sliced SP list spans the batch axes too, the pipe hand-off's list the
+batch axes and the pipe axis).  A put then writes into the receive
+buffers of the owning peer process, mapped into this one
+(kernel_backend.deliver_procs), and the wait is on the signal words in
+this process's own heap at the put's epoch.  Across cards (NVLink,
 InfiniBand) that path is ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
@@ -163,6 +168,7 @@ class Channel:
     stage: int = 0  # stage index within the stream program
     backend: str = "xla"  # "xla" | "pallas"
     interpret: bool = True
+    owners: Any = None  # the rank list's OwnerMap on a process mesh
 
     def __post_init__(self):
         assert self.backend in ("xla", "pallas"), self.backend
@@ -248,7 +254,8 @@ class Channel:
                 stage=self.stage))
         meta = self._leg_meta(tensors, overlaps, backend)
         out, words, epoch, keep = _kb.deliver_procs(
-            tensors, tuple(self.perm), lowering=lowering, meta=meta)
+            tensors, tuple(self.perm), owners=self.owners, lowering=lowering,
+            meta=meta)
         if sem:
             _trace.emit_sem(_trace.SemEvent(
                 kind="signal", sem=sem, stream=self.stream,

@@ -29,15 +29,21 @@ signal words.  The signal words and block counters live in a per-device
 On a process mesh (launch/procs.py) the heap is carved from this
 process's slab, and the peers' slabs are mapped beside it (CUDA IPC on
 the card, shared memory on the CPU).  ``deliver_procs`` then lowers a put
-over the ranks this process owns: receive buffers and signal words come
-from a bump allocator whose offsets every process computes alike, so a
-sender writes into the receiver's buffer at an address it knows before
-the receiver allocates.  K3 runs once per owned source rank and writes
-into the peer's slab; on the emulation branch the transport copy writes
-into the peer's slab and the receiver's K4 lands it there; the consumer
-waits on the signal words in its own heap (``wait_words``: a stream wait
-on the card, a spin with a deadline on the CPU).  The allocator restarts
-at a step fence (``process_step``).
+over the ranks this process owns.  Who owns an entry of a rank list is
+the list's owner map (``launch.mesh.OwnerMap``, the channel's
+``owners``): the entry stands for a point of the mesh, found from its
+coordinates on the list's axes and this process's own on the others, and
+that point's process owns it, at a slot among its entries.  Receive
+buffers and signal words come from a bump allocator whose offsets every
+process computes alike, so a sender writes into the receiver's buffer at
+an address it knows before the receiver allocates.  K3 runs once per
+owned source rank and writes into the peer's slab; on the emulation
+branch the transport copy writes into the peer's slab and the receiver's
+K4 lands it there; the consumer waits on the signal words in its own
+heap (``wait_words``: a stream wait on the card, a spin with a deadline
+on the CPU).  The allocator restarts at a step fence (``process_step``),
+which brackets every group of puts: an SP attention call, a gather, a
+displaced forward's hand-offs, a cfg exchange.
 """
 from __future__ import annotations
 
@@ -175,20 +181,6 @@ class SymmetricHeap:
         return self._side
 
     # -- a process mesh's symmetric heap ------------------------------------
-    def owned(self, size: int) -> range:
-        """The ranks of a ``size``-rank list this process owns: a
-        contiguous block, as ``launch.mesh.Mesh.owned``."""
-        if size % self.procs:
-            raise ValueError(f"{size} ranks do not split over "
-                             f"{self.procs} processes")
-        k = size // self.procs
-        return range(self.process * k, (self.process + 1) * k)
-
-    def owner(self, rank: int, size: int) -> tuple[int, int]:
-        """(process, slot) of ``rank``: which process owns it, and its
-        index among that process's ranks."""
-        return divmod(rank, size // self.procs)
-
     def words_at(self, process: int, index: int, n: int) -> torch.Tensor:
         """``n`` int32 words from word ``index`` of ``process``'s slab."""
         return self.slabs[process][4 * index:4 * (index + n)].view(
@@ -347,8 +339,9 @@ def process_heap(device: torch.device) -> SymmetricHeap | None:
 
 @contextlib.contextmanager
 def process_step(device: torch.device):
-    """Bracket one step of puts (one SP attention call) with the step
-    fence of a process mesh's heap; a no-op on a mesh of virtual ranks."""
+    """Bracket one step of puts (an SP attention call, a gather, a
+    displaced forward's hand-offs, a cfg exchange) with the step fence of
+    a process mesh's heap; a no-op on a mesh of virtual ranks."""
     heap = process_heap(device)
     if heap is None:
         yield
@@ -556,12 +549,20 @@ def deliver(
     return recv, event, keep
 
 
-def _owned_sources(heap: SymmetricHeap, tensors: Sequence[RankList]):
-    """This process's ranks of the rank lists and their contiguous
-    tensors; every rank's tensor i has one shape, which the symmetric
-    offsets rely on."""
+def _owned_sources(owners, tensors: Sequence[RankList]):
+    """This process's entries of the rank lists (``owners.owned``) and
+    their contiguous tensors; every rank's tensor i has one shape, which
+    the symmetric offsets rely on."""
+    if owners is None:
+        raise ValueError("a put on a process mesh needs its rank list's "
+                         "owner map (launch.mesh.OwnerMap)")
     size = len(tensors[0])
-    owned = heap.owned(size)
+    owned = owners.owned
+    held = [p for p, x in enumerate(tensors[0]) if x is not None]
+    if size != owners.size or held != list(owned):
+        raise ValueError(f"a rank list of {size} entries holding {held} "
+                         f"against the owner map over {owners.axes} "
+                         f"({owners.size} entries, this process's {owned})")
     src = {s: [t[s].contiguous() for t in tensors] for s in owned}
     like = src[owned[0]]
     for s in owned:
@@ -573,26 +574,28 @@ def _owned_sources(heap: SymmetricHeap, tensors: Sequence[RankList]):
     return owned, src, like
 
 
-def deliver_procs(tensors: Sequence[RankList], perm, *, lowering: str,
-                  meta=None):
-    """One put on a process mesh, over the ranks this process owns.
+def deliver_procs(tensors: Sequence[RankList], perm, *, owners,
+                  lowering: str, meta=None):
+    """One put on a process mesh, over the entries this process owns.
 
-    ``lowering`` is ``"copy"`` (a plain copy into the peer's buffer and a
-    signal word written behind it: the "xla" backend), ``"remote_put"``
-    (K3, one launch per owned source rank, into the peer's buffer and
-    signal words) or ``"landing_copy"`` (the transport copies into the
-    peer's slab and signals; each process's K4 lands what it received
-    there, one launch per put, and signals its own words).  Every
-    process runs the same puts in the same order, so they allocate the
-    same slots: per tensor one receive buffer per owned rank, then
-    n words per owned rank.  Returns the receive buffers (rank lists,
-    None for the ranks other processes own), the signal words this
-    process waits on, the put's epoch and what the handle must hold."""
+    ``owners`` is the rank list's owner map: entry d of the list belongs
+    to process ``owners.owner(d)[0]``, at that slot.  ``lowering`` is
+    ``"copy"`` (a plain copy into the peer's buffer and a signal word
+    written behind it: the "xla" backend), ``"remote_put"`` (K3, one
+    launch per owned source rank, into the peer's buffer and signal
+    words) or ``"landing_copy"`` (the transport copies into the peer's
+    slab and signals; each process's K4 lands what it received there,
+    one launch per put, and signals its own words).  Every process runs
+    the same puts in the same order, so they allocate the same slots: per
+    tensor one receive buffer per owned entry, then n words per owned
+    entry.  Returns the receive buffers (rank lists, None for the entries
+    other processes own), the signal words this process waits on, the
+    put's epoch and what the handle must hold."""
     tensors = tuple(tensors)
     n, size = len(tensors), len(tensors[0])
     dev = next(t for t in tensors[0] if t is not None).device
     heap = process_heap(dev)
-    owned, src, like = _owned_sources(heap, tensors)
+    owned, src, like = _owned_sources(owners, tensors)
     k, me = len(owned), heap.process
     to = dest_table(perm, size)
 
@@ -605,15 +608,15 @@ def deliver_procs(tensors: Sequence[RankList], perm, *, lowering: str,
         moved_off, moved_words = slots(), heap.alloc_words(k * n)
     epoch = heap.next_epoch()
     recv = [[None] * size for _ in range(n)]
-    for d in owned:
+    for j, d in enumerate(owned):
         for i in range(n):
-            recv[i][d] = heap.buffer(me, recv_off[i][d - owned[0]], like[i])
+            recv[i][d] = heap.buffer(me, recv_off[i][j], like[i])
     mine = heap.words_at(me, words, k * n)
 
     def peer(s, offs, base):
         """Rank s's destination buffers and signal words, in the slab of
         the process that owns ``to[s]``."""
-        q, j = heap.owner(to[s], size)
+        q, j = owners.owner(to[s])
         return ([heap.buffer(q, offs[i][j], like[i]) for i in range(n)],
                 heap.words_at(q, base + j * n, n))
 
@@ -665,11 +668,12 @@ class FusedSlots:
 
 
 def fused_slots(kc: RankList, vc: RankList, dst: Sequence[int],
-                epoch: int) -> FusedSlots:
+                epoch: int, owners=None) -> FusedSlots:
     """Receive buffers and words for one fused ring step whose source
     rank p sends to ``dst[p]``: fresh buffers and the heap's "fused" row
     on a mesh of virtual ranks; on a process mesh, symmetric slots, the
-    destinations in the next ring rank's (mapped) slab."""
+    destinations in the slab of the process that owns the next ring rank
+    (``owners``, the rank list's owner map)."""
     dev = next(t for t in kc if t is not None).device
     heap = process_heap(dev)
     if heap is None:
@@ -679,23 +683,23 @@ def fused_slots(kc: RankList, vc: RankList, dst: Sequence[int],
         return FusedSlots(k_recv, v_recv, (k_recv, v_recv),
                           lambda p: base.words("fused", dst[p], epoch=epoch))
     size = len(kc)
-    owned, _, (k_like, v_like) = _owned_sources(heap, (kc, vc))
+    owned, _, (k_like, v_like) = _owned_sources(owners, (kc, vc))
     n, me = len(owned), heap.process
     k_off = [heap.alloc(k_like) for _ in range(n)]
     v_off = [heap.alloc(v_like) for _ in range(n)]
     words = heap.alloc_words(n)
     k_recv, v_recv = [None] * size, [None] * size
     for d in sorted({dst[p] for p in owned} | set(owned)):
-        q, j = heap.owner(d, size)
+        q, j = owners.owner(d)
         k_recv[d] = heap.buffer(q, k_off[j], k_like)
         v_recv[d] = heap.buffer(q, v_off[j], v_like)
-    payload = tuple([x if x is not None and heap.owner(d, size)[0] == me
+    payload = tuple([x if x is not None and owners.owner(d)[0] == me
                      else None for d, x in enumerate(xs)]
                     for xs in (k_recv, v_recv))
 
     def flag(p):
-        q, j = heap.owner(dst[p], size)
-        i = p - owned[0]
+        q, j = owners.owner(dst[p])
+        i = owners.owner(p)[1]
         return (heap.words_at(q, words + j, 1),
                 heap.arrive[heap.ROWS["fused"], i:i + 1])
 

@@ -21,6 +21,9 @@ rank lists.  The programs the SP schedules need:
   hier_ungroup        — its inverse (the hierarchical Push-O)
   pipe_handoff        — the displaced pipeline's stage-boundary hand-off,
                         one put over the pipe axis
+  sp_all_gather       — a process mesh's shards gathered over the SP
+                        axes (the warm pass's layer KV, its output rows;
+                        over the cfg axis, the branches' velocities)
 
 Every program runs all ranks of the group in lockstep: stage k's put
 carries every rank's chunk, and no rank reads stage k's receive buffer
@@ -49,8 +52,9 @@ from .channel import (Channel, InFlight, RankList, first, owned_ranks,
                       rank_map, shift_perm)
 from .profiler import mark_compute
 
-__all__ = ["Handoff", "Stream", "hier_all_to_all", "hier_ungroup",
-           "inter_hop", "intra_hop", "pipe_handoff", "ring_shift",
+__all__ = ["Handoff", "Stream", "hier_all_to_all",
+           "hier_ungroup", "inter_hop", "intra_hop", "owners_of",
+           "pipe_handoff", "ring_shift", "sp_all_gather",
            "staged_all_to_all", "staged_ungroup", "torus_hop"]
 
 
@@ -68,19 +72,21 @@ class Stream:
     backend: str = "xla"
     interpret: bool = True
 
-    def channel(self, axes, perm, label: str = "") -> Channel:
+    def channel(self, axes, perm, label: str = "", owners=None) -> Channel:
         return Channel(axes=tuple(axes), perm=tuple(perm),
                        name=f"{self.name}.{label}" if label else self.name,
                        stream=self.name, stage=self.stage,
-                       backend=self.backend, interpret=self.interpret)
+                       backend=self.backend, interpret=self.interpret,
+                       owners=owners)
 
     def next_stage(self) -> int:
         self.stage += 1
         return self.stage
 
     def put(self, axes, perm, *tensors, label: str = "",
-            overlaps: str = "") -> InFlight:
-        fut = self.channel(axes, perm, label).put(*tensors, overlaps=overlaps)
+            overlaps: str = "", owners=None) -> InFlight:
+        fut = self.channel(axes, perm, label, owners).put(*tensors,
+                                                          overlaps=overlaps)
         self.next_stage()
         return fut
 
@@ -93,7 +99,8 @@ def ring_shift(layout: Any, *tensors: RankList, shift: int = 1,
     Attention.  Returns the in-flight handle — the caller owns the wait."""
     stream = stream or Stream("ring", backend=backend, interpret=interpret)
     return stream.put(layout.axes, layout.ring_perm(shift), *tensors,
-                      label=f"shift{shift}", overlaps=overlaps)
+                      label=f"shift{shift}", overlaps=overlaps,
+                      owners=owners_of(layout))
 
 
 def torus_hop(layout: Any, k: int, *tensors: RankList,
@@ -104,7 +111,8 @@ def torus_hop(layout: Any, k: int, *tensors: RankList,
     §4.3 decomposed all-to-all."""
     stream = stream or Stream("torus", backend=backend, interpret=interpret)
     return stream.put(layout.axes, layout.ulysses_stage_perm(k), *tensors,
-                      label=f"hop{k}", overlaps=overlaps)
+                      label=f"hop{k}", overlaps=overlaps,
+                      owners=owners_of(layout))
 
 
 def intra_hop(layout: Any, j: int, *tensors: RankList,
@@ -116,7 +124,8 @@ def intra_hop(layout: Any, j: int, *tensors: RankList,
     Never crosses the slow boundary."""
     stream = stream or Stream("hier", backend=backend, interpret=interpret)
     return stream.put(layout.axes, layout.ulysses_intra_stage_perm(j),
-                      *tensors, label=f"intra{j}", overlaps=overlaps)
+                      *tensors, label=f"intra{j}", overlaps=overlaps,
+                      owners=owners_of(layout))
 
 
 def inter_hop(layout: Any, k: int, *tensors: RankList,
@@ -128,7 +137,14 @@ def inter_hop(layout: Any, k: int, *tensors: RankList,
     the inter-machine wire."""
     stream = stream or Stream("hier", backend=backend, interpret=interpret)
     return stream.put(layout.axes, layout.ulysses_inter_stage_perm(k),
-                      *tensors, label=f"inter{k}", overlaps=overlaps)
+                      *tensors, label=f"inter{k}", overlaps=overlaps,
+                      owners=owners_of(layout))
+
+
+def owners_of(layout: Any):
+    """The owner map of a layout's rank lists on a process mesh
+    (``collectives.SlicedLayout.owners``), else None."""
+    return getattr(layout, "owners", None)
 
 
 def _u_of(layout: Any, p: int) -> int:
@@ -274,67 +290,69 @@ def _hier_exchange(
     buffers) turns on error feedback, and the new residuals are returned
     beside the output.
     """
-    if any(c is None for c in chunks):
-        raise NotImplementedError(
-            "the hierarchical all-to-all over a process mesh comes with the "
-            "hybrid mesh's slice (ROADMAP Queue 1 item 9)")
     g = layout.u_groups
     p_u = layout.p_ulysses
     m_u = p_u // g
-    ranks = range(len(chunks))
-    rest = tuple(chunks[0].shape[1:])
-    ab = [divmod(_u_of(layout, p), m_u) for p in ranks]
-    shaped = [c.reshape((g, m_u) + rest) for c in chunks]
+    ranks = owned_ranks(chunks)
+    rest = tuple(first(chunks).shape[1:])
+    ab = [divmod(_u_of(layout, p), m_u) for p in range(len(chunks))]
+    shaped = rank_map(lambda c: c.reshape((g, m_u) + rest), chunks)
+
+    def send(pick):  # each held rank's bundle, None where another holds it
+        return [None if shaped[p] is None else pick(p)
+                for p in range(len(chunks))]
 
     # fast leg: intra-machine exchange of dest-local-slot bundles
-    futs = [intra_hop(layout, j, [shaped[p][:, (b + j) % m_u]
-                                  for p, (_, b) in enumerate(ab)],
+    futs = [intra_hop(layout, j, send(lambda p: shaped[p][:, (ab[p][1] + j)
+                                                          % m_u]),
                       stream=stream) for j in range(1, m_u)]
     # w[p][b'] = the [g] bundle source (a, b') produced for rank p's slot
-    w = [c.new_empty((g, m_u) + rest).transpose(0, 1) for c in chunks]
-    _diagonal(w, [s.transpose(0, 1) for s in shaped], [b for _, b in ab],
-              layout, stream)
+    w = rank_map(lambda c: c.new_empty((g, m_u) + rest).transpose(0, 1),
+                 chunks)
+    _diagonal(w, rank_map(lambda s: s.transpose(0, 1), shaped),
+              [b for _, b in ab], layout, stream)
     for j, fut in enumerate(futs, start=1):
-        for p, ((_, b), r) in enumerate(zip(ab, fut.wait())):
-            w[p][(b - j) % m_u].copy_(r)
+        recv = fut.wait()
+        for p in ranks:
+            w[p][(ab[p][1] - j) % m_u].copy_(recv[p])
 
     # slow leg: inter-machine exchange of per-sub-group bundles, every
     # stage in flight at once
-    new_err: list[list[torch.Tensor]] = [[] for _ in ranks]
+    new_err: list[list[torch.Tensor] | None] = [
+        None if c is None else [] for c in chunks]
     futs = []
     for k in range(1, g):
-        send = [w[p][:, (a + k) % g] for p, (a, _) in enumerate(ab)]
+        x = send(lambda p: w[p][:, (ab[p][0] + k) % g])
         if wire_dtype is None:
-            futs.append(inter_hop(layout, k, send, stream=stream,
+            futs.append(inter_hop(layout, k, x, stream=stream,
                                   overlaps=overlaps_inter))
             continue
-        wires, scales = [], []
-        for p, x in enumerate(send):
+        wires, scales = [None] * len(x), [None] * len(x)
+        for p in ranks:
             if err is not None:
-                wire, scale, e = _compress.ef_encode(x, err[p][k - 1],
-                                                     wire_dtype)
+                wires[p], scales[p], e = _compress.ef_encode(
+                    x[p], err[p][k - 1], wire_dtype)
                 new_err[p].append(e)
             else:
-                wire, scale = _compress.quantize(x, wire_dtype)
-            wires.append(wire)
-            scales.append(scale)
+                wires[p], scales[p] = _compress.quantize(x[p], wire_dtype)
         futs.append(inter_hop(layout, k, wires, scales, stream=stream,
                               overlaps=overlaps_inter))
     if out is None:
-        out = [c.new_empty((p_u,) + rest) for c in chunks]
-    hier_out = [o.unflatten(0, (g, m_u)) for o in out]
-    _diagonal(hier_out, [x.transpose(0, 1) for x in w],
+        out = rank_map(lambda c: c.new_empty((p_u,) + rest), chunks)
+    hier_out = rank_map(lambda o: o.unflatten(0, (g, m_u)), out)
+    _diagonal(hier_out, rank_map(lambda x: x.transpose(0, 1), w),
               [a for a, _ in ab], layout, stream)
     for k, fut in enumerate(futs, start=1):
         recv = fut.wait()
         if wire_dtype is not None:
             rw, rs = recv
-            recv = [_compress.dequantize(rw[p], rs[p], chunks[p].dtype)
-                    for p in ranks]
-        for p, ((a, _), r) in enumerate(zip(ab, recv)):
-            hier_out[p][(a - k) % g].copy_(r)
+            recv = [None if rw[p] is None else
+                    _compress.dequantize(rw[p], rs[p], chunks[p].dtype)
+                    for p in range(len(chunks))]
+        for p in ranks:
+            hier_out[p][(ab[p][0] - k) % g].copy_(recv[p])
     if err is not None:
-        return out, [tuple(e) for e in new_err]
+        return out, [None if e is None else tuple(e) for e in new_err]
     return out
 
 
@@ -357,10 +375,10 @@ def hier_all_to_all(
     stream = stream or Stream("hier.a2a", backend=backend,
                               interpret=interpret)
     p_u = layout.p_ulysses
-    chunks = [_split(t, p_u, split_axis) for t in x]
+    chunks = rank_map(lambda t: _split(t, p_u, split_axis), x)
     if p_u == 1:
-        out = [c.clone(memory_format=torch.contiguous_format)
-               for c in chunks]
+        out = rank_map(
+            lambda c: c.clone(memory_format=torch.contiguous_format), chunks)
         return out if err is None else (out, [() for _ in x])
     return _hier_exchange(chunks, layout, stream=stream,
                           wire_dtype=wire_dtype, err=err)
@@ -386,15 +404,15 @@ def hier_ungroup(
                               interpret=interpret)
     p_u = layout.p_ulysses
     if p_u == 1:
-        out = [s[0] for s in stacked]
+        out = rank_map(lambda s: s[0], stacked)
         return out if err is None else (out, [() for _ in stacked])
-    bufs = [_concat_buffer(s, concat_axis) for s in stacked]
+    bufs = rank_map(lambda s: _concat_buffer(s, concat_axis), stacked)
     res = _hier_exchange(stacked, layout, stream=stream,
                          wire_dtype=wire_dtype, err=err,
                          overlaps_inter="next-layer compute", out=bufs)
     moved, new_err = res if err is not None else (res, None)
-    out = [o.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
-           for o in moved]
+    out = rank_map(lambda o: o.movedim(0, concat_axis).flatten(
+        concat_axis, concat_axis + 1), moved)
     return out if err is None else (out, new_err)
 
 
@@ -405,10 +423,13 @@ class Handoff:
     fut: InFlight | None  # None: no put (pp == 1)
     x: torch.Tensor | None = None  # the activation when there is no put
     pp: int = 1
+    index: int | None = None  # a process mesh: the entry this process holds
 
     def wait(self) -> torch.Tensor:
         if self.fut is None:
             return self.x
+        if self.index is not None:
+            return self.fut.wait()[self.index]
         return torch.cat(self.fut.wait()[::self.pp], dim=0)
 
 
@@ -434,16 +455,84 @@ def pipe_handoff(
     preserves values.  Returns the put in flight: the caller computes
     beside it (the next patch's stage) before ``wait`` gives what pipe
     rank 0 received, per slice — the reference waits inside the call.
+
+    On a process mesh ``x`` is this process's batch slice, and the list's
+    one entry it holds goes to the process at pipe rank + shift with the
+    same coordinates on every other axis (the list's owner map; one K3
+    per process); ``wait`` gives what this process received.
     """
     stream = stream or Stream("pipe", backend=backend, interpret=interpret)
     pp = mesh.shape[axis]
     if pp == 1:
         return Handoff(None, x)
-    n = mesh.axes_size(batch_axes or ())
+    batch_axes = tuple(batch_axes or ())
+    n = mesh.axes_size(batch_axes)
     perm = [(s * pp + a, s * pp + b) for s in range(n)
             for a, b in shift_perm(pp, shift)]
-    ch = stream.channel((axis,), perm, f"handoff{stream.stage}")
+    owners = index = None
+    if mesh.is_process_mesh:
+        owners = mesh.owner_map(batch_axes + (axis,))
+        (index,) = owners.owned
+        ranks = [None] * (n * pp)
+        ranks[index] = x
+    else:
+        ranks = [xs for xs in torch.chunk(x.contiguous(), n, dim=0)
+                 for _ in range(pp)]
+    ch = stream.channel((axis,), perm, f"handoff{stream.stage}", owners)
     stream.next_stage()
-    ranks = [xs for xs in torch.chunk(x.contiguous(), n, dim=0)
-             for _ in range(pp)]
-    return Handoff(ch.put(ranks, overlaps="stage compute"), pp=pp)
+    return Handoff(ch.put(ranks, overlaps="stage compute"), pp=pp,
+                   index=index)
+
+
+def sp_all_gather(
+    xs: list[torch.Tensor],
+    mesh: Any,
+    sp_axes: tuple[str, ...],
+    batch_axes: tuple[str, ...] | None,
+    *,
+    dim: int,
+    out: list[torch.Tensor] | None = None,
+    stream: Stream | None = None,
+    backend: str = "xla",
+    interpret: bool = True,
+) -> list[torch.Tensor]:
+    """On a process mesh: each of ``xs`` is this process's shard along
+    ``dim`` (its run of SP ranks' shards, of its batch slice); returns
+    each gathered over the SP axes, the whole in SP rank order (into
+    ``out`` when given).  With blocks of b SP ranks, P = SP / b blocks a
+    slice, it is P - 1 puts over the SP axes: put j moves every held
+    rank's shard j blocks on, so each shard reaches every other block
+    once.  The caller brackets it with a step fence."""
+    stream = stream or Stream("gather", backend=backend,
+                              interpret=interpret)
+    sp = mesh.axes_size(sp_axes)
+    owners = mesh.owner_map(tuple(batch_axes or ()) + tuple(sp_axes))
+    owned = owners.owned
+    b = len(owned)
+    lists = []
+    for x in xs:
+        parts = dict(zip(owned, torch.chunk(x, b, dim=dim)))
+        lists.append([parts.get(p) for p in range(owners.size)])
+    futs = []
+    for j in range(1, sp // b):
+        perm = [(s * sp + p, s * sp + (p + j * b) % sp)
+                for s in range(owners.size // sp) for p in range(sp)]
+        futs.append(stream.put(tuple(sp_axes), perm, *lists,
+                               label=f"gather{j}", owners=owners))
+    if out is None:
+        out = []
+        for x in xs:
+            shape = list(x.shape)
+            shape[dim] *= sp // b
+            out.append(x.new_empty(shape))
+    chunk = xs[0].shape[dim] // b
+    for o, x in zip(out, xs):
+        o.narrow(dim, (owned[0] % sp) * chunk, b * chunk).copy_(x)
+    for j, fut in enumerate(futs, start=1):
+        recv = fut.wait()
+        recv = (recv,) if len(xs) == 1 else recv
+        for o, r in zip(out, recv):
+            for p in owned:
+                src = (p % sp - j * b) % sp
+                o.narrow(dim, src * chunk, chunk).copy_(r[p])
+    return out

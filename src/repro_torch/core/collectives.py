@@ -22,11 +22,13 @@ The reference reads a rank's coordinates from the traced axis index
 ``coords(p)``.  On a mesh of virtual ranks every rank lives in this
 process.  On a process mesh a rank list holds the tensors of the ranks
 this process owns and None for the others: the schedules loop over
-``owned_ranks`` and map with ``rank_map``, so one schedule serves both.
+``owned_ranks`` and map with ``rank_map``, so one schedule serves both;
+``SlicedLayout.owners`` says which process holds each entry.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -139,10 +141,14 @@ class SlicedLayout:
     of the batch and SP axes, slice-major as the reference numbers them:
     flat rank ``s * group.size + p`` is rank p of slice s.  Each slice runs
     the group's schedule on its own ranks; a perm table covers every
-    slice, so one put moves the chunks of all slices."""
+    slice, so one put moves the chunks of all slices.  On a process mesh
+    ``owners`` is the lists' owner map (launch.mesh.OwnerMap over the
+    batch and SP axes): which process holds each entry; every put of the
+    schedule takes it (comm/stream.py ``owners_of``)."""
 
     group: GroupLayout
     slices: int
+    owners: Any = None
 
     @property
     def axes(self) -> AxisNames:

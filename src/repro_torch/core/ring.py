@@ -25,6 +25,7 @@ from typing import Callable
 import torch
 
 from ..comm import Stream, ring_shift
+from ..comm.stream import owners_of
 from ..comm import trace as _trace
 from ..comm.profiler import mark_compute
 from ..comm.channel import RankList, dest_table, first
@@ -190,11 +191,11 @@ def _ring_attention_kernels(
             # fused step: every rank's K2 computes on the chunk it holds
             # and writes it into the receive buffers of its ring successor
             ch = stream.channel(layout.axes, layout.ring_perm(1),
-                                f"shift1.s{s}")
+                                f"shift1.s{s}", owners_of(layout))
             stream.next_stage()
             dst = dest_table(ch.perm, len(q))
             epoch = heap.next_epoch()
-            slots = fused_slots(kc, vc, dst, epoch)
+            slots = fused_slots(kc, vc, dst, epoch, owners_of(layout))
 
             def launch():  # called right away, by put_fused
                 for p in ranks:

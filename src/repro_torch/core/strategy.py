@@ -197,11 +197,14 @@ def sp_attention(
     schedule's (K1b per KV chunk, the puts).
 
     On a process mesh (``mesh.is_process_mesh``) q, k and v are already
-    this process's sequence shard, the concatenation of its ranks'
-    shards: the split and the concatenation are skipped, the schedule
-    runs over the owned ranks (global positions come from their rank
-    numbers) and the result is the shard of the output.  The call is one
-    step of the process heap's fence (kernel_backend.process_step).
+    this process's part: its batch slice (one coordinate of the batch
+    axes) and its sequence shard, the concatenation of its SP ranks'
+    shards.  The split and the concatenation are skipped, the schedule
+    runs over the owned entries of the sliced rank lists (global
+    positions come from their rank numbers; ``SlicedLayout.owners`` says
+    which process holds each entry) and the result is this process's
+    rows of the output.  The call is one step of the process heap's fence
+    (kernel_backend.process_step).
     """
     sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
     if cfg.strategy == "full" or sp == 1:
@@ -212,12 +215,13 @@ def sp_attention(
     procs = mesh.is_process_mesh
     slices = mesh.axes_size(cfg.effective_batch_axes(mesh) or ())
     if procs:
-        _check_process_mesh(cfg, mesh, sp, slices, q, k)
-    if q.shape[0] % slices:
+        _check_process_mesh(cfg, mesh, q, k)
+    if not procs and q.shape[0] % slices:
         raise ValueError(f"batch {q.shape[0]} does not split evenly over "
                          f"{slices} batch slices (as shard_map requires)")
+    held = mesh.sp_owned(cfg.sp_axes) if procs else range(sp)
     for seq in {q.shape[1], k.shape[1]}:
-        if seq % (len(mesh.owned) if procs else sp):
+        if seq % len(held):
             raise ValueError(f"sequence length {seq} does not split evenly "
                              f"over SP degree {sp} (as shard_map requires)")
 
@@ -232,17 +236,19 @@ def sp_attention(
               kv_block=cfg.attn_kv_block,
               backend=cfg.comm_backend, interpret=cfg.kernel_interpret,
               wire_dtype=cfg.a2a_wire_dtype)
-    if slices > 1:
-        layout = SlicedLayout(layout, slices)
     if procs:
-        # rank lists of every rank, None where another process holds it
-        owned = mesh.owned
+        # rank lists of every (slice, SP rank), slice-major, None where
+        # another process holds the entry
+        layout = SlicedLayout(layout, slices, owners=mesh.owner_map(
+            (cfg.effective_batch_axes(mesh) or ()) + tuple(cfg.sp_axes)))
+        owned = layout.owners.owned
         shards = []
         for x in (q, k, v):
-            held = torch.chunk(x, len(owned), dim=1)
-            shards.append([held[p - owned[0]] if p in owned else None
-                           for p in range(sp)])
+            parts = dict(zip(owned, torch.chunk(x, len(owned), dim=1)))
+            shards.append([parts.get(p) for p in range(layout.size)])
     else:
+        if slices > 1:
+            layout = SlicedLayout(layout, slices)
         # rank lists, slice-major: rank s * sp + p holds sequence shard p
         # of batch slice s
         shards = [[c for xs in torch.chunk(x, slices, dim=0)
@@ -273,20 +279,14 @@ def sp_attention(
                       for s in range(slices)], dim=0)
 
 
-def _check_process_mesh(cfg: SPConfig, mesh, sp: int, slices: int, q,
-                        k) -> None:
-    """A process mesh of this slice: the SP axes, in mesh order, are the
-    only axes above size 1, so that a rank's number over them is its
-    number over the mesh (the one the process's block of ranks is counted
-    in), and q and k are the sequence shard of the owned ranks."""
-    big = tuple(a for a, n in zip(mesh.axis_names, mesh.axis_sizes) if n > 1)
-    order = tuple(a for a in mesh.axis_names if a in cfg.sp_axes)
-    if slices > 1 or any(a not in cfg.sp_axes for a in big) or (
-            order != tuple(cfg.sp_axes)):
-        raise NotImplementedError(
-            f"a process mesh over {mesh.shape} with SP axes "
-            f"{cfg.sp_axes}: batch slices and other axes come "
-            "with the hybrid mesh's slice (ROADMAP Queue 1 item 9)")
+def _check_process_mesh(cfg: SPConfig, mesh, q, k) -> None:
+    """A process mesh: each process's block of ranks lies within one
+    coordinate of every axis outside the SP axes (``Mesh.check_blocks``),
+    so it holds one batch slice (the batch axes, the cfg axis first) and
+    one coordinate of each replicated axis (pipe), and a contiguous run of
+    SP ranks, in any order of the axes; q and k are that slice's sequence
+    shard of those ranks."""
+    mesh.check_blocks(cfg.sp_axes)
     if q.shape[1] != k.shape[1]:
         raise NotImplementedError(
             "SP attention with Lq != Lk over a process mesh comes with the "

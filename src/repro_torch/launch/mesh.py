@@ -11,16 +11,24 @@ over a tuple of axes is major-first.
 A *process mesh* is the same mesh of ranks spread over ``procs``
 processes (launch/procs.py), each owning a contiguous block of them:
 one process per rank is the reference's layout, one device each
-(``rank % device_count``).  Its puts write into a peer process's receive
-buffers, mapped here over CUDA IPC (comm/kernel_backend.py); the default,
-one process owning every rank, is the mesh of virtual ranks above.  What
-one card cannot show (NVLink and InfiniBand, ``.sys`` visibility across
-cards) is ROADMAP Queue 1 item 8.  Functions, not module constants:
+(``rank % device_count``).  A block lies within one coordinate of every
+axis outside the SP axes (``Mesh.check_blocks``), so it holds one batch
+slice and one coordinate of each replicated axis (pipe).  A rank list
+spans some of the axes (the SP axes, the batch and SP axes, the batch
+and pipe axes); its entry i stands for the flat rank with i's
+coordinates on those axes and this process's own on the others, and
+that rank's process owns it (``OwnerMap``).  Puts write into a peer
+process's receive buffers, mapped here over CUDA IPC
+(comm/kernel_backend.py); the default, one process owning every rank, is
+the mesh of virtual ranks above.  What one card cannot show (NVLink and
+InfiniBand, ``.sys`` visibility across cards) is ROADMAP Queue 1 item 8.
+Functions, not module constants:
 importing this module touches no device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -83,6 +91,121 @@ class Mesh:
     def is_process_mesh(self) -> bool:
         """True when other processes own some of the ranks."""
         return self.procs > 1
+
+    def coords(self, rank: int) -> tuple[int, ...]:
+        """Flat rank ``rank``'s coordinate on every axis, in axis order."""
+        out = []
+        for n in reversed(self.axis_sizes):
+            rank, c = divmod(rank, n)
+            out.append(c)
+        return tuple(reversed(out))
+
+    def rank_of(self, coords) -> int:
+        """The flat rank at ``coords`` (one per axis, in axis order)."""
+        r = 0
+        for c, n in zip(coords, self.axis_sizes):
+            r = r * n + c
+        return r
+
+    def owner_map(self, axes) -> "OwnerMap":
+        """Who owns each entry of a rank list over ``axes``."""
+        return OwnerMap(self, tuple(axes))
+
+    def check_blocks(self, sp_axes) -> None:
+        """Refuse a process block that holds ranks of two coordinates of
+        an axis outside ``sp_axes`` (two pipe stages, two batch slices):
+        the process would then run two programs.  Blocks across the SP
+        axes are fine, so long as they hold a contiguous run of SP ranks
+        (a process's sequence shard is one run of rows)."""
+        if not self.is_process_mesh:
+            return
+        k = self.size // self.procs
+        sp = [self.axis_names.index(a) for a in sp_axes]
+        for q in range(self.procs):
+            block = [self.coords(r) for r in range(q * k, (q + 1) * k)]
+            for i, name in enumerate(self.axis_names):
+                if i not in sp and len({c[i] for c in block}) > 1:
+                    raise ValueError(
+                        f"process {q} of {self.procs} owns ranks {q * k}.."
+                        f"{(q + 1) * k - 1} of mesh {self.shape}, across "
+                        f"{name} coordinates {sorted({c[i] for c in block})}"
+                        f": a process block must lie within one coordinate "
+                        f"of every axis outside the SP axes {tuple(sp_axes)}")
+            runs = sorted(self.owner_map(sp_axes).index_of(r)
+                          for r in range(q * k, (q + 1) * k))
+            if runs != list(range(runs[0], runs[0] + k)):
+                raise ValueError(
+                    f"process {q} of {self.procs} owns SP ranks {runs} of "
+                    f"{tuple(sp_axes)} on mesh {self.shape}: a process "
+                    "block must hold a contiguous run of SP ranks")
+
+    def sp_owned(self, sp_axes) -> range:
+        """The SP ranks (over ``sp_axes``) this process holds, a run."""
+        owned = self.owner_map(sp_axes).owned
+        return range(owned[0], owned[-1] + 1)
+
+    def slice_of(self, axes) -> tuple[int, int]:
+        """(index, count) of this process's slice over ``axes`` (the batch
+        axes: a block lies within one coordinate of each)."""
+        om = self.owner_map(axes or ())
+        return om.owned[0], om.size
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnerMap:
+    """The owner map of a rank list over ``axes`` (major first) of
+    ``mesh``: its entry i is the flat rank with i's coordinates on
+    ``axes`` and this process's own on every other axis, and belongs to
+    that rank's process.  ``owner(i)`` is (process, slot): the slot is
+    i's place among the entries that process owns, which is where its
+    receive buffers and signal words sit in every slab.  On a mesh whose
+    SP axes are its only axes above size 1 the list's index is the flat
+    rank."""
+
+    mesh: Mesh
+    axes: tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axes_size(self.axes)
+
+    def rank(self, index: int) -> int:
+        """The flat rank that entry ``index`` stands for."""
+        mesh = self.mesh
+        coords = list(mesh.coords(mesh.owned[0]))
+        for a in reversed(self.axes):
+            index, coords[mesh.axis_names.index(a)] = divmod(
+                index, mesh.shape[a])
+        return mesh.rank_of(coords)
+
+    def index_of(self, rank: int) -> int:
+        """The entry of flat rank ``rank`` (its coordinates on ``axes``)."""
+        coords = self.mesh.coords(rank)
+        i = 0
+        for a in self.axes:
+            i = i * self.mesh.shape[a] + coords[self.mesh.axis_names.index(a)]
+        return i
+
+    @functools.cached_property
+    def table(self) -> tuple[tuple[int, int], ...]:
+        """(process, slot) of every entry."""
+        per = self.mesh.size // self.mesh.procs
+        slots: dict[int, int] = {}
+        out = []
+        for i in range(self.size):
+            q = self.rank(i) // per
+            out.append((q, slots.get(q, 0)))
+            slots[q] = slots.get(q, 0) + 1
+        return tuple(out)
+
+    def owner(self, index: int) -> tuple[int, int]:
+        return self.table[index]
+
+    @functools.cached_property
+    def owned(self) -> tuple[int, ...]:
+        """The entries this process owns, in order."""
+        me = self.mesh.process
+        return tuple(i for i, (q, _) in enumerate(self.table) if q == me)
 
 
 def process_mesh(mesh: Mesh, process: int, procs: int,

@@ -267,7 +267,10 @@ def _watch(workers, results, until: float, deadline: float) -> list:
             grace = time.monotonic() + 3.0
             for r in sorted(pending):
                 if results[r].poll(max(grace - time.monotonic(), 0)):
-                    status, value = _unpack(results[r].recv_bytes())
+                    try:
+                        status, value = _unpack(results[r].recv_bytes())
+                    except EOFError:
+                        continue  # it died without a report
                     if status != "ok":
                         errors[r] = value
             # the first failure first: the others often only saw the
@@ -335,7 +338,9 @@ def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
     of seed + step) this worker's output shards, its launch counts and
     the heap offsets it allocated (``offsets``: a list per call of
     (kind, offset) in allocation order) and the most of its slab a call
-    used (``heap_bytes``).  ``wrong_route`` makes every
+    used (``heap_bytes``); ``rows`` and ``batch`` say which rows of the
+    sequence and the batch the shards are (its SP ranks', its batch
+    slice's).  ``wrong_route`` makes every
     Ulysses stage hop land on the sender itself: a put along the wrong
     route, which a bitwise check must catch."""
     from ..comm import kernel_backend as kb
@@ -348,9 +353,12 @@ def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
         mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
                             group.rank, group.size)
         cfg = SPConfig(**spec["sp"])
-        ln = spec["shape"][1] if "shape" in spec else spec["qkv"][0].shape[1]
-        rows = slice(mesh.owned[0] * ln // mesh.size,
-                     (mesh.owned[-1] + 1) * ln // mesh.size)
+        b, ln = (spec["shape"][:2] if "shape" in spec
+                 else spec["qkv"][0].shape[:2])
+        sp, held = mesh.axes_size(cfg.sp_axes), mesh.sp_owned(cfg.sp_axes)
+        rows = slice(held.start * ln // sp, held.stop * ln // sp)
+        s, n = mesh.slice_of(cfg.effective_batch_axes(mesh) or ())
+        batch = slice(s * b // n, (s + 1) * b // n)
         heap = kb.process_heap(group.device)
         real = GroupLayout.ulysses_stage_perm
         if spec.get("wrong_route"):
@@ -363,7 +371,7 @@ def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
             for step in range(spec.get("steps", 1)):
                 drawn = (dict(spec, seed=spec["seed"] + step)
                          if "seed" in spec else spec)
-                q, k, v = (x[:, rows]
+                q, k, v = (x[batch, rows]
                            for x in _sp_inputs(drawn, group.device))
                 heap.trace = []
                 shards.append(sp_attention(q, k, v, cfg=cfg, mesh=mesh,
@@ -375,6 +383,7 @@ def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
         finally:
             GroupLayout.ulysses_stage_perm = real
         out.append({"shards": shards, "rows": (rows.start, rows.stop),
+                    "batch": (batch.start, batch.stop),
                     "counts": launch_counts(), "offsets": offsets,
                     "seconds": time.perf_counter() - t0,
                     "heap_bytes": heap.high_water})
@@ -449,41 +458,179 @@ def dit_step_job(group: Group, spec: dict) -> dict:
             "counts": launch_counts()}
 
 
+def _sampler(spec: dict):
+    """A job's SamplerConfig: ``sampler`` (its fields, ``pipeline`` those
+    of a PipelineConfig) or ``num_steps=steps``."""
+    from ..core import PipelineConfig
+    from ..serving import SamplerConfig
+
+    kw = dict(spec.get("sampler", {"num_steps": spec.get("steps")}))
+    if kw.get("pipeline") is not None:
+        kw["pipeline"] = PipelineConfig(**kw["pipeline"])
+    return SamplerConfig(**kw)
+
+
 def serve_job(group: Group, spec: dict) -> dict:
     """``DiTServer`` on a process mesh: every worker builds the same
-    weights and server; worker 0 runs the scheduler, submits
-    ``requests`` ((rid, latent tokens) pairs, each with a cond drawn from
-    ``seed + 2 + rid``) and serves them, the others follow its steps.
-    Worker 0 returns each request's latents; every worker its launch
-    counts and the wall time of the served run."""
+    weights and server (``sampler``: its SamplerConfig fields; ``drift``:
+    a DriftPolicy's threshold; ``max_batch``); worker 0 runs the
+    scheduler, submits ``requests`` ((rid, latent tokens) pairs, each
+    with a cond drawn from ``seed + 2 + rid``) and serves them, the others
+    follow its steps.  Worker 0 returns each request's latents, kv_drift
+    and resyncs; every worker its launch counts, the wall time of the
+    served run and the most of its slab a step used.  ``wrong_route``
+    sends every cfg exchange's put to the sender's own branch: a put
+    along the wrong route, which the latents' check must catch."""
+    from ..comm import Stream
+    from ..comm import kernel_backend as kb
     from ..core import SPConfig
-    from ..serving import DiTRequest, DiTServer, SamplerConfig
+    from ..serving import DiTRequest, DiTServer
+    from ..serving.sched import DriftPolicy
     from .mesh import make_mesh, process_mesh
 
     cfg, params = _dit_params(spec, group.device)
     mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
                         group.rank, group.size)
+    drift = DriftPolicy(spec["drift"]) if "drift" in spec else None
     srv = DiTServer(params, cfg, SPConfig(**spec["sp"]), mesh=mesh,
-                    sampler=SamplerConfig(num_steps=spec["steps"]),
-                    capture=False)
+                    sampler=_sampler(spec), drift=drift,
+                    max_batch=spec.get("max_batch", 4), capture=False)
+    real = Stream.put
+    if spec.get("wrong_route"):
+        def put(self, axes, perm, *tensors, **kw):
+            if self.name == "cfg":
+                perm = [(p, p) for p, _ in perm]
+            return real(self, axes, perm, *tensors, **kw)
+        Stream.put = put
     reset_counts()
     t0 = time.perf_counter()
     got = {}
-    if group.rank == 0:
-        for rid, seq in spec["requests"]:
-            gen = torch.Generator(device=group.device).manual_seed(
-                spec["seed"] + 2 + rid)
-            cond = torch.randn((256, cfg.d_model), generator=gen,
-                               device=group.device).to(srv.dtype)
-            srv.submit(DiTRequest(rid=rid, seq_len=seq, cond=cond))
-        got = {r.rid: r.latents for r in srv.serve()}
-        srv.stop_followers()
-    else:
-        srv.follow()
+    try:
+        if group.rank == 0:
+            for rid, seq in spec["requests"]:
+                gen = torch.Generator(device=group.device).manual_seed(
+                    spec["seed"] + 2 + rid)
+                cond = torch.randn((256, cfg.d_model), generator=gen,
+                                   device=group.device).to(srv.dtype)
+                srv.submit(DiTRequest(rid=rid, seq_len=seq, cond=cond))
+            got = {r.rid: {"latents": r.latents, "kv_drift": r.kv_drift,
+                           "resyncs": r.resyncs} for r in srv.serve()}
+            srv.stop_followers()
+        else:
+            srv.follow()
+    finally:
+        Stream.put = real
     if group.device.type == "cuda":
         torch.cuda.synchronize(group.device)
-    return {"latents": got, "counts": launch_counts(),
-            "seconds": time.perf_counter() - t0}
+    return {"latents": {rid: r["latents"] for rid, r in got.items()},
+            "results": got, "counts": launch_counts(),
+            "seconds": time.perf_counter() - t0,
+            "heap_bytes": kb.process_heap(group.device).high_water}
+
+
+def hybrid_sample_job(group: Group, spec: dict) -> dict:
+    """``serving.sampler.sample`` on a process mesh with the sampler of
+    ``sampler`` (the pipelined and CFG-parallel ones): from the whole
+    ``noise`` and ``cond`` of the batch, every worker returns the
+    gathered latents, its metrics, its launch counts, the heap offsets
+    of its every allocation (``offsets``) and the most of its slab a step
+    used (``heap_bytes``)."""
+    from ..comm import kernel_backend as kb
+    from ..core import SPConfig
+    from ..models import ParallelContext
+    from ..serving.sampler import sample
+    from .mesh import make_mesh, process_mesh
+
+    cfg, params = _dit_params(spec, group.device)
+    mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                        group.rank, group.size)
+    ctx = ParallelContext(SPConfig(**spec["sp"]), mesh=mesh)
+    noise = spec["noise"].to(group.device, getattr(torch, cfg.dtype))
+    heap = kb.process_heap(group.device)
+    heap.trace, metrics = [], []
+    reset_counts()
+    out = sample(params, cfg, ctx, batch=noise.shape[0],
+                 seq_len=noise.shape[1], cond=spec["cond"].to(noise),
+                 noise=noise, sc=_sampler(spec), metrics=metrics)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    offsets, heap.trace = heap.trace, None
+    return {"latents": out, "metrics": metrics, "counts": launch_counts(),
+            "offsets": offsets, "heap_bytes": heap.high_water}
+
+
+def handoff_job(group: Group, cases: list[dict]) -> list[dict]:
+    """``comm.pipe_handoff`` on process meshes: per case (``mesh``;
+    ``batch_axes``) every worker hands over a tensor filled
+    with its own number (so a receiver can tell its sender) and returns
+    what it received and its coordinates.  ``old_owner`` routes the put
+    by the flat-rank rule, the list's index read as the flat rank
+    (``divmod(index, size // procs)``): the negative control."""
+    from ..comm import Stream, pipe_handoff
+    from ..comm import kernel_backend as kb
+    from .mesh import OwnerMap, make_mesh, process_mesh
+
+    out = []
+    for spec in cases:
+        mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                            group.rank, group.size)
+        x = torch.full((2, 4096), float(group.rank), device=group.device)
+        real = OwnerMap.owner
+        if spec.get("old_owner"):
+            OwnerMap.owner = lambda self, i: divmod(
+                i, self.size // self.mesh.procs)
+        try:
+            with kb.process_step(group.device):
+                got = pipe_handoff(
+                    x, mesh, "pipe", batch_axes=spec.get("batch_axes"),
+                    stream=Stream("pipe", backend="pallas",
+                                  interpret=False)).wait().clone()
+        finally:
+            OwnerMap.owner = real
+        if group.device.type == "cuda":
+            torch.cuda.synchronize(group.device)
+        out.append({"got": got, "coords": mesh.coords(mesh.owned[0]),
+                    "counts": launch_counts()})
+    return out
+
+
+def hier_job(group: Group, cases: list[dict]) -> list[dict]:
+    """``comm.hier_all_to_all`` on process meshes: per case (``mesh``;
+    ``sp_axes``; ``layout``: GroupLayout fields; ``x``: every rank's
+    tensor; ``err``: every rank's residuals or None; ``wire_dtype``)
+    this worker's received chunks and new residuals, by
+    rank."""
+    from ..comm import kernel_backend as kb
+    from ..comm.stream import hier_all_to_all
+    from ..core.collectives import GroupLayout, SlicedLayout
+    from .mesh import make_mesh, process_mesh
+
+    out = []
+    for spec in cases:
+        mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                            group.rank, group.size)
+        owners = mesh.owner_map(spec["sp_axes"])
+        layout = SlicedLayout(GroupLayout(**spec["layout"]), 1,
+                              owners=owners)
+        x = [t.to(group.device) if p in owners.owned else None
+             for p, t in enumerate(spec["x"])]
+        err = spec.get("err")
+        if err is not None:
+            err = [tuple(e.to(group.device) for e in err[p])
+                   if p in owners.owned else None for p in range(len(x))]
+        reset_counts()
+        with kb.process_step(group.device):
+            res = hier_all_to_all(x, layout, split_axis=spec["split_axis"],
+                                  backend="pallas",
+                                  interpret=False,
+                                  wire_dtype=spec.get("wire_dtype"), err=err)
+            got, new_err = res if err is not None else (res, None)
+            got = [None if t is None else t.clone() for t in got]
+        out.append({"out": {p: got[p] for p in owners.owned},
+                    "err": (None if new_err is None else
+                            {p: new_err[p] for p in owners.owned}),
+                    "counts": launch_counts()})
+    return out
 
 
 def shift_put_job(group: Group, withhold: int | None = None) -> dict:
@@ -492,12 +639,16 @@ def shift_put_job(group: Group, withhold: int | None = None) -> dict:
     tensor.  Worker ``withhold`` never issues its part: its successor then
     waits on a signal word that never comes (the watchdog's case)."""
     from ..comm import Channel, shift_perm
+    from .mesh import make_mesh, process_mesh
 
     x = [None] * group.size
     x[group.rank] = torch.full((4096,), float(group.rank),
                                device=group.device)
+    mesh = process_mesh(make_mesh((group.size,), ("model",),
+                                  device=group.device), group.rank,
+                        group.size)
     ch = Channel(("model",), shift_perm(group.size), backend="pallas",
-                 interpret=False)
+                 interpret=False, owners=mesh.owner_map(("model",)))
     reset_counts()
     if group.rank == withhold:
         return {}

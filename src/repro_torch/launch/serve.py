@@ -14,6 +14,8 @@ service, on the card unless ``--device cpu`` asks for the CPU.
     ... --device cpu --reduced ...                        (on the CPU)
     ... --arch flux-12b --procs 4 --mesh host --model 4 --eager
                                     (one process per rank: launch/procs.py)
+    ... --arch flux-12b --procs 4 --mesh multipod --eager
+                                    (a block of 8 ranks per process)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
 request scheduler: ``--mixed`` submits a mixed-resolution queue (seq,
@@ -41,8 +43,9 @@ sequence over the SP axes (``--seq`` is the cache length).  ``--procs P``
 spreads the mesh's ranks over P processes (launch/procs.py; one per rank
 is the reference's layout, on the card ``rank % device_count``): process
 0 prints what the server did, the others follow its steps.  It serves the
-DiTs, eagerly (``--eager`` on the card: captured steps across processes
-are ROADMAP Queue 1 item 13).  An attention
+DiTs on every mesh above, a data axis included (each process a block of
+ranks within one data slice), eagerly (``--eager`` on the card: captured
+steps across processes are ROADMAP Queue 1 item 13).  An attention
 model's caches take the model's dtype: the reference's launcher leaves
 ARServer's float32 default, which its cache update refuses for a bfloat16
 model.
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import sys
 
 import torch
@@ -142,6 +146,25 @@ def main(argv: list[str] | None = None) -> int:
     return _serve(args)
 
 
+def _blocks(mesh) -> str:
+    """Each process's block of ranks, as its coordinate range per axis."""
+    k = mesh.size // mesh.procs
+    out = []
+    for q in range(mesh.procs):
+        lo, hi = mesh.coords(q * k), mesh.coords((q + 1) * k - 1)
+        out.append(f"{q}: " + " ".join(
+            f"{a} {a0}" if a0 == a1 else f"{a} {a0}-{a1}"
+            for a, a0, a1 in zip(mesh.axis_names, lo, hi)))
+    return "; ".join(out)
+
+
+def _digest(x) -> str:
+    """The first 16 hex digits of the SHA-256 of ``x``'s bytes: equal
+    digests are equal latents, bit for bit and row for row."""
+    raw = x.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
 def serve_job(group, args) -> None:
     """One process of ``--procs``: its part of the process mesh."""
     _serve(args, group)
@@ -199,10 +222,12 @@ def _serve(args, group=None) -> int:
         if group is not None:
             srv.stop_followers()
             print(f"process mesh: {group.size} processes, {len(mesh.owned)} "
-                  f"of {mesh.size} ranks each")
+                  f"of {mesh.size} ranks each; blocks {_blocks(mesh)}")
         for r in sorted(served, key=lambda r: r.rid):
             print(f"request {r.rid}: latents {tuple(r.latents.shape)} "
-                  f"latency {r.latency * 1e3:.1f} ms"
+                  f"latency {r.latency * 1e3:.1f} ms mean|x| "
+                  f"{float(r.latents.float().abs().mean()):.6f} sha256 "
+                  f"{_digest(r.latents)}"
                   + ("" if r.sla_met else "  SLA MISSED"))
         tot = srv.scheduler.totals()
         print(f"scheduler: {tot.batches} batches over "

@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from ..comm import Stream, pipe_handoff
+from ..comm.kernel_backend import process_step
 from ..comm.profiler import mark_compute
+from ..comm.stream import sp_all_gather
 from ..configs.base import ModelConfig
 from ..core.pipefusion import (
     KVState,
@@ -155,7 +157,7 @@ def _embed(params: Params, latents: torch.Tensor, cond: torch.Tensor,
 def shard_rows(ctx: ParallelContext, seq_len: int) -> tuple[int, int]:
     """The rows [start, stop) of [cond ; latents] (``COND_TOKENS +
     seq_len`` rows) that this process holds: all of them, except on a
-    process mesh, where they are its ranks' sequence shards."""
+    process mesh, where they are its run of SP ranks' sequence shards."""
     mesh, total = ctx.mesh, COND_TOKENS + seq_len
     if mesh is None or not mesh.is_process_mesh:
         return 0, total
@@ -164,7 +166,8 @@ def shard_rows(ctx: ParallelContext, seq_len: int) -> tuple[int, int]:
         raise ValueError(f"[cond ; latents] of {total} rows does not split "
                          f"evenly over SP degree {sp}")
     per = total // sp
-    return mesh.owned[0] * per, (mesh.owned[-1] + 1) * per
+    held = mesh.sp_owned(ctx.sp.sp_axes)
+    return held.start * per, held.stop * per
 
 
 def latent_rows(ctx: ParallelContext, seq_len: int) -> slice:
@@ -194,18 +197,26 @@ def dit_forward(
     when given (else into a new buffer).  The x-path computation is
     identical either way.
 
-    On a process mesh the forward runs on this process's shard of
-    [cond ; latents]: ``latents`` are its latent rows (``latent_rows``) of
-    ``seq_len`` in all, ``cond`` is whole and gives the conditioning rows
-    the shard holds, positions are the shard's slice of the global
-    ``arange``, and the returned velocity covers its latent rows.
+    On a process mesh the forward runs on this process's part of
+    [cond ; latents]: its batch slice (``latents``, ``cond`` and
+    ``timesteps`` hold only its rows of the batch) and its sequence shard
+    (``latents`` are its latent rows, ``latent_rows``, of ``seq_len`` in
+    all; ``cond`` is whole along the sequence and gives the conditioning
+    rows the shard holds); positions are the shard's slice of the global
+    ``arange``, and the returned velocity covers its latent rows.  With
+    ``return_layer_kv`` each layer's K and V shards are gathered over the
+    SP axes into the state (puts, one step fence a layer: a layer's
+    gather fits the heap's slab at any depth, the whole forward's does
+    not), and so are the output rows: the velocity and the state then
+    cover the whole sequence of the batch slice, which the displaced
+    forward reads.
     """
     b_, _, _ = latents.shape
     start, n_cond = 0, COND_TOKENS
-    if ctx.mesh is not None and ctx.mesh.is_process_mesh:
-        if seq_len is None or return_layer_kv:
-            raise ValueError("a process mesh's forward needs seq_len and "
-                             "keeps no layer KV")
+    procs = ctx.mesh is not None and ctx.mesh.is_process_mesh
+    if procs:
+        if seq_len is None:
+            raise ValueError("a process mesh's forward needs seq_len")
         start, stop = shard_rows(ctx, seq_len)
         cond = cond[:, start:min(stop, COND_TOKENS)]
         n_cond = cond.shape[1]
@@ -217,10 +228,13 @@ def dit_forward(
                              device=x.device)[None].expand(b_, l_)
     state = None
     if return_layer_kv:
-        shape = (cfg.n_layers, b_, l_, cfg.n_kv_heads, cfg.resolved_head_dim)
+        total = COND_TOKENS + seq_len if procs else l_
+        shape = (cfg.n_layers, b_, total, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
         state = kv_out if kv_out is not None else KVState(
             *(torch.empty(shape, dtype=x.dtype, device=x.device)
               for _ in range(2)))
+    gather = procs and return_layer_kv
     block = ctx.remat_wrap(dit_block)  # train mode: per-layer checkpoints
     for i, lp in enumerate(params["layers"]):
         if state is None:
@@ -228,10 +242,27 @@ def dit_forward(
             continue
         x, (k, v) = dit_block(lp, cfg, ctx, x, t_emb, positions,
                               return_kv=True)
-        update_state_rows(state, k[None], v[None], 0, first_layer=i)
+        if gather:
+            _gather_rows(ctx, [k, v], out=[state.k[i], state.v[i]])
+        else:
+            update_state_rows(state, k[None], v[None], 0, first_layer=i)
+    out = _final_projection(params, cfg, x, t_emb)
+    if gather:
+        (out,), n_cond = _gather_rows(ctx, [out]), COND_TOKENS
     # the conditioning rows this shard holds are dropped
-    vel = _final_projection(params, cfg, x, t_emb)[:, n_cond:]
+    vel = out[:, n_cond:]
     return (vel, state) if return_layer_kv else vel
+
+
+def _gather_rows(ctx: ParallelContext, xs, out=None):
+    """This process's sequence rows of ``xs`` gathered over the SP axes
+    (comm/stream.py ``sp_all_gather``), as one step of the heap's
+    fence."""
+    with process_step(xs[0].device):
+        return sp_all_gather(xs, ctx.mesh, ctx.sp.sp_axes,
+                             ctx.sp.effective_batch_axes(ctx.mesh), dim=1,
+                             out=out, backend=ctx.sp.comm_backend,
+                             interpret=ctx.sp.kernel_interpret)
 
 
 def dit_forward_displaced(
@@ -267,7 +298,21 @@ def dit_forward_displaced(
     that patch p's hand-off into stage s + 1 is in flight while stage s
     runs patch p + 1.  Each patch reads only the untouched ``kv_state``
     and writes only its own rows, so the order changes no value.
+
+    On a process mesh the forward runs on this process's batch slice
+    (``latents``, ``cond``, ``timesteps`` and the states hold its rows of
+    the batch, every row of the sequence), replicated over the model and
+    pipe axes as the reference's is; each hand-off goes to the process
+    at the next pipe rank, and the forward is one step of the heap's
+    fence.
     """
+    with process_step(latents.device):
+        return _displaced(params, cfg, ctx, latents, cond, timesteps,
+                          kv_state, num_patches, pp, out)
+
+
+def _displaced(params, cfg, ctx, latents, cond, timesteps, kv_state,
+               num_patches, pp, out):
     b_, t_, _ = latents.shape
     stages = stage_layers(cfg.n_layers, pp)
     slices = patch_slices(COND_TOKENS, t_, num_patches)

@@ -26,11 +26,14 @@ warm-up), its second captures it.
 On a process mesh (launch/procs.py) DiTServer stays single-controller, as
 the reference is: process 0's server runs the scheduler and sends each
 step's plan (request ids as noise seeds, bucket, step index, the
-conditioning at step 0) to the other processes, whose ``follow`` runs the
-same step on their shard of the latents; the shards are gathered on
-process 0 once the batch is done.  Followers run no scheduler: the SLA
-scheduler reads the clock, and its choices would part between processes.
-Such a server is eager.
+conditioning at step 0, and for the pipelined sampler the patch count and
+the warm or displaced form it chose) to the other processes, whose
+``follow`` runs the same step on their part of the latents (their data
+slice's requests; their sequence shard, or every row when pipelined);
+process 0 gathers one replica per data slice once the batch is done, and
+each pipelined step's drift of every slice.  Followers run no scheduler:
+the SLA scheduler reads the clock, and its choices would part between
+processes.  Such a server is eager.
 """
 from __future__ import annotations
 
@@ -50,11 +53,15 @@ from ..core import SPConfig, plan_hybrid
 from ..core.comm_model import NetworkModel
 from ..core.pipefusion import stage_layers
 from ..models import ParallelContext, get_model, resolve_device, torch_dtype
-from ..models.dit import COND_TOKENS, LATENT_CHANNELS, latent_rows
+from ..models.dit import COND_TOKENS, LATENT_CHANNELS
 from .graphs import CapturedStep, resolve_capture
 from .metrics import Tracker
 from .sampler import (
     SamplerConfig,
+    assemble_latents,
+    batch_drift,
+    held_cond,
+    held_latents,
     hybrid_sample_step,
     hybrid_state_shape,
     sample_step,
@@ -191,11 +198,6 @@ class DiTServer:
                     "captured steps over a process mesh are a later slice "
                     "(ROADMAP Queue 1 item 13); serve it with capture=False "
                     "(--eager)")
-            if sampler.pipelined or (sampler.guided and sampler.cfg_parallel):
-                raise NotImplementedError(
-                    "the pipelined and CFG-parallel samplers over a process "
-                    "mesh come with the hybrid mesh's slice (ROADMAP Queue 1 "
-                    "item 9)")
             from ..launch import procs as _procs
 
             self.group = _procs.group()
@@ -261,11 +263,16 @@ class DiTServer:
     def _bucket_sampler(self, choice: PlanChoice) -> SamplerConfig:
         """The sampler config for one bucket: the server's, with the plan
         cache's per-bucket patch count applied."""
-        if not (self.sampler.pipelined and choice.num_patches):
+        return self._patched(choice.num_patches)
+
+    def _patched(self, num_patches: int) -> SamplerConfig:
+        """The server's sampler config with ``num_patches`` (0: as it
+        is)."""
+        if not (self.sampler.pipelined and num_patches):
             return self.sampler
         return dataclasses.replace(
             self.sampler, pipeline=dataclasses.replace(
-                self.sampler.pipeline, num_patches=choice.num_patches))
+                self.sampler.pipeline, num_patches=num_patches))
 
     def _captured(self, fn: Callable, rows: int, seq: int,
                   name: str) -> CapturedStep:
@@ -349,7 +356,7 @@ class DiTServer:
 
     def _noise_rows(self, keys: list[int], t: int) -> torch.Tensor:
         """The noise of rows seeded by ``keys``; on a process mesh, this
-        process's rows of the latent sequence."""
+        process's part of it (``sampler.held_latents``)."""
         rows = []
         for key in keys:
             g = torch.Generator(device=self.device)
@@ -358,7 +365,7 @@ class DiTServer:
                                     dtype=self.dtype, device=self.device))
         x = torch.stack(rows)
         if self.group is not None:
-            x = x[:, latent_rows(self.ctx, t)].contiguous()
+            x = held_latents(x, self.ctx, self.sampler, t)
         return x
 
     # -- a process mesh: process 0 leads, the others follow -------------------
@@ -367,13 +374,26 @@ class DiTServer:
         for q in range(1, self.group.size):
             self.group.send(q, msg)
 
-    def _gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Process 0's shard and every follower's, in rank order: the
-        batch's latents."""
+    def _gather(self, x: torch.Tensor, sc: SamplerConfig, b: int,
+                t: int) -> torch.Tensor:
+        """The batch's latents from process 0's part and every
+        follower's: one replica per data slice and shard, in request
+        order."""
         self._tell({"kind": "gather"})
-        shards = [x] + [self.group.recv(q).to(x.device)
-                        for q in range(1, self.group.size)]
-        return torch.cat(shards, dim=1)
+        parts = [x] + [self.group.recv(q).to(x.device)
+                       for q in range(1, self.group.size)]
+        return assemble_latents(parts, self.ctx, sc, b, t)
+
+    @staticmethod
+    def _step_msg(keys, t: int, i: int, dt: float, cond,
+                  **pipelined) -> dict:
+        """The plan of step ``i`` that process 0 sends its followers: the
+        rows' noise seeds, the bucket, the time, the conditioning at step
+        0, and for the pipelined sampler its patch count and the warm or
+        displaced form process 0 chose."""
+        return {"kind": "step", "keys": keys, "seq": t, "step": i,
+                "t": 1.0 - i * dt, "cond": cond if i == 0 else None,
+                **pipelined}
 
     def stop_followers(self) -> None:
         """End every follower's ``follow`` loop (process 0 only)."""
@@ -397,13 +417,25 @@ class DiTServer:
                 self.group.send(0, x)
                 x = None
                 continue
-            t = msg["seq"]
+            t, b = msg["seq"], len(msg["keys"])
+            sc = self._patched(msg.get("patches", 0))
             if msg["step"] == 0:
-                cond = msg["cond"].to(device=self.device)
+                cond = held_cond(msg["cond"].to(device=self.device),
+                                 self.ctx, b)
                 x = self._noise_rows(msg["keys"], t)
-            if t not in self._follow_steps:
-                self._follow_steps[t] = self._plain_step(t, self.sampler)
-            x = self._follow_steps[t](x, cond, msg["t"])
+            key = (t, b, msg.get("patches"))
+            if key not in self._follow_steps:
+                self._follow_steps[key] = (
+                    _HybridSteps(self, b, t, sc) if sc.pipelined
+                    else self._plain_step(t, sc))
+            step = self._follow_steps[key]
+            if not sc.pipelined:
+                x = step(x, cond, msg["t"])
+                continue
+            if msg["step"] == 0:
+                step.start()
+            x, per = step(msg["warm"], msg["step"], x, cond, msg["t"])
+            batch_drift(per, self.ctx, sc, b)
 
     def _park(self, adm, adm_id: int, step: int) -> None:
         """Preempt the running batch: requests return to the head of their
@@ -462,6 +494,7 @@ class DiTServer:
         ])
         keys = self._noise_keys(batch, b)
         x = self._noise(batch, b, t)
+        held = cond if self.group is None else held_cond(cond, self.ctx, b)
         fn = self._step_fn(b, t, adm.plan)
         dt = 1.0 / sc.num_steps
         # profiling implies measurement: the step spans need the clocks
@@ -523,7 +556,14 @@ class DiTServer:
                     else:
                         warm = pipe.warm_step(i)
                     t0 = time.perf_counter()
-                    x, per = fn(warm, i, x, cond, 1.0 - i * dt)
+                    if self.group is not None:
+                        self._tell(self._step_msg(keys, t, i, dt, cond,
+                                                  patches=pipe.patches,
+                                                  warm=warm))
+                    x, per = fn(warm, i, x, held, 1.0 - i * dt)
+                    if self.group is not None:
+                        # every slice's drift, folded on process 0
+                        per = batch_drift(per, self.ctx, sc, b)
                     # a captured step's output holds until the next replay
                     per = per.clone()
                     drift_vals.append(per)
@@ -538,10 +578,8 @@ class DiTServer:
                 for i in range(sc.num_steps):
                     t0 = time.perf_counter()
                     if self.group is not None:
-                        self._tell({"kind": "step", "keys": keys, "seq": t,
-                                    "step": i, "t": 1.0 - i * dt,
-                                    "cond": cond if i == 0 else None})
-                    x = fn(x, cond, 1.0 - i * dt)
+                        self._tell(self._step_msg(keys, t, i, dt, cond))
+                    x = fn(x, held, 1.0 - i * dt)
                     if tick(i, t0):
                         parked = True
                         break
@@ -554,7 +592,7 @@ class DiTServer:
                 self._tell({"kind": "park"})
             return []
         if self.group is not None:
-            x = self._gather(x)
+            x = self._gather(x, sc, b, t)
         # the latents outlive the next replay of this server's graphs
         x = x.clone()
         sync(self.device)
@@ -621,7 +659,8 @@ class _HybridSteps:
     def __init__(self, server: DiTServer, batch: int, seq: int,
                  sc: SamplerConfig):
         dt = 1.0 / sc.num_steps
-        state = hybrid_state_shape(server.cfg, batch, seq, sc, server.device)
+        state = hybrid_state_shape(server.cfg, batch, seq, sc, server.device,
+                                   server.ctx)
         self.bufs = (state, spare_state(state))
         self.steps: dict[tuple[bool, int], CapturedStep] = {}
         for warm in (True, False):

@@ -17,10 +17,18 @@ Beyond the paper, the sampler composes two extra parallel axes with SP:
     forward (models/dit.py ``dit_forward_displaced``) against one-step-
     stale per-layer KV; the sampler threads the KVState across steps.
 
-On a process mesh (launch/procs.py) each process steps its shard of the
-latents (models/dit.py ``latent_rows``); they stay sharded across steps,
-as the reference's GSPMD keeps them, and ``sample`` gathers them once at
-the end.
+On a process mesh (launch/procs.py) each process steps its part of the
+latents (``held_latents``): the requests of its data slice, and of those
+its sequence shard (models/dit.py ``latent_rows``), or with the
+pipelined sampler every row, since the displaced forward reads every
+row; they stay so across steps, and ``sample`` gathers them once at the
+end.  A cfg axis that splits the guidance branches gives each process
+one branch (it must carry one per coordinate): after each forward the
+branches' velocities meet in ``_cfg_exchange``, puts over the cfg axis
+into the peers' slabs, and every process recombines its requests' rows.
+The pipelined sampler's warm forward gathers every layer's KV over the
+SP axes (models/dit.py), and the whole batch's drift reaches process 0,
+which decides each step's warm or displaced form for every process.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import time
 
 import torch
 
+from ..comm.kernel_backend import process_step
+from ..comm.stream import Stream, sp_all_gather
 from ..configs.base import ModelConfig
 from ..core.pipefusion import KVState, PipelineConfig, init_kv_state, kv_drift
 from ..models import ParallelContext, torch_dtype
@@ -107,6 +117,112 @@ def _stack_cfg_branches(x_t, cond, k: int):
     return torch.cat([x_t] * k, dim=0), torch.cat(list(conds), dim=0)
 
 
+# ---------------------------------------------------------------------------
+# a process mesh: what each process holds
+# ---------------------------------------------------------------------------
+
+def _on_procs(ctx: ParallelContext) -> bool:
+    return ctx.mesh is not None and ctx.mesh.is_process_mesh
+
+
+def _data_axes(ctx: ParallelContext) -> tuple[str, ...]:
+    """The mesh axes the requests are split over (the cfg axis splits
+    the stacked guidance branches instead)."""
+    return tuple(a for a in ctx.sp.batch_axes or ()
+                 if a in ctx.mesh.axis_names)
+
+
+def held_rows(ctx: ParallelContext, batch: int) -> slice:
+    """The requests (batch rows) this process steps: all of them, except
+    on a process mesh, where they are its data slice."""
+    if not _on_procs(ctx):
+        return slice(0, batch)
+    d, n = ctx.mesh.slice_of(_data_axes(ctx))
+    if batch % n:
+        raise ValueError(f"batch {batch} does not split over {n} data "
+                         "slices")
+    return slice(d * batch // n, (d + 1) * batch // n)
+
+
+def held_latents(x: torch.Tensor, ctx: ParallelContext, sc: SamplerConfig,
+                 seq_len: int) -> torch.Tensor:
+    """This process's part of latents ``x`` [B, T, ...]: its requests, and
+    of those its latent rows, or every row for the pipelined sampler."""
+    if not _on_procs(ctx):
+        return x
+    x = x[held_rows(ctx, x.shape[0])]
+    if not sc.pipelined:
+        x = x[:, latent_rows(ctx, seq_len)]
+    return x.contiguous()
+
+
+def held_cond(cond: torch.Tensor, ctx: ParallelContext,
+              batch: int) -> torch.Tensor:
+    """This process's requests' rows of ``cond`` ([B, ...] or the stacked
+    [k, B, ...])."""
+    rows = held_rows(ctx, batch)
+    return cond[rows] if cond.ndim == 3 else cond[:, rows]
+
+
+def _one_replica(ctx: ParallelContext, keep: tuple[str, ...]):
+    """(process, its context) of one replica of each part over the axes
+    ``keep``: the processes at coordinate 0 of every other axis."""
+    mesh = ctx.mesh
+    for q in range(mesh.procs):
+        coords = mesh.coords(q * mesh.size // mesh.procs)
+        if not any(c and a not in keep
+                   for a, c in zip(mesh.axis_names, coords)):
+            yield q, ParallelContext(ctx.sp, mesh=dataclasses.replace(
+                mesh, process=q))
+
+
+def assemble_latents(parts: list[torch.Tensor], ctx: ParallelContext,
+                     sc: SamplerConfig, batch: int,
+                     seq_len: int) -> torch.Tensor:
+    """The batch's latents from every process's part (``parts[q]``,
+    ``held_latents`` of process q), one replica per data slice and
+    sequence shard."""
+    keep = _data_axes(ctx) + (() if sc.pipelined else tuple(ctx.sp.sp_axes))
+    ref = parts[0]
+    out = ref.new_empty((batch, seq_len) + tuple(ref.shape[2:]))
+    for q, peer in _one_replica(ctx, keep):
+        rows = (slice(0, seq_len) if sc.pipelined
+                else latent_rows(peer, seq_len))
+        out[held_rows(peer, batch), rows] = parts[q].to(out.device)
+    return out
+
+
+def _cfg_branch(ctx: ParallelContext, k: int) -> int | None:
+    """On a process mesh whose cfg axis splits the k guidance branches,
+    this process's branch (its cfg coordinate); else None (the branches
+    ride one local batch)."""
+    mesh, axis = ctx.mesh, ctx.sp.cfg_axis
+    if not (_on_procs(ctx) and axis in mesh.axis_names
+            and mesh.shape[axis] > 1):
+        return None
+    if mesh.shape[axis] != k:
+        raise ValueError(f"a process mesh's cfg axis carries one guidance "
+                         f"branch per coordinate: {mesh.shape[axis]} "
+                         f"coordinates for {k} branches")
+    return mesh.coords(mesh.owned[0])[mesh.axis_names.index(axis)]
+
+
+def _cfg_exchange(v: torch.Tensor, ctx: ParallelContext) -> torch.Tensor:
+    """Every guidance branch's velocity of this process's rows, stacked
+    branch-major as the virtual mesh stacks them: the cross-branch
+    exchange, a gather over the cfg axis (one process a branch, the data
+    axes its batch axes) whose puts land in the peers' slabs (K3 on this
+    single-axis route), as one step of the heap's fence."""
+    axis = ctx.sp.cfg_axis
+    data = tuple(a for a in ctx.sp.effective_batch_axes(ctx.mesh)
+                 if a != axis)
+    stream = Stream("cfg", backend=ctx.sp.comm_backend,
+                    interpret=ctx.sp.kernel_interpret)
+    with process_step(v.device):
+        return sp_all_gather([v], ctx.mesh, (axis,), data, dim=0,
+                             stream=stream)[0]
+
+
 def _ctx_for(ctx: ParallelContext, sc: SamplerConfig) -> ParallelContext:
     """Drop the cfg mesh axis from the batch axes unless this sampler config
     stacks the CFG branches: the un-doubled batch cannot be split over a
@@ -129,22 +245,36 @@ def _timesteps(t: float | torch.Tensor, b: int,
     return torch.full((b,), t, dtype=torch.float32, device=device)
 
 
+def _branch_inputs(x_t, cond, tt, k: int, ctx: ParallelContext):
+    """The forward's inputs of the k guidance branches: stacked on the
+    batch dim, or on a process mesh whose cfg axis splits them, this
+    process's branch alone; and that branch (None when stacked)."""
+    c = _cfg_branch(ctx, k)
+    if c is None:
+        lat, cnd = _stack_cfg_branches(x_t, cond, k)
+        return lat, cnd, torch.cat([tt] * k), None
+    return x_t, _branch_conds(cond, k)[c], tt, c
+
+
 def sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
                 x_t: torch.Tensor, cond: torch.Tensor,
                 t: float | torch.Tensor, dt: float,
                 sc: SamplerConfig, seq_len: int | None = None) -> torch.Tensor:
     """One Euler step x_{t-dt} = x_t - dt * v(x_t, t); ``t`` is a float or
-    a 0-d tensor.  On a process mesh ``x_t`` is this process's shard of
-    latents ``seq_len`` long (models/dit.py ``latent_rows``)."""
+    a 0-d tensor.  On a process mesh ``x_t`` and ``cond`` are this
+    process's part (``held_latents``, ``held_cond``) of latents
+    ``seq_len`` long."""
     ctx = _ctx_for(ctx, sc)
     b = x_t.shape[0]
     tt = _timesteps(t, b, x_t.device)
     fwd = dict(seq_len=seq_len) if seq_len is not None else {}
     if sc.guided and sc.cfg_parallel:
         k = sc.cfg_degree
-        lat_k, cond_k = _stack_cfg_branches(x_t, cond, k)
+        lat_k, cond_k, tt_k, c = _branch_inputs(x_t, cond, tt, k, ctx)
         v_all = dit_forward(params, cfg, ctx, latents=lat_k, cond=cond_k,
-                            timesteps=torch.cat([tt] * k), **fwd)
+                            timesteps=tt_k, **fwd)
+        if c is not None:
+            v_all = _cfg_exchange(v_all, ctx)
         v = _cfg_recombine(v_all, b, sc.branch_weights)
         return x_t - dt * v.to(x_t.dtype)
     if sc.guided and sc.cfg_weights is not None:
@@ -172,11 +302,19 @@ def sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
 # ---------------------------------------------------------------------------
 
 def hybrid_state_shape(cfg: ModelConfig, batch: int, seq_len: int,
-                       sc: SamplerConfig,
-                       device: torch.device | str) -> KVState:
+                       sc: SamplerConfig, device: torch.device | str,
+                       ctx: ParallelContext | None = None) -> KVState:
     """Zero KVState matching what the hybrid steps thread (all k guidance
-    branches included when cfg-parallel)."""
-    b = sc.cfg_degree * batch if (sc.guided and sc.cfg_parallel) else batch
+    branches included when cfg-parallel); with a process mesh's ``ctx``,
+    this process's part: its requests, of its branch when its cfg axis
+    splits them."""
+    k = sc.cfg_degree if (sc.guided and sc.cfg_parallel) else 1
+    if ctx is not None and _on_procs(ctx):
+        rows = held_rows(ctx, batch)
+        batch = rows.stop - rows.start
+        if k > 1 and _cfg_branch(_ctx_for(ctx, sc), k) is not None:
+            k = 1
+    b = k * batch
     return init_kv_state(cfg.n_layers, b, COND_TOKENS + seq_len,
                          cfg.n_kv_heads, cfg.resolved_head_dim,
                          torch_dtype(cfg.dtype), device)
@@ -201,15 +339,24 @@ def hybrid_sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
     ``kv_drift`` (batch mean) and ``kv_drift_per_request`` ([B], the
     guidance branches of one request folded together); both are 0 for
     warm steps.
+
+    On a process mesh ``x_t``, ``cond`` and the states are this process's
+    part (``held_latents``: every row of its requests); the warm forward
+    runs on its sequence shard and gathers the KV and the velocity over
+    the SP axes.  ``kv_drift_per_request`` is then its rows' drift per
+    stacked row, unfolded ([k_local, B_held]: the branches it stacks, or
+    its one branch); ``batch_drift`` folds the whole batch's.
     """
     assert sc.pipelined
     ctx = _ctx_for(ctx, sc)
     pipe = sc.pipeline
     b = x_t.shape[0]
     tt = _timesteps(t, b, x_t.device)
+    procs = _on_procs(ctx)
+    c = None
     if sc.guided and sc.cfg_parallel:
-        lat_in, cond_in = _stack_cfg_branches(x_t, cond, sc.cfg_degree)
-        tt_in = torch.cat([tt] * sc.cfg_degree)
+        lat_in, cond_in, tt_in, c = _branch_inputs(x_t, cond, tt,
+                                                   sc.cfg_degree, ctx)
     elif sc.guided:
         raise NotImplementedError(
             "pipelined sampling with sequential CFG would need one KV "
@@ -219,24 +366,61 @@ def hybrid_sample_step(params, cfg: ModelConfig, ctx: ParallelContext,
         lat_in, cond_in, tt_in = x_t, cond, tt
 
     if warm:
-        v_out, new = dit_forward(params, cfg, ctx, latents=lat_in,
-                                 cond=cond_in, timesteps=tt_in,
-                                 return_layer_kv=True, kv_out=out)
-        per_req = torch.zeros((b,), dtype=torch.float32, device=x_t.device)
+        seq = lat_in.shape[1]
+        fwd = (dict(latents=lat_in[:, latent_rows(ctx, seq)], seq_len=seq)
+               if procs else dict(latents=lat_in))
+        v_out, new = dit_forward(params, cfg, ctx, cond=cond_in,
+                                 timesteps=tt_in, return_layer_kv=True,
+                                 kv_out=out, **fwd)
+        per_req = torch.zeros((lat_in.shape[0] if procs else b,),
+                              dtype=torch.float32, device=x_t.device)
     else:
         v_out, new = dit_forward_displaced(
             params, cfg, ctx, latents=lat_in, cond=cond_in, timesteps=tt_in,
             kv_state=state, num_patches=pipe.patches, pp=pipe.pp, out=out)
         per_req = kv_drift(state, new, per_item=True)
-        if sc.guided and sc.cfg_parallel:
-            # branch rows of one request fold into that request's drift
-            per_req = per_req.reshape(sc.cfg_degree, b).mean(dim=0)
+    if procs:
+        per_req = per_req.reshape(-1, b)
+    elif sc.guided and sc.cfg_parallel and not warm:
+        # branch rows of one request fold into that request's drift
+        per_req = per_req.reshape(sc.cfg_degree, b).mean(dim=0)
+    if c is not None:
+        v_out = _cfg_exchange(v_out, ctx)
     if sc.guided and sc.cfg_parallel:
         v = _cfg_recombine(v_out, b, sc.branch_weights)
     else:
         v = v_out
     metrics = {"kv_drift": per_req.mean(), "kv_drift_per_request": per_req}
     return x_t - dt * v.to(x_t.dtype), new, metrics
+
+
+def batch_drift(per: torch.Tensor, ctx: ParallelContext, sc: SamplerConfig,
+                batch: int) -> torch.Tensor | None:
+    """On a process mesh, the whole batch's per-request drift ([batch],
+    the guidance branches folded as on a mesh of virtual ranks) on
+    process 0, from each process's unfolded ``per`` (the hybrid step's
+    ``kv_drift_per_request``); None on the other processes.  One process
+    per (branch, data slice), at coordinate 0 of every other axis, sends
+    its rows to process 0 over the host pipes: the drift is read on the
+    host anyway."""
+    from ..launch import procs as _procs
+
+    group = _procs.group()
+    k = sc.cfg_degree if (sc.guided and sc.cfg_parallel) else 1
+    split = k > 1 and _cfg_branch(_ctx_for(ctx, sc), k) is not None
+    senders = dict(_one_replica(
+        ctx, _data_axes(ctx) + ((ctx.sp.cfg_axis,) if split else ())))
+    if group.rank != 0:
+        if group.rank in senders:
+            group.send(0, per)
+        return None
+    whole = per.new_empty((k, batch))
+    for q, peer in senders.items():
+        got = per if q == 0 else group.recv(q).to(per.device)
+        c = _cfg_branch(_ctx_for(peer, sc), k) if split else None
+        branches = slice(0, k) if c is None else slice(c, c + 1)
+        whole[branches, held_rows(peer, batch)] = got
+    return whole.mean(dim=0) if k > 1 else whole[0]
 
 
 def spare_state(state: KVState) -> KVState:
@@ -288,17 +472,17 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
         noise = torch.randn((batch, seq_len, LATENT_CHANNELS),
                             generator=generator,
                             dtype=torch_dtype(cfg.dtype), device=ctx.device)
-    procs = ctx.mesh is not None and ctx.mesh.is_process_mesh
+    procs = _on_procs(ctx)
     if procs:
-        if step_fn is not None or sc.pipelined:
-            raise NotImplementedError(
-                "a process mesh samples with the plain Euler step; the "
-                "pipelined sampler comes with the hybrid mesh's slice "
-                "(ROADMAP Queue 1 item 9)")
-        # this process's latent rows, gathered once after the last step
-        noise = noise[:, latent_rows(ctx, seq_len)]
-        step_fn = lambda x, c, t: sample_step(params, cfg, ctx, x, c, t, dt,
-                                              sc, seq_len=seq_len)
+        if step_fn is not None:
+            raise ValueError("a process mesh samples with its own steps, "
+                             "not a custom step_fn")
+        # this process's part, gathered once after the last step
+        noise = held_latents(noise, ctx, sc, seq_len)
+        cond = held_cond(cond, ctx, batch)
+        if not sc.pipelined:
+            step_fn = lambda x, c, t: sample_step(
+                params, cfg, ctx, x, c, t, dt, sc, seq_len=seq_len)
     x = noise
     dt = 1.0 / sc.num_steps
     timed = metrics is not None or (tracker is not None
@@ -332,19 +516,20 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
             stamp(i, t0)
             if interrupt is not None and interrupt(i):
                 break
-        if procs:
-            from ..launch import procs as _procs
-
-            x = torch.cat(_procs.group().all_gather(x), dim=1)
-        return x
+        return _gathered(x, ctx, sc, batch, seq_len) if procs else x
     thresholds = drift_thresholds or [None] * batch
     use_drift = drift_policy is not None and drift_policy.engaged(thresholds)
     last_drift: list[float] | None = None
-    state = hybrid_state_shape(cfg, batch, seq_len, sc, ctx.device)
+    state = hybrid_state_shape(cfg, batch, seq_len, sc, ctx.device, ctx)
     spare = spare_state(state)
+    lead = not procs or ctx.mesh.process == 0
     for i in range(sc.num_steps):
         if use_drift:
-            warm = drift_policy.warm(sc.pipeline, i, last_drift, thresholds)
+            # process 0 decides for every process
+            warm = (drift_policy.warm(sc.pipeline, i, last_drift, thresholds)
+                    if lead else None)
+            if procs:
+                warm = _from_leader(warm)
         else:
             warm = sc.pipeline.warm_step(i)
         t0 = time.perf_counter()
@@ -352,16 +537,41 @@ def sample(params, cfg: ModelConfig, ctx: ParallelContext, *,
                                        1.0 - i * dt, dt, sc, state,
                                        warm=warm, out=spare)
         state, spare = new, state
+        per = m["kv_drift_per_request"]
+        if procs and (use_drift or timed):
+            whole = batch_drift(per, ctx, sc, batch)
+            per = whole if whole is not None else per.flatten()
+            m = {"kv_drift": per.mean(), "kv_drift_per_request": per}
         stamp(i, t0, lambda: {
             "warm": warm, "kv_drift": float(m["kv_drift"]),
             "kv_drift_per_request": [float(d) for d in
                                      m["kv_drift_per_request"]]})
-        if use_drift:
-            per = m["kv_drift_per_request"]
+        if use_drift and lead:
             last_drift = [float(per[j]) for j in range(batch)]
         if interrupt is not None and interrupt(i):
-            return x
-    return x
+            break
+    return _gathered(x, ctx, sc, batch, seq_len) if procs else x
+
+
+def _from_leader(value):
+    """Process 0's ``value``, on every process of the launch."""
+    from ..launch import procs as _procs
+
+    group = _procs.group()
+    if group.rank == 0:
+        for q in range(1, group.size):
+            group.send(q, value)
+        return value
+    return group.recv(0)
+
+
+def _gathered(x: torch.Tensor, ctx: ParallelContext, sc: SamplerConfig,
+              batch: int, seq_len: int) -> torch.Tensor:
+    """The batch's latents on every process, from each one's part."""
+    from ..launch import procs as _procs
+
+    return assemble_latents(_procs.group().all_gather(x), ctx, sc, batch,
+                            seq_len)
 
 
 
