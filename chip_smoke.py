@@ -329,9 +329,10 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  virtual mesh's shards,
                  with its per-rank share of launches and a wrong-route
                  negative control; DiTServer led by process 0 on (pod 2,
-                 model 2) at 2 of 96 layers within SERVE_SP_TOL of the
-                 virtual-mesh server; ``launch.serve --procs 4`` (K3)
-                 beside the workers.
+                 model 2) at 2 of 96 layers within PROCS_HYBRID_TOL of the
+                 virtual-mesh server, its 1024 request served again with
+                 every Ulysses hop to the sender as a negative control;
+                 ``launch.serve --procs 4`` (K3) beside the workers.
                  Runs after profile.  Budget SERVE_PROCS_BUDGET_S, printed.
  44. serve-procs-hybrid — the hybrid mesh over a process mesh: eight
                  worker processes, two of the 16 ranks of (cfg 2, pipe 2,
@@ -349,6 +350,24 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  owner rule; ``launch.serve --mesh multipod --procs 4``
                  beside the workers.  The phase fails past
                  PROCS_HYBRID_BUDGET_S.
+ 45. serve-procs-lm — the language models over a process mesh: four
+                 worker processes, a rank each, each running its batch
+                 slice and sequence shard; at full width, 4 layers,
+                 prefill B 2 x L 4096: qwen2-1.5b (bf16) under
+                 swift_torus on (pod 2, model 2) (K1, K2, K4) and ring on
+                 (model 4), hymba-1.5b (fp32) and rwkv6-1.6b (K5 per
+                 shard; token shifts and state passes as puts), each
+                 process's logits rows within PROCS_HYBRID_TOL of the
+                 virtual-mesh twin's (bitwise logged), launches against
+                 the twin's share (hymba in bf16 too: its error logged);
+                 whisper-tiny fp32 (Lq != Lk; K3) within
+                 PROCS_WHISPER_TOL; ARServer led by process 0 on qwen2
+                 with its tokens equal to the twin's (the decode merge's
+                 gathers by K4); qwen2-moe refused (ROADMAP Queue 1 item
+                 11); negative controls: misrouted Ulysses hops, token
+                 shifts and state passes; ``launch.serve --arch
+                 qwen2-1.5b --procs 4`` beside the workers.  The phase
+                 fails past PROCS_LM_BUDGET_S.
 The numbers phase also prints the first whole-step shares of the card's
 peak: the dry-run's counted FLOPs (launch/dryrun.py on the meta device)
 of the train phase's qwen2-1.5b step and of the serve phase's degree-1
@@ -391,7 +410,8 @@ print.  K1b's, K3's and K4's add the launches of train-sp's timed steps
 counted from 0 in every worker process, summed over the four): K2's from
 its ring sp_attention, K3's from its (model 4) one, K1's and K4's from its
 served run; K1's and K3's also serve-procs-hybrid's served run (summed
-over its eight processes).  The line before the
+over its eight processes); K1-K5's also serve-procs-lm's prefills (K4's
+its served run's decode gathers too), summed over its four processes.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -1568,6 +1588,15 @@ PROCS_SHAPE = (2, 4352, 24, 24, 128)  # B, L, Hq, Hkv, D: the 4096 bucket
 SERVE_PROCS_LAYERS = 2
 SERVE_PROCS_STEPS = 2
 SERVE_PROCS_BUDGET_S = 60
+# the limit on latent_err of a served run over processes against its
+# virtual-mesh twin (serve-procs, serve-procs-hybrid; serve-procs-lm holds
+# logits to it), inside SERVE_SP_TOL: the two compute the same operations
+# (bitwise in every run so far), and 0.03 cannot see a cfg exchange put to
+# the wrong branch (2.26e-2 at serve-procs-hybrid's depth: guidance is
+# lost, the branches' velocities barely differ under seeded weights)
+PROCS_HYBRID_TOL = 1e-3
+# serve-procs' misrouted served run: one request, the 1024 bucket
+SERVE_PROCS_WRONG = [(2, 1024)]
 PROCS_DEADLINE_S = 300  # the launcher's watchdog: a hung worker fails here
 PROCS_CLI = ["--arch", "flux-12b", "--procs", "4", "--mesh", "host",
              "--model", "4", "--eager", "--layers", "1", "--seq", "1024",
@@ -1577,6 +1606,15 @@ PROCS_CLI = ["--arch", "flux-12b", "--procs", "4", "--mesh", "host",
 def procs_sp(mesh, strategy: str = "swift_torus") -> dict:
     return dict(strategy=strategy, sp_axes=mesh[1], batch_axes=None,
                 comm_backend="pallas", kernel_interpret=False)
+
+
+def procs_share(virtual: dict) -> dict:
+    """One process's launches of a twin's schedule, one rank a process:
+    a quarter of K1, K2 and K5 (each rank's own), every K3 and K4 (one a
+    put: the twin's one launch covers every rank)."""
+    return {name: n // PROCS if name in ("flash_mqkv", "ring_flash_step",
+                                         "rwkv6_wkv") else n
+            for name, n in virtual.items()}
 
 
 def serve_procs(results: dict, card: str) -> None:
@@ -1595,9 +1633,12 @@ def serve_procs(results: dict, card: str) -> None:
     itself), must break the bitwise check.  (b) DiTServer under
     swift_torus on (pod 2, model 2), process 0 leading: REQUESTS for
     SERVE_PROCS_STEPS steps at SERVE_PROCS_LAYERS of the 96 layers (full
-    width), each request's latents within SERVE_SP_TOL (latent_err) of
-    the virtual-mesh eager server's, the launches per process a quarter
-    of its K1 and all of its K4.  (c) ``python -m
+    width), each request's latents within PROCS_HYBRID_TOL (latent_err)
+    of the virtual-mesh eager server's, the launches per process a
+    quarter of its K1 and all of its K4; its negative control, the
+    SERVE_PROCS_WRONG request served with every Ulysses hop put to the
+    sender itself (serve_job's ``wrong_route``), must exceed that limit.
+    (c) ``python -m
     repro_torch.launch.serve --procs 4`` on (model 4), run beside the
     worker launch (the most device memory the processes use together is
     printed).  A worker's failure
@@ -1627,8 +1668,10 @@ def serve_procs(results: dict, card: str) -> None:
         with DeviceMemory() as mem:
             res = procs.launch(procs.chain_job, PROCS, [
                 (procs.sp_attention_job, (cases,)),
-                (procs.serve_job, (spec,))], device="cuda",
-                deadline=PROCS_DEADLINE_S)
+                (procs.serve_job, (spec,)),
+                (procs.serve_job, (dict(spec, requests=SERVE_PROCS_WRONG,
+                                        wrong_route=True),))],
+                device="cuda", deadline=PROCS_DEADLINE_S)
             cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
     except Exception as err:  # a worker failed, died or timed out
         cli.kill()
@@ -1652,10 +1695,7 @@ def serve_procs(results: dict, card: str) -> None:
         torch.cuda.synchronize()
         virtual = read_counts()
         want = want.cpu()
-        share = {"flash_mqkv": virtual["flash_mqkv"] // PROCS,
-                 "ring_flash_step": virtual["ring_flash_step"] // PROCS,
-                 "remote_put": virtual["remote_put"],
-                 "landing_copy": virtual["landing_copy"]}
+        share = procs_share(virtual)
         for r, worker in enumerate(res):
             got = worker[0][n]
             lo, hi = got["rows"]
@@ -1699,13 +1739,20 @@ def serve_procs(results: dict, card: str) -> None:
         finite = bool(torch.isfinite(x).all())
         log(f"serve-procs served rid={rid} seq={seq}: shape "
             f"{tuple(x.shape)} finite={finite} latent_err {err:.4e} against "
-            f"the virtual-mesh server (limit {SERVE_SP_TOL}) [{card}]")
+            f"the virtual-mesh server (limit {PROCS_HYBRID_TOL})"
+            + (" - bitwise equal" if err == 0.0 else "") + f" [{card}]")
         checks.append(finite and tuple(x.shape) == (seq, 64)
-                      and err <= SERVE_SP_TOL)
-    share = {"flash_mqkv": virtual["flash_mqkv"] // PROCS,
-             "ring_flash_step": virtual["ring_flash_step"] // PROCS,
-             "remote_put": virtual["remote_put"],
-             "landing_copy": virtual["landing_copy"]}
+                      and err <= PROCS_HYBRID_TOL)
+    for rid, seq in SERVE_PROCS_WRONG:
+        noise = srv._noise([DiTRequest(rid=rid, seq_len=seq)], 1, seq)[0]
+        bad = latent_err(res[0][2]["latents"][rid].to(dev), out[rid].latents,
+                         noise)
+        log(f"serve-procs served run negative control rid={rid}, every "
+            f"Ulysses hop put to the sender itself: latent_err {bad:.4e} "
+            f"against the virtual-mesh server (must exceed "
+            f"{PROCS_HYBRID_TOL}) [{card}]")
+        checks.append(bad > PROCS_HYBRID_TOL)
+    share = procs_share(virtual)
     for r, worker in enumerate(res):
         c = worker[1]["counts"]
         log(f"serve-procs served run process {r}: launches {c} (share "
@@ -1744,12 +1791,6 @@ PROCS_HYBRID = 8  # processes: 2 of HYBRID_MESH's 16 ranks each
 PROCS_HYBRID_LAYERS = 4  # of cogvideox-5b's 42
 PROCS_HYBRID_STEPS = 3  # 1 warm, 2 displaced
 PROCS_HYBRID_BUDGET_S = 50
-# (a)'s limit on latent_err against the virtual-mesh twin, inside
-# SERVE_SP_TOL: the two compute the same operations (bitwise in every run
-# so far), and 0.03 cannot see a cfg exchange put to the wrong branch
-# (2.26e-2 at this depth: guidance is lost, the branches' velocities
-# barely differ under seeded weights)
-PROCS_HYBRID_TOL = 1e-3
 # the negative control's hand-off: (cfg 1, pipe 2, data 4, model 1) over 8
 # processes, where the flat-rank rule (the (data, pipe) list's index read
 # as the flat rank) is a wrong permutation of the processes: every put lands,
@@ -1948,6 +1989,254 @@ def serve_procs_hybrid(results: dict, card: str) -> None:
     checks.append(phase_s <= PROCS_HYBRID_BUDGET_S)
     if not all(checks):
         fail("serve-procs-hybrid: a process-mesh check failed (see above)")
+
+
+# serve-procs-lm (phase 45): the LMs over processes, one rank a process
+PROCS_LM_LAYERS = 4  # of qwen2-1.5b's 28, hymba-1.5b's 32, rwkv6-1.6b's 24
+PROCS_LM_BL = (2, 4096)  # prefill (B, L)
+PROCS_LM_SEED = 49
+PROCS_LM_MESHES = {"pod": ((2, 2), ("pod", "model")),
+                   "model": ((4,), ("model",))}
+# (label, arch, mesh, strategy, wrong_route, dtype): the twin is the
+# unmisrouted case of the same arch, mesh and dtype (None: the config's)
+PROCS_LM_CASES = (
+    ("qwen2 swift_torus", "qwen2-1.5b", "pod", "swift_torus", None, None),
+    ("qwen2 ring", "qwen2-1.5b", "model", "ring", None, None),
+    ("hymba fp32 swift_torus", "hymba-1.5b", "pod", "swift_torus", None,
+     "float32"),
+    ("hymba bf16 swift_torus", "hymba-1.5b", "pod", "swift_torus", None,
+     None),
+    ("rwkv6", "rwkv6-1.6b", "model", "swift_torus", None, None),
+    ("qwen2 every Ulysses hop to the sender", "qwen2-1.5b", "pod",
+     "swift_torus", "ulysses", None),
+    ("rwkv6 every token shift to the sender", "rwkv6-1.6b", "model",
+     "swift_torus", "shift", None),
+    ("rwkv6 every WKV state pass to the sender", "rwkv6-1.6b", "model",
+     "swift_torus", "state", None),
+    ("hymba fp32 every SSD state pass to the sender", "hymba-1.5b", "pod",
+     "swift_torus", "state", "float32"),
+    ("hymba bf16 every SSD state pass to the sender", "hymba-1.5b", "pod",
+     "swift_torus", "state", None),
+)
+# hymba's item is gated in float32: its SSD's in_dt product (1600 -> 25)
+# takes another cuBLAS path at a shard's 2,048 rows than at the twin's
+# 8,192 (bf16: 1.6e-3 apart in that product alone, 1.43e-2 in the logits
+# at 4 layers, the SSD's exp of cumulative decays amplifying it; float32:
+# 1.6e-5), a product's rounding, not the process mesh's puts.  Its bf16
+# run and bf16 control are logged, their launches gated, their error not
+PROCS_LM_LOGGED = ("hymba bf16 swift_torus",
+                   "hymba bf16 every SSD state pass to the sender")
+PROCS_LM_AR = dict(slots=4, max_len=1024, requests=[
+    (0, [1, 2, 3], 8), (1, [4, 5, 6, 7], 8), (2, [8, 9, 10, 11, 12], 8)])
+PROCS_WHISPER = (4, 448, 1536)  # B, decoder tokens, frames (encoder_seq)
+PROCS_WHISPER_TOL = 1e-5  # fp32 logits, of max|logits|
+PROCS_LM_BUDGET_S = 60
+PROCS_LM_CLI = ["--arch", "qwen2-1.5b", "--procs", "4", "--mesh", "host",
+                "--model", "4", "--eager", "--layers", "2"]
+
+
+def procs_lm_spec(arch: str, mesh: str, strategy: str,
+                  dtype: str | None = None, **kw) -> dict:
+    """A serve-procs-lm case for launch/procs.py's LM jobs."""
+    layers = {"n_layers": PROCS_LM_LAYERS} if arch != "whisper-tiny" else {}
+    if dtype is not None:
+        layers["dtype"] = dtype
+    m = PROCS_LM_MESHES[mesh]
+    return dict(arch=arch, cfg=dict(layers, **kw.pop("cfg", {})),
+                seed=PROCS_LM_SEED, mesh=m, sp=procs_sp(m, strategy),
+                shape=PROCS_LM_BL, **kw)
+
+
+def procs_lm_twin(spec: dict, dev):
+    """The case on the mesh of virtual ranks in this process (its
+    ``twin``): the whole batch's logits and the launches."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh, procs
+    from repro_torch.models import ParallelContext, get_model
+
+    cfg, params = procs._lm_params(spec, dev)
+    inputs = procs.lm_inputs(spec, cfg, dev)
+    ctx = ParallelContext(SPConfig(**spec["sp"]), "prefill",
+                          mesh=make_mesh(*spec["mesh"], device=dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    wkv_module().reset_launch_count()
+    with torch.inference_mode():
+        logits = get_model(cfg).apply(params, inputs, cfg, ctx)
+    torch.cuda.synchronize()
+    return logits, dict(read_counts(), rwkv6_wkv=wkv_module().launch_count())
+
+
+def serve_procs_lm(results: dict, card: str) -> None:
+    """Phase 45, serve-procs-lm: the language models over a process mesh,
+    PROCS worker processes on the one card, one rank each, at full
+    published width and seeded, perturbed weights (launch/procs.py
+    ``perturb_lm``).  Each process runs its batch slice and its sequence
+    shard; the token shifts, the state passes and the decode merge's
+    gather are puts into the peers' slabs.  Each item is held against its
+    twin on the mesh of virtual ranks in this process (made first: the
+    workers read it over CUDA IPC and hold their rows against it), each
+    process's launches against its share of the twin's (procs_share).
+
+    (a) qwen2-1.5b at PROCS_LM_LAYERS of 28 layers, bf16, prefill
+    PROCS_LM_BL: swift_torus on (pod 2, model 2) (K1, K2, K4) and ring on
+    (model 4) (K1, K2, K3); each process's logits rows within
+    PROCS_HYBRID_TOL of the twin's, relative to max|logits| (bitwise
+    logged).  (b) hymba-1.5b, 4 of 32 layers (global and windowed
+    attention, the SSD state passes), swift_torus on (pod 2, model 2): in
+    fp32 the same gate; in bf16 (K1 and K2's bf16 bodies) the launches
+    gated and the error logged (PROCS_LM_LOGGED).  (c) rwkv6-1.6b, 4 of
+    24 layers, on (model 4): K5 once a layer on each process's shard (L
+    1024), the token shifts and the WKV state passes as puts ("xla"
+    lowering: copies into the peer's slab); the same gate.  Negative
+    controls, put to the sender itself: (a) with every Ulysses hop, (c)
+    with every token shift and with every WKV state pass, fp32 (b) with
+    every SSD state pass: each must exceed the gate (bf16 (b)'s control
+    logged).  (d) ARServer on (a)'s qwen2 on (pod 2, model 2),
+    eager: PROCS_LM_AR's requests, each's tokens equal to the
+    virtual-mesh server's; a process's K4 launches three gather puts a
+    layer and tick.  (e) whisper-tiny (4 + 4 layers, d 384), fp32, B 4 x
+    1536 frames x 448 tokens on (model 4) (Lq 112, Lk 384 a rank): logits
+    within PROCS_WHISPER_TOL of the twin's.  (f) qwen2-moe-a2.7b's
+    prefill over processes is refused, naming ROADMAP Queue 1 item 11.
+    (g) ``python -m repro_torch.launch.serve`` PROCS_LM_CLI, run beside,
+    exits 0 with its request lines.  Every process allocates the same heap
+    offsets; the slabs' high-water marks are printed.  The phase fails
+    past PROCS_LM_BUDGET_S.  The wall times are time-sliced contexts on
+    one card: no speed figure."""
+    import torch
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh, procs
+    from repro_torch.models import torch_dtype
+    from repro_torch.serving import ARRequest, ARServer
+
+    t_phase = time.perf_counter()
+    # (g) runs beside the twins and the workers
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_LM_CLI],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    dev = torch.device("cuda")
+    twins, specs = {}, []
+    for label, arch, mesh, strategy, wrong, dtype in PROCS_LM_CASES:
+        key = (arch, mesh, dtype)
+        spec = procs_lm_spec(arch, mesh, strategy, dtype)
+        if key not in twins:
+            twins[key] = procs_lm_twin(spec, dev)
+        specs.append(dict(spec, twin=twins[key][0], wrong_route=wrong))
+    wspec = procs_lm_spec("whisper-tiny", "model", "swift_torus", "float32")
+    wspec["shape"] = PROCS_WHISPER
+    wtwin, wcounts = procs_lm_twin(wspec, dev)
+    wspec["twin"] = wtwin
+    moe = procs_lm_spec("qwen2-moe-a2.7b", "model", "ring",
+                        cfg={"n_layers": 1}, refusal=True)
+    ar = procs_lm_spec("qwen2-1.5b", "pod", "swift_torus", **PROCS_LM_AR)
+    twin_s = time.perf_counter() - t_phase
+    try:
+        with DeviceMemory() as mem:
+            res = procs.launch(procs.chain_job, PROCS, [
+                (procs.lm_prefill_job, (specs + [wspec, moe],)),
+                (procs.ar_serve_job, (ar,))], device="cuda",
+                deadline=PROCS_DEADLINE_S)
+            cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
+    except Exception as err:  # a worker failed, died or timed out
+        cli.kill()
+        cli.communicate()
+        fail(f"serve-procs-lm: {err}")
+    launch_s = time.perf_counter() - t_phase - twin_s
+    log(f"serve-procs-lm: twins {twin_s:.1f} s, then one launch of {PROCS} "
+        f"worker processes ({len(specs)} prefill cases, whisper, the MoE "
+        f"refusal, a served run) beside the (g) launcher's 4: {launch_s:.1f} s, device "
+        f"memory in use at most {mem.peak / 2**30:.2f} GiB [{card}]")
+    checks = []
+    launches = results["procs_launches"]
+
+    def hold(label, got, counts, tol, wrong):
+        errs = [g["err"] for g in got]
+        same = [g["bitwise"] for g in got]
+        logged = label in PROCS_LM_LOGGED
+        limit = "logged, not gated" if logged else f"limit {tol}"
+        if wrong:
+            log(f"serve-procs-lm negative control, {label}: err per process "
+                f"{[f'{e:.3e}' for e in errs]} ("
+                + (limit if logged else f"must exceed {tol}") + f") [{card}]")
+            checks.append(logged or max(errs) > tol)
+            return
+        share = procs_share(counts)
+        for r, g in enumerate(got):
+            log(f"serve-procs-lm {label} process {r} rows {g['rows']}: "
+                f"bitwise {same[r]}, err {errs[r]:.3e} of max|logits| "
+                f"({limit}), launches {g['counts']} (share of the twin's "
+                f"{counts}: {share}), {g['seconds']:.2f} s with its warm-up, "
+                f"slab high-water mark {g['heap_bytes'] / 2**20:.1f} MiB "
+                f"[{card}]")
+            checks.append((math.isfinite(errs[r]) if logged
+                           else errs[r] <= tol) and g["counts"] == share)
+        offsets = [g["offsets"] for g in got]
+        checks.append(all(o == offsets[0] for o in offsets))
+        for name in share:
+            launches[name] = launches.get(name, 0) + sum(
+                g["counts"][name] for g in got)
+
+    for n, (label, arch, mesh, _, wrong, dtype) in enumerate(
+            PROCS_LM_CASES):
+        hold(label, [w[0][n] for w in res], twins[(arch, mesh, dtype)][1],
+             PROCS_HYBRID_TOL, wrong)
+    hold("whisper-tiny fp32 (model 4)", [w[0][len(specs)] for w in res],
+         wcounts, PROCS_WHISPER_TOL, None)
+    refused = [w[0][len(specs) + 1].get("refused", "") for w in res]
+    log(f"serve-procs-lm (f) qwen2-moe-a2.7b over processes: "
+        f"{refused[0]!r} on every process: "
+        f"{all(x == refused[0] for x in refused)}")
+    checks.append(all("ROADMAP Queue 1 item 11" in x for x in refused))
+    twins.clear()
+    del specs, wspec, wtwin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params = procs._lm_params(ar, dev)
+    srv = ARServer(params, cfg, SPConfig(**ar["sp"]),
+                   batch_slots=ar["slots"], max_len=ar["max_len"],
+                   cache_dtype=torch_dtype(cfg.dtype), capture=False,
+                   mesh=make_mesh(*ar["mesh"], device=dev))
+    for rid, prompt, new in ar["requests"]:
+        srv.submit(ARRequest(rid=rid, prompt=torch.tensor(prompt),
+                             max_new_tokens=new))
+    want = srv.serve()
+    ticks = int(srv.tracker.counter("ar.ticks"))
+    got = res[0][1]["tokens"]
+    log(f"serve-procs-lm (d) ARServer qwen2-1.5b {PROCS_LM_LAYERS} layers "
+        f"over processes: {got} ({ticks} ticks); the virtual mesh's {want}: "
+        f"equal {got == want} [{card}]")
+    checks.append(got == want)
+    k4 = ticks * PROCS_LM_LAYERS * (PROCS - 1)
+    for r, w in enumerate(res):
+        c = w[1]["counts"]
+        log(f"serve-procs-lm (d) process {r}: launches {c} (K4 {k4}: three "
+            f"gather puts a layer and tick), {w[1]['seconds']:.2f} s of "
+            f"serving, slab high-water mark {w[1]['heap_bytes'] / 2**20:.1f}"
+            f" MiB [{card}]")
+        checks.append(c["landing_copy"] == k4 and c["flash_mqkv"] == 0)
+        launches["landing_copy"] += c["landing_copy"]
+    del params, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lines = cli_out.splitlines()
+    for line in lines:
+        log(f"serve-procs-lm cli: {line}")
+    log(f"serve-procs-lm (g) cli {' '.join(PROCS_LM_CLI)}: rc "
+        f"{cli.returncode} [{card}]")
+    if cli.returncode != 0 or sum(x.startswith("request ")
+                                  for x in lines) != 4:
+        fail(f"serve-procs-lm cli: rc {cli.returncode}: {cli_err[-1500:]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"serve-procs-lm: {phase_s:.1f} s (budget {PROCS_LM_BUDGET_S} s) "
+        f"[{card}]")
+    checks.append(phase_s <= PROCS_LM_BUDGET_S)
+    if not all(checks):
+        fail("serve-procs-lm: a process-mesh check failed (see above)")
 
 
 def paper_attn(card: str) -> None:
@@ -6470,6 +6759,8 @@ def main() -> int:
     serve_procs_hybrid(results, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after "
         "serve_procs_hybrid")
+    serve_procs_lm(results, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after serve_procs_lm")
 
     paper_attn(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after paper_attn")
@@ -6610,9 +6901,10 @@ def main() -> int:
     ]
     # the process mesh's launches (serve-procs: K1 and K4 from the served
     # run, K2 from ring and K3 from (model 4); serve-procs-hybrid: K1 and
-    # K3 from its served run), summed over its processes
-    for row in kernels[:4]:
-        row["launches"] += results["procs_launches"][row["name"]]
+    # K3 from its served run; serve-procs-lm: K1-K5 from its prefills,
+    # K4 from its served run), summed over its processes
+    for row in kernels:
+        row["launches"] += results["procs_launches"].get(row["name"], 0)
     for row in kernels:
         if row["launches"] <= 0:
             fail(f"{row['name']} was never launched on its path")

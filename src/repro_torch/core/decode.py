@@ -20,6 +20,15 @@ plain torch, as the reference's (``attend_partial``, outside Pallas).
 Batch axes of the mesh split the slots into slices that each run this on
 their own SP ranks; rows never mix, so every slice is computed at once.
 
+On a process mesh (launch/procs.py) the caches are this process's part:
+its batch slice's slots and its SP ranks' slices of the positions.  The
+write lands only where an owned slice holds ``cur_index`` (still no
+``.item()``), each owned rank's partial is computed as above, and the
+partials of every SP rank are gathered by puts (``comm.stream``'s
+``sp_all_gather``, one step of the heap's fence: P - 1 puts of (O', l, m)
+for P processes a slice); every process then merges them all in rank
+order, so the processes of a slice get the same bits.
+
 Two differences of form from the reference, neither of value:
   * the caches are written in place (the reference returns updated
     copies); the returned caches are the tensors given, so a captured
@@ -34,7 +43,9 @@ from __future__ import annotations
 
 import torch
 
-from .softmax import MaskSpec, attend_partial
+from ..comm.kernel_backend import process_step
+from ..comm.stream import sp_all_gather
+from .softmax import MaskSpec, Partial, attend_partial
 
 
 def device_index(cur_index, device: torch.device) -> torch.Tensor:
@@ -47,8 +58,10 @@ def device_index(cur_index, device: torch.device) -> torch.Tensor:
 
 def _write(cache: torch.Tensor, new: torch.Tensor, cur: torch.Tensor) -> None:
     """cache[:, cur] = new in place, where some rank owns ``cur`` (the
-    ranks' slices tile the cache, so one write stands for the owner's);
-    unchanged otherwise."""
+    ranks' slices tile the cache, so one write stands for the owner's; on
+    a process mesh ``cur`` is relative to this process's part, and the
+    write happens only where one of its ranks owns it); unchanged
+    otherwise."""
     l_max = cache.shape[1]
     at = cur.clamp(0, l_max - 1).reshape(1)
     owned = (cur >= 0) & (cur < l_max)
@@ -71,12 +84,15 @@ def decode_attention(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (attention output [B, 1, Hq, D], k_cache, v_cache), the
     caches written in place."""
-    b, l_max = k_cache.shape[:2]
+    b, l_cache = k_cache.shape[:2]
     sp = mesh.axes_size(cfg.sp_axes) if mesh is not None else 1
-    if l_max % sp:
-        raise ValueError(f"cache length {l_max} does not split evenly over "
-                         f"SP degree {sp} (as shard_map requires)")
-    if mesh is not None:
+    procs = mesh is not None and mesh.is_process_mesh
+    held = mesh.sp_owned(cfg.sp_axes) if procs else range(sp)
+    if l_cache % len(held):
+        raise ValueError(f"cache length {l_cache * sp // len(held)} does not "
+                         f"split evenly over SP degree {sp} (as shard_map "
+                         "requires)")
+    if mesh is not None and not procs:
         slices = mesh.axes_size(cfg.effective_batch_axes(mesh) or ())
         if b % slices:
             raise ValueError(f"batch {b} does not split evenly over "
@@ -89,23 +105,26 @@ def decode_attention(
                             "mixed dtypes too)")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    shard_len = l_max // sp
+    shard_len = l_cache // len(held)
+    base = held.start * shard_len  # the position of the cache's first row
     dev = q.device
     cur = device_index(cur_index, dev)
     offsets = torch.arange(shard_len, device=dev)
-    _write(k_cache, new_k, cur)
-    _write(v_cache, new_v, cur)
+    _write(k_cache, new_k, cur - base)
+    _write(v_cache, new_v, cur - base)
     parts = []
-    for rank in range(sp):
-        start = rank * shard_len
+    for i in range(len(held)):
+        start = i * shard_len
         kc = k_cache[:, start:start + shard_len]  # this rank's slice (views)
         vc = v_cache[:, start:start + shard_len]
-        pos = start + offsets
+        pos = base + start + offsets
         valid = pos <= cur
         if window is not None:
             valid &= pos > cur - window
         parts.append(attend_partial(q, kc, vc, scale=scale,
                                     mask=MaskSpec(valid_k=valid)))
+    if procs:
+        parts = _gather_partials(parts, mesh, cfg)
     # the distributed Appendix-C merge: one max and two sums over the ranks
     m_g = torch.stack([pt.m for pt in parts]).amax(dim=0)
     l_g, o_g = 0.0, 0.0
@@ -118,3 +137,16 @@ def decode_attention(
     l_sw = l_g.transpose(1, 2)[..., None]  # [B, Lq, Hq, 1]
     o = o_g / torch.where(l_sw == 0.0, torch.ones_like(l_sw), l_sw)
     return o.to(q.dtype), k_cache, v_cache
+
+
+def _gather_partials(parts: list[Partial], mesh, cfg) -> list[Partial]:
+    """On a process mesh: every SP rank's partial (of this process's batch
+    slice), in rank order, from the owned ranks' ``parts``.  One step of
+    the heap's fence: ``comm.stream.sp_all_gather`` of (o, l, m), stacked
+    over the owned ranks, P - 1 puts for P processes a slice."""
+    stacked = [torch.stack(xs, dim=1) for xs in zip(*parts)]
+    with process_step(stacked[0].device):
+        o, l, m = sp_all_gather(
+            stacked, mesh, cfg.sp_axes, cfg.effective_batch_axes(mesh),
+            dim=1, backend=cfg.comm_backend, interpret=cfg.kernel_interpret)
+    return [Partial(o[:, r], l[:, r], m[:, r]) for r in range(o.shape[1])]

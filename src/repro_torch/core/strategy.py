@@ -215,7 +215,12 @@ def sp_attention(
     procs = mesh.is_process_mesh
     slices = mesh.axes_size(cfg.effective_batch_axes(mesh) or ())
     if procs:
-        _check_process_mesh(cfg, mesh, q, k)
+        # a block lies within one coordinate of every axis outside the SP
+        # axes (one batch slice, one pipe stage) and holds a contiguous run
+        # of SP ranks; q and k/v are that slice's shards of those ranks,
+        # each at its own length (Lq != Lk: each chunked over the owned
+        # ranks, each rank's positions from its own shard length)
+        mesh.check_blocks(cfg.sp_axes)
     if not procs and q.shape[0] % slices:
         raise ValueError(f"batch {q.shape[0]} does not split evenly over "
                          f"{slices} batch slices (as shard_map requires)")
@@ -278,16 +283,3 @@ def sp_attention(
     return torch.cat([torch.cat(out[s * sp:(s + 1) * sp], dim=1)
                       for s in range(slices)], dim=0)
 
-
-def _check_process_mesh(cfg: SPConfig, mesh, q, k) -> None:
-    """A process mesh: each process's block of ranks lies within one
-    coordinate of every axis outside the SP axes (``Mesh.check_blocks``),
-    so it holds one batch slice (the batch axes, the cfg axis first) and
-    one coordinate of each replicated axis (pipe), and a contiguous run of
-    SP ranks, in any order of the axes; q and k are that slice's sequence
-    shard of those ranks."""
-    mesh.check_blocks(cfg.sp_axes)
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            "SP attention with Lq != Lk over a process mesh comes with the "
-            "LM slices (ROADMAP Queue 1 item 10)")

@@ -150,6 +150,30 @@ class Mesh:
         om = self.owner_map(axes or ())
         return om.owned[0], om.size
 
+    def held_rows(self, sp_axes, total: int) -> tuple[int, int]:
+        """The rows [start, stop) of a sequence of ``total`` rows that
+        this process holds: its run of SP ranks' shards over ``sp_axes``
+        (every row on a mesh of virtual ranks)."""
+        if not self.is_process_mesh:
+            return 0, total
+        sp = self.axes_size(sp_axes)
+        if total % sp:
+            raise ValueError(f"a sequence of {total} rows does not split "
+                             f"evenly over SP degree {sp}")
+        held = self.sp_owned(sp_axes)
+        return held.start * total // sp, held.stop * total // sp
+
+    def held_batch(self, batch_axes, total: int) -> slice:
+        """The rows of a batch of ``total`` that this process's batch
+        slice holds (every row on a mesh of virtual ranks)."""
+        if not self.is_process_mesh:
+            return slice(0, total)
+        s, n = self.slice_of(batch_axes)
+        if total % n:
+            raise ValueError(f"batch {total} does not split evenly over "
+                             f"{n} batch slices")
+        return slice(s * total // n, (s + 1) * total // n)
+
 
 @dataclasses.dataclass(frozen=True)
 class OwnerMap:

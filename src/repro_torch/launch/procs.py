@@ -48,8 +48,9 @@ import torch
 
 DEADLINE_S = 600.0
 SLAB_BYTES = {"cuda": 512 << 20, "cpu": 16 << 20}
-# what a worker process needs built before it starts (the SP path's)
-LIBRARIES = ("flash_mqkv", "ring_flash", "one_sided")
+# what a worker process needs built before it starts (the SP path's, and
+# rwkv6's K5 for its prefill)
+LIBRARIES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv")
 
 _group: "Group | None" = None
 
@@ -184,7 +185,9 @@ def launch(job: Callable, procs: int, *args: Any, device: str = "cuda",
     rank order, with its tensors on the CPU.  A worker that fails, dies or
     outlives ``deadline`` seconds (from the start) fails the launch: every
     worker is killed and the error raised.  ``threads`` sets each
-    worker's intra-op threads."""
+    worker's intra-op threads.  CUDA tensors in ``args`` reach the
+    workers over CUDA IPC: the caller keeps them alive until the launch
+    returns."""
     device_type = torch.device(device).type
     _check_allocator(device_type)
     if device_type == "cuda":
@@ -479,9 +482,9 @@ def serve_job(group: Group, spec: dict) -> dict:
     follow its steps.  Worker 0 returns each request's latents, kv_drift
     and resyncs; every worker its launch counts, the wall time of the
     served run and the most of its slab a step used.  ``wrong_route``
-    sends every cfg exchange's put to the sender's own branch: a put
-    along the wrong route, which the latents' check must catch."""
-    from ..comm import Stream
+    sends every cfg exchange's put to the sender's own branch, or on a
+    mesh without a cfg axis every Ulysses stage hop to the sender itself:
+    a put along the wrong route, which the latents' check must catch."""
     from ..comm import kernel_backend as kb
     from ..core import SPConfig
     from ..serving import DiTRequest, DiTServer
@@ -495,13 +498,8 @@ def serve_job(group: Group, spec: dict) -> dict:
     srv = DiTServer(params, cfg, SPConfig(**spec["sp"]), mesh=mesh,
                     sampler=_sampler(spec), drift=drift,
                     max_batch=spec.get("max_batch", 4), capture=False)
-    real = Stream.put
-    if spec.get("wrong_route"):
-        def put(self, axes, perm, *tensors, **kw):
-            if self.name == "cfg":
-                perm = [(p, p) for p, _ in perm]
-            return real(self, axes, perm, *tensors, **kw)
-        Stream.put = put
+    undo = _misroute(("cfg" if "cfg" in mesh.axis_names else "ulysses")
+                     if spec.get("wrong_route") else None)
     reset_counts()
     t0 = time.perf_counter()
     got = {}
@@ -519,7 +517,7 @@ def serve_job(group: Group, spec: dict) -> dict:
         else:
             srv.follow()
     finally:
-        Stream.put = real
+        undo()
     if group.device.type == "cuda":
         torch.cuda.synchronize(group.device)
     return {"latents": {rid: r["latents"] for rid, r in got.items()},
@@ -656,3 +654,341 @@ def shift_put_job(group: Group, withhold: int | None = None) -> dict:
     if group.device.type == "cuda":
         torch.cuda.synchronize(group.device)
     return {"got": got[group.rank], "counts": launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# the language models over a process mesh
+# ---------------------------------------------------------------------------
+
+def perturb_lm(params, gen: torch.Generator) -> None:
+    """Draw the tensors a fresh LM or whisper holds at a constant, so that
+    each takes part (in place): every linear and LayerNorm bias from
+    N(0, 0.1^2) and every norm scale from 1 + N(0, 0.1^2); hymba's SSD
+    ``a_log`` from N(0, 0.5^2); rwkv6's decay base ``w0`` from U[-6, -1],
+    its token-shift mixes ``mu_*`` from U[0, 1], its bonus ``u`` from
+    N(0, 0.5^2) and ``wlora_b`` small (the ranges RWKV6 initialises them
+    in: the decays then lie in about [0.68, 0.998])."""
+    def draw(t, x):
+        return x.to(device=t.device, dtype=t.dtype)
+
+    def normal(t, std, mean=0.0):
+        return draw(t, torch.randn(t.shape, generator=gen, device=t.device)
+                    * std + mean)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for name, leaf in list(items):
+            if isinstance(leaf, (dict, list)):
+                walk(leaf)
+            elif name in ("b", "bias"):
+                tree[name] = normal(leaf, 0.1)
+            elif name in ("scale", "norm_scale"):
+                tree[name] = normal(leaf, 0.1, 1.0)
+            elif name == "a_log":
+                tree[name] = normal(leaf, 0.5)
+
+    with torch.no_grad():
+        walk(params)
+        for lp in params.get("layers", []):
+            tm = lp.get("tm")
+            if tm is None:
+                continue
+            rand = lambda t: torch.rand(t.shape, generator=gen,
+                                        device=t.device)
+            tm["w0"] = draw(tm["w0"], rand(tm["w0"]) * 5.0 - 6.0)
+            for mix in (tm, lp["cm"]):
+                for name in [k for k in mix if k.startswith("mu_")]:
+                    mix[name] = draw(mix[name], rand(mix[name]))
+            tm["u"] = normal(tm["u"], 0.5)
+            wb = tm["wlora_b"]["w"]
+            tm["wlora_b"]["w"] = normal(wb, 0.01 / wb.shape[0] ** 0.5)
+
+
+def _lm_params(spec: dict, device: torch.device):
+    """An LM's or whisper's config and weights for a job: the reference's
+    tree handed across as numpy (``tree``), or ``init_lm`` /
+    ``init_whisper`` from ``seed`` with the constant tensors drawn from
+    ``seed + 1`` (``perturb_lm``).  ``cfg`` overrides config fields
+    (``n_layers``, ``dtype``)."""
+    import dataclasses
+
+    from ..configs import get_config, get_reduced
+    from ..models import (init_lm, init_whisper, load_jax_lm_params,
+                          load_jax_whisper_params)
+
+    cfg = (get_reduced(spec["arch"]) if spec.get("reduced")
+           else get_config(spec["arch"]))
+    cfg = dataclasses.replace(cfg, **spec.get("cfg", {}))
+    audio = cfg.family == "audio"
+    if "tree" in spec:
+        load = load_jax_whisper_params if audio else load_jax_lm_params
+        return cfg, load(spec["tree"], cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    params = (init_whisper if audio else init_lm)(cfg, gen, device=device)
+    gen.manual_seed(spec["seed"] + 1)
+    perturb_lm(params, gen)
+    return cfg, params
+
+
+def lm_inputs(spec: dict, cfg, device: torch.device) -> dict:
+    """The whole batch of an LM or whisper job: ``tokens`` [B, L] given as
+    a CPU tensor, or drawn on the device from ``seed + 2`` at ``shape``
+    (B, L[, T]), every process and the caller drawing the same; whisper's
+    ``frames`` [B, T, d], and the vlm's stubbed frontend embeddings
+    ``inputs_embeds`` [B, L, d] with its M-RoPE ``positions`` [3, B, L]
+    (t, h, w of a patch grid 4 wide) beside them."""
+    from ..models.blocks import torch_dtype
+
+    gen = torch.Generator(device=device).manual_seed(spec.get("seed", 0)
+                                                      + 2)
+    if "tokens" in spec:
+        out = {"tokens": spec["tokens"].to(device)}
+    else:
+        out = {"tokens": torch.randint(0, cfg.vocab, spec["shape"][:2],
+                                       generator=gen, device=device)}
+    b, l = out["tokens"].shape
+    draw = lambda t: (torch.randn((b, t, cfg.d_model), generator=gen,
+                                  device=device) * 0.5).to(
+                                      torch_dtype(cfg.dtype))
+    if cfg.family == "audio":
+        out["frames"] = draw(spec["shape"][2])
+    if cfg.family == "vlm":
+        out["inputs_embeds"] = draw(l)
+        t = torch.arange(l, device=device)
+        out["positions"] = torch.stack([t, t // 4, t % 4])[:, None].expand(
+            3, b, l)
+    return out
+
+
+def _misroute(kind: str | None) -> Callable[[], None]:
+    """Put a schedule's puts along a wrong route until the returned undo
+    is called: ``"ulysses"`` lands every Ulysses stage hop on the sender
+    itself; ``"shift"`` does so for every token shift (models/lm.py
+    ``_token_shift``: each rank then reads its own last row); ``"state"``
+    for every put of the SSD and WKV state passes' scan
+    (``ssm.distributed_state_in``: each rank composes its own summary);
+    ``"cfg"`` for every cfg exchange (each branch gets its own velocity
+    back)."""
+    from ..comm import Stream
+    from ..core.collectives import GroupLayout
+    from ..models import lm as lm_mod
+    from ..models import ssm as ssm_mod
+
+    if kind is None:
+        return lambda: None
+    if kind == "cfg":
+        real_put = Stream.put
+
+        def put(self, axes, perm, *tensors, **kw):
+            if self.name == "cfg":
+                perm = [(p, p) for p, _ in perm]
+            return real_put(self, axes, perm, *tensors, **kw)
+        Stream.put = put
+
+        def undo():
+            Stream.put = real_put
+        return undo
+    if kind == "ulysses":
+        real = GroupLayout.ulysses_stage_perm
+        GroupLayout.ulysses_stage_perm = lambda self, k: [
+            (p, p) for p, _ in real(self, k)]
+
+        def undo():
+            GroupLayout.ulysses_stage_perm = real
+        return undo
+    if kind in ("shift", "state"):
+        # both ride ssm.shift_ranks' ring puts; misroute them only inside
+        # the token shift, or only inside the state passes' scan
+        module, name = ((lm_mod, "_token_shift") if kind == "shift"
+                        else (ssm_mod, "distributed_state_in"))
+        real_fn, real_perm = getattr(module, name), GroupLayout.ring_perm
+
+        def wrong(*a, **kw):
+            GroupLayout.ring_perm = lambda self, s=1: [
+                (p, p) for p, _ in real_perm(self, s)]
+            try:
+                return real_fn(*a, **kw)
+            finally:
+                GroupLayout.ring_perm = real_perm
+        setattr(module, name, wrong)
+
+        def undo():
+            setattr(module, name, real_fn)
+        return undo
+    raise ValueError(f"unknown wrong_route {kind!r}")
+
+
+def _held(logits: torch.Tensor, spec: dict, batch: slice,
+          rows: tuple[int, int]) -> dict:
+    """A job's logits, or with ``twin`` (the whole batch's logits on the
+    mesh of virtual ranks, on this device) how this process's rows hold
+    against the twin's: bitwise, and the largest difference relative to
+    the twin's max|logits|."""
+    twin = spec.get("twin")
+    if twin is None:
+        return {"logits": logits}
+    want = twin[batch, rows[0]:rows[1]]
+    scale = max(float(t.abs().max()) for t in twin)  # a batch row at a time
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(logits, want))
+    return {"bitwise": torch.equal(logits, want), "err": err / scale}
+
+
+def _k5_count() -> int:
+    import importlib
+
+    return importlib.import_module(
+        "repro_torch.kernels.rwkv6_wkv").launch_count()
+
+
+def _lm_case(group: Group, spec: dict, run: Callable,
+             mode: str = "prefill") -> dict:
+    """One case of ``lm_prefill_job`` / ``lm_decode_job``: the process
+    mesh and its SPConfig, the whole inputs, this process's rows and batch
+    slice; ``run(spec, params, cfg, ctx, inputs, batch, rows)`` gives the
+    logits.  ``refusal``: the case must raise NotImplementedError, whose
+    message is returned."""
+    import importlib
+
+    from ..comm import kernel_backend as kb
+    from ..core import SPConfig
+    from ..models import ParallelContext
+    from .mesh import make_mesh, process_mesh
+
+    cfg, params = _lm_params(spec, group.device)
+    mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                        group.rank, group.size)
+    sp = SPConfig(**spec["sp"])
+    ctx = ParallelContext(sp, mode, mesh=mesh)
+    inputs = lm_inputs(spec, cfg, group.device)
+    b, l = inputs["tokens"].shape
+    rows = mesh.held_rows(sp.sp_axes, l) if mode == "prefill" else (0, l)
+    batch = mesh.held_batch(sp.effective_batch_axes(mesh) or (), b)
+    heap = kb.process_heap(group.device)
+    heap.trace = []
+    importlib.import_module("repro_torch.kernels.rwkv6_wkv") \
+        .reset_launch_count()
+    reset_counts()
+    undo = _misroute(spec.get("wrong_route"))
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            logits = run(spec, params, cfg, ctx, inputs, batch, rows)
+        if group.device.type == "cuda":
+            torch.cuda.synchronize(group.device)
+    except NotImplementedError as err:
+        if not spec.get("refusal"):
+            raise
+        return {"refused": str(err)}
+    finally:
+        undo()
+        offsets, heap.trace = heap.trace, None
+    if spec.get("refusal"):
+        raise RuntimeError(f"{spec['arch']} over a process mesh was not "
+                           "refused")
+    counts = dict(launch_counts(), rwkv6_wkv=_k5_count())
+    return dict(_held(logits, spec, batch, rows), rows=rows,
+                batch=(batch.start, batch.stop), counts=counts,
+                offsets=offsets, seconds=time.perf_counter() - t0,
+                heap_bytes=heap.high_water)
+
+
+def lm_prefill_job(group: Group, cases: list[dict]) -> list[dict]:
+    """An LM's prefill, or whisper's teacher-forced forward (``bundle.apply``)
+    on process meshes: per case (``arch``, ``reduced``, ``cfg``: config
+    overrides; weights as ``_lm_params`` makes them; ``mesh``: (shape,
+    axes); ``sp``: SPConfig fields; inputs as ``lm_inputs`` makes them,
+    whole) every process runs its batch slice and sequence shard of each
+    input (the vlm's embeddings and M-RoPE positions too; whisper's frames
+    at their own length, so that its cross-attention has Lq != Lk),
+    ``seq_len`` the whole, and returns its logits (or, with ``twin``, how
+    they hold against the twin's rows: ``_held``), its rows and batch
+    slice, its launch counts (K5's beside the others), the heap offsets it
+    allocated and its slab's high-water mark.  ``last_only``: the final
+    position's logits (zero rows on the processes that do not hold it).
+    ``wrong_route``: a ``_misroute`` kind, a negative control;
+    ``refusal``: the case must raise (the MoE LMs)."""
+    from ..models import get_model
+
+    def run(spec, params, cfg, ctx, inputs, batch, rows):
+        kw = {"last_only": True} if spec.get("last_only") else {}
+        shard = {}
+        for k, x in inputs.items():
+            lo, hi = rows
+            if k == "frames":
+                kw["enc_len"] = x.shape[1]
+                lo, hi = ctx.mesh.held_rows(ctx.sp.sp_axes, x.shape[1])
+            shard[k] = (x[..., batch, lo:hi] if k == "positions"
+                        else x[batch, lo:hi])
+        return get_model(cfg).apply(params, shard, cfg, ctx,
+                                    seq_len=inputs["tokens"].shape[1], **kw)
+
+    return [_lm_case(group, spec, run) for spec in cases]
+
+
+def lm_decode_job(group: Group, cases: list[dict]) -> list[dict]:
+    """An LM's teacher-forced decode (``bundle.step`` at every position of
+    ``tokens``) on process meshes, each process with its part of caches
+    as long as the tokens (``init_caches`` with the mesh): per case, as
+    ``lm_prefill_job``, its batch slice's logits at every position
+    [B_slice, L, V]."""
+    from ..models import get_model, torch_dtype
+
+    def run(spec, params, cfg, ctx, inputs, batch, rows):
+        bundle = get_model(cfg)
+        tokens = inputs["tokens"][batch]
+        caches = bundle.init_caches(
+            cfg, inputs["tokens"].shape[0], rows[1], torch_dtype(cfg.dtype),
+            ctx.device, mesh=ctx.mesh, sp=ctx.sp)
+        outs = []
+        for t in range(tokens.shape[1]):
+            logit, caches = bundle.step(params, {"tokens": tokens[:, t:t + 1]},
+                                        caches, t, cfg, ctx)
+            outs.append(logit)
+        return torch.stack(outs, dim=1)
+
+    return [_lm_case(group, spec, run, mode="decode") for spec in cases]
+
+
+def ar_serve_job(group: Group, spec: dict) -> dict:
+    """``ARServer`` on a process mesh, eager: every process builds the
+    same weights (``_lm_params``) and server (``slots``, ``max_len``,
+    caches in the model's dtype); process 0 submits ``requests`` ((rid,
+    prompt tokens, new tokens) each) and serves them, the others follow
+    its ticks.  Process 0 returns each request's tokens; every process its
+    launch counts, the wall time of the served run, the heap offsets it
+    allocated and its slab's high-water mark."""
+    from ..comm import kernel_backend as kb
+    from ..core import SPConfig
+    from ..models import torch_dtype
+    from ..serving import ARRequest, ARServer
+    from .mesh import make_mesh, process_mesh
+
+    cfg, params = _lm_params(spec, group.device)
+    mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                        group.rank, group.size)
+    srv = ARServer(params, cfg, SPConfig(**spec["sp"]),
+                   batch_slots=spec.get("slots", 4),
+                   max_len=spec["max_len"],
+                   cache_dtype=torch_dtype(cfg.dtype), capture=False,
+                   mesh=mesh)
+    heap = kb.process_heap(group.device)
+    heap.trace = []
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {}
+    if group.rank == 0:
+        for rid, prompt, new in spec["requests"]:
+            srv.submit(ARRequest(rid=rid, prompt=torch.tensor(prompt),
+                                 max_new_tokens=new))
+        got = srv.serve()
+        srv.stop_followers()
+    else:
+        srv.follow()
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    offsets, heap.trace = heap.trace, None
+    return {"tokens": got, "counts": launch_counts(),
+            "seconds": time.perf_counter() - t0, "offsets": offsets,
+            "heap_bytes": heap.high_water, "rows": (srv.rows.start,
+                                                     srv.rows.stop)}

@@ -16,6 +16,8 @@ service, on the card unless ``--device cpu`` asks for the CPU.
                                     (one process per rank: launch/procs.py)
     ... --arch flux-12b --procs 4 --mesh multipod --eager
                                     (a block of 8 ranks per process)
+    ... --arch qwen2-1.5b --procs 4 --mesh host --model 4 --eager
+                                    (AR decode, KV cache across processes)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
 request scheduler: ``--mixed`` submits a mixed-resolution queue (seq,
@@ -43,9 +45,11 @@ sequence over the SP axes (``--seq`` is the cache length).  ``--procs P``
 spreads the mesh's ranks over P processes (launch/procs.py; one per rank
 is the reference's layout, on the card ``rank % device_count``): process
 0 prints what the server did, the others follow its steps.  It serves the
-DiTs on every mesh above, a data axis included (each process a block of
-ranks within one data slice), eagerly (``--eager`` on the card: captured
-steps across processes are ROADMAP Queue 1 item 13).  An attention
+DiTs and the attention LMs but the MoE ones (dense, vlm, hybrid: each
+process decodes its slots with its part of the KV cache) on every mesh
+above, a data axis included (each process a block of ranks within one
+data slice), eagerly (``--eager`` on the card: captured steps across
+processes are ROADMAP Queue 1 item 13).  An attention
 model's caches take the model's dtype: the reference's launcher leaves
 ARServer's float32 default, which its cache update refuses for a bfloat16
 model.
@@ -125,16 +129,21 @@ def main(argv: list[str] | None = None) -> int:
                          "stay the config's)")
     ap.add_argument("--procs", type=int, default=1,
                     help="spread the mesh's ranks over this many processes "
-                         "(DiT only, eager)")
+                         "(DiTs and attention LMs but MoE, eager)")
     args = ap.parse_args(argv)
     if args.profile is not None and args.metrics is not None:
         ap.error("--profile already streams metrics records; "
                  "give one output path, not both")
 
     if args.procs > 1:
-        if args.arch not in DIT_ARCHS:
-            ap.error("--procs serves the DiTs; the LMs over processes are "
-                     "ROADMAP Queue 1 item 10")
+        if args.arch in MOE_ARCHS:
+            ap.error("--procs serves the DiTs and the attention LMs; the MoE "
+                     "exchange over processes is ROADMAP Queue 1 item 11")
+        if args.arch in SSM_ARCHS:
+            ap.error("the rwkv6 decode tick runs on one rank: serve it "
+                     "without --procs")
+        if args.arch not in DIT_ARCHS + DENSE_ARCHS + HYBRID_ARCHS:
+            ap.error(f"--procs serves {DIT_ARCHS + DENSE_ARCHS + HYBRID_ARCHS}")
         if args.metrics is not None or args.profile is not None:
             ap.error("--procs runs without --metrics or --profile")
         if not args.eager and resolve_device(args.device).type == "cuda":
@@ -255,14 +264,26 @@ def _serve(args, group=None) -> int:
             mesh, sp = launch_mesh(args.mesh, args.model, args.data,
                                    args.strategy, device)
             cache_dtype = torch_dtype(cfg.dtype)
+            if group is not None:
+                mesh = process_mesh(mesh, group.rank, group.size)
+                device = mesh.device
+                gen = torch.Generator(device=device).manual_seed(0)
         params = init_lm(cfg, gen, device, ep_degree=ep_degree(mesh))
         srv = ARServer(params, cfg, sp, batch_slots=4, max_len=args.seq,
                        cache_dtype=cache_dtype, tracker=tracker,
                        device=device, capture=capture, mesh=mesh)
+        if not lead:
+            srv.follow()
+            return 0
         for i in range(args.requests):
             srv.submit(ARRequest(rid=i, prompt=torch.arange(1, 4 + i),
                                  max_new_tokens=8))
-        for rid, toks in sorted(srv.serve().items()):
+        served = srv.serve()
+        if group is not None:
+            srv.stop_followers()
+            print(f"process mesh: {group.size} processes, {len(mesh.owned)} "
+                  f"of {mesh.size} ranks each; blocks {_blocks(mesh)}")
+        for rid, toks in sorted(served.items()):
             print(f"request {rid}: -> {toks}")
         print(_graphs_line([srv._step]))
     if sink is not None:

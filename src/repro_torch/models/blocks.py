@@ -173,6 +173,33 @@ class ParallelContext:
 REMAT_POLICIES = ("full", "dots", "none")
 
 
+def inference_on_processes(ctx: ParallelContext) -> bool:
+    """Whether ``ctx`` runs on a process mesh (launch/procs.py), where any
+    call that could want a gradient (train mode, or grad mode on) is
+    refused: the puts of the token shifts, the state passes and SP
+    attention are differentiable on a mesh of virtual ranks only."""
+    procs = ctx.mesh is not None and ctx.mesh.is_process_mesh
+    if procs and (ctx.mode == "train" or torch.is_grad_enabled()):
+        raise NotImplementedError(
+            "training over a process mesh is a later slice (ROADMAP Queue 1 "
+            "item 12); run the forward under torch.inference_mode()")
+    return procs
+
+
+def held_shard(ctx: ParallelContext, length: int,
+               seq_len: int | None) -> tuple[int, int]:
+    """The rows [start, stop) of a ``seq_len``-long sequence that this
+    process holds on a process mesh (``mesh.held_rows`` over the SP
+    axes); the ``length`` rows it was given must be that many."""
+    if seq_len is None:
+        raise ValueError("a process mesh's forward needs seq_len")
+    start, stop = ctx.mesh.held_rows(ctx.sp.sp_axes, seq_len)
+    if length != stop - start:
+        raise ValueError(f"a shard of {length} rows: this process holds "
+                         f"rows [{start}, {stop}) of {seq_len}")
+    return start, stop
+
+
 def _save_dots(ctx, op, *args, **kwargs):
     """Selective checkpoint policy of remat "dots": save the outputs of
     matrix products without batch dims, recompute everything else."""
@@ -398,7 +425,11 @@ def attention(
 
     Decode (``ctx.decode``): the new token's K/V go into ``kv_cache`` at
     ``cur_index`` and q attends the cache through ``core.decode_attention``
-    (the cache is sharded on L over the SP ranks and written in place).
+    (the cache is sharded on L over the SP ranks and written in place; on
+    a process mesh ``kv_cache`` is this process's part of it).
+
+    On a process mesh ``x`` and ``positions`` are this process's sequence
+    shard (the positions its rows' own) and the output covers its rows.
 
     ``extra_kv`` — one-step-stale full-sequence KV of the *non-resident*
     rows for the displaced patch pipeline (K already post-RoPE): the

@@ -158,16 +158,10 @@ def shard_rows(ctx: ParallelContext, seq_len: int) -> tuple[int, int]:
     """The rows [start, stop) of [cond ; latents] (``COND_TOKENS +
     seq_len`` rows) that this process holds: all of them, except on a
     process mesh, where they are its run of SP ranks' sequence shards."""
-    mesh, total = ctx.mesh, COND_TOKENS + seq_len
-    if mesh is None or not mesh.is_process_mesh:
+    total = COND_TOKENS + seq_len
+    if ctx.mesh is None:
         return 0, total
-    sp = ctx.sp_degree
-    if total % sp:
-        raise ValueError(f"[cond ; latents] of {total} rows does not split "
-                         f"evenly over SP degree {sp}")
-    per = total // sp
-    held = mesh.sp_owned(ctx.sp.sp_axes)
-    return held.start * per, held.stop * per
+    return ctx.mesh.held_rows(ctx.sp.sp_axes, total)
 
 
 def latent_rows(ctx: ParallelContext, seq_len: int) -> slice:

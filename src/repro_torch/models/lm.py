@@ -39,6 +39,13 @@ the reference's scan body does; every family trains, at SP degree 1 and
 over a mesh (the WKV scan's gradient is K5b, attention's K1b, and the
 token shifts' and state passes' puts are differentiable, comm/grad.py).
 Whisper is models/whisper.py.
+
+Over a process mesh (launch/procs.py) each process runs its batch slice
+and its run of SP ranks' sequence shards (``lm_forward(..., seq_len=)``):
+the rank lists of the token shifts and the state passes hold its owned
+entries and carry their owner map, K5 runs on each owned shard, and the
+KV caches are its part (``init_lm_caches`` with the mesh).  The MoE
+exchange and training are refused there (``check_process_mesh``).
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 
+from ..comm.channel import owned_ranks, rank_map
+from ..comm.kernel_backend import process_step
 from ..configs.base import ModelConfig
 from ..core.decode import device_index
 from ..kernels.rwkv6_wkv import rwkv6_wkv_heads
@@ -57,6 +66,8 @@ from .blocks import (
     ParamBuilder,
     Params,
     attention,
+    held_shard,
+    inference_on_processes,
     init_attention,
     init_linear,
     init_mlp,
@@ -198,15 +209,30 @@ def load_jax_lm_params(tree: Mapping[str, Any], cfg: ModelConfig,
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: str | torch.device | None = None) -> Params:
+                   device: str | torch.device | None = None,
+                   mesh=None, sp=None) -> Params:
     """Decode caches stacked over layers, as the reference's.  rwkv6: the
     token shift caches take the dtype of the activations they store from
     the first step on (the reference's scan outputs do the same); the WKV
     state stays float32.  Attention: the K and V caches [n_layers, batch,
     max_len, Hkv, D], sharded on max_len over the SP ranks in decode; their
     dtype must be the activations' (``core.decode_attention``).  hymba
-    adds the SSD state [n_layers, batch, H, P, N], float32."""
+    adds the SSD state [n_layers, batch, H, P, N], float32.
+
+    On a process ``mesh`` (with ``sp``, the SPConfig) the caches are this
+    process's part, on the mesh's device: its batch slice of the
+    ``batch`` slots and its SP ranks' ``max_len x held / SP`` positions;
+    the SSD state and the rwkv6 caches are whole over the SP ranks of the
+    slice."""
     _check_family(cfg)
+    if mesh is not None and mesh.is_process_mesh:
+        if sp is None:
+            raise ValueError("a process mesh's caches need the SPConfig")
+        device = mesh.device
+        rows = mesh.held_batch(sp.effective_batch_axes(mesh) or (), batch)
+        batch = rows.stop - rows.start
+        start, stop = mesh.held_rows(sp.sp_axes, max_len)
+        max_len = stop - start
     device = resolve_device(device)
     nl = cfg.n_layers
     zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,
@@ -241,10 +267,31 @@ def _batch_slices(ctx: ParallelContext) -> int:
     return mesh.axes_size(ctx.sp.effective_batch_axes(mesh) or ())
 
 
+def _owners(ctx: ParallelContext):
+    """On a process mesh, the owner map of the (batch slice, SP rank)
+    lists (launch.mesh.OwnerMap over the batch and SP axes); else None."""
+    mesh = ctx.mesh
+    if mesh is None or not mesh.is_process_mesh:
+        return None
+    return mesh.owner_map(tuple(ctx.sp.effective_batch_axes(mesh) or ())
+                          + tuple(ctx.sp.sp_axes))
+
+
 def _sp_shards(x: torch.Tensor, ctx: ParallelContext) -> list[torch.Tensor]:
     """x [B, L, ...] split over the batch slices on B and the SP ranks on
     L: one shard per (slice, SP rank), slice-major, as the reference's
-    shard_map places them."""
+    shard_map places them.  On a process mesh x is this process's part
+    (its batch slice, its run of SP ranks' shards): the list holds its
+    owned entries and None for the others."""
+    owners = _owners(ctx)
+    if owners is not None:
+        owned = owners.owned
+        if x.shape[1] % len(owned):
+            raise ValueError(f"a shard of {x.shape[1]} rows does not split "
+                             f"evenly over this process's {len(owned)} SP "
+                             "ranks")
+        parts = dict(zip(owned, torch.chunk(x, len(owned), dim=1)))
+        return [parts.get(p) for p in range(owners.size)]
     slices, size = _batch_slices(ctx), ctx.sp_degree
     if x.shape[0] % slices:
         raise ValueError(f"batch {x.shape[0]} does not split evenly over "
@@ -258,6 +305,8 @@ def _sp_shards(x: torch.Tensor, ctx: ParallelContext) -> list[torch.Tensor]:
 
 def _sp_join(parts: list[torch.Tensor], ctx: ParallelContext) -> torch.Tensor:
     """The inverse of ``_sp_shards``."""
+    if _owners(ctx) is not None:
+        return torch.cat([p for p in parts if p is not None], dim=1)
     size = ctx.sp_degree
     return torch.cat([torch.cat(parts[i:i + size], dim=1)
                       for i in range(0, len(parts), size)], dim=0)
@@ -266,40 +315,44 @@ def _sp_join(parts: list[torch.Tensor], ctx: ParallelContext) -> torch.Tensor:
 def _token_shift(x: torch.Tensor, ctx: ParallelContext,
                  prev: torch.Tensor | None) -> torch.Tensor:
     """x_{t-1} with the boundary between SP ranks handled (the first token
-    of rank p sees the last of rank p - 1; rank 0 sees zeros)."""
+    of rank p sees the last of rank p - 1; rank 0 sees zeros).  Over a
+    mesh the boundary rows move in one put (on a process mesh, one step
+    of the heap's fence)."""
     if prev is not None:  # decode: previous token from the cache
         return prev
     size = ctx.sp_degree
     if size == 1:
         return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     shards = _sp_shards(x, ctx)
-    (recv,) = ssm.shift_ranks(([s[:, -1:] for s in shards],),
-                              ctx.sp.sp_axes, size, 1, _batch_slices(ctx))
-    return _sp_join([torch.cat([torch.zeros_like(s[:, :1]) if r is None
-                                else r, s[:, :-1]], dim=1)
-                     for r, s in zip(recv, shards)], ctx)
+    with process_step(x.device):
+        (recv,) = ssm.shift_ranks((rank_map(lambda s: s[:, -1:], shards),),
+                                  ctx.sp.sp_axes, size, 1,
+                                  _batch_slices(ctx), _owners(ctx))
+    return _sp_join([None if s is None else torch.cat(
+        [torch.zeros_like(s[:, :1]) if r is None else r, s[:, :-1]], dim=1)
+        for r, s in zip(recv, shards)], ctx)
 
 
 def _distributed_scan_rwkv(r, k, v, w, u, ctx: ParallelContext):
     """The WKV recurrence of a whole sequence sharded over the SP ranks.
     Every rank's outputs with S_in = 0 come from K5; the rank's decay and
     final state, the exclusive prefix scan of those over the ranks and the
-    influence of S_in are plain torch ops."""
+    influence of S_in are plain torch ops.  On a process mesh K5 runs on
+    each SP rank's shard this process holds."""
     size = ctx.sp_degree
     if size == 1:
         return rwkv6_wkv_heads(r, k, v, w, u)
     shards = [_sp_shards(t, ctx) for t in (r, k, v, w)]
-    outs, a_dev, s_out, infl = [], [], [], []
-    for rp, kp, vp, wp in zip(*shards):
-        outs.append(rwkv6_wkv_heads(rp, kp, vp, wp, u))
-        a, s, i = ssm.rwkv6_shard_summary(rp, kp, vp, wp)
-        a_dev.append(a)
-        s_out.append(s)
-        infl.append(i)
+    n = len(shards[0])
+    outs, a_dev, s_out, infl = ([None] * n for _ in range(4))
+    for p in owned_ranks(shards[0]):
+        rp, kp, vp, wp = (t[p] for t in shards)
+        outs[p] = rwkv6_wkv_heads(rp, kp, vp, wp, u)
+        a_dev[p], s_out[p], infl[p] = ssm.rwkv6_shard_summary(rp, kp, vp, wp)
     s_in = ssm.distributed_state_in(a_dev, s_out, ctx.sp.sp_axes, size,
-                                    _batch_slices(ctx))
-    return _sp_join([ssm.rwkv6_apply_influence(o, i, s)
-                     for o, i, s in zip(outs, infl, s_in)], ctx)
+                                    _batch_slices(ctx), _owners(ctx))
+    return _sp_join(rank_map(ssm.rwkv6_apply_influence, outs, infl, s_in),
+                    ctx)
 
 
 def _promoted_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -404,13 +457,14 @@ def _distributed_scan_ssd(xs, dt, bm, cm, a, ctx: ParallelContext):
         res = ssm.ssd_chunk_scan(xs, dt, bm, cm, a)
         return ssm.ssd_apply_influence(res.out, res.infl,
                                        torch.zeros_like(res.s_out))
-    res = [ssm.ssd_chunk_scan(*t, a) for t in
-           zip(*(_sp_shards(t, ctx) for t in (xs, dt, bm, cm)))]
-    s_in = ssm.distributed_state_in([r.a_dev for r in res],
-                                    [r.s_out for r in res], ctx.sp.sp_axes,
-                                    size, _batch_slices(ctx))
-    return _sp_join([ssm.ssd_apply_influence(r.out, r.infl, s)
-                     for r, s in zip(res, s_in)], ctx)
+    res = rank_map(lambda *t: ssm.ssd_chunk_scan(*t, a),
+                   *(_sp_shards(t, ctx) for t in (xs, dt, bm, cm)))
+    s_in = ssm.distributed_state_in(rank_map(lambda r: r.a_dev, res),
+                                    rank_map(lambda r: r.s_out, res),
+                                    ctx.sp.sp_axes, size, _batch_slices(ctx),
+                                    _owners(ctx))
+    return _sp_join(rank_map(lambda r, s: ssm.ssd_apply_influence(
+        r.out, r.infl, s), res, s_in), ctx)
 
 
 def _attention_layer(x, lp, cfg: ModelConfig, ctx: ParallelContext,
@@ -459,18 +513,32 @@ def _per_layer_windows(cfg: ModelConfig) -> list[int | None]:
 
 
 def _default_positions(cfg: ModelConfig, ctx: ParallelContext, b: int,
-                       l: int, cur_index, device) -> torch.Tensor:
-    """[B, L] token positions (decode: the one position ``cur_index``), or
-    [3, B, L] with the three M-RoPE components equal."""
+                       l: int, cur_index, device,
+                       start: int = 0) -> torch.Tensor:
+    """[B, L] token positions, rows ``start`` on of the sequence (decode:
+    the one position ``cur_index``), or [3, B, L] with the three M-RoPE
+    components equal."""
     if ctx.decode:
         if cur_index is None:
             raise ValueError("decode needs cur_index")
         base = cur_index.expand(b, 1)
     else:
-        base = torch.arange(l, device=device)[None].expand(b, l)
+        base = torch.arange(start, start + l, device=device)[None].expand(b, l)
     if cfg.rope == "mrope":
         return base[None].expand(3, b, base.shape[1])
     return base
+
+
+def check_process_mesh(cfg: ModelConfig, ctx: ParallelContext) -> bool:
+    """Whether ``ctx`` runs on a process mesh; what the LMs do not run
+    there yet is refused: the MoE exchange, and any call that could want
+    a gradient (``inference_on_processes``)."""
+    if (cfg.family == "moe" and ctx.mesh is not None
+            and ctx.mesh.is_process_mesh):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the MoE exchange over a process mesh is a later "
+            "slice (ROADMAP Queue 1 item 11)")
+    return inference_on_processes(ctx)
 
 
 def lm_forward(
@@ -484,6 +552,7 @@ def lm_forward(
     caches: Params | None = None,  # decode caches, stacked over layers
     cur_index: Any = None,
     last_only: bool = False,  # prefill: logits for the final position only
+    seq_len: int | None = None,  # the whole sequence (a process mesh)
 ) -> tuple[torch.Tensor, torch.Tensor, Params | None]:
     """Returns (logits [B, L, V] (or [B, 1, V] if last_only), aux, caches).
 
@@ -497,18 +566,36 @@ def lm_forward(
     float32 rwkv6 caches stays in bfloat16 between layers.  Attention
     caches (and hymba's SSD state) are updated in place and returned.
     ``aux`` is the moe family's load-balance loss times
-    ``router_aux_coef``, summed over the layers (0 for the others)."""
+    ``router_aux_coef``, summed over the layers (0 for the others).
+
+    On a process mesh (launch/procs.py) the forward runs on this
+    process's part: ``tokens`` (or ``inputs_embeds``) are its batch slice
+    and, in prefill, its sequence shard, the rows ``mesh.held_rows`` of
+    ``seq_len`` in all; the default positions are the shard's slice of the
+    global ``arange`` (``positions`` passed in must be the shard's own),
+    and the logits cover the shard's rows.  ``last_only`` gives the final
+    position on the process that holds it and zero rows on the others.
+    In decode ``caches`` are the process's part (``init_lm_caches`` with
+    the mesh).  The MoE family and any call that could want a gradient
+    raise there (``check_process_mesh``)."""
     _check_family(cfg)
+    procs = check_process_mesh(cfg, ctx)
     if inputs_embeds is not None:
         x = inputs_embeds
     else:
         x = params["embed"].to(torch_dtype(cfg.dtype))[tokens]
+    start = 0
+    if procs and not ctx.decode:
+        start, _ = held_shard(ctx, x.shape[1], seq_len)
     attn = cfg.family in ATTENTION_FAMILIES
     if attn and cur_index is not None:
         cur_index = device_index(cur_index, x.device)
     if attn and positions is None:
         positions = _default_positions(cfg, ctx, x.shape[0], x.shape[1],
-                                       cur_index, x.device)
+                                       cur_index, x.device, start)
+    elif attn and procs and positions.shape[-1] != x.shape[1]:
+        raise ValueError(f"positions of {positions.shape[-1]} rows for a "
+                         f"shard of {x.shape[1]}: pass the shard's own")
     windows = _per_layer_windows(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = []
@@ -536,7 +623,9 @@ def lm_forward(
             for name in caches}
 
     if last_only:
-        x = x[:, -1:]
+        # on a process mesh the final position is on the last shard only
+        holds_last = not procs or ctx.decode or start + x.shape[1] == seq_len
+        x = x[:, -1:] if holds_last else x[:, :0]
     x = norm(x, params["ln_f"], cfg.norm)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"].to(x.dtype).t())

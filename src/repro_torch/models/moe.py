@@ -387,8 +387,13 @@ def moe_block(
     cfg,
     ctx: ParallelContext,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B, L, d], aux loss scalar)."""
+    """Returns (y [B, L, d], aux loss scalar).  A process mesh is
+    refused: its exchange is not a put with owner maps yet."""
     mesh = ctx.mesh
+    if mesh is not None and mesh.is_process_mesh:
+        raise NotImplementedError(
+            "the MoE exchange over a process mesh is a later slice (ROADMAP "
+            "Queue 1 item 11)")
     ep = ep_degree(mesh)
     e_pad = p["wi_gate"].shape[0]
     if e_pad % ep:

@@ -8,6 +8,11 @@
     caches       = bundle.init_caches(cfg, batch, max_len, dtype, device)
     batch        = bundle.input_specs(cfg, shape, abstract=...)
 
+On a process mesh (launch/procs.py) ``apply`` takes this process's batch
+slice and sequence shard and the whole length as ``apply(...,
+seq_len=)`` (whisper: ``enc_len=`` for the frames); ``step`` decodes one
+position, whose caches are already the process's part, and needs none.
+
 Three bundles, as the reference's: ``LM_BUNDLE`` for every LM family of
 the port (rwkv6, dense, vlm, hybrid, moe), ``WHISPER_BUNDLE`` for the
 audio family and ``DIT_BUNDLE`` for the DiTs (no decode step: sampling
@@ -107,13 +112,14 @@ def _lm_loss(params, batch, cfg, ctx):
     return _xent(logits, batch["labels"]) + aux, aux
 
 
-def _lm_apply(params, batch, cfg, ctx, last_only=False):
+def _lm_apply(params, batch, cfg, ctx, last_only=False, seq_len=None):
     logits, _, _ = lm_mod.lm_forward(
         params, cfg, ctx,
         tokens=batch.get("tokens"),
         inputs_embeds=batch.get("inputs_embeds"),
         positions=batch.get("positions"),
         last_only=last_only,
+        seq_len=seq_len,
     )
     return logits
 
@@ -159,10 +165,17 @@ def _whisper_inputs(cfg, shape, abstract=True, generator=None, dtype=None,
     return _concretize(batch, cfg, generator, device)
 
 
-def _whisper_apply(params, batch, cfg, ctx):
-    memory = whisper_mod.encode(params, batch["frames"], cfg, ctx)
+def _whisper_apply(params, batch, cfg, ctx, seq_len=None, enc_len=None):
+    """On a process mesh ``seq_len`` is the whole token sequence and
+    ``enc_len`` the whole frame sequence (``cfg.encoder_seq`` when None);
+    ``batch`` holds this process's shards of both."""
+    if enc_len is None and seq_len is not None:
+        enc_len = cfg.encoder_seq
+    memory = whisper_mod.encode(params, batch["frames"], cfg, ctx,
+                                seq_len=enc_len)
     logits, _ = whisper_mod.decode_forward(
-        params, cfg, ctx, tokens=batch["tokens"], memory=memory)
+        params, cfg, ctx, tokens=batch["tokens"], memory=memory,
+        seq_len=seq_len)
     return logits
 
 

@@ -30,7 +30,10 @@ Two chunk scans, as in the reference:
 Batch axes of the mesh split the batch into slices that each run the
 scan over their own SP ranks: the rank lists then hold every rank of the
 batch and SP axes, slice-major (``collectives.SlicedLayout``), and one
-put moves the summaries of every slice.
+put moves the summaries of every slice.  On a process mesh the lists hold
+this process's entries (None for the others) and the layout carries their
+owner map (``owners``): each shift is a put into the peers' slabs, and a
+scan is one step of the heap's fence.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ from typing import NamedTuple
 import torch
 
 from ..comm import ring_shift
-from ..comm.channel import RankList
+from ..comm.channel import RankList, first, owned_ranks, rank_map
+from ..comm.kernel_backend import process_step
 from ..core.collectives import GroupLayout, SlicedLayout
 from ..kernels.ref import WKV_EPS as EPS
 from ..kernels.ref import wkv_chunk
@@ -226,19 +230,24 @@ def ssd_decode_step(x, dt, bm, cm, a, s):
 # distributed exclusive prefix scan over SP ranks (log-depth shifts)
 # ---------------------------------------------------------------------------
 
-def _layout(axes: tuple[str, ...], size: int, slices: int):
+def _layout(axes: tuple[str, ...], size: int, slices: int, owners=None):
     layout = GroupLayout(tuple(axes), 1, size, ulysses_outer=True)
-    return SlicedLayout(layout, slices) if slices > 1 else layout
+    if owners is not None or slices > 1:
+        return SlicedLayout(layout, slices, owners=owners)
+    return layout
 
 
 def shift_ranks(xs: tuple[RankList, ...], axes: tuple[str, ...], size: int,
-                d: int, slices: int = 1) -> tuple[RankList, ...]:
+                d: int, slices: int = 1, owners=None) -> tuple[RankList, ...]:
     """Rank p of every batch slice receives rank p - d's tensors (of its
     slice), for every rank list in ``xs``; ranks below d receive None.  One
     put of a distance-d rotation over the flat SP rank (``ring_shift`` on a
     1 x size ring, tiled over the slices), whose wrapped-around deliveries
-    are dropped: a shift without wraparound."""
-    recv = ring_shift(_layout(axes, size, slices), *xs, shift=d).wait()
+    are dropped: a shift without wraparound.  On a process mesh the lists
+    hold this process's entries (None elsewhere) and ``owners`` is their
+    owner map (``mesh.owner_map(batch axes + SP axes)``)."""
+    recv = ring_shift(_layout(axes, size, slices, owners), *xs,
+                      shift=d).wait()
     recv = (recv,) if len(xs) == 1 else recv
     return tuple([None if p % size < d else t for p, t in enumerate(r)]
                  for r in recv)
@@ -252,34 +261,45 @@ def _bc(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _exclusive_scan(a_dev: RankList, b_dev: RankList, axes, size: int,
-                    slices: int = 1) -> RankList:
+                    slices: int = 1, owners=None) -> RankList:
     """Exclusive prefix 'composition' scan of per-rank (A, B) recurrence
     summaries across the flattened SP axes, in each batch slice.  Identity
     = (1, 0).
 
     Hillis-Steele inclusive scan (log₂ size rounds of shifts by d), then a
     shift by one rank; ranks below d keep their value in a round, as they
-    compose with the identity."""
-    a = [t.float() for t in a_dev]
-    b = [t.float() for t in b_dev]
-    ranks = range(len(a))
+    compose with the identity.  Entries another process holds (None) stay
+    None."""
+    a = rank_map(torch.Tensor.float, a_dev)
+    b = rank_map(torch.Tensor.float, b_dev)
+    held = owned_ranks(a)
+
+    def step(x, keep, new):
+        out = [None] * len(x)
+        for p in held:
+            out[p] = x[p] if p % size < keep else new(p)
+        return out
+
     d = 1
     while d < size:
-        a_r, b_r = shift_ranks((a, b), axes, size, d, slices)
-        a, b = ([a[p] if p % size < d else a[p] * a_r[p] for p in ranks],
-                [b[p] if p % size < d else _bc(a[p], b[p]) * b_r[p] + b[p]
-                 for p in ranks])
+        a_r, b_r = shift_ranks((a, b), axes, size, d, slices, owners)
+        a, b = (step(a, d, lambda p: a[p] * a_r[p]),
+                step(b, d, lambda p: _bc(a[p], b[p]) * b_r[p] + b[p]))
         d *= 2
     # shift inclusive -> exclusive: take b of rank - 1; rank 0 = identity
-    (b_prev,) = shift_ranks((b,), axes, size, 1, slices)
-    return [torch.zeros_like(b[p]) if t is None else t
-            for p, t in enumerate(b_prev)]
+    (b_prev,) = shift_ranks((b,), axes, size, 1, slices, owners)
+    return [None if b[p] is None else
+            torch.zeros_like(b[p]) if b_prev[p] is None else b_prev[p]
+            for p in range(len(b))]
 
 
 def distributed_state_in(a_dev: RankList, s_out: RankList, axes,
-                         size: int, slices: int = 1) -> RankList:
+                         size: int, slices: int = 1,
+                         owners=None) -> RankList:
     """S_in for each SP rank (of each batch slice) given per-rank (total
-    decay, zero-init state)."""
+    decay, zero-init state).  On a process mesh (``owners``: the lists'
+    owner map) the scan's puts are one step of the heap's fence."""
     if size == 1:
-        return [torch.zeros_like(s) for s in s_out]
-    return _exclusive_scan(a_dev, s_out, axes, size, slices)
+        return rank_map(torch.zeros_like, s_out)
+    with process_step(first(s_out).device):
+        return _exclusive_scan(a_dev, s_out, axes, size, slices, owners)

@@ -37,6 +37,8 @@ from .blocks import (
     ParamBuilder,
     Params,
     attention,
+    held_shard,
+    inference_on_processes,
     init_attention,
     init_mlp,
     init_norm,
@@ -44,7 +46,6 @@ from .blocks import (
     norm,
     params_from_numpy,
     resolve_device,
-    sinusoidal_embedding,
     sinusoidal_rows,
     torch_dtype,
 )
@@ -111,14 +112,26 @@ def load_jax_whisper_params(tree: Mapping[str, Any], cfg: ModelConfig,
     return params_from_numpy(tree, cfg, device)
 
 
+def _cached_decode_refused() -> NotImplementedError:
+    return NotImplementedError(
+        "whisper's cached decode over a process mesh is a later slice "
+        "(ROADMAP Queue 1 item 10): its encoder memory would be gathered "
+        "whole once per request")
+
+
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
-           ctx: ParallelContext) -> torch.Tensor:
+           ctx: ParallelContext, seq_len: int | None = None) -> torch.Tensor:
     """frames [B, T_enc, d] (the stub frontend's output) -> memory
-    [B, T_enc, d].  A decode context encodes as prefill."""
+    [B, T_enc, d].  A decode context encodes as prefill.  On a process
+    mesh ``frames`` are this process's batch slice and sequence shard of
+    ``seq_len`` frames, whose positions are the shard's rows of the
+    sinusoid, and the memory is that shard's."""
+    procs = inference_on_processes(ctx)
     b_, t, _ = frames.shape
-    x = frames + sinusoidal_embedding(t, cfg.d_model,
-                                      frames.device).to(frames.dtype)[None]
-    positions = torch.arange(t, device=frames.device)[None].expand(b_, t)
+    start, stop = held_shard(ctx, t, seq_len) if procs else (0, t)
+    rows = torch.arange(start, stop, device=frames.device)
+    x = frames + sinusoidal_rows(rows, cfg.d_model).to(frames.dtype)[None]
+    positions = rows[None].expand(b_, t)
     enc_ctx = dataclasses.replace(ctx, mode="prefill") if ctx.decode else ctx
 
     def body(x, lp):
@@ -142,11 +155,19 @@ def decode_forward(
     memory: torch.Tensor,  # [B, T_enc, d] encoder output
     caches: Params | None = None,
     cur_index: Any = None,
+    seq_len: int | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (logits [B, L, V], caches).  In decode mode ``caches``
     (stacked over layers) are written in place at ``cur_index`` (an int or
-    a 0-d device tensor) and returned; otherwise None."""
+    a 0-d device tensor) and returned; otherwise None.  On a process mesh
+    (teacher-forced, not cached) ``tokens`` are this process's batch
+    slice and sequence shard of ``seq_len`` tokens, ``memory`` its shard
+    of the encoder output (the cross-attention's K/V shards, at the
+    memory's own length) and the logits cover the shard's rows."""
     _check_audio(cfg)
+    procs = inference_on_processes(ctx)
+    if procs and ctx.decode:
+        raise _cached_decode_refused()
     b_, l_ = tokens.shape
     x = params["embed"].to(torch_dtype(cfg.dtype))[tokens]
     if ctx.decode:
@@ -156,8 +177,10 @@ def decode_forward(
         positions = cur_index.expand(b_, 1)
         pos_emb = sinusoidal_rows(cur_index, cfg.d_model)[None, None]
     else:
-        positions = torch.arange(l_, device=x.device)[None].expand(b_, l_)
-        pos_emb = sinusoidal_embedding(l_, cfg.d_model, x.device)[None]
+        rows = torch.arange(*(held_shard(ctx, l_, seq_len) if procs
+                              else (0, l_)), device=x.device)
+        positions = rows[None].expand(b_, l_)
+        pos_emb = sinusoidal_rows(rows, cfg.d_model)[None]
     x = x + pos_emb.to(x.dtype)
 
     def body(x, lp, kv_cache):
@@ -187,10 +210,15 @@ def decode_forward(
 
 def init_whisper_caches(cfg: ModelConfig, batch: int, max_len: int,
                         dtype: torch.dtype = torch.bfloat16,
-                        device: str | torch.device | None = None) -> Params:
+                        device: str | torch.device | None = None,
+                        mesh=None, sp=None) -> Params:
     """The decoder's self-attention K and V caches [n_layers, batch,
-    max_len, Hkv, D], zeros; their dtype must be the activations'."""
+    max_len, Hkv, D], zeros; their dtype must be the activations'.  A
+    process ``mesh`` is refused: whisper's cached decode does not run
+    there."""
     _check_audio(cfg)
+    if mesh is not None and mesh.is_process_mesh:
+        raise _cached_decode_refused()
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     device = resolve_device(device)

@@ -54,6 +54,7 @@ from ..core.comm_model import NetworkModel
 from ..core.pipefusion import stage_layers
 from ..models import ParallelContext, get_model, resolve_device, torch_dtype
 from ..models.dit import COND_TOKENS, LATENT_CHANNELS
+from ..models.lm import check_process_mesh
 from .graphs import CapturedStep, resolve_capture
 from .metrics import Tracker
 from .sampler import (
@@ -734,6 +735,16 @@ class ARServer:
     the caches through fixed ones (attention caches are written in place,
     so they stay the graph's own buffers), and ``nxt.tolist()`` reads the
     tokens after the replay.
+
+    On a process mesh (launch/procs.py) an attention model runs eagerly
+    (``capture=True`` is refused: captured steps over processes are a
+    later slice).  Process 0 leads: it admits, sends each tick's slot
+    tokens and ``cur_index`` to the others (``follow`` on them), and each
+    process runs the tick on its batch slice's slots with its part of the
+    caches (its slice's slots, its SP ranks' positions; the decode merge
+    gathers every rank's partials, so every process of a slice gets the
+    same tokens).  Each slice's next tokens reach process 0.  The rwkv6
+    tick runs on one rank.
     """
 
     def __init__(self, params, cfg: ModelConfig, sp: SPConfig,
@@ -763,8 +774,29 @@ class ARServer:
         self.slots = [Slot() for _ in range(batch_slots)]
         self.max_len = max_len
         self.aging_rate = aging_rate
+        self.group = None  # a process mesh's workers (launch/procs.py)
+        extra = {}
+        if mesh is not None and mesh.is_process_mesh:
+            if capture or (capture is None and self.device.type == "cuda"):
+                raise NotImplementedError(
+                    "captured steps over a process mesh are a later slice "
+                    "(ROADMAP Queue 1 item 13); serve it with capture=False "
+                    "(--eager)")
+            if cfg.family == "ssm":
+                raise ValueError("the rwkv6 decode tick runs on one rank: "
+                                 "serve it without a mesh")
+            with torch.inference_mode():  # as every tick runs
+                check_process_mesh(cfg, self.ctx)
+            from ..launch import procs as _procs
+
+            self.group = _procs.group()
+            # this process's slots: its batch slice of them
+            self.rows = mesh.held_batch(sp.effective_batch_axes(mesh) or (),
+                                        batch_slots)
+            extra = dict(mesh=mesh, sp=sp)
         self.caches = self.bundle.init_caches(cfg, batch_slots, max_len,
-                                              cache_dtype, self.device)
+                                              cache_dtype, self.device,
+                                              **extra)
         self.queue: deque[ARRequest] = deque()
         self.results: dict[int, list[int]] = {}
         self._ticks = 0
@@ -828,10 +860,13 @@ class ARServer:
                 tokens.append(int(s.req.prompt[s.pos]))
             else:
                 tokens.append(s.generated[-1] if s.generated else 0)
-        tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)[:, None]
-        cur = torch.full((), pos, dtype=torch.int32, device=self.device)
-        nxt, self.caches = self._step(self.caches, tok, cur)
-        nxt = nxt.tolist()
+        if self.group is None:
+            nxt = self._run(tokens, pos)
+        else:
+            for q in range(1, self.group.size):
+                self.group.send(q, {"kind": "tick", "tokens": tokens,
+                                    "cur": pos})
+            nxt = self._collect(self._run(tokens[self.rows], pos))
         for i, s in enumerate(self.slots):
             if s.req is None:
                 continue
@@ -852,3 +887,44 @@ class ARServer:
             self.tick()
             t += 1
         return self.results
+
+    def _run(self, tokens: list[int], pos: int) -> list[int]:
+        """One tick of the step on ``tokens`` (one per slot this process
+        runs) at position ``pos``: the next tokens."""
+        tok = torch.tensor(tokens, dtype=torch.int32,
+                           device=self.device)[:, None]
+        cur = torch.full((), pos, dtype=torch.int32, device=self.device)
+        nxt, self.caches = self._step(self.caches, tok, cur)
+        return nxt.tolist()
+
+    # -- a process mesh: process 0 leads, the others follow -------------------
+    def _collect(self, mine: list[int]) -> list[int]:
+        """Every slot's next token (process 0): its own slice's and each
+        follower's; the processes of one slice must agree."""
+        nxt: list[int | None] = [None] * len(self.slots)
+        nxt[self.rows] = mine
+        for q in range(1, self.group.size):
+            start, toks = self.group.recv(q)
+            have = nxt[start:start + len(toks)]
+            if any(t is not None for t in have) and have != toks:
+                raise RuntimeError(f"process {q}'s tokens {toks} for slots "
+                                   f"{start}.. differ from {have}")
+            nxt[start:start + len(toks)] = toks
+        return nxt
+
+    def follow(self) -> None:
+        """A follower's loop: run each tick process 0 sends on this
+        process's slots and send back their next tokens, until process 0
+        says stop."""
+        while True:
+            msg = self.group.recv(0)
+            if msg["kind"] == "stop":
+                return
+            self.group.send(0, (self.rows.start,
+                                self._run(msg["tokens"][self.rows],
+                                          msg["cur"])))
+
+    def stop_followers(self) -> None:
+        """End every follower's ``follow`` loop (process 0 only)."""
+        for q in range(1, self.group.size):
+            self.group.send(q, {"kind": "stop"})

@@ -161,3 +161,28 @@ def test_fleet_tools_and_examples_are_covered(name):
     """The fleet tier, the offline tools and the examples are among the
     modules scanned and imported (with jax blocked) above."""
     assert f"repro_torch.{name}" in MODULES
+
+
+@pytest.mark.parametrize("name", [
+    "launch.procs", "launch.mesh", "launch.serve", "models.lm",
+    "models.ssm", "models.whisper", "models.moe", "core.decode",
+    "core.strategy", "serving.engine"])
+def test_process_mesh_lm_modules_are_covered(name):
+    """The modules the LMs over a process mesh run through are among those
+    scanned and imported (with jax blocked) above."""
+    assert f"repro_torch.{name}" in MODULES
+
+
+def test_item_10_pointers_name_only_whisper_cached_decode():
+    """The LMs' prefill and decode run over processes: what still points
+    at ROADMAP Queue 1 item 10 is whisper's cached decode alone."""
+    where = []
+    for path in sorted(PORT.rglob("*.py")):
+        text = re.sub(r'"\s*\n\s*[rf]?"', "", path.read_text())
+        text = re.sub(r"\s*\n\s*(#|//)?\s*", " ", text)
+        for m in re.finditer(r"ROADMAP Queue 1,? items? 10\b", text):
+            where.append((str(path.relative_to(SRC)),
+                          text[max(m.start() - 120, 0):m.start()]))
+    assert where and all(p == "repro_torch/models/whisper.py"
+                         and "cached decode" in before
+                         for p, before in where), where
