@@ -71,7 +71,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                  swift_torus on mesh (pod 2, model 8): finite, moved latents, K1/K2/K4
                  launch counts as the schedule implies, and latents within
                  SERVE_SP_TOL of a degree-1 server's at the same depth.  Then the 1024-latent
-                 request on mesh (model 16) (K3), and once more on (pod 2,
+                 request on mesh (model 16) (K3; at SERVE_SP_ROUTE_LAYERS
+                 against a degree-1 server of that depth), and once more on (pod 2,
                  model 8) with one KV chunk of every attention dropped,
                  which must break SERVE_SP_TOL.
  10. k5        — the RWKV6 WKV kernel (K5) against its plain version on the
@@ -355,19 +356,27 @@ launcher's SP decode and serve the hybrid and MoE LMs:
                  slice and sequence shard; at full width, 4 layers,
                  prefill B 2 x L 4096: qwen2-1.5b (bf16) under
                  swift_torus on (pod 2, model 2) (K1, K2, K4) and ring on
-                 (model 4), hymba-1.5b (fp32) and rwkv6-1.6b (K5 per
-                 shard; token shifts and state passes as puts), each
+                 (model 4), hymba-1.5b (fp32), rwkv6-1.6b (K5 per
+                 shard; token shifts and state passes as puts) and
+                 qwen2-moe-a2.7b (bf16, each process holding its EP
+                 ranks' experts, the EP exchange by K3, ring on (model
+                 4) and swift_torus on (pod 2, model 2)), each
                  process's logits rows within PROCS_HYBRID_TOL of the
                  virtual-mesh twin's (bitwise logged), launches against
-                 the twin's share (hymba in bf16 too: its error logged);
-                 whisper-tiny fp32 (Lq != Lk; K3) within
-                 PROCS_WHISPER_TOL; ARServer led by process 0 on qwen2
-                 with its tokens equal to the twin's (the decode merge's
-                 gathers by K4); qwen2-moe refused (ROADMAP Queue 1 item
-                 11); negative controls: misrouted Ulysses hops, token
-                 shifts and state passes; ``launch.serve --arch
-                 qwen2-1.5b --procs 4`` beside the workers.  The phase
-                 fails past PROCS_LM_BUDGET_S.
+                 the twin's share (hymba in bf16 too: its error logged),
+                 qwen2-moe's aux equal and its expert bytes 1/EP of the
+                 twin's; arctic-480b's token-gather decode (published
+                 widths, 8 of its 128 experts, fp32) within
+                 PROCS_ARCTIC_TOL; whisper-tiny fp32 (Lq !=
+                 Lk; K3) within PROCS_WHISPER_TOL; ARServer led by
+                 process 0 on qwen2 and on qwen2-moe with its tokens
+                 equal to the twin's (the decode merge's gathers by K4,
+                 the MoE sums' by K3); negative controls: misrouted
+                 Ulysses hops, token shifts, state passes and EP
+                 exchange hops; ``launch.serve --arch qwen2-moe-a2.7b
+                 --procs 4`` at full depth (24 layers), alone on the
+                 card after the workers.  The phase fails past
+                 PROCS_LM_BUDGET_S.
 The numbers phase also prints the first whole-step shares of the card's
 peak: the dry-run's counted FLOPs (launch/dryrun.py on the meta device)
 of the train phase's qwen2-1.5b step and of the serve phase's degree-1
@@ -410,8 +419,9 @@ print.  K1b's, K3's and K4's add the launches of train-sp's timed steps
 counted from 0 in every worker process, summed over the four): K2's from
 its ring sp_attention, K3's from its (model 4) one, K1's and K4's from its
 served run; K1's and K3's also serve-procs-hybrid's served run (summed
-over its eight processes); K1-K5's also serve-procs-lm's prefills (K4's
-its served run's decode gathers too), summed over its four processes.  The line before the
+over its eight processes); K1-K5's also serve-procs-lm's prefills (K3's
+and K4's their MoE exchanges and aux gathers, and its served runs'
+decode gathers too), summed over its four processes.  The line before the
 last is the kernels JSON; the last line is {"ok": true, "device": {...}}.
 Kernels are built from this checkout into build/repro_torch/ on first use.
 """
@@ -452,6 +462,10 @@ STEPS = 4  # sampler steps of the serve phases
 # an H100 it read 6.0e-2 at 96 layers and 3.4e-2 at 32 against
 # SERVE_SP_TOL 0.03
 SERVE_SP_LAYERS = 32
+# serve-sp's depth on mesh (model 16), the K3 route: no control there
+# shrinks with depth, so it runs at half of SERVE_SP_LAYERS against a
+# degree-1 server of its own depth (PR 32; 28.7 s at 32 layers)
+SERVE_SP_ROUTE_LAYERS = 16
 ROTATE = 8  # distinct input sets of a timed K2/K3/K4 call (see rotating)
 SOURCES = ("flash_mqkv", "ring_flash", "one_sided", "rwkv6_wkv",
            "flash_mqkv_bwd", "rwkv6_wkv_bwd")  # csrc/<name>.cu
@@ -1398,16 +1412,22 @@ def serve_sp(results: dict, card: str, params, cfg, conds) -> None:
     results["launches"] = counts
     results["serve_sp_err"] = errs
 
-    # the single-axis route: the 1024-latent request on mesh (model 16)
+    # the single-axis route: the 1024-latent request on mesh (model 16), at
+    # SERVE_SP_ROUTE_LAYERS
     mesh, sp, put = mesh_of("model16")
     small = (REQUESTS[2],)
-    out, wall, counts, forwards, srv = run_server(params, cfg, conds, small,
-                                                  sp, mesh)
-    want = expected_counts(put, cfg.n_layers * forwards)
-    errs = errors(out)
-    log(f"serve-sp model16: rid 2 in {wall:.2f} s, launches {counts} "
-        f"(expected {want}); latents vs degree 1 {errs[2]:.3e} "
-        f"(tol {SERVE_SP_TOL})")
+    n = SERVE_SP_ROUTE_LAYERS
+    route = dict(params, layers=params["layers"][:n])
+    cfg_route = dataclasses.replace(cfg, n_layers=n)
+    deg1_route = degree1_latents(route, cfg_route, conds, small)
+    out, wall, counts, forwards, srv = run_server(route, cfg_route, conds,
+                                                  small, sp, mesh)
+    want = expected_counts(put, n * forwards)
+    errs = {2: latent_err(out[2].latents, deg1_route["latents"][2],
+                          deg1_route["noise"][2])}
+    log(f"serve-sp model16: rid 2 at {n} layers in {wall:.2f} s, launches "
+        f"{counts} (expected {want}); latents vs degree 1 at {n} layers "
+        f"{errs[2]:.3e} (tol {SERVE_SP_TOL})")
     check_latents("serve-sp model16", out, srv, card)
     checks.append((counts == want and errs[2] <= SERVE_SP_TOL,
                    f"serve-sp model16: launches {counts}, err {errs[2]}"))
@@ -2030,9 +2050,28 @@ PROCS_LM_AR = dict(slots=4, max_len=1024, requests=[
     (0, [1, 2, 3], 8), (1, [4, 5, 6, 7], 8), (2, [8, 9, 10, 11, 12], 8)])
 PROCS_WHISPER = (4, 448, 1536)  # B, decoder tokens, frames (encoder_seq)
 PROCS_WHISPER_TOL = 1e-5  # fp32 logits, of max|logits|
-PROCS_LM_BUDGET_S = 60
-PROCS_LM_CLI = ["--arch", "qwen2-1.5b", "--procs", "4", "--mesh", "host",
-                "--model", "4", "--eager", "--layers", "2"]
+# (f) qwen2-moe-a2.7b over processes, each process holding its EP ranks'
+# experts (bf16, PROCS_LM_LAYERS layers): (label, mesh, strategy,
+# wrong_route); the twin is the unmisrouted case of the same mesh
+PROCS_MOE_CASES = (
+    ("qwen2-moe ring EP 4", "model", "ring", None),
+    ("qwen2-moe swift_torus EP 2", "pod", "swift_torus", None),
+    ("qwen2-moe every EP exchange hop to the sender", "model", "ring", "ep"),
+)
+# (f) arctic-480b's token-gather decode at its published widths (d_model
+# 7168, moe_d_ff 4864) with PROCS_ARCTIC_EXPERTS of its 128 experts: the
+# expert count acts as depth here (a layer's 128 are 53.5 GB in fp32, 8 are
+# 3.3 GB, which this process builds once and each worker cuts its half
+# from over CUDA IPC)
+PROCS_ARCTIC_EXPERTS = 8
+PROCS_ARCTIC_MESH = ((2, 2), ("data", "model"))
+PROCS_ARCTIC_TOL = 1e-5  # fp32 y, of max|y|
+PROCS_LM_BUDGET_S = 90
+# (g) the launcher at full depth: 24 layers whose routed experts are 26.6
+# GB, four processes holding a quarter each, every layer cut as it is
+# built (init_lm(..., mesh=))
+PROCS_LM_CLI = ["--arch", "qwen2-moe-a2.7b", "--procs", "4", "--mesh",
+                "host", "--model", "4", "--eager"]
 
 
 def procs_lm_spec(arch: str, mesh: str, strategy: str,
@@ -2047,13 +2086,15 @@ def procs_lm_spec(arch: str, mesh: str, strategy: str,
                 shape=PROCS_LM_BL, **kw)
 
 
-def procs_lm_twin(spec: dict, dev):
+def procs_lm_twin(spec: dict, dev) -> dict:
     """The case on the mesh of virtual ranks in this process (its
-    ``twin``): the whole batch's logits and the launches."""
+    ``twin``): the whole batch's logits and the launches; a MoE model's
+    aux and routed-expert bytes beside them."""
     import torch
     from repro_torch.core import SPConfig
     from repro_torch.launch import make_mesh, procs
-    from repro_torch.models import ParallelContext, get_model
+    from repro_torch.models import ParallelContext, get_model, lm_forward
+    from repro_torch.models.moe import expert_bytes
 
     cfg, params = procs._lm_params(spec, dev)
     inputs = procs.lm_inputs(spec, cfg, dev)
@@ -2062,10 +2103,51 @@ def procs_lm_twin(spec: dict, dev):
     torch.cuda.synchronize()
     reset_counts()
     wkv_module().reset_launch_count()
+    twin = {}
     with torch.inference_mode():
-        logits = get_model(cfg).apply(params, inputs, cfg, ctx)
+        if cfg.family == "moe":
+            logits, twin["aux"], _ = lm_forward(params, cfg, ctx,
+                                                tokens=inputs["tokens"])
+            twin["expert_bytes"] = expert_bytes(params)
+        else:
+            logits = get_model(cfg).apply(params, inputs, cfg, ctx)
     torch.cuda.synchronize()
-    return logits, dict(read_counts(), rwkv6_wkv=wkv_module().launch_count())
+    return dict(twin, logits=logits, counts=dict(
+        read_counts(), rwkv6_wkv=wkv_module().launch_count()))
+
+
+def procs_arctic(dev):
+    """(f)'s arctic-480b token-gather decode (published widths,
+    PROCS_ARCTIC_EXPERTS experts, fp32) on PROCS_ARCTIC_MESH: the
+    moe_block_job case (one MoE layer's seeded experts, whole, and a
+    decode step's 4 tokens) and its twin's y on the mesh of virtual
+    ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SPConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import ParallelContext
+    from repro_torch.models.blocks import ParamBuilder
+    from repro_torch.models.moe import init_moe, moe_block
+
+    over = dict(dtype="float32", sharding_overrides=())
+    moe = dict(n_experts=PROCS_ARCTIC_EXPERTS)
+    cfg = dataclasses.replace(get_config("arctic-480b"), **over)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    gen = torch.Generator(device=dev).manual_seed(PROCS_LM_SEED)
+    b = ParamBuilder(gen, torch.float32, dev)
+    init_moe(b, cfg)
+    layer = b.params["moe"]
+    x = torch.randn((4, 1, cfg.d_model), generator=gen, device=dev)
+    sp = dict(strategy="full", sp_axes=("model",), batch_axes=("data",),
+              comm_backend="pallas", kernel_interpret=False)
+    ctx = ParallelContext(SPConfig(**sp), "decode", ep_token_gather=True,
+                          mesh=make_mesh(*PROCS_ARCTIC_MESH, device=dev))
+    with torch.inference_mode():
+        y, _ = moe_block(x, layer, cfg, ctx)
+    return dict(arch="arctic-480b", cfg=over, moe=moe, layer=layer, x=x,
+                mesh=PROCS_ARCTIC_MESH, sp=sp, mode="decode",
+                ep_token_gather=True), y
 
 
 def serve_procs_lm(results: dict, card: str) -> None:
@@ -2073,11 +2155,12 @@ def serve_procs_lm(results: dict, card: str) -> None:
     PROCS worker processes on the one card, one rank each, at full
     published width and seeded, perturbed weights (launch/procs.py
     ``perturb_lm``).  Each process runs its batch slice and its sequence
-    shard; the token shifts, the state passes and the decode merge's
-    gather are puts into the peers' slabs.  Each item is held against its
-    twin on the mesh of virtual ranks in this process (made first: the
-    workers read it over CUDA IPC and hold their rows against it), each
-    process's launches against its share of the twin's (procs_share).
+    shard; the token shifts, the state passes, the decode merge's gather
+    and the MoE exchange are puts into the peers' slabs.  Each item is
+    held against its twin on the mesh of virtual ranks in this process
+    (made first: the workers read it over CUDA IPC and hold their rows
+    against it), each process's launches against its share of the twin's
+    (procs_share).
 
     (a) qwen2-1.5b at PROCS_LM_LAYERS of 28 layers, bf16, prefill
     PROCS_LM_BL: swift_torus on (pod 2, model 2) (K1, K2, K4) and ring on
@@ -2092,67 +2175,77 @@ def serve_procs_lm(results: dict, card: str) -> None:
     lowering: copies into the peer's slab); the same gate.  Negative
     controls, put to the sender itself: (a) with every Ulysses hop, (c)
     with every token shift and with every WKV state pass, fp32 (b) with
-    every SSD state pass: each must exceed the gate (bf16 (b)'s control
-    logged).  (d) ARServer on (a)'s qwen2 on (pod 2, model 2),
-    eager: PROCS_LM_AR's requests, each's tokens equal to the
-    virtual-mesh server's; a process's K4 launches three gather puts a
-    layer and tick.  (e) whisper-tiny (4 + 4 layers, d 384), fp32, B 4 x
-    1536 frames x 448 tokens on (model 4) (Lq 112, Lk 384 a rank): logits
-    within PROCS_WHISPER_TOL of the twin's.  (f) qwen2-moe-a2.7b's
-    prefill over processes is refused, naming ROADMAP Queue 1 item 11.
-    (g) ``python -m repro_torch.launch.serve`` PROCS_LM_CLI, run beside,
-    exits 0 with its request lines.  Every process allocates the same heap
-    offsets; the slabs' high-water marks are printed.  The phase fails
-    past PROCS_LM_BUDGET_S.  The wall times are time-sliced contexts on
-    one card: no speed figure."""
+    every SSD state pass, (f) with every stage hop of the EP exchange:
+    each must exceed the gate (bf16 (b)'s control logged).  (d) ARServer
+    on (a)'s qwen2 on (pod 2, model 2) and on (f)'s qwen2-moe on (model
+    4), eager: PROCS_LM_AR's requests, each's tokens equal to the
+    virtual-mesh server's; a process's K4 (qwen2) or K3 (qwen2-moe:
+    the attention merge's and the experts' sums) launches three gather
+    puts a layer and tick each.  (e) whisper-tiny (4 + 4 layers, d 384),
+    fp32, B 4 x 1536 frames x 448 tokens on (model 4) (Lq 112, Lk 384 a
+    rank): logits within PROCS_WHISPER_TOL of the twin's.  (f)
+    qwen2-moe-a2.7b, PROCS_LM_LAYERS of 24 layers, bf16, each process
+    holding its EP ranks' experts (``init_lm(..., mesh=)``): ring on (model
+    4) (EP 4) and swift_torus on (pod 2, model 2) (EP 2), the gate of (a),
+    the aux equal to the twin's, the expert bytes 1/EP of the twin's, the
+    launches the twin's share plus the aux gather's PROCS - 1 puts a layer
+    (K3 on one axis, K4 on two); arctic-480b's token-gather decode at its
+    published widths with PROCS_ARCTIC_EXPERTS of its experts
+    (PROCS_ARCTIC_MESH, fp32) within PROCS_ARCTIC_TOL.  (g) ``python -m
+    repro_torch.launch.serve`` PROCS_LM_CLI (qwen2-moe at full width and
+    depth), alone on the card once the workers are gone, exits 0 with its
+    request lines; the most device memory in use while it runs is
+    printed.
+    Every process allocates the same heap offsets; the slabs' high-water
+    marks are printed.  The phase fails past PROCS_LM_BUDGET_S.  The wall
+    times are time-sliced contexts on one card: no speed figure."""
     import torch
     from repro_torch.core import SPConfig
     from repro_torch.launch import make_mesh, procs
     from repro_torch.models import torch_dtype
+    from repro_torch.models.moe import expert_bytes
     from repro_torch.serving import ARRequest, ARServer
 
     t_phase = time.perf_counter()
-    # (g) runs beside the twins and the workers
-    cli = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_LM_CLI],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     dev = torch.device("cuda")
+    cases = list(PROCS_LM_CASES) + [
+        (label, "qwen2-moe-a2.7b", mesh, strategy, wrong, None)
+        for label, mesh, strategy, wrong in PROCS_MOE_CASES]
     twins, specs = {}, []
-    for label, arch, mesh, strategy, wrong, dtype in PROCS_LM_CASES:
+    for label, arch, mesh, strategy, wrong, dtype in cases:
         key = (arch, mesh, dtype)
         spec = procs_lm_spec(arch, mesh, strategy, dtype)
         if key not in twins:
             twins[key] = procs_lm_twin(spec, dev)
-        specs.append(dict(spec, twin=twins[key][0], wrong_route=wrong))
+        specs.append(dict(spec, twin=twins[key]["logits"], wrong_route=wrong))
     wspec = procs_lm_spec("whisper-tiny", "model", "swift_torus", "float32")
     wspec["shape"] = PROCS_WHISPER
-    wtwin, wcounts = procs_lm_twin(wspec, dev)
-    wspec["twin"] = wtwin
-    moe = procs_lm_spec("qwen2-moe-a2.7b", "model", "ring",
-                        cfg={"n_layers": 1}, refusal=True)
-    ar = procs_lm_spec("qwen2-1.5b", "pod", "swift_torus", **PROCS_LM_AR)
+    wtwin = procs_lm_twin(wspec, dev)
+    wspec["twin"] = wtwin["logits"]
+    arctic, arctic_y = procs_arctic(dev)
+    ars = {"qwen2-1.5b": procs_lm_spec("qwen2-1.5b", "pod", "swift_torus",
+                                       **PROCS_LM_AR),
+           "qwen2-moe-a2.7b": procs_lm_spec("qwen2-moe-a2.7b", "model",
+                                            "ring", **PROCS_LM_AR)}
     twin_s = time.perf_counter() - t_phase
     try:
         with DeviceMemory() as mem:
             res = procs.launch(procs.chain_job, PROCS, [
-                (procs.lm_prefill_job, (specs + [wspec, moe],)),
-                (procs.ar_serve_job, (ar,))], device="cuda",
-                deadline=PROCS_DEADLINE_S)
-            cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
+                (procs.lm_prefill_job, (specs + [wspec],)),
+                (procs.moe_block_job, ([arctic],))] + [
+                (procs.ar_serve_job, (ar,)) for ar in ars.values()],
+                device="cuda", deadline=PROCS_DEADLINE_S)
     except Exception as err:  # a worker failed, died or timed out
-        cli.kill()
-        cli.communicate()
         fail(f"serve-procs-lm: {err}")
     launch_s = time.perf_counter() - t_phase - twin_s
     log(f"serve-procs-lm: twins {twin_s:.1f} s, then one launch of {PROCS} "
-        f"worker processes ({len(specs)} prefill cases, whisper, the MoE "
-        f"refusal, a served run) beside the (g) launcher's 4: {launch_s:.1f} s, device "
+        f"worker processes ({len(specs)} prefill cases, whisper, arctic's "
+        f"token-gather decode, two served runs): {launch_s:.1f} s, device "
         f"memory in use at most {mem.peak / 2**30:.2f} GiB [{card}]")
     checks = []
     launches = results["procs_launches"]
 
-    def hold(label, got, counts, tol, wrong):
+    def hold(label, got, twin, tol, wrong, mesh):
         errs = [g["err"] for g in got]
         same = [g["bitwise"] for g in got]
         logged = label in PROCS_LM_LOGGED
@@ -2163,71 +2256,122 @@ def serve_procs_lm(results: dict, card: str) -> None:
                 + (limit if logged else f"must exceed {tol}") + f") [{card}]")
             checks.append(logged or max(errs) > tol)
             return
-        share = procs_share(counts)
+        share = procs_share(twin["counts"])
+        moe = "aux" in twin
+        if moe:  # the aux gather: PROCS - 1 puts a layer, K3 on one axis
+            put = "remote_put" if len(mesh[1]) == 1 else "landing_copy"
+            share[put] += PROCS_LM_LAYERS * (PROCS - 1)
+            ep = dict(zip(mesh[1], mesh[0]))["model"]
         for r, g in enumerate(got):
+            extra = ""
+            ok = True
+            if moe:
+                aux_ok = torch.equal(g["aux"], twin["aux"].cpu())
+                held_ok = g["expert_bytes"] * ep == twin["expert_bytes"]
+                extra = (f", aux {float(g['aux']):.9g} (twin "
+                         f"{float(twin['aux']):.9g}, equal {aux_ok}), "
+                         f"experts {g['expert_bytes'] / 2**30:.3f} GiB "
+                         f"(the twin's / {ep}: {held_ok})")
+                ok = aux_ok and held_ok
             log(f"serve-procs-lm {label} process {r} rows {g['rows']}: "
                 f"bitwise {same[r]}, err {errs[r]:.3e} of max|logits| "
                 f"({limit}), launches {g['counts']} (share of the twin's "
-                f"{counts}: {share}), {g['seconds']:.2f} s with its warm-up, "
-                f"slab high-water mark {g['heap_bytes'] / 2**20:.1f} MiB "
-                f"[{card}]")
+                f"{twin['counts']}: {share}){extra}, {g['seconds']:.2f} s "
+                f"with its warm-up, slab high-water mark "
+                f"{g['heap_bytes'] / 2**20:.1f} MiB [{card}]")
             checks.append((math.isfinite(errs[r]) if logged
-                           else errs[r] <= tol) and g["counts"] == share)
+                           else errs[r] <= tol) and g["counts"] == share
+                          and ok)
         offsets = [g["offsets"] for g in got]
         checks.append(all(o == offsets[0] for o in offsets))
         for name in share:
             launches[name] = launches.get(name, 0) + sum(
                 g["counts"][name] for g in got)
 
-    for n, (label, arch, mesh, _, wrong, dtype) in enumerate(
-            PROCS_LM_CASES):
-        hold(label, [w[0][n] for w in res], twins[(arch, mesh, dtype)][1],
-             PROCS_HYBRID_TOL, wrong)
+    for n, (label, arch, mesh, _, wrong, dtype) in enumerate(cases):
+        hold(label, [w[0][n] for w in res], twins[(arch, mesh, dtype)],
+             PROCS_HYBRID_TOL, wrong, PROCS_LM_MESHES[mesh])
     hold("whisper-tiny fp32 (model 4)", [w[0][len(specs)] for w in res],
-         wcounts, PROCS_WHISPER_TOL, None)
-    refused = [w[0][len(specs) + 1].get("refused", "") for w in res]
-    log(f"serve-procs-lm (f) qwen2-moe-a2.7b over processes: "
-        f"{refused[0]!r} on every process: "
-        f"{all(x == refused[0] for x in refused)}")
-    checks.append(all("ROADMAP Queue 1 item 11" in x for x in refused))
-    twins.clear()
-    del specs, wspec, wtwin
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cfg, params = procs._lm_params(ar, dev)
-    srv = ARServer(params, cfg, SPConfig(**ar["sp"]),
-                   batch_slots=ar["slots"], max_len=ar["max_len"],
-                   cache_dtype=torch_dtype(cfg.dtype), capture=False,
-                   mesh=make_mesh(*ar["mesh"], device=dev))
-    for rid, prompt, new in ar["requests"]:
-        srv.submit(ARRequest(rid=rid, prompt=torch.tensor(prompt),
-                             max_new_tokens=new))
-    want = srv.serve()
-    ticks = int(srv.tracker.counter("ar.ticks"))
-    got = res[0][1]["tokens"]
-    log(f"serve-procs-lm (d) ARServer qwen2-1.5b {PROCS_LM_LAYERS} layers "
-        f"over processes: {got} ({ticks} ticks); the virtual mesh's {want}: "
-        f"equal {got == want} [{card}]")
-    checks.append(got == want)
-    k4 = ticks * PROCS_LM_LAYERS * (PROCS - 1)
+         wtwin, PROCS_WHISPER_TOL, None, PROCS_LM_MESHES["model"])
+    scale = float(arctic_y.abs().max())
+    arctic_bytes = expert_bytes({"layers": [{"moe": arctic["layer"]}]})
     for r, w in enumerate(res):
-        c = w[1]["counts"]
-        log(f"serve-procs-lm (d) process {r}: launches {c} (K4 {k4}: three "
-            f"gather puts a layer and tick), {w[1]['seconds']:.2f} s of "
-            f"serving, slab high-water mark {w[1]['heap_bytes'] / 2**20:.1f}"
-            f" MiB [{card}]")
-        checks.append(c["landing_copy"] == k4 and c["flash_mqkv"] == 0)
-        launches["landing_copy"] += c["landing_copy"]
-    del params, srv
+        g = w[1][0]
+        b0, b1 = g["batch"]
+        err = float((g["y"] - arctic_y[b0:b1].cpu()).abs().max()) / scale
+        log(f"serve-procs-lm (f) arctic-480b token-gather decode, d_model "
+            f"7168, moe_d_ff 4864, {PROCS_ARCTIC_EXPERTS} of 128 experts "
+            f"(cut: the expert count is its depth), fp32, "
+            f"{PROCS_ARCTIC_MESH}: process {r} batch {g['batch']} bitwise "
+            f"{torch.equal(g['y'], arctic_y[b0:b1].cpu())}, err {err:.3e} "
+            f"of max|y| (limit {PROCS_ARCTIC_TOL}), puts {len(g['puts'])}, "
+            f"experts {g['expert_bytes'] / 2**30:.3f} GiB (the whole "
+            f"layer's {arctic_bytes / 2**30:.3f} GiB) [{card}]")
+        checks.append(err <= PROCS_ARCTIC_TOL
+                      and 2 * g["expert_bytes"] == arctic_bytes)
+    checks.append(all(w[1][0]["offsets"] == res[0][1][0]["offsets"]
+                      for w in res))
+    twins.clear()
+    del specs, wspec, wtwin, arctic, arctic_y
     gc.collect()
     torch.cuda.empty_cache()
 
+    for n, (arch, ar) in enumerate(ars.items(), start=2):
+        cfg, params = procs._lm_params(ar, dev)
+        srv = ARServer(params, cfg, SPConfig(**ar["sp"]),
+                       batch_slots=ar["slots"], max_len=ar["max_len"],
+                       cache_dtype=torch_dtype(cfg.dtype), capture=False,
+                       mesh=make_mesh(*ar["mesh"], device=dev))
+        for rid, prompt, new in ar["requests"]:
+            srv.submit(ARRequest(rid=rid, prompt=torch.tensor(prompt),
+                                 max_new_tokens=new))
+        want = srv.serve()
+        ticks = int(srv.tracker.counter("ar.ticks"))
+        got = res[0][n]["tokens"]
+        log(f"serve-procs-lm (d) ARServer {arch} {PROCS_LM_LAYERS} layers "
+            f"over processes: {got} ({ticks} ticks); the virtual mesh's "
+            f"{want}: equal {got == want} [{card}]")
+        checks.append(got == want)
+        # three gather puts a layer and tick: the attention merge's (K4 on
+        # (pod, model), K3 on (model)), and the MoE sum's (K3)
+        moe = cfg.family == "moe"
+        put = "remote_put" if moe else "landing_copy"
+        want_puts = ticks * PROCS_LM_LAYERS * (PROCS - 1) * (2 if moe else 1)
+        for r, w in enumerate(res):
+            c = w[n]["counts"]
+            log(f"serve-procs-lm (d) {arch} process {r}: launches {c} "
+                f"({put} {want_puts}), {w[n]['seconds']:.2f} s of serving, "
+                f"experts {w[n]['expert_bytes'] / 2**30:.3f} GiB, slab "
+                f"high-water mark {w[n]['heap_bytes'] / 2**20:.1f} MiB "
+                f"[{card}]")
+            checks.append(c[put] == want_puts and c["flash_mqkv"] == 0)
+            launches[put] += c[put]
+        del params, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (g) alone on the card: at full depth its four processes must fit
+    free, total = torch.cuda.mem_get_info(0)
+    t_cli = time.perf_counter()
+    with DeviceMemory() as cli_mem:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *PROCS_LM_CLI],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            cli_out, cli_err = cli.communicate(timeout=PROCS_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            cli.kill()
+            cli.communicate()
+            fail(f"serve-procs-lm cli: no exit in {PROCS_DEADLINE_S} s")
     lines = cli_out.splitlines()
     for line in lines:
         log(f"serve-procs-lm cli: {line}")
-    log(f"serve-procs-lm (g) cli {' '.join(PROCS_LM_CLI)}: rc "
-        f"{cli.returncode} [{card}]")
+    log(f"serve-procs-lm (g) cli {' '.join(PROCS_LM_CLI)} (24 layers): rc "
+        f"{cli.returncode}, {time.perf_counter() - t_cli:.1f} s, device "
+        f"memory in use at most {cli_mem.peak / 2**30:.2f} GiB "
+        f"({(total - free) / 2**30:.2f} GiB of it in use before it "
+        f"started) [{card}]")
     if cli.returncode != 0 or sum(x.startswith("request ")
                                   for x in lines) != 4:
         fail(f"serve-procs-lm cli: rc {cli.returncode}: {cli_err[-1500:]}")

@@ -502,13 +502,21 @@ def sp_all_gather(
     ``out`` when given).  With blocks of b SP ranks, P = SP / b blocks a
     slice, it is P - 1 puts over the SP axes: put j moves every held
     rank's shard j blocks on, so each shard reaches every other block
-    once.  The caller brackets it with a step fence."""
+    once.  ``sp_axes`` may be any axes the process's ranks form a run
+    over (the MoE layer gathers over 'model', over the batch axes and
+    over every axis), with ``batch_axes`` None.  The caller brackets it
+    with a step fence."""
     stream = stream or Stream("gather", backend=backend,
                               interpret=interpret)
     sp = mesh.axes_size(sp_axes)
     owners = mesh.owner_map(tuple(batch_axes or ()) + tuple(sp_axes))
     owned = owners.owned
     b = len(owned)
+    if (owned != tuple(range(owned[0], owned[0] + b))
+            or owned[0] % sp + b > sp):
+        raise ValueError(f"process {mesh.process} holds entries {owned} of "
+                         f"a list over {tuple(sp_axes)}: not a run of one "
+                         "slice, which a gather needs")
     lists = []
     for x in xs:
         parts = dict(zip(owned, torch.chunk(x, b, dim=dim)))

@@ -73,15 +73,20 @@ def _unpack(data: bytes) -> Any:
                       weights_only=False)
 
 
+def to_device(obj: Any, device) -> Any:
+    """``obj`` with every tensor moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(v, device) for v in obj)
+    return obj
+
+
 def to_cpu(obj: Any) -> Any:
     """``obj`` with every tensor moved to the CPU (what crosses a pipe)."""
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
-    if isinstance(obj, dict):
-        return {k: to_cpu(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(to_cpu(v) for v in obj)
-    return obj
+    return to_device(obj, "cpu")
 
 
 class Group:
@@ -393,18 +398,31 @@ def sp_attention_job(group: Group, cases: list[dict]) -> list[dict]:
     return out
 
 
-def _dit_params(spec: dict, device: torch.device):
-    """The DiT config and weights of a job: the reference's tree handed
-    across as numpy (``tree``), or ``init_dit`` from ``seed`` with the
-    zero-initialised tensors perturbed from ``seed + 1``."""
+def _config(spec: dict):
+    """A job's model config: ``arch`` (its reduced config with
+    ``reduced``), with ``cfg`` overriding config fields (``n_layers``,
+    ``dtype``) and ``moe`` those of the MoE config
+    (``capacity_factor``)."""
     import dataclasses
 
     from ..configs import get_config, get_reduced
-    from ..models import init_dit, load_jax_params
 
     cfg = (get_reduced(spec["arch"]) if spec.get("reduced")
            else get_config(spec["arch"]))
     cfg = dataclasses.replace(cfg, **spec.get("cfg", {}))
+    if spec.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **spec["moe"]))
+    return cfg
+
+
+def _dit_params(spec: dict, device: torch.device):
+    """The DiT config (``_config``) and weights of a job: the reference's
+    tree handed across as numpy (``tree``), or ``init_dit`` from ``seed``
+    with the zero-initialised tensors perturbed from ``seed + 1``."""
+    from ..models import init_dit, load_jax_params
+
+    cfg = _config(spec)
     if "tree" in spec:
         return cfg, load_jax_params(spec["tree"], cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
@@ -660,6 +678,53 @@ def shift_put_job(group: Group, withhold: int | None = None) -> dict:
 # the language models over a process mesh
 # ---------------------------------------------------------------------------
 
+def moe_block_job(group: Group, cases: list[dict]) -> list[dict]:
+    """``models.moe.moe_block`` on process meshes: per case (``arch``,
+    ``reduced``, ``cfg`` / ``moe``: config overrides; ``layer``: one MoE
+    layer's weights, whole; ``x``: the whole [B, L, d]
+    input; ``mesh``; ``sp``: SPConfig fields; ``mode``: "prefill" or
+    "decode"; ``ep_token_gather``) every process cuts the layer to its
+    experts (``held_layer``) and the input to its part (its batch slice
+    and, in prefill, its SP ranks' rows) and returns its part of y, the
+    aux, its rows and batch slice, the bytes of its experts, each put it
+    issued as (stream, axes) and the heap offsets it allocated."""
+    from ..comm import kernel_backend as kb
+    from ..comm import trace as _trace
+    from ..core import SPConfig
+    from ..models import ParallelContext
+    from ..models.moe import expert_bytes, held_layer, moe_block
+    from .mesh import make_mesh, process_mesh
+
+    out = []
+    for spec in cases:
+        cfg = _config(spec)
+        mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
+                            group.rank, group.size)
+        sp = SPConfig(**spec["sp"])
+        mode = spec.get("mode", "prefill")
+        ctx = ParallelContext(sp, mode, mesh=mesh,
+                              ep_token_gather=spec.get("ep_token_gather",
+                                                       False))
+        layer = to_device(spec["layer"], group.device)
+        p = held_layer(layer, cfg, mesh)
+        x = spec["x"].to(group.device)
+        b, l = x.shape[:2]
+        rows = (mesh.held_rows(sp.sp_axes, l) if mode == "prefill"
+                else (0, l))
+        batch = mesh.held_batch(sp.effective_batch_axes(mesh) or (), b)
+        heap = kb.process_heap(group.device)
+        heap.trace = []
+        with _trace.record("moe") as tr, torch.inference_mode():
+            y, aux = moe_block(x[batch, rows[0]:rows[1]], p, cfg, ctx)
+        offsets, heap.trace = heap.trace, None
+        out.append({"y": y, "aux": aux, "rows": rows,
+                    "batch": (batch.start, batch.stop),
+                    "expert_bytes": expert_bytes({"layers": [{"moe": p}]}),
+                    "puts": [(e.stream, e.axes) for e in tr.events],
+                    "offsets": offsets})
+    return out
+
+
 def perturb_lm(params, gen: torch.Generator) -> None:
     """Draw the tensors a fresh LM or whisper holds at a constant, so that
     each takes part (in place): every linear and LayerNorm bias from
@@ -704,27 +769,32 @@ def perturb_lm(params, gen: torch.Generator) -> None:
             tm["wlora_b"]["w"] = normal(wb, 0.01 / wb.shape[0] ** 0.5)
 
 
-def _lm_params(spec: dict, device: torch.device):
-    """An LM's or whisper's config and weights for a job: the reference's
-    tree handed across as numpy (``tree``), or ``init_lm`` /
-    ``init_whisper`` from ``seed`` with the constant tensors drawn from
-    ``seed + 1`` (``perturb_lm``).  ``cfg`` overrides config fields
-    (``n_layers``, ``dtype``)."""
-    import dataclasses
-
-    from ..configs import get_config, get_reduced
+def _lm_params(spec: dict, device: torch.device, mesh=None):
+    """An LM's or whisper's config (``_config``) and weights for a job:
+    the reference's tree handed across as numpy (``tree``), or ``init_lm``
+    / ``init_whisper`` from ``seed`` (a MoE model's experts padded for the
+    'model' axis of the case's ``mesh``) with the constant tensors drawn
+    from ``seed + 1`` (``perturb_lm``).  On a process ``mesh`` a MoE
+    model's experts are the process's (``moe.held_experts``; ``init_lm``
+    cuts each layer as it builds it)."""
     from ..models import (init_lm, init_whisper, load_jax_lm_params,
                           load_jax_whisper_params)
+    from ..models.moe import held_experts
 
-    cfg = (get_reduced(spec["arch"]) if spec.get("reduced")
-           else get_config(spec["arch"]))
-    cfg = dataclasses.replace(cfg, **spec.get("cfg", {}))
+    cfg = _config(spec)
     audio = cfg.family == "audio"
     if "tree" in spec:
         load = load_jax_whisper_params if audio else load_jax_lm_params
-        return cfg, load(spec["tree"], cfg, device=device)
+        return cfg, held_experts(load(spec["tree"], cfg, device=device),
+                                 cfg, mesh)
     gen = torch.Generator(device=device).manual_seed(spec["seed"])
-    params = (init_whisper if audio else init_lm)(cfg, gen, device=device)
+    if audio:
+        params = init_whisper(cfg, gen, device=device)
+    else:
+        shape, axes = spec["mesh"]
+        params = init_lm(cfg, gen, device=device,
+                         ep_degree=dict(zip(axes, shape)).get("model", 1),
+                         mesh=mesh)
     gen.manual_seed(spec["seed"] + 1)
     perturb_lm(params, gen)
     return cfg, params
@@ -767,11 +837,14 @@ def _misroute(kind: str | None) -> Callable[[], None]:
     ``_token_shift``: each rank then reads its own last row); ``"state"``
     for every put of the SSD and WKV state passes' scan
     (``ssm.distributed_state_in``: each rank composes its own summary);
-    ``"cfg"`` for every cfg exchange (each branch gets its own velocity
-    back)."""
+    ``"ep"`` for every stage hop of the MoE prefill's exchanges (tokens,
+    expert ids, outputs: models/moe.py ``_moe_prefill``; each rank's
+    tokens then meet its own experts only); ``"cfg"`` for every cfg
+    exchange (each branch gets its own velocity back)."""
     from ..comm import Stream
     from ..core.collectives import GroupLayout
     from ..models import lm as lm_mod
+    from ..models import moe as moe_mod
     from ..models import ssm as ssm_mod
 
     if kind is None:
@@ -796,20 +869,24 @@ def _misroute(kind: str | None) -> Callable[[], None]:
         def undo():
             GroupLayout.ulysses_stage_perm = real
         return undo
-    if kind in ("shift", "state"):
-        # both ride ssm.shift_ranks' ring puts; misroute them only inside
-        # the token shift, or only inside the state passes' scan
-        module, name = ((lm_mod, "_token_shift") if kind == "shift"
-                        else (ssm_mod, "distributed_state_in"))
-        real_fn, real_perm = getattr(module, name), GroupLayout.ring_perm
+    inside = {"shift": (lm_mod, "_token_shift", "ring_perm"),
+              "state": (ssm_mod, "distributed_state_in", "ring_perm"),
+              "ep": (moe_mod, "_moe_prefill", "ulysses_stage_perm")}
+    if kind in inside:
+        # the token shifts and the state passes ride ssm.shift_ranks' ring
+        # puts, the MoE exchange the staged all-to-all's stage hops:
+        # misroute them only inside that function
+        module, name, perm = inside[kind]
+        real_fn, real_perm = getattr(module, name), getattr(GroupLayout,
+                                                            perm)
 
         def wrong(*a, **kw):
-            GroupLayout.ring_perm = lambda self, s=1: [
-                (p, p) for p, _ in real_perm(self, s)]
+            setattr(GroupLayout, perm, lambda self, *k: [
+                (p, p) for p, _ in real_perm(self, *k)])
             try:
                 return real_fn(*a, **kw)
             finally:
-                GroupLayout.ring_perm = real_perm
+                setattr(GroupLayout, perm, real_perm)
         setattr(module, name, wrong)
 
         def undo():
@@ -844,20 +921,22 @@ def _k5_count() -> int:
 def _lm_case(group: Group, spec: dict, run: Callable,
              mode: str = "prefill") -> dict:
     """One case of ``lm_prefill_job`` / ``lm_decode_job``: the process
-    mesh and its SPConfig, the whole inputs, this process's rows and batch
-    slice; ``run(spec, params, cfg, ctx, inputs, batch, rows)`` gives the
-    logits.  ``refusal``: the case must raise NotImplementedError, whose
-    message is returned."""
+    mesh and its SPConfig, the weights (a MoE model's experts the
+    process's), the whole inputs, this process's rows and batch slice;
+    ``run(spec, params, cfg, ctx, inputs, batch, rows)`` gives the logits,
+    or (logits, a dict of more results).  ``refusal``: the case must
+    raise NotImplementedError, whose message is returned."""
     import importlib
 
     from ..comm import kernel_backend as kb
     from ..core import SPConfig
     from ..models import ParallelContext
+    from ..models.moe import expert_bytes
     from .mesh import make_mesh, process_mesh
 
-    cfg, params = _lm_params(spec, group.device)
     mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
                         group.rank, group.size)
+    cfg, params = _lm_params(spec, group.device, mesh)
     sp = SPConfig(**spec["sp"])
     ctx = ParallelContext(sp, mode, mesh=mesh)
     inputs = lm_inputs(spec, cfg, group.device)
@@ -865,7 +944,7 @@ def _lm_case(group: Group, spec: dict, run: Callable,
     rows = mesh.held_rows(sp.sp_axes, l) if mode == "prefill" else (0, l)
     batch = mesh.held_batch(sp.effective_batch_axes(mesh) or (), b)
     heap = kb.process_heap(group.device)
-    heap.trace = []
+    heap.trace, heap.high_water = [], 0
     importlib.import_module("repro_torch.kernels.rwkv6_wkv") \
         .reset_launch_count()
     reset_counts()
@@ -874,6 +953,7 @@ def _lm_case(group: Group, spec: dict, run: Callable,
     try:
         with torch.inference_mode():
             logits = run(spec, params, cfg, ctx, inputs, batch, rows)
+        logits, more = logits if isinstance(logits, tuple) else (logits, {})
         if group.device.type == "cuda":
             torch.cuda.synchronize(group.device)
     except NotImplementedError as err:
@@ -887,10 +967,12 @@ def _lm_case(group: Group, spec: dict, run: Callable,
         raise RuntimeError(f"{spec['arch']} over a process mesh was not "
                            "refused")
     counts = dict(launch_counts(), rwkv6_wkv=_k5_count())
+    if cfg.family == "moe":
+        more["expert_bytes"] = expert_bytes(params)
     return dict(_held(logits, spec, batch, rows), rows=rows,
                 batch=(batch.start, batch.stop), counts=counts,
                 offsets=offsets, seconds=time.perf_counter() - t0,
-                heap_bytes=heap.high_water)
+                heap_bytes=heap.high_water, **more)
 
 
 def lm_prefill_job(group: Group, cases: list[dict]) -> list[dict]:
@@ -904,11 +986,13 @@ def lm_prefill_job(group: Group, cases: list[dict]) -> list[dict]:
     ``seq_len`` the whole, and returns its logits (or, with ``twin``, how
     they hold against the twin's rows: ``_held``), its rows and batch
     slice, its launch counts (K5's beside the others), the heap offsets it
-    allocated and its slab's high-water mark.  ``last_only``: the final
-    position's logits (zero rows on the processes that do not hold it).
+    allocated and its slab's high-water mark over the case; a MoE model's
+    aux (the mean over every mesh point) and the bytes of the experts it
+    holds beside them.  ``last_only``: the final position's logits (zero
+    rows on the processes that do not hold it).
     ``wrong_route``: a ``_misroute`` kind, a negative control;
-    ``refusal``: the case must raise (the MoE LMs)."""
-    from ..models import get_model
+    ``refusal``: the case must raise."""
+    from ..models import get_model, lm_forward
 
     def run(spec, params, cfg, ctx, inputs, batch, rows):
         kw = {"last_only": True} if spec.get("last_only") else {}
@@ -920,8 +1004,14 @@ def lm_prefill_job(group: Group, cases: list[dict]) -> list[dict]:
                 lo, hi = ctx.mesh.held_rows(ctx.sp.sp_axes, x.shape[1])
             shard[k] = (x[..., batch, lo:hi] if k == "positions"
                         else x[batch, lo:hi])
+        seq_len = inputs["tokens"].shape[1]
+        if cfg.family == "moe":
+            logits, aux, _ = lm_forward(params, cfg, ctx,
+                                        tokens=shard["tokens"],
+                                        seq_len=seq_len, **kw)
+            return logits, {"aux": aux}
         return get_model(cfg).apply(params, shard, cfg, ctx,
-                                    seq_len=inputs["tokens"].shape[1], **kw)
+                                    seq_len=seq_len, **kw)
 
     return [_lm_case(group, spec, run) for spec in cases]
 
@@ -957,23 +1047,25 @@ def ar_serve_job(group: Group, spec: dict) -> dict:
     prompt tokens, new tokens) each) and serves them, the others follow
     its ticks.  Process 0 returns each request's tokens; every process its
     launch counts, the wall time of the served run, the heap offsets it
-    allocated and its slab's high-water mark."""
+    allocated, its slab's high-water mark over the run and the bytes of
+    the experts it holds (a MoE model's: ``moe.held_experts``)."""
     from ..comm import kernel_backend as kb
     from ..core import SPConfig
     from ..models import torch_dtype
+    from ..models.moe import expert_bytes
     from ..serving import ARRequest, ARServer
     from .mesh import make_mesh, process_mesh
 
-    cfg, params = _lm_params(spec, group.device)
     mesh = process_mesh(make_mesh(*spec["mesh"], device=group.device),
                         group.rank, group.size)
+    cfg, params = _lm_params(spec, group.device, mesh)
     srv = ARServer(params, cfg, SPConfig(**spec["sp"]),
                    batch_slots=spec.get("slots", 4),
                    max_len=spec["max_len"],
                    cache_dtype=torch_dtype(cfg.dtype), capture=False,
                    mesh=mesh)
     heap = kb.process_heap(group.device)
-    heap.trace = []
+    heap.trace, heap.high_water = [], 0
     reset_counts()
     t0 = time.perf_counter()
     got = {}
@@ -991,4 +1083,6 @@ def ar_serve_job(group: Group, spec: dict) -> dict:
     return {"tokens": got, "counts": launch_counts(),
             "seconds": time.perf_counter() - t0, "offsets": offsets,
             "heap_bytes": heap.high_water, "rows": (srv.rows.start,
-                                                     srv.rows.stop)}
+                                                     srv.rows.stop),
+            "expert_bytes": (expert_bytes(params) if cfg.family == "moe"
+                             else 0)}

@@ -18,6 +18,9 @@ service, on the card unless ``--device cpu`` asks for the CPU.
                                     (a block of 8 ranks per process)
     ... --arch qwen2-1.5b --procs 4 --mesh host --model 4 --eager
                                     (AR decode, KV cache across processes)
+    ... --arch qwen2-moe-a2.7b --procs 4 --mesh host --model 4 --eager
+                                    (each process holds its EP rank's
+                                     experts)
 
 The flags are the reference's.  DiT requests go through the SLA-aware
 request scheduler: ``--mixed`` submits a mixed-resolution queue (seq,
@@ -45,11 +48,12 @@ sequence over the SP axes (``--seq`` is the cache length).  ``--procs P``
 spreads the mesh's ranks over P processes (launch/procs.py; one per rank
 is the reference's layout, on the card ``rank % device_count``): process
 0 prints what the server did, the others follow its steps.  It serves the
-DiTs and the attention LMs but the MoE ones (dense, vlm, hybrid: each
-process decodes its slots with its part of the KV cache) on every mesh
-above, a data axis included (each process a block of ranks within one
-data slice), eagerly (``--eager`` on the card: captured steps across
-processes are ROADMAP Queue 1 item 13).  An attention
+DiTs and the attention LMs (dense, vlm, hybrid and MoE: each process
+decodes its slots with its part of the KV cache, a MoE model's process
+holding only the experts of its EP ranks, ``init_lm(..., mesh=)``) on
+every mesh above, a data axis included (each process a block of ranks
+within one data slice), eagerly (``--eager`` on the card: captured steps
+across processes are ROADMAP Queue 1 item 13).  An attention
 model's caches take the model's dtype: the reference's launcher leaves
 ARServer's float32 default, which its cache update refuses for a bfloat16
 model.
@@ -67,7 +71,6 @@ from ..configs import (DENSE_ARCHS, DIT_ARCHS, HYBRID_ARCHS, MOE_ARCHS,
                        SSM_ARCHS, get_config, get_reduced)
 from ..core import SPConfig
 from ..models import init_dit, init_lm
-from ..models.moe import ep_degree
 from ..models.blocks import resolve_device, torch_dtype
 from ..serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                        JsonlTracker, SamplerConfig, Tracker)
@@ -129,21 +132,19 @@ def main(argv: list[str] | None = None) -> int:
                          "stay the config's)")
     ap.add_argument("--procs", type=int, default=1,
                     help="spread the mesh's ranks over this many processes "
-                         "(DiTs and attention LMs but MoE, eager)")
+                         "(DiTs and attention LMs, eager)")
     args = ap.parse_args(argv)
     if args.profile is not None and args.metrics is not None:
         ap.error("--profile already streams metrics records; "
                  "give one output path, not both")
 
     if args.procs > 1:
-        if args.arch in MOE_ARCHS:
-            ap.error("--procs serves the DiTs and the attention LMs; the MoE "
-                     "exchange over processes is ROADMAP Queue 1 item 11")
         if args.arch in SSM_ARCHS:
             ap.error("the rwkv6 decode tick runs on one rank: serve it "
                      "without --procs")
-        if args.arch not in DIT_ARCHS + DENSE_ARCHS + HYBRID_ARCHS:
-            ap.error(f"--procs serves {DIT_ARCHS + DENSE_ARCHS + HYBRID_ARCHS}")
+        served = DIT_ARCHS + DENSE_ARCHS + HYBRID_ARCHS + MOE_ARCHS
+        if args.arch not in served:
+            ap.error(f"--procs serves {served}")
         if args.metrics is not None or args.profile is not None:
             ap.error("--procs runs without --metrics or --profile")
         if not args.eager and resolve_device(args.device).type == "cuda":
@@ -268,7 +269,7 @@ def _serve(args, group=None) -> int:
                 mesh = process_mesh(mesh, group.rank, group.size)
                 device = mesh.device
                 gen = torch.Generator(device=device).manual_seed(0)
-        params = init_lm(cfg, gen, device, ep_degree=ep_degree(mesh))
+        params = init_lm(cfg, gen, device, mesh=mesh)
         srv = ARServer(params, cfg, sp, batch_slots=4, max_len=args.seq,
                        cache_dtype=cache_dtype, tracker=tracker,
                        device=device, capture=capture, mesh=mesh)

@@ -44,8 +44,10 @@ Over a process mesh (launch/procs.py) each process runs its batch slice
 and its run of SP ranks' sequence shards (``lm_forward(..., seq_len=)``):
 the rank lists of the token shifts and the state passes hold its owned
 entries and carry their owner map, K5 runs on each owned shard, and the
-KV caches are its part (``init_lm_caches`` with the mesh).  The MoE
-exchange and training are refused there (``check_process_mesh``).
+KV caches are its part (``init_lm_caches`` with the mesh); the MoE
+layer's experts are its EP ranks' (``moe.held_experts``), its exchange and
+its gathers puts (models/moe.py), and its aux already the mean over every
+mesh point.  Training is refused there (``check_process_mesh``).
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ from ..configs.base import ModelConfig
 from ..core.decode import device_index
 from ..kernels.rwkv6_wkv import rwkv6_wkv_heads
 from . import ssm
-from .moe import init_moe, moe_block, padded_n_experts
+from .moe import (check_held_experts, held_layer, init_moe, moe_block,
+                  padded_n_experts, ep_degree as moe_ep_degree)
 from .blocks import (
     ParallelContext,
     ParamBuilder,
@@ -168,7 +171,7 @@ def _init_attention_layer(b: ParamBuilder, cfg: ModelConfig,
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
             device: str | torch.device | None = None,
-            ep_degree: int = 1) -> Params:
+            ep_degree: int | None = None, mesh=None) -> Params:
     """Fresh LM parameters on ``device`` (CUDA by default), drawn from
     ``generator`` (one on that device; seeded with 0 when None), with the
     reference's shapes and distributions.  The decay base ``w0``, the bonus
@@ -177,9 +180,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     model's biases and the SSD's ``a_log`` start at zero and its norms at
     one, as the reference's.  A moe model's experts are padded to
     ``padded_n_experts(cfg, ep_degree)``, to split over an EP axis of that
-    size."""
+    size (by default the 'model' axis of ``mesh``, 1 without one).  On a
+    process ``mesh`` each MoE layer's experts are cut to the process's EP
+    ranks' as the layer is built (``moe.held_layer``: the same values as
+    cutting the whole, which is never held at once)."""
     _check_family(cfg)
     device = resolve_device(device)
+    if ep_degree is None:
+        ep_degree = moe_ep_degree(mesh)
     if generator is None and device.type != "meta":  # meta draws nothing
         generator = torch.Generator(device=device).manual_seed(0)
     b = ParamBuilder(generator, torch_dtype(cfg.dtype), device)
@@ -191,8 +199,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None,
     if cfg.family == "ssm":
         layers = [_init_rwkv_layer(b, cfg) for _ in range(cfg.n_layers)]
     else:
-        layers = [_init_attention_layer(b, cfg, ep_degree)
-                  for _ in range(cfg.n_layers)]
+        layers = []
+        for _ in range(cfg.n_layers):
+            lp = _init_attention_layer(b, cfg, ep_degree)
+            if cfg.family == "moe":
+                lp["moe"] = held_layer(lp["moe"], cfg, mesh)
+            layers.append(lp)
+        if (cfg.family == "moe" and device.type == "cuda"
+                and mesh is not None and mesh.is_process_mesh):
+            torch.cuda.empty_cache()  # the whole layers' experts, freed
     params["layers"] = layers
     return params
 
@@ -529,16 +544,18 @@ def _default_positions(cfg: ModelConfig, ctx: ParallelContext, b: int,
     return base
 
 
-def check_process_mesh(cfg: ModelConfig, ctx: ParallelContext) -> bool:
+def check_process_mesh(cfg: ModelConfig, ctx: ParallelContext,
+                       params: Params) -> bool:
     """Whether ``ctx`` runs on a process mesh; what the LMs do not run
-    there yet is refused: the MoE exchange, and any call that could want
-    a gradient (``inference_on_processes``)."""
-    if (cfg.family == "moe" and ctx.mesh is not None
-            and ctx.mesh.is_process_mesh):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the MoE exchange over a process mesh is a later "
-            "slice (ROADMAP Queue 1 item 11)")
-    return inference_on_processes(ctx)
+    there yet is refused: any call that could want a gradient
+    (``inference_on_processes``).  A MoE model's ``params`` must hold the
+    process's experts there (``moe.held_experts``), checked before any
+    put."""
+    procs = inference_on_processes(ctx)
+    if procs and cfg.family == "moe":
+        for lp in params["layers"]:
+            check_held_experts(lp["moe"], cfg, ctx.mesh)
+    return procs
 
 
 def lm_forward(
@@ -576,10 +593,11 @@ def lm_forward(
     and the logits cover the shard's rows.  ``last_only`` gives the final
     position on the process that holds it and zero rows on the others.
     In decode ``caches`` are the process's part (``init_lm_caches`` with
-    the mesh).  The MoE family and any call that could want a gradient
-    raise there (``check_process_mesh``)."""
+    the mesh); a MoE model's ``params`` hold the process's experts
+    (``moe.held_experts``).  Any call that could want a gradient raises
+    there (``check_process_mesh``)."""
     _check_family(cfg)
-    procs = check_process_mesh(cfg, ctx)
+    procs = check_process_mesh(cfg, ctx, params)
     if inputs_embeds is not None:
         x = inputs_embeds
     else:

@@ -743,8 +743,10 @@ class ARServer:
     process runs the tick on its batch slice's slots with its part of the
     caches (its slice's slots, its SP ranks' positions; the decode merge
     gathers every rank's partials, so every process of a slice gets the
-    same tokens).  Each slice's next tokens reach process 0.  The rwkv6
-    tick runs on one rank.
+    same tokens).  Each slice's next tokens reach process 0.  A MoE
+    model's ``params`` must hold the process's experts
+    (``models.moe.held_experts``): the decode sums gather the held EP
+    ranks' contributions by puts.  The rwkv6 tick runs on one rank.
     """
 
     def __init__(self, params, cfg: ModelConfig, sp: SPConfig,
@@ -786,7 +788,7 @@ class ARServer:
                 raise ValueError("the rwkv6 decode tick runs on one rank: "
                                  "serve it without a mesh")
             with torch.inference_mode():  # as every tick runs
-                check_process_mesh(cfg, self.ctx)
+                check_process_mesh(cfg, self.ctx, params)
             from ..launch import procs as _procs
 
             self.group = _procs.group()

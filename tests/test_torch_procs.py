@@ -337,9 +337,9 @@ def test_expandable_segments_are_refused(monkeypatch):
 
 def test_the_launcher_serves_over_processes(capfd):
     """``launch.serve --procs 4`` on the CPU: process 0 prints the request
-    and scheduler lines; the MoE LMs over processes are refused (the
-    attention LMs are served there since the LM slice over processes:
-    tests/test_torch_procs_lm.py)."""
+    and scheduler lines; rwkv6 over processes is refused (its decode tick
+    runs on one rank; the attention LMs, the MoE ones among them, are
+    served there: tests/test_torch_procs_lm.py, test_torch_procs_moe.py)."""
     from repro_torch.launch import serve
 
     assert serve.main(["--arch", "flux-12b", "--reduced", "--device", "cpu",
@@ -349,5 +349,5 @@ def test_the_launcher_serves_over_processes(capfd):
     assert "process mesh: 4 processes, 1 of 4 ranks each" in out
     assert "request 0: latents (16, 64)" in out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device",
+        serve.main(["--arch", "rwkv6-1.6b", "--reduced", "--device",
                     "cpu", "--procs", "4"])

@@ -24,11 +24,12 @@ are puts into the peers' slabs with their rank lists' owner maps.
 * serve_job's negative control on a mesh without a cfg axis (every
   Ulysses hop of a served DiT run to the sender itself) breaks the
   virtual-mesh server's latents.
-* P1: reduced qwen2 over (data 2, model 2), ulysses and ring: each
-  process's rows within SP_TOL of degree 1; qwen2-moe is refused.
-* the refusals, each naming its ROADMAP item: the MoE exchange (item 11),
-  train mode and grad (item 12, rwkv6 too), a captured ``ARServer`` (item
-  13), whisper's cached decode (item 10).
+* P1: reduced qwen2 over (data 2, model 2), ulysses and ring, and
+  qwen2-moe (its experts over model, each process holding its EP rank's)
+  under ring: each process's rows within SP_TOL of degree 1.
+* the refusals: unheld experts (``moe.held_experts``), and, each naming
+  its ROADMAP item, train mode and grad (item 12, rwkv6 too), a captured
+  ``ARServer`` (item 13), whisper's cached decode (item 10).
 * the launcher: ``--procs 4`` prints the tokens of ``--procs 1``.
 
 The workers run in one launch of 4 CPU workers; every test, fixture and
@@ -55,7 +56,7 @@ from repro_torch.models import (ParallelContext, get_model, init_lm,
                                 init_whisper, init_whisper_caches, lm_forward,
                                 torch_dtype)
 from repro_torch.models import whisper as whisper_mod
-from repro_torch.models.moe import moe_block
+from repro_torch.models.moe import held_experts, moe_block
 from repro_torch.serving import (ARRequest, ARServer, DiTRequest, DiTServer,
                                  SamplerConfig)
 from test_torch_dense import _JAX_SP, _flat, perturb
@@ -144,7 +145,7 @@ def _cases(qwen2):
     for s in P1_STRATEGIES:
         cases[f"p1/{s}"] = _qwen2_spec(qwen2, s, P1_MESH)
     cases["p1/moe"] = _seeded("qwen2-moe-a2.7b", "ring", P1_MESH,
-                              refusal=True)
+                              moe={"capacity_factor": 8.0})
     return cases
 
 
@@ -388,9 +389,17 @@ def test_p1_lm_prefill_over_processes_matches_degree_1(workers, strategy):
 
 
 def test_p1_moe_prefill_over_processes_is_refused(workers):
-    _, got = workers
+    """No longer refused: reduced qwen2-moe, float32, B 2 x L 32 over
+    (data 2, model 2) under ring, one process per rank, each holding its
+    EP rank's experts: each process's rows within SP_TOL of degree 1 (at
+    capacity 8.0, which drops nothing: a shard's capacity depends on its
+    token count)."""
+    cases, got = workers
+    want = _virtual(cases["p1/moe"], degree1=True)
     for r in got["p1/moe"]:
-        assert "ROADMAP Queue 1 item 11" in r["refused"]
+        (b0, b1), (l0, l1) = r["batch"], r["rows"]
+        assert (l1 - l0, b1 - b0) == (L // 2, 1)
+        assert _rel(r["logits"], want[b0:b1, l0:l1]) <= SP_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +418,30 @@ def _small(arch: str, **kw):
 
 
 def test_moe_over_processes_is_refused():
+    """Experts that are not the process's own are refused by moe_block,
+    lm_forward and ARServer, naming held_experts; the cut holds EP rank
+    1's experts as clones of the whole's, and leaves a mesh of virtual
+    ranks' params as they are."""
     cfg, params = _small("qwen2-moe-a2.7b")
-    tokens = torch.zeros((1, L // 2), dtype=torch.int64)
+    mesh = process_mesh(make_mesh((4,), ("model",), device="cpu"), 1, PROCS)
+    sp = SPConfig(strategy="ring", sp_axes=("model",))
+    ctx = ParallelContext(sp, "prefill", mesh=mesh)
+    tokens = torch.zeros((1, L // 4), dtype=torch.int64)
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            lm_forward(params, cfg, _procs_ctx(), tokens=tokens, seq_len=L)
-        x = torch.zeros((1, L // 2, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            moe_block(x, params["layers"][0]["moe"], cfg, _procs_ctx())
+        with pytest.raises(ValueError, match="held_experts"):
+            lm_forward(params, cfg, ctx, tokens=tokens, seq_len=L)
+        with pytest.raises(ValueError, match="held_experts"):
+            moe_block(torch.zeros((1, L // 4, cfg.d_model)),
+                      params["layers"][0]["moe"], cfg, ctx)
+    with pytest.raises(ValueError, match="held_experts"):
+        ARServer(params, cfg, sp, max_len=L, mesh=mesh, capture=False)
+    held = held_experts(params, cfg, mesh)
+    whole, cut = params["layers"][0]["moe"], held["layers"][0]["moe"]
+    assert torch.equal(cut["wi_up"], whole["wi_up"][1:2])
+    assert cut["wo"].data_ptr() != whole["wo"].data_ptr()
+    assert cut["router"]["w"] is whole["router"]["w"]
+    assert held_experts(params, cfg, make_mesh((4,), ("model",),
+                                               device="cpu")) is params
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-1.6b", "hymba-1.5b"])
@@ -515,8 +540,7 @@ def test_launcher_serves_an_lm_over_processes():
     assert "process mesh: 4 processes, 1 of 4 ranks each" in four.stdout
 
 
-@pytest.mark.parametrize("arch, item", [("qwen2-moe-a2.7b", "item 11"),
-                                        ("rwkv6-1.6b", "one rank")])
+@pytest.mark.parametrize("arch, item", [("rwkv6-1.6b", "one rank")])
 def test_launcher_refuses_over_processes(arch, item):
     p = _serve("--arch", arch, "--procs", "4", "--mesh", "host",
                "--model", "4")
